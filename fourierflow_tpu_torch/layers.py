@@ -1,0 +1,229 @@
+"""Shared layers and small functional ops (counterpart of
+``fourierflow_tpu/layers.py``).
+
+Parameter names follow the reference's torch modules, so a port
+``state_dict`` reads straight into the JAX package's converter
+(``fourierflow_tpu/utils/torch_import.py``): a weight-normed linear layer
+holds ``weight_g [out, 1]``, ``weight_v [out, in]`` and ``bias``.
+Initialisation takes an explicit ``torch.Generator``.
+"""
+
+import math
+from dataclasses import dataclass, replace
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from .ops.fused_ff import fused_ff
+
+__all__ = [
+    "torch_linear_kernel_init",
+    "xavier_normal_init",
+    "WNLinear",
+    "FeedForward",
+    "fourier_encode",
+    "encode_positions",
+    "lp_loss_rel",
+    "NormalizerState",
+    "normalizer_init",
+    "normalizer_accumulate",
+    "normalizer_apply",
+    "normalizer_inverse",
+]
+
+
+def torch_linear_kernel_init(weight: torch.Tensor, fan_in: int, generator=None) -> None:
+    """torch.nn.Linear's default init, U(-1/sqrt(fan_in), 1/sqrt(fan_in)), in place."""
+    bound = 1.0 / math.sqrt(fan_in)
+    with torch.no_grad():
+        weight.uniform_(-bound, bound, generator=generator)
+
+
+def xavier_normal_init(weight: torch.Tensor, gain: float = 1.0, generator=None) -> None:
+    """torch.nn.init.xavier_normal_ for weights whose first two dims are
+    (fan_in, fan_out), the rest a receptive field; in place."""
+    receptive = math.prod(weight.shape[2:])
+    std = gain * math.sqrt(2.0 / ((weight.shape[0] + weight.shape[1]) * receptive))
+    with torch.no_grad():
+        weight.normal_(0.0, std, generator=generator)
+
+
+class WNLinear(nn.Module):
+    """Linear layer with optional weight normalisation, ``w = g * v / ||v||``
+    with per-output-row norms (torch ``weight_norm`` with dim 0); ``g``
+    starts at ``||v||``. ``dtype`` is the compute type (parameters stay
+    float32): x, weight and bias are cast to it."""
+
+    def __init__(self, in_features: int, out_features: int, wnorm: bool = False,
+                 use_bias: bool = True, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.in_features, self.out_features = in_features, out_features
+        self.wnorm = wnorm
+        self.dtype = dtype
+        shape = (out_features, in_features)
+        if wnorm:
+            self.weight_g = nn.Parameter(torch.empty(out_features, 1))
+            self.weight_v = nn.Parameter(torch.empty(shape))
+        else:
+            self.weight = nn.Parameter(torch.empty(shape))
+        self.bias = nn.Parameter(torch.empty(out_features)) if use_bias else None
+
+    def reset_parameters(self, generator=None) -> None:
+        v = self.weight_v if self.wnorm else self.weight
+        torch_linear_kernel_init(v, self.in_features, generator)
+        with torch.no_grad():
+            if self.wnorm:
+                self.weight_g.copy_(torch.linalg.vector_norm(v, dim=1, keepdim=True))
+            if self.bias is not None:
+                bound = 1.0 / math.sqrt(self.in_features)
+                self.bias.uniform_(-bound, bound, generator=generator)
+
+    def dense(self):
+        """The effective ``(weight [out, in], bias)`` in the compute type,
+        weight norm folded in."""
+        if self.wnorm:
+            norm = torch.linalg.vector_norm(self.weight_v, dim=1, keepdim=True)
+            w = self.weight_g * self.weight_v / torch.clamp(norm, min=1e-12)
+        else:
+            w = self.weight
+        b = self.bias
+        if self.dtype is not None:
+            w = w.to(self.dtype)
+            b = None if b is None else b.to(self.dtype)
+        return w, b
+
+    def forward(self, x):
+        w, b = self.dense()
+        if self.dtype is not None:
+            x = x.to(self.dtype)
+        return F.linear(x, w, b)
+
+
+class FeedForward(nn.Module):
+    """n-layer MLP with expansion ``factor`` and ReLU between layers,
+    optional dropout and a LayerNorm on the last layer. Layer ``j`` is
+    ``layers[j][0]`` (the reference's Sequential naming). The plain 2-layer
+    shape goes through ``ops.fused_ff`` (the CUDA kernel on a CUDA tensor)."""
+
+    def __init__(self, dim: int, factor: int, ff_weight_norm: bool = False, n_layers: int = 2,
+                 layer_norm: bool = False, dropout: float = 0.0,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.n_layers, self.layer_norm, self.dropout, self.dtype = n_layers, layer_norm, dropout, dtype
+        self.layers = nn.ModuleList()
+        for i in range(n_layers):
+            in_dim = dim if i == 0 else dim * factor
+            out_dim = dim if i == n_layers - 1 else dim * factor
+            self.layers.append(nn.Sequential(WNLinear(in_dim, out_dim, wnorm=ff_weight_norm,
+                                                      dtype=dtype)))
+        self.norm = nn.LayerNorm(dim) if layer_norm else None
+
+    @property
+    def fusable(self) -> bool:
+        return self.n_layers == 2 and self.dropout == 0.0 and not self.layer_norm
+
+    def reset_parameters(self, generator=None) -> None:
+        for seq in self.layers:
+            seq[0].reset_parameters(generator)
+        if self.norm is not None:
+            self.norm.reset_parameters()
+
+    def forward(self, x):
+        if self.fusable:
+            w1, b1 = self.layers[0][0].dense()
+            w2, b2 = self.layers[1][0].dense()
+            if self.dtype is not None:
+                x = x.to(self.dtype)
+            return fused_ff(x.contiguous(), w1.t(), b1, w2.t(), b2)
+        for i, seq in enumerate(self.layers):
+            x = seq(x)
+            if self.dropout > 0.0:
+                x = F.dropout(x, self.dropout, self.training)
+            if i < self.n_layers - 1:
+                x = torch.relu(x)
+        if self.norm is not None:
+            x = self.norm(x)
+        return x
+
+
+def fourier_encode(x: torch.Tensor, max_freq: float, num_bands: int = 4, base: float = 2.0):
+    """Perceiver-style encoding: sin/cos at log-spaced scales, raw coordinate appended."""
+    orig = x[..., None]
+    scales = torch.logspace(0.0, math.log(max_freq / 2) / math.log(base), num_bands,
+                            base=base, dtype=x.dtype, device=x.device)
+    xs = orig * scales * math.pi
+    return torch.cat([torch.sin(xs), torch.cos(xs), orig], dim=-1)
+
+
+def encode_positions(dim_sizes, low: float = -1.0, high: float = 1.0, fourier: bool = False,
+                     max_freq: Optional[float] = None, num_bands: int = 8, base: float = 2.0,
+                     dtype=torch.float32, device=None):
+    """Meshgrid of linspace positions ``[*dim_sizes, len(dim_sizes)]``,
+    optionally Fourier-encoded."""
+    grids = [torch.linspace(low, high, s, dtype=dtype, device=device) for s in dim_sizes]
+    pos = torch.stack(torch.meshgrid(*grids, indexing="ij"), dim=-1)
+    if not fourier:
+        return pos
+    feats = fourier_encode(pos, max_freq, num_bands, base=base)
+    return feats.reshape(*feats.shape[:-2], -1)
+
+
+def lp_loss_rel(x: torch.Tensor, y: torch.Tensor, p: int = 2, reduce_mean: bool = True):
+    """Relative Lp loss (N-MSE), the headline metric."""
+    b = x.shape[0]
+    r = (torch.linalg.vector_norm((x - y).reshape(b, -1), ord=p, dim=1)
+         / torch.linalg.vector_norm(y.reshape(b, -1), ord=p, dim=1))
+    return r.mean() if reduce_mean else r
+
+
+@dataclass(frozen=True)
+class NormalizerState:
+    """Running mean/std statistics over the feature channels."""
+
+    sum: torch.Tensor
+    sum_squared: torch.Tensor
+    count: torch.Tensor
+    n_accumulations: torch.Tensor
+    max_accumulations: float
+    std_epsilon: float
+
+    @property
+    def mean(self):
+        return self.sum / torch.clamp(self.count, min=1.0)
+
+    @property
+    def std(self):
+        var = self.sum_squared / torch.clamp(self.count, min=1.0) - self.mean ** 2
+        return torch.clamp(torch.sqrt(torch.clamp(var, min=0.0)), min=self.std_epsilon)
+
+
+def normalizer_init(size: int, max_accumulations: float = 1e6, std_epsilon: float = 1e-8,
+                    device=None) -> NormalizerState:
+    z = lambda *s: torch.zeros(s, dtype=torch.float32, device=device)
+    return NormalizerState(z(size), z(size), z(), z(), float(max_accumulations), float(std_epsilon))
+
+
+def normalizer_accumulate(state: NormalizerState, x: torch.Tensor) -> NormalizerState:
+    """Accumulate over all leading dims of ``x [..., size]``; a no-op once
+    ``max_accumulations`` is reached."""
+    flat = x.reshape(-1, x.shape[-1]).float()
+    w = (state.n_accumulations < state.max_accumulations).float()
+    return replace(
+        state,
+        sum=state.sum + w * flat.sum(dim=0),
+        sum_squared=state.sum_squared + w * (flat ** 2).sum(dim=0),
+        count=state.count + w * flat.shape[0],
+        n_accumulations=state.n_accumulations + w,
+    )
+
+
+def normalizer_apply(state: NormalizerState, x: torch.Tensor) -> torch.Tensor:
+    return (x - state.mean) / state.std
+
+
+def normalizer_inverse(state: NormalizerState, x: torch.Tensor, channel: Optional[int] = None):
+    if channel is None:
+        return x * state.std + state.mean
+    return x * state.std[channel] + state.mean[channel]

@@ -1,0 +1,140 @@
+"""Factorized Fourier Neural Operator on a regular 2D grid, the flagship
+model (counterpart of ``fourierflow_tpu/models/ffno_grid_2d.py``).
+
+Per layer: the separable spectral mix along both grid axes
+(``ops.fused_mix_2d``, the CUDA kernel on a CUDA tensor), a feed-forward
+"backcast" (``ops.fused_ff`` through ``layers.FeedForward``) and the
+residual ``x = x + backcast``. The output head reads the last backcast, or
+with ``use_fork`` sums per-layer forecasts.
+
+Parameter names follow the reference's torch ``state_dict``:
+``in_proj.*``, ``spectral_layers.{i}.fourier_weight.{0,1}`` (Y then X),
+``spectral_layers.{i}.backcast_ff.layers.{j}.0.*`` and ``out.{j}.*``; with
+``share_weight``/``share_fork`` the shared tensors also appear at block
+level (``fourier_weight.{0,1}``, ``backcast_ff.*``).
+"""
+
+from typing import Optional
+
+import torch
+import torch.nn as nn
+
+from ..layers import FeedForward, WNLinear, xavier_normal_init
+from ..ops.fused_spectral import fused_mix_2d
+
+__all__ = ["FNOFactorized2DBlock"]
+
+_DTYPES = {None: None, "float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+class _SpectralLayer(nn.Module):
+    def __init__(self, fourier_weight: Optional[nn.ParameterList], backcast_ff, forecast_ff):
+        super().__init__()
+        if fourier_weight is not None:
+            self.fourier_weight = fourier_weight
+        if backcast_ff is not None:
+            self.backcast_ff = backcast_ff
+        if forecast_ff is not None:
+            self.forecast_ff = forecast_ff
+
+
+class FNOFactorized2DBlock(nn.Module):
+    """Stack of factorized spectral layers with residuals. ``forward`` takes
+    ``[batch, X, Y, input_dim]`` and returns ``{"forecast": [batch, X, Y, 1],
+    "forecast_list": [...]}``; with a compute ``dtype`` the parameters stay
+    float32 and the forecast is handed back in float32.
+
+    ``mode`` "low-pass" and ``remat`` are not ported yet and raise."""
+
+    def __init__(self, modes: int, width: int, input_dim: int = 12, dropout: float = 0.0,
+                 in_dropout: float = 0.0, n_layers: int = 4, share_weight: bool = False,
+                 share_fork: bool = False, factor: int = 2, ff_weight_norm: bool = False,
+                 n_ff_layers: int = 2, gain: float = 1.0, layer_norm: bool = False,
+                 use_fork: bool = False, mode: str = "full", dtype=None, remat: bool = False):
+        super().__init__()
+        if mode not in ("full", "no-fourier"):
+            raise NotImplementedError(f"FNOFactorized2DBlock mode={mode!r} is not ported yet")
+        if remat:
+            raise NotImplementedError("FNOFactorized2DBlock remat is not ported yet")
+        self.modes, self.width, self.n_layers = modes, width, n_layers
+        self.share_weight, self.share_fork, self.use_fork = share_weight, share_fork, use_fork
+        self.mode, self.gain, self.in_dropout = mode, gain, in_dropout
+        self.dtype = _DTYPES[dtype] if dtype is None or isinstance(dtype, str) else dtype
+
+        self.in_proj = WNLinear(input_dim, width, wnorm=ff_weight_norm, dtype=self.dtype)
+        wshape = (width, width, modes, 2)
+        make_w = lambda: nn.ParameterList([nn.Parameter(torch.empty(wshape)) for _ in range(2)])
+        make_ff = lambda: FeedForward(width, factor, ff_weight_norm, n_ff_layers, layer_norm,
+                                      dropout, dtype=self.dtype)
+        full = mode == "full"
+        # Shared weights and feed-forwards are registered at block level AND in
+        # every layer, as the reference's torch modules do (its state_dict
+        # lists a shared tensor under each path).
+        if full and share_weight:
+            self.fourier_weight = make_w()
+        if share_fork:
+            self.backcast_ff = make_ff()
+            if use_fork:
+                self.forecast_ff = make_ff()
+        self.spectral_layers = nn.ModuleList(
+            _SpectralLayer(
+                (self.fourier_weight if share_weight else make_w()) if full else None,
+                self.backcast_ff if share_fork else make_ff(),
+                (self.forecast_ff if share_fork else make_ff()) if use_fork else None,
+            )
+            for _ in range(n_layers)
+        )
+        self.out = nn.Sequential(
+            WNLinear(width, 128, wnorm=ff_weight_norm, dtype=self.dtype),
+            WNLinear(128, 1, wnorm=ff_weight_norm, dtype=self.dtype),
+        )
+        self.reset_parameters(torch.Generator().manual_seed(0))
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        """Re-initialise every parameter from ``generator``, which must be on
+        the parameters' device."""
+        self.in_proj.reset_parameters(generator)
+        if self.mode == "full" and self.share_weight:
+            for w in self.fourier_weight:
+                xavier_normal_init(w, self.gain, generator)
+        if self.share_fork:
+            self.backcast_ff.reset_parameters(generator)
+            if self.use_fork:
+                self.forecast_ff.reset_parameters(generator)
+        for layer in self.spectral_layers:
+            if self.mode == "full" and not self.share_weight:
+                for w in layer.fourier_weight:
+                    xavier_normal_init(w, 1.0, generator)
+            if not self.share_fork:
+                layer.backcast_ff.reset_parameters(generator)
+                if self.use_fork:
+                    layer.forecast_ff.reset_parameters(generator)
+        for lin in self.out:
+            lin.reset_parameters(generator)
+
+    def forward(self, x: torch.Tensor):
+        x = self.in_proj(x)
+        if self.in_dropout > 0.0:
+            x = nn.functional.dropout(x, self.in_dropout, self.training)
+        forecast = 0.0
+        forecast_list = []
+        b = x
+        for layer in self.spectral_layers:
+            if self.mode == "no-fourier":
+                h = x
+            else:
+                wy, wx = layer.fourier_weight
+                h = fused_mix_2d(x, wy, wx)
+            b = layer.backcast_ff(h)
+            if self.use_fork:
+                f = layer.forecast_ff(h)
+                f_out = self.out(f)
+                forecast = forecast + f_out
+                forecast_list.append(f_out)
+            x = x + b
+        if not self.use_fork:
+            forecast = self.out(b)
+        if self.dtype is not None:
+            forecast = forecast.float()
+            forecast_list = [f.float() for f in forecast_list]
+        return {"forecast": forecast, "forecast_list": forecast_list}

@@ -1,0 +1,82 @@
+"""Carry F-FNO weights from the JAX package's flax parameter tree to this
+package's ``state_dict`` (the inverse of the JAX package's
+``utils/torch_import.py::convert_ffno_state_dict``).
+
+Input: the flax params of an ``FNOFactorized2DBlock`` as a nested dict of
+numpy arrays (with or without the outer ``"params"`` level) and its number
+of layers. As in the reference's torch modules, a shared tensor
+(``share_weight``, ``share_fork``) is listed at block level and again under
+every layer. Linear
+kernels ``[in, out]`` become ``weight_v``/``weight`` ``[out, in]``; ``g``
+``[1, out]`` becomes ``weight_g`` ``[out, 1]``; Fourier weights
+``[in, out, modes, 2]`` carry over as they are.
+
+Naming trap: at block level flax calls the output head's two layers
+``WNLinear_0``/``WNLinear_1`` (they become ``out.0``/``out.1``), while
+inside each FeedForward ``WNLinear_0``/``WNLinear_1`` are its own layers
+(``layers.0.0``/``layers.1.0``).
+"""
+
+import re
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+__all__ = ["state_dict_from_flax"]
+
+_LAYER_W = re.compile(r"layers_(\d+)_fourier_weight_([xy])$")
+_LAYER_FF = re.compile(r"layers_(\d+)_(backcast_ff|forecast_ff)$")
+_FF_LIN = re.compile(r"WNLinear_(\d+)$")
+_BRANCH = {"y": 0, "x": 1}
+
+
+def _tensor(a) -> torch.Tensor:
+    return torch.tensor(np.asarray(a, dtype=np.float32))
+
+
+def _linear(p: Mapping, base: str, out: Dict[str, torch.Tensor]) -> None:
+    kernel = np.asarray(p["kernel"]).T
+    if "g" in p:
+        out[f"{base}.weight_v"] = _tensor(kernel)
+        out[f"{base}.weight_g"] = _tensor(np.asarray(p["g"]).reshape(-1, 1))
+    else:
+        out[f"{base}.weight"] = _tensor(kernel)
+    if "bias" in p:
+        out[f"{base}.bias"] = _tensor(p["bias"])
+
+
+def _ff(p: Mapping, base: str, out: Dict[str, torch.Tensor]) -> None:
+    for name, lin in p.items():
+        m = _FF_LIN.match(name)
+        if m is None:
+            raise KeyError(f"unexpected FeedForward entry {base}.{name}")
+        _linear(lin, f"{base}.layers.{m.group(1)}.0", out)
+
+
+def state_dict_from_flax(params: Mapping, n_layers: int) -> Dict[str, torch.Tensor]:
+    """Flax ``FNOFactorized2DBlock`` params -> port ``state_dict``."""
+    if "params" in params:
+        params = params["params"]
+    out: Dict[str, torch.Tensor] = {}
+    for name, value in params.items():
+        if name == "in_proj":
+            _linear(value, "in_proj", out)
+        elif name in ("fourier_weight_y", "fourier_weight_x"):
+            w = _tensor(value)
+            for base in ["", *(f"spectral_layers.{i}." for i in range(n_layers))]:
+                out[f"{base}fourier_weight.{_BRANCH[name[-1]]}"] = w
+        elif name in ("backcast_ff", "forecast_ff"):
+            for base in [name, *(f"spectral_layers.{i}.{name}" for i in range(n_layers))]:
+                _ff(value, base, out)
+        elif _FF_LIN.match(name):
+            _linear(value, f"out.{_FF_LIN.match(name).group(1)}", out)
+        elif _LAYER_W.match(name):
+            i, axis = _LAYER_W.match(name).groups()
+            out[f"spectral_layers.{i}.fourier_weight.{_BRANCH[axis]}"] = _tensor(value)
+        elif _LAYER_FF.match(name):
+            i, kind = _LAYER_FF.match(name).groups()
+            _ff(value, f"spectral_layers.{i}.{kind}", out)
+        else:
+            raise KeyError(f"unexpected FNOFactorized2DBlock parameter {name!r}")
+    return out

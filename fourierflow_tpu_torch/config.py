@@ -10,7 +10,10 @@ unchanged:
 
 Targets of the JAX package (prefix ``fourierflow_tpu.``) resolve to their
 counterparts in this package (prefix ``fourierflow_tpu_torch.``); the
-reference's own names (``fourierflow.*``) go through ``TARGET_TRANSLATION``.
+reference's own names (``fourierflow.*``) go through ``TARGET_TRANSLATION``,
+where a Lightning-only callback maps to ``None`` and is dropped.
+``torch.optim.AdamW`` stays itself: ``commands/train.py`` reads its
+``functools.partial``.
 """
 
 import ast
@@ -51,11 +54,16 @@ TARGET_TRANSLATION = {
     "fourierflow.builders.NSMarkovBuilder": "fourierflow_tpu_torch.builders.NSMarkovBuilder",
     "fourierflow.modules.FNOFactorized2DBlock": "fourierflow_tpu_torch.models.FNOFactorized2DBlock",
     "fourierflow.routines.Grid2DMarkovExperiment": "fourierflow_tpu_torch.routines.Grid2DMarkovRoutine",
+    "fourierflow.schedulers.CosineWithWarmupScheduler": "fourierflow_tpu_torch.schedulers.cosine_with_warmup",
+    "fourierflow.callbacks.CustomModelCheckpoint": "fourierflow_tpu_torch.trainers.ModelCheckpoint",
+    "pytorch_lightning.callbacks.LearningRateMonitor": None,
+    "pytorch_lightning.callbacks.ModelSummary": None,
 }
 
 
-def translate(target: str) -> str:
-    """Map a config target onto this package; anything else is unchanged."""
+def translate(target: str) -> Optional[str]:
+    """Map a config target onto this package (``None``: drop the node);
+    anything else is unchanged."""
     if target in TARGET_TRANSLATION:
         return TARGET_TRANSLATION[target]
     if target.startswith(_JAX_PREFIX):
@@ -134,10 +142,11 @@ def load_config(path: str, overrides: Optional[List[str]] = None) -> Dict:
     return _interpolate(cfg)
 
 
-def instantiate(cfg: Any):
-    """Recursively instantiate a ``_target_`` config node."""
+def instantiate(cfg: Any, **extra_kwargs):
+    """Recursively instantiate a ``_target_`` config node; ``extra_kwargs``
+    go to the top node's call. Dropped nodes leave lists."""
     if isinstance(cfg, list):
-        return [instantiate(c) for c in cfg]
+        return [o for o in (instantiate(c) for c in cfg) if o is not None]
     if not isinstance(cfg, dict):
         if isinstance(cfg, str) and cfg.startswith("get_method:"):
             return import_string(translate(cfg[len("get_method:"):].strip()))
@@ -145,8 +154,11 @@ def instantiate(cfg: Any):
     if "_target_" not in cfg:
         return {k: instantiate(v) for k, v in cfg.items()}
     target = translate(cfg["_target_"])
+    if target is None:
+        return None
     args = [instantiate(a) for a in cfg.get("_args_", [])]
     kwargs = {k: instantiate(v) for k, v in cfg.items() if k not in ("_target_", "_args_")}
+    kwargs.update(extra_kwargs)
     if target == "functools.partial":
         return partial(args[0], *args[1:], **kwargs)
     return import_string(target)(*args, **kwargs)

@@ -29,6 +29,16 @@
 // close to balanced in f32. Known weakness of this first version: every
 // block rereads the whole weight set from L2 (2 M C^2 values per branch).
 //
+// The adjoint (the gradient with respect to x; the TPU package's
+// _fused_mix_bwd launches its kernel a second time in the same way) is this
+// kernel on the adjoint operator: the forward basis becomes the inverse
+// basis transposed and the inverse basis the forward one transposed (the
+// wrapper passes cached contiguous transposes; they carry irdft's Hermitian
+// weights, so the adjoint is no forward rDFT), the weights are read
+// (i, o)-transposed by swapping the w_si and w_so strides, and `conj`
+// negates the imaginary weight in the mixing loop. Its bound is the
+// forward's.
+//
 // Types: x is float or bf16; the mode weights are float or x's type, and are
 // rounded to x's type when they are wider (as the plain version casts them).
 // The bases, all arithmetic and the spectra are f32. The first branch may
@@ -100,7 +110,7 @@ template <typename TI, typename TW, typename TO>
 __global__ void __launch_bounds__(NT) spectral_axis_kernel(
     const TI* __restrict__ x, const float* __restrict__ fwd, const float* __restrict__ inv,
     const TW* __restrict__ w, int64_t w_si, int64_t w_so, int64_t w_sm, int64_t w_sp, bool pair,
-    const float* prev, TO* out, int n_lines, int lines_per_batch, int64_t batch_stride,
+    float wi_sign, const float* prev, TO* out, int n_lines, int lines_per_batch, int64_t batch_stride,
     int64_t line_stride, int64_t elem_stride, int n, int modes, int C) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -183,6 +193,7 @@ __global__ void __launch_bounds__(NT) spectral_axis_kernel(
     for (int i = 0; i < C; ++i, wp += w_si) {
       float a, b;
       load_weight<TI>(wp, w_sp, pair, a, b);
+      b *= wi_sign;
 #pragma unroll
       for (int l = 0; l < L; ++l) {
         const float sr = s[(l * C + i) * KS + m];
@@ -240,8 +251,8 @@ __global__ void __launch_bounds__(NT) spectral_axis_kernel(
 
 template <typename TI, typename TW, typename TO>
 cudaError_t launch(const void* x, const void* fwd, const void* inv, const void* w,
-                   int64_t w_si, int64_t w_so, int64_t w_sm, int64_t w_sp, const void* prev,
-                   void* out, int n_lines, int lines_per_batch, int64_t batch_stride,
+                   int64_t w_si, int64_t w_so, int64_t w_sm, int64_t w_sp, bool conj,
+                   const void* prev, void* out, int n_lines, int lines_per_batch, int64_t batch_stride,
                    int64_t line_stride, int64_t elem_stride, int n, int modes, int c,
                    cudaStream_t stream) {
   const size_t smem = sizeof(float) * smem_floats(n, modes, c);
@@ -253,7 +264,8 @@ cudaError_t launch(const void* x, const void* fwd, const void* inv, const void* 
                     reinterpret_cast<uintptr_t>(w) % (2 * sizeof(TW)) == 0;
   spectral_axis_kernel<TI, TW, TO><<<grid, NT, smem, stream>>>(
       static_cast<const TI*>(x), static_cast<const float*>(fwd), static_cast<const float*>(inv),
-      static_cast<const TW*>(w), w_si, w_so, w_sm, w_sp, pair, static_cast<const float*>(prev),
+      static_cast<const TW*>(w), w_si, w_so, w_sm, w_sp, pair, conj ? -1.f : 1.f,
+      static_cast<const float*>(prev),
       static_cast<TO*>(out), n_lines, lines_per_batch, batch_stride, line_stride, elem_stride, n,
       modes, c);
   return cudaGetLastError();
@@ -273,20 +285,21 @@ extern "C" long long spectral_axis_smem_bytes(int n, int modes, int c) {
 // Dtype codes: 0 = float32, 1 = bfloat16. x is float32 or bfloat16; w is
 // float32 or x's type; out is float32, or bfloat16 when x is. w (i, o, m, part)
 // is at w[i * w_si + o * w_so + m * w_sm + part * w_sp], part 0 real, 1
-// imaginary. prev may be null. Returns a cudaError_t (0 on success).
+// imaginary; with conj != 0 the imaginary part is negated. prev may be null.
+// Returns a cudaError_t (0 on success).
 extern "C" int spectral_axis(int in_dtype, int w_dtype, int out_dtype, const void* x,
                              const void* fwd, const void* inv, const void* w, long long w_si,
-                             long long w_so, long long w_sm, long long w_sp, const void* prev,
-                             void* out, int n_lines, int lines_per_batch,
+                             long long w_so, long long w_sm, long long w_sp, int conj,
+                             const void* prev, void* out, int n_lines, int lines_per_batch,
                              long long batch_stride, long long line_stride,
                              long long elem_stride, int n, int modes, int c, void* stream) {
   if (n_lines <= 0 || n <= 0 || modes <= 0 || c <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using bf16 = __nv_bfloat16;
 #define SPECTRAL_LAUNCH(TI, TW, TO)                                                         \
-  return (int)launch<TI, TW, TO>(x, fwd, inv, w, w_si, w_so, w_sm, w_sp, prev, out, n_lines, \
-                                 lines_per_batch, batch_stride, line_stride, elem_stride, n,   \
-                                 modes, c, s)
+  return (int)launch<TI, TW, TO>(x, fwd, inv, w, w_si, w_so, w_sm, w_sp, conj != 0, prev, out, \
+                                 n_lines, lines_per_batch, batch_stride, line_stride,          \
+                                 elem_stride, n, modes, c, s)
   const int code = in_dtype * 4 + w_dtype * 2 + out_dtype;
   switch (code) {
     case 0: SPECTRAL_LAUNCH(float, float, float);  // f32 x, f32 w, f32 out

@@ -18,7 +18,8 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable
 
-__all__ = ["KERNEL_SOURCES", "MAX_SMEM", "build", "load", "check", "stream_ptr", "build_logs"]
+__all__ = ["KERNEL_SOURCES", "MAX_SMEM", "build", "load", "check", "stream_ptr", "build_logs",
+           "dispatch"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
@@ -109,3 +110,13 @@ def stream_ptr(device) -> ctypes.c_void_p:
     import torch
 
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def dispatch(x, plain, kernel, what: str):
+    """``plain`` for a tensor on the CPU, ``kernel`` for one on a CUDA
+    device; any other device raises."""
+    if x.device.type == "cpu":
+        return plain
+    if x.device.type != "cuda":
+        raise ValueError(f"{what} runs on cpu or cuda, not {x.device}")
+    return kernel

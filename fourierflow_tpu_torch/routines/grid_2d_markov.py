@@ -1,12 +1,16 @@
 """Markov (one-step) routine for 2D torus Navier-Stokes, the main F-FNO
 experiment (counterpart of ``fourierflow_tpu/routines/grid_2d_markov.py``).
 
-This slice ports what inference needs: feature building (vorticity plus
-position channels), the epoch-0 normalizer pass, the autoregressive
+Feature building (vorticity plus position channels), the epoch-0
+normalizer pass, the one-step training step (normalizer accumulating up to
+its cap, Gaussian input noise, relative-L2 loss), the autoregressive
 rollout as a Python loop, and the rollout metrics (N-MSE, vorticity
 correlation rho(t), time until rho < 0.95). Velocity, force and viscosity
 channels and the shuffled-grid ablation raise NotImplementedError.
 """
+
+from dataclasses import replace
+from typing import Optional
 
 import torch
 
@@ -31,7 +35,8 @@ class Grid2DMarkovRoutine(Routine):
                  use_fourier_position: bool = False, noise_std: float = 0.0,
                  use_velocity: bool = False, learn_difference: bool = False,
                  step_size: float = 1.0, k_max: int = 32, shuffle_grid: bool = False,
-                 conv=None):
+                 conv=None, optimizer=None, track_grad_norm: bool = False):
+        super().__init__(optimizer, track_grad_norm)
         for name, on in (("use_velocity", use_velocity), ("append_force", append_force),
                          ("append_mu", append_mu), ("shuffle_grid", shuffle_grid)):
             if on:
@@ -45,7 +50,7 @@ class Grid2DMarkovRoutine(Routine):
         self.max_accumulations = max_accumulations
         self.should_normalize = should_normalize
         self.use_fourier_position = use_fourier_position
-        self.noise_std = noise_std  # read by training
+        self.noise_std = noise_std
         self.learn_difference = learn_difference
         self.step_size = step_size
         self.k_max = k_max
@@ -66,15 +71,15 @@ class Grid2DMarkovRoutine(Routine):
 
     # --- contract -------------------------------------------------------------
     def init(self, seed: int, sample_batch, device) -> State:
-        """Initialise the model from ``seed`` on ``device`` and a fresh
-        normalizer sized from ``sample_batch``."""
+        """Initialise the model from ``seed`` on ``device`` (in train mode),
+        a fresh normalizer sized from ``sample_batch``, and the optimizer."""
         w = sample_batch["x"] if "x" in sample_batch else sample_batch["data"][..., :1]
         n_feats = self.build_features(torch.as_tensor(w[:1])).shape[-1]
         self.model.cpu().reset_parameters(torch.Generator().manual_seed(seed))
-        self.model.to(device).eval()
+        self.model.to(device).train()
         normalizer = (normalizer_init(n_feats, self.max_accumulations, device=device)
                       if self.should_normalize else None)
-        return State(self.model, normalizer)
+        return self.make_train_state(self.model, normalizer)
 
     @torch.no_grad()
     def accumulate_step(self, state: State, batch) -> State:
@@ -82,13 +87,54 @@ class Grid2DMarkovRoutine(Routine):
         if not self.should_normalize:
             return state
         x = self.build_features(torch.as_tensor(batch["x"], device=state.device))
-        return State(state.model, normalizer_accumulate(state.normalizer, x))
+        return replace(state, normalizer=normalizer_accumulate(state.normalizer, x))
 
-    @torch.no_grad()
+    def loss_and_grads(self, state: State, batch, rng: Optional[torch.Generator] = None):
+        """The training loss of one batch of (x, y) pairs and its gradients
+        in ``model.parameters()`` order. Returns ``(loss, grads,
+        normalizer)``: the statistics keep accumulating up to their cap
+        before they are applied, as in the reference's training mode. The
+        noise ``noise_std * N(0, 1)`` on the normalized features is drawn
+        from ``rng``, a generator on the state's device."""
+        dev = state.device
+        x = self.build_features(torch.as_tensor(batch["x"], device=dev))
+        norm = state.normalizer
+        if self.should_normalize:
+            norm = normalizer_accumulate(norm, x)
+            x = normalizer_apply(norm, x)
+        if self.noise_std > 0.0:
+            if rng is None:
+                raise ValueError("noise_std > 0 needs a generator (rng) on the state's device")
+            x = x + self.noise_std * torch.randn(x.shape, generator=rng, device=dev, dtype=x.dtype)
+        targets = torch.as_tensor(batch["dy" if self.learn_difference else "y"], device=dev)
+        b = x.shape[0]
+        im = state.model(x)["forecast"]
+        if self.should_normalize:
+            im = normalizer_inverse(norm, im, channel=0)
+        loss = lp_loss_rel(im.reshape(b, -1), targets.reshape(b, -1))
+        grads = torch.autograd.grad(loss, list(state.model.parameters()))
+        return loss.detach(), grads, norm
+
+    def train_step(self, state: State, batch, rng: Optional[torch.Generator] = None):
+        """One optimizer step on one batch; returns ``(state, {"train_loss"})``."""
+        loss, grads, norm = self.loss_and_grads(state, batch, rng)
+        metrics = self.with_grad_norm({"train_loss": loss}, grads)
+        return self.apply_grads(replace(state, normalizer=norm), grads), metrics
+
     def rollout(self, state: State, batch):
         """Autoregressive rollout over the trailing ``n_steps`` of
         ``batch["data"] [b, X, Y, T]``, re-building features from each
-        prediction. Returns ``(preds [b, X, Y, n], step_losses [n], yy)``."""
+        prediction. Returns ``(preds [b, X, Y, n], step_losses [n], yy)``.
+        The model runs in eval mode and is put back in the mode it was in."""
+        training = state.model.training
+        state.model.eval()
+        try:
+            return self._rollout(state, batch)
+        finally:
+            state.model.train(training)
+
+    @torch.no_grad()
+    def _rollout(self, state: State, batch):
         data = torch.as_tensor(batch["data"], device=state.device)
         b, t_total = data.shape[0], data.shape[-1]
         # Clamp to the available horizon.

@@ -158,7 +158,8 @@ def test_infer_on_cpu_from_a_port_checkpoint(data_path, tmp_path, capsys):
     printed = capsys.readouterr().out
     assert "'shape': (4, 16, 16, 3)" in printed and "inference_time" in printed
     assert run.result["shape"] == (4, 16, 16, 3) and run.result["elapsed"] > 0
-    assert run.result["kernel_launches"] == {"fused_ff": 0, "fused_mix_2d": 0}
+    assert run.result["kernel_launches"] == {"fused_ff": 0, "fused_ff_bwd": 0, "fused_mix_2d": 0,
+                                             "fused_mix_2d_adjoint": 0}
     restored = load_state(ckpt, run.state)
     want, _, _ = run.routine.rollout(restored, run.batch)
     torch.testing.assert_close(run.result["preds"], want)

@@ -8,26 +8,32 @@ Phases, each reporting on its own lines; every run goes through all six:
 2. ``build``: compile every CUDA source in ``csrc/``, all at once.
 3. ``check``: each kernel against its plain PyTorch version at the flagship
    shapes, in float32 (TF32 off) and bf16, with the weights laid out as the
-   model hands them over; with ragged rows and contiguous weights (and 1
-   and 0 rows for the backward) for the feed-forward, and odd, non-square
-   and Nyquist-mode grids, strided and bf16 mode weights for the spectral
-   mix and its adjoint; and the whole backward of each autograd Function
-   (dx, dW, db) against ``torch.autograd.grad`` through its plain forward.
-4. ``time``: each kernel, its plain version and a PyTorch yardstick the port
-   never calls, timed with CUDA events; the least time the card could take.
-5. ``main`` (inference): a synthetic [38, 64, 64, 20] trajectory file made
+   model hands them over; with ragged rows (one row short of a whole tile,
+   1037, 1 and 0), contiguous weights and a narrower shape for the
+   feed-forward, and odd, non-square and Nyquist-mode grids, strided and
+   bf16 mode weights for the spectral mix and its adjoint; and the whole
+   backward of each autograd Function (dx, dW, db) against
+   ``torch.autograd.grad`` through its plain forward.
+   The ``sass`` line counts the tensor-core instructions (HMMA) of the
+   forward feed-forward kernel in the built library (``cuobjdump``).
+4. ``main`` (inference): a synthetic [38, 64, 64, 20] trajectory file made
    from the seed, the normalizer pass, a checkpoint, then the port's
    ``infer`` on the flagship config (24 layers, width 64) for a 10-step
    rollout at batch 19, with the launch counts read around it;
    ``valid_step`` on the same batch; and the model's kernel path against
    its plain path on a small input.
-6. ``train``: the port's ``train`` on the flagship config at full width on
+5. ``train``: the port's ``train`` on the flagship config at full width on
    the same synthetic file (the normalizer epoch, then one epoch of 18
    steps of batch 19, a validation rollout and the test pass), with the
    launch counts read around it; exactly 24 launches of each kernel in one
    train step; one train step's loss and every parameter gradient on the
    kernel path against the plain path (a float32 CPU copy); the time of a
    train step, and its device time by kernel group from a profiler trace.
+6. ``time``: each kernel, its plain version and a PyTorch yardstick the port
+   never calls, by their device time in a profiler trace (and the kernel's
+   wall time back to back, between CUDA events); the least time the card
+   could take and the kernel's time over it. It runs last, so that no
+   profiler session precedes the timed rollout and train steps.
 
 Prints a JSON line of per-kernel numbers, then as its last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero; it
@@ -40,6 +46,7 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -57,7 +64,8 @@ from fourierflow_tpu_torch.config import instantiate, load_config  # noqa: E402
 from fourierflow_tpu_torch.ops import (  # noqa: E402
     _cuda, fused_ff, fused_ff_bwd, fused_mix_2d, launch_counts, reset_launch_counts)
 from fourierflow_tpu_torch.ops.fused_ff import (  # noqa: E402
-    fused_ff_bwd_cuda, fused_ff_bwd_plain, fused_ff_cuda, fused_ff_plain)
+    _DTYPE_CODE, _fwd_smem_bytes, _lib, fused_ff_bwd_cuda, fused_ff_bwd_plain, fused_ff_cuda,
+    fused_ff_plain)
 from fourierflow_tpu_torch.ops.fused_spectral import (  # noqa: E402
     fused_mix_2d_adjoint_cuda, fused_mix_2d_adjoint_plain, fused_mix_2d_cuda, fused_mix_2d_plain)
 from fourierflow_tpu_torch.utils.checkpoint import save_state  # noqa: E402
@@ -68,9 +76,11 @@ N_LAYERS = 24
 # Flagship shapes: batch 19 on a 64x64 grid, width 64, hidden 256, 16 modes.
 B, N, C, H, M = 19, 64, 64, 256, 16
 ROWS = B * N * N
-# H100 SXM data sheet: HBM 3.35 TB/s; 67 TFLOP/s f32 (CUDA cores); 989 TFLOP/s bf16 dense.
+# H100 SXM data sheet: HBM 3.35 TB/s; 989 TFLOP/s bf16 and 495 TFLOP/s TF32 dense. The
+# float32 peak is that of work done to f32 accuracy on the tensor cores: three TF32
+# products (3xTF32) per f32 product, so 495/3 TFLOP/s.
 MEM_RATE = 3.35e12
-PEAK = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # max |err| / max |ref|
 DTYPES = (torch.float32, torch.bfloat16)
 # Kernel, source, the TPU kernel it replaces, and the main path whose launch
@@ -87,6 +97,11 @@ KERNELS = {
                                           "(second launch, _fused_mix_bwd :191)", path="train"),
 }
 TRAIN_TOL = 1e-3  # train step, kernel path vs plain path: max |err| / max |ref|, per tensor
+# The forward FF kernel's rows per block and round (8 warps of 32 bf16 rows; a
+# multiple of the f32 warp's 16), and a narrower shape than the flagship's
+# that it also takes.
+FF_TILE_ROWS = 256
+FF_NARROW = dict(cin=32, hidden=128, cout=40)
 
 
 def log(*args):
@@ -94,15 +109,16 @@ def log(*args):
 
 
 # --- inputs ----------------------------------------------------------------
-def ff_inputs(rows, dtype, dev, seed, model_layout=True):
-    """x, w1 [C, H], b1, w2 [H, C], b2. With ``model_layout`` the weights are
-    transposed views of torch's [out, in] tensors, as ``FeedForward`` passes them."""
+def ff_inputs(rows, dtype, dev, seed, model_layout=True, cin=C, hidden=H, cout=C):
+    """x, w1 [C_in, H], b1, w2 [H, C_out], b2. With ``model_layout`` the weights
+    are transposed views of torch's [out, in] tensors, as ``FeedForward`` passes them."""
     g = torch.Generator(device="cpu").manual_seed(seed)
     r = lambda *s, scale=1.0: (torch.randn(*s, generator=g) * scale).to(dev, dtype)
-    x, b1, b2 = r(rows, C), r(H, scale=0.1), r(C, scale=0.1)
+    x, b1, b2 = r(rows, cin), r(hidden, scale=0.1), r(cout, scale=0.1)
     if model_layout:
-        return x, r(H, C, scale=C ** -0.5).t(), b1, r(C, H, scale=H ** -0.5).t(), b2
-    return x, r(C, H, scale=C ** -0.5), b1, r(H, C, scale=H ** -0.5), b2
+        return (x, r(hidden, cin, scale=cin ** -0.5).t(), b1,
+                r(cout, hidden, scale=hidden ** -0.5).t(), b2)
+    return x, r(cin, hidden, scale=cin ** -0.5), b1, r(hidden, cout, scale=hidden ** -0.5), b2
 
 
 def mix_inputs(b, sx, sy, modes, dtype, dev, seed, w_dtype=torch.float32, strided=False):
@@ -170,6 +186,8 @@ def check_function(name, fn, plain, args, dtype, seed):
 
 
 def cuda_ms(fn, iters=20, warmup=3):
+    """Wall time per call of back-to-back calls, between CUDA events: the
+    device time, or the host's time per call where that is longer."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -180,6 +198,26 @@ def cuda_ms(fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters=20, warmup=3):
+    """Device time per call: the summed durations of the kernels and copies
+    that ``iters`` calls ran on the card, from a torch.profiler trace."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
+    if us <= 0:
+        raise AssertionError("time: the profiler saw no device time")
+    return us / iters / 1e3
 
 
 def bound(flops, nbytes, dtype):
@@ -208,6 +246,34 @@ def phase_build():
                 log(f"ptxas {name}: {line.strip()}")
 
 
+def phase_sass():
+    """Tensor-core (HMMA) and CUDA-core FMA (FFMA) instructions in each
+    instantiation of the forward FF kernel, from ``cuobjdump --dump-sass``
+    of the built library; fails if one has no HMMA. Also holds the wrapper's
+    shared-memory formula to the kernel's."""
+    tool = shutil.which("cuobjdump") or os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump")
+    lib = _cuda._lib_path("fused_ff")
+    out = subprocess.run([tool, "--dump-sass", str(lib)], capture_output=True, text=True,
+                         check=True, timeout=300).stdout
+    counts, name = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            if "ff_fwd_kernel" in name:
+                counts[name] = {"HMMA": 0, "FFMA": 0}
+        elif name in counts:
+            for op in counts[name]:
+                counts[name][op] += f" {op}." in line or f" {op} " in line
+    log(f"sass ff_fwd_kernel: {json.dumps(counts)}")
+    if len(counts) != 2 or not all(c["HMMA"] > 0 for c in counts.values()):
+        raise AssertionError(f"sass: the forward FF kernel lacks tensor-core instructions {counts}")
+    for dtype, code in _DTYPE_CODE.items():
+        want = _lib().ff_fwd_smem_bytes(code, H, C)
+        if _fwd_smem_bytes(H, C, dtype) != want:
+            raise AssertionError(f"fused_ff: the wrapper's shared-memory size for {dtype} is not "
+                                 f"the kernel's {want}")
+
+
 def ff_bwd_inputs(rows, dtype, dev, seed, model_layout=True):
     """x, g, w1, b1, w2 for the feed-forward's backward."""
     x, w1, b1, w2, _ = ff_inputs(rows, dtype, dev, seed, model_layout)
@@ -219,12 +285,19 @@ def phase_check(dev, seed):
     errs = {}
     for dtype in DTYPES:
         tag = str(dtype).replace("torch.", "")
-        for rows, model_layout in ((ROWS, True), (1000 + 37, False)):
+        for rows, model_layout, widths in ((ROWS, True, {}), (1000 + 37, False, {}),
+                                           (FF_TILE_ROWS * 50 - 1, True, {}), (1, True, {}),
+                                           (0, True, {}), (999, True, FF_NARROW)):
+            before = fused_ff.launches
             e = check(f"fused_ff[{tag}, rows {rows}, {'model' if model_layout else 'contiguous'} "
-                      f"weights]", fused_ff_cuda, fused_ff_plain,
-                      ff_inputs(rows, dtype, dev, seed, model_layout), dtype)
+                      f"weights{', ' + str(widths) if widths else ''}]", fused_ff_cuda,
+                      fused_ff_plain, ff_inputs(rows, dtype, dev, seed, model_layout, **widths),
+                      dtype)
             if rows == ROWS:
                 errs[("fused_ff", dtype)] = e
+            if (fused_ff.launches - before) != (rows > 0):
+                raise AssertionError(f"fused_ff: {fused_ff.launches - before} launches for "
+                                     f"{rows} rows")
         for rows, model_layout in ((ROWS, True), (1000 + 37, False), (1, True), (0, True)):
             args = ff_bwd_inputs(rows, dtype, dev, seed, model_layout)
             before = fused_ff_bwd.launches
@@ -299,6 +372,13 @@ def _library_mix_adjoint(x, wy, wx):
     return lambda: torch.autograd.grad(y, xg, g, retain_graph=True)
 
 
+def timed(kernel, plain, library, flops, nbytes, dtype):
+    """Device times of a kernel, its plain version and its library
+    yardstick; the kernel's wall time back to back; the bound."""
+    return dict(ms=device_ms(kernel), wall_ms=cuda_ms(kernel), plain_ms=device_ms(plain),
+                library_ms=device_ms(library), bound=bound(flops, nbytes, dtype))
+
+
 def phase_time(dev, seed):
     rows = {}
     for dtype in DTYPES:
@@ -306,31 +386,30 @@ def phase_time(dev, seed):
         args = ff_inputs(ROWS, dtype, dev, seed)
         flops = 2 * ROWS * (C * H + H * C)
         nbytes = (2 * ROWS * C + C * H + H + H * C + C) * isz
-        rows[("fused_ff", dtype)] = dict(
-            ms=cuda_ms(lambda: fused_ff_cuda(*args)), plain_ms=cuda_ms(lambda: fused_ff_plain(*args)),
-            library_ms=cuda_ms(_library_ff(*args)), bound=bound(flops, nbytes, dtype))
-        args = ff_bwd_inputs(ROWS, dtype, dev, seed)
+        rows[("fused_ff", dtype)] = timed(
+            lambda: fused_ff_cuda(*args), lambda: fused_ff_plain(*args), _library_ff(*args),
+            flops, nbytes, dtype)
+        bargs = ff_bwd_inputs(ROWS, dtype, dev, seed)
         flops = 10 * ROWS * C * H
         nbytes = 3 * ROWS * C * isz + (2 * C * H + H) * isz + (2 * C * H + H + C) * 4
-        rows[("fused_ff_bwd", dtype)] = dict(
-            ms=cuda_ms(lambda: fused_ff_bwd_cuda(*args)),
-            plain_ms=cuda_ms(lambda: fused_ff_bwd_plain(*args)),
-            library_ms=cuda_ms(_library_ff_bwd(*args)), bound=bound(flops, nbytes, dtype))
+        rows[("fused_ff_bwd", dtype)] = timed(
+            lambda: fused_ff_bwd_cuda(*bargs), lambda: fused_ff_bwd_plain(*bargs),
+            _library_ff_bwd(*bargs), flops, nbytes, dtype)
         x, wy, wx = mix_inputs(B, N, N, M, dtype, dev, seed)
         flops = B * 2 * (N * 2 * M * N * C + 4 * M * N * C * C + N * N * 2 * M * C) * 2
         nbytes = 2 * x.numel() * isz + (wy.numel() + wx.numel()) * wy.element_size()
-        rows[("fused_mix_2d", dtype)] = dict(
-            ms=cuda_ms(lambda: fused_mix_2d_cuda(x, wy, wx)),
-            plain_ms=cuda_ms(lambda: fused_mix_2d_plain(x, wy, wx)),
-            library_ms=cuda_ms(_library_mix(x, wy, wx)), bound=bound(flops, nbytes, dtype))
-        rows[("fused_mix_2d_adjoint", dtype)] = dict(
-            ms=cuda_ms(lambda: fused_mix_2d_adjoint_cuda(x, wy, wx)),
-            plain_ms=cuda_ms(lambda: fused_mix_2d_adjoint_plain(x, wy, wx)),
-            library_ms=cuda_ms(_library_mix_adjoint(x, wy, wx)), bound=bound(flops, nbytes, dtype))
+        rows[("fused_mix_2d", dtype)] = timed(
+            lambda: fused_mix_2d_cuda(x, wy, wx), lambda: fused_mix_2d_plain(x, wy, wx),
+            _library_mix(x, wy, wx), flops, nbytes, dtype)
+        rows[("fused_mix_2d_adjoint", dtype)] = timed(
+            lambda: fused_mix_2d_adjoint_cuda(x, wy, wx),
+            lambda: fused_mix_2d_adjoint_plain(x, wy, wx), _library_mix_adjoint(x, wy, wx),
+            flops, nbytes, dtype)
     for (name, dtype), r in rows.items():
-        log(f"time {name}[{str(dtype).replace('torch.', '')}]: kernel {r['ms']:.4f} ms, "
-            f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
-            f"bound {r['bound'][0]:.4f} ms ({r['bound'][1]})")
+        log(f"time {name}[{str(dtype).replace('torch.', '')}]: kernel {r['ms']:.4f} ms "
+            f"(back to back {r['wall_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
+            f"library {r['library_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms ({r['bound'][1]}), "
+            f"ms/bound {r['ms'] / r['bound'][0]:.2f}")
     return rows
 
 
@@ -533,9 +612,10 @@ def main():
 
     card = phase_device()
     phase_build()
+    phase_sass()
     errs = phase_check(dev, args.seed)
-    times = phase_time(dev, args.seed)
     counts = {"infer": phase_main(dev, args.seed), "train": phase_train(dev, args.seed)}
+    times = phase_time(dev, args.seed)
 
     kernels = []
     for name, meta in KERNELS.items():

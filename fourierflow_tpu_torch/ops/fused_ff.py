@@ -15,18 +15,19 @@ their strides, so a transposed view of torch's ``[out, in]`` weight goes in
 without a copy. ``fused_ff.launches`` and ``fused_ff_bwd.launches`` count
 calls that reached a kernel.
 
-Bounds (H100 SXM data sheet, flagship rows 77,824, C 64, H 256): forward
-5.10 GFLOP and 39.8 MB f32 (19.9 MB bf16), about 76 us in f32 on CUDA cores
-(operations) and 6 us in bf16 (memory); backward 12.75 GFLOP and 59.8 MB
-f32, about 190 us in f32 (operations) and 13 us in bf16 (operations). The
-kernel sources describe the tiling.
+Bounds (H100 SXM data sheet, flagship rows 77,824, C 64, H 256), the least
+time for the work at f32 accuracy (3xTF32 on tensor cores, 495/3 TFLOP/s)
+or in bf16 (989 TFLOP/s), against 3.35 TB/s: forward 5.10 GFLOP and 39.8
+MB f32 (19.9 MB bf16), about 31 us in f32 (operations) and 6 us in bf16
+(memory); backward 12.75 GFLOP and 59.8 MB f32, about 77 us in f32 and 13
+us in bf16 (operations). The kernel sources describe the tiling.
 
-Rounding: the plain versions, and so the kernels, keep the hidden layer
-``h`` and its gradient ``dh`` in float32 and round only the outputs (``out``
-and ``dx``) to x's type; weight and bias gradients come out in float32 and
-are cast to the parameter's type. The JAX kernels round ``h`` and ``dh`` to
-x's type before the second products, so in bf16 the two packages differ
-by that rounding.
+Rounding, as in the JAX kernels: products and sums run in float32, and
+the hidden layer ``h`` and its gradient ``dh`` are rounded to x's type
+before any product or sum uses them (in bf16 the forward kernel feeds
+``h`` to the tensor cores in bf16). ``out`` and ``dx`` come out in x's
+type; weight and bias gradients come out in float32 and the Function casts
+them to the parameters' type. In float32 no rounding happens.
 """
 
 import ctypes
@@ -40,31 +41,37 @@ __all__ = ["fused_ff", "fused_ff_plain", "fused_ff_cuda", "fused_ff_bwd", "fused
            "fused_ff_bwd_cuda"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_COUT = 64  # output columns per block row: 4 per thread x 16 threads
-_MAX_BWD_C = 64  # the backward kernel stages x, g and dx tiles 64 columns wide
+_MAX_C = 64  # C_in and C_out bound of both kernels (register fragments, 64-wide tiles)
+_FWD_PAD, _FWD_HC = 8, 64  # as PAD and HC in csrc/fused_ff.cu
+# Warps of a forward block and rows of a warp tile (FwdShape<T> in the source).
+_FWD_SHAPE = {torch.float32: (8, 16), torch.bfloat16: (8, 32)}
 _TILE_ROWS = 64  # rows per tile of the backward kernel
 
 
 def fused_ff_plain(x, w1, b1, w2, b2):
-    """The plain PyTorch version, in float32 (other input types are rounded
-    to float32 first and the result is cast back to x's type)."""
+    """The plain PyTorch version: products and sums in float32, the hidden
+    layer rounded to x's type before the second product, the result cast
+    to x's type."""
     f = lambda t: t.float()
-    h = torch.relu(f(x) @ f(w1) + f(b1))
-    return (h @ f(w2) + f(b2)).to(x.dtype)
+    h = torch.relu(f(x) @ f(w1) + f(b1)).to(x.dtype)
+    return (f(h) @ f(w2) + f(b2)).to(x.dtype)
 
 
 def fused_ff_bwd_plain(x, g, w1, b1, w2):
-    """Gradients of :func:`fused_ff_plain` given the output gradient ``g``,
-    in float32 from inputs rounded to float32: ``(dx, dw1, db1, dw2, db2)``,
-    ``dx`` in x's type and shape, the rest float32 in the parameters' shapes
-    (``_ff_bwd`` of the JAX package)."""
+    """Gradients of :func:`fused_ff_plain` given the output gradient ``g``:
+    ``(dx, dw1, db1, dw2, db2)``, ``dx`` in x's type and shape, the rest
+    float32 in the parameters' shapes (``_ff_bwd`` of the JAX package).
+    Products and sums run in float32; ``h`` and ``dh`` are rounded to x's
+    type before they enter any of them."""
     cin, cout = x.shape[-1], g.shape[-1]
     xf, gf = x.reshape(-1, cin).float(), g.reshape(-1, cout).float()
     w1f, w2f = w1.float(), w2.float()
+    rnd = lambda t: t.to(x.dtype).float()
     pre = xf @ w1f + b1.float()
-    dh = (gf @ w2f.t()) * (pre > 0)
+    h = rnd(torch.relu(pre))
+    dh = rnd((gf @ w2f.t()) * (pre > 0))
     dx = (dh @ w1f.t()).to(x.dtype).reshape(x.shape)
-    return dx, xf.t() @ dh, dh.sum(0), torch.relu(pre).t() @ gf, gf.sum(0)
+    return dx, xf.t() @ dh, dh.sum(0), h.t() @ gf, gf.sum(0)
 
 
 @functools.lru_cache(maxsize=1)
@@ -73,13 +80,23 @@ def _lib():
     vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.ff_fwd.argtypes = [i, vp, vp, vp, vp, vp, vp, i, i, i, i, i, i, i, i, vp]
     lib.ff_fwd.restype = i
-    lib.ff_fwd_smem_bytes.argtypes = [i, i]
+    lib.ff_fwd_smem_bytes.argtypes = [i, i, i]
     lib.ff_fwd_smem_bytes.restype = ll
     lib.ff_bwd.argtypes = [i, vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, i, i, i, i, vp]
     lib.ff_bwd.restype = i
     lib.ff_bwd_smem_bytes.argtypes = [i, i, i]
     lib.ff_bwd_smem_bytes.restype = ll
     return lib
+
+
+def _fwd_smem_bytes(hidden, cout, dtype):
+    """Shared memory of one forward block (``fwd_smem_bytes`` in the source):
+    a tile of x per warp, all of W1 and W2 zero-padded to C_in = C_out = 64
+    with padded rows, both biases."""
+    warps, warp_rows = _FWD_SHAPE[dtype]
+    elems = (warps * warp_rows * (_MAX_C + _FWD_PAD) + hidden * (_MAX_C + _FWD_PAD)
+             + _MAX_C * (hidden + _FWD_PAD))
+    return elems * (torch.finfo(dtype).bits // 8) + 4 * (hidden + cout)
 
 
 def _check_args(x, w1, b1, w2, b2=None, g=None):
@@ -101,10 +118,24 @@ def _check_args(x, w1, b1, w2, b2=None, g=None):
     for name, t in (("x", x), ("b1", b1), ("b2", b2), ("g", g)):
         if t is not None and not t.is_contiguous():
             raise ValueError(f"fused_ff kernel needs a contiguous {name}")
-    if cout > _MAX_COUT:
-        raise ValueError(f"fused_ff kernel takes C_out <= {_MAX_COUT}, got {cout}")
-    if g is not None and cin > _MAX_BWD_C:
-        raise ValueError(f"fused_ff backward kernel takes C_in <= {_MAX_BWD_C}, got {cin}")
+    if cout > _MAX_C:
+        raise ValueError(f"fused_ff kernel takes C_out <= {_MAX_C}, got {cout}")
+    if g is not None and cin > _MAX_C:
+        raise ValueError(f"fused_ff backward kernel takes C_in <= {_MAX_C}, got {cin}")
+    if b2 is not None:
+        if cin > _MAX_C or cin % 16:
+            raise ValueError(f"fused_ff kernel takes C_in a multiple of 16 and <= {_MAX_C}, "
+                             f"got {cin}")
+        if hidden % _FWD_HC:
+            raise ValueError(f"fused_ff kernel takes H a multiple of {_FWD_HC}, got {hidden}")
+        if cout % 8:
+            raise ValueError(f"fused_ff kernel takes C_out a multiple of 8, got {cout}")
+        if x.data_ptr() % 16:
+            raise ValueError("fused_ff kernel needs x aligned to 16 bytes")
+        need = _fwd_smem_bytes(hidden, cout, x.dtype)
+        if need > _cuda.MAX_SMEM:
+            raise ValueError(f"fused_ff: C_in={cin}, H={hidden}, C_out={cout} needs {need} B of "
+                             f"shared memory, more than {_cuda.MAX_SMEM}")
     for name, t in (("w1", w1), ("w2", w2)):
         if sum((n - 1) * abs(st) for n, st in zip(t.shape, t.stride())) >= 2 ** 31:
             raise ValueError(f"fused_ff kernel indexes {name} with int offsets; it spans too far")
@@ -119,9 +150,6 @@ def fused_ff_cuda(x, w1, b1, w2, b2):
     if rows == 0:
         return out
     lib = _lib()
-    need = lib.ff_fwd_smem_bytes(cin, cout)
-    if need > _cuda.MAX_SMEM:
-        raise ValueError(f"fused_ff: C_in={cin}, C_out={cout} needs {need} B of shared memory")
     with torch.cuda.device(x.device):
         err = lib.ff_fwd(_DTYPE_CODE[x.dtype], x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
                          w2.data_ptr(), b2.data_ptr(), out.data_ptr(), rows, cin, hidden, cout,

@@ -76,11 +76,27 @@ def test_fused_ff_matches_plain_composition():
 
 
 def test_fused_ff_plain_keeps_bf16_type():
+    """In bf16 the hidden layer is rounded to bf16 before the second
+    product, as the JAX kernel rounds it; the sums stay float32."""
     args = [torch.from_numpy(a).to(torch.bfloat16) for a in _ff_inputs(9)]
     out = fused_ff_plain(*args)
     assert out.dtype == torch.bfloat16
-    want = fused_ff_plain(*[a.float() for a in args])
-    torch.testing.assert_close(out.float(), want, rtol=2e-2, atol=2e-2)
+    x, w1, b1, w2, b2 = (a.float() for a in args)
+    h = torch.relu(x @ w1 + b1).bfloat16().float()
+    torch.testing.assert_close(out, (h @ w2 + b2).bfloat16(), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("rows", [300, 1037])
+def test_fused_ff_bf16_matches_jax_interpret(rows):
+    """bf16 forward against the JAX kernel in interpret mode (1,037 rows:
+    a ragged, zero-padded JAX block): both round the hidden layer to bf16,
+    so the outputs agree to the bit."""
+    args = _ff_inputs(rows, cin=16, hidden=64, cout=16, seed=rows)
+    want = jax_fused_ff(*(jnp.asarray(a, jnp.bfloat16) for a in args), True)
+    want = _np(want.astype(jnp.float32))
+    got = fused_ff(*(torch.from_numpy(a).bfloat16() for a in args))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(), want)
 
 
 def test_fused_ff_takes_transposed_weight_views():
@@ -219,8 +235,9 @@ def test_fused_ff_kernel_argument_checks():
     """What the CUDA wrapper checks before a launch, exercised on CPU tensors."""
     from fourierflow_tpu_torch.ops.fused_ff import _check_args
 
-    x, w1, b1, w2, b2 = map(torch.from_numpy, _ff_inputs(6))
+    x, w1, b1, w2, b2 = map(torch.from_numpy, _ff_inputs(6, cin=16, hidden=64, cout=16))
     _check_args(x, w1, b1, w2, b2)
+    _check_args(x.bfloat16(), *(t.bfloat16() for t in (w1, b1, w2, b2)))
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         _check_args(x.double(), w1, b1, w2, b2)
     with pytest.raises(ValueError, match="w2 is"):
@@ -233,6 +250,37 @@ def test_fused_ff_kernel_argument_checks():
     _check_args(x, w1.t().contiguous().t(), b1, w2.t().contiguous().t(), b2)
     with pytest.raises(ValueError, match="C_out <= 64"):
         _check_args(x, w1, b1, torch.zeros(w2.shape[0], 65), torch.zeros(65))
+
+    # The forward kernel's shape limits: its fragments tile C_in by 16, H by 64
+    # and C_out by 8, it reads x in 16-byte pieces, and all of W1 and W2 sit
+    # in one block's shared memory.
+    def ff(rows=6, cin=16, hidden=64, cout=16, dtype=torch.float32):
+        a = [torch.from_numpy(t).to(dtype) for t in _ff_inputs(rows, cin, hidden, cout)]
+        _check_args(*a)
+
+    ff(cin=64, hidden=256, cout=64)
+    ff(cin=64, hidden=256, cout=64, dtype=torch.bfloat16)
+    ff(cin=32, hidden=128, cout=40)
+    for cin in (8, 24, 80):
+        with pytest.raises(ValueError, match="C_in a multiple of 16 and <= 64"):
+            ff(cin=cin)
+    for hidden in (48, 96):
+        with pytest.raises(ValueError, match="H a multiple of 64"):
+            ff(hidden=hidden)
+    with pytest.raises(ValueError, match="C_out a multiple of 8"):
+        ff(cout=12)
+    ff(cin=64, hidden=320, cout=64)
+    with pytest.raises(ValueError, match="shared memory"):
+        ff(cin=64, hidden=384, cout=64)
+    ff(cin=64, hidden=704, cout=64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="shared memory"):
+        ff(cin=64, hidden=768, cout=64, dtype=torch.bfloat16)
+    unaligned = torch.zeros(6 * 16 + 1)[1:].view(6, 16)
+    with pytest.raises(ValueError, match="aligned to 16 bytes"):
+        _check_args(unaligned, w1, b1, w2, b2)
+    # The backward kernel has its own limits: it takes C_in 8 and H 48.
+    xb, w1b, b1b, w2b, _ = map(torch.from_numpy, _ff_inputs(6, cin=8, hidden=48, cout=8))
+    _check_args(xb, w1b, b1b, w2b, g=torch.zeros(6, 8))
     # Tensors that need a gradient are taken: the backward kernel exists.
     _check_args(x.requires_grad_(), w1.requires_grad_(), b1, w2, b2)
     with torch.no_grad():

@@ -116,18 +116,34 @@ def test_fused_ff_bwd_plain_matches_autograd_of_the_composition():
         _close_to_max(a.numpy(), b, what=name)
 
 
-def test_fused_ff_bwd_plain_bf16_rounds_only_dx():
-    """In bf16 the plain backward computes in float32 from the rounded
-    inputs and rounds only dx; the weight gradients stay float32."""
-    args, g = _ff_inputs(9, seed=4)
-    xb, gb, w1, b1, w2 = (torch.from_numpy(a).bfloat16() for a in (args[0], g, *args[1:4]))
-    got = fused_ff_bwd_plain(xb, gb, w1, b1, w2)
-    want = fused_ff_bwd_plain(xb.float(), gb.float(), w1.float(), b1.float(), w2.float())
-    assert got[0].dtype == torch.bfloat16
-    torch.testing.assert_close(got[0], want[0].bfloat16(), rtol=0, atol=0)
-    for a, b in zip(got[1:], want[1:]):
-        assert a.dtype == torch.float32
-        torch.testing.assert_close(a, b, rtol=0, atol=0)
+def _within_one_bf16_ulp(got, want, what):
+    """Element-wise: equal, or one bf16 unit in the last place of ``want``
+    apart (float32 sums taken in another order can round across a bf16
+    boundary)."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want), 2.0 ** -126))) - 7)
+    bad = np.abs(got - want) > ulp
+    assert not bad.any(), (what, int(bad.sum()), np.max(np.abs(got - want)))
+
+
+@pytest.mark.parametrize("rows", [300, 1037])
+def test_fused_ff_bf16_matches_jax_kernel(rows):
+    """In bf16 the port's Function, forward and backward, against ``jax.vjp``
+    of the JAX kernel in interpret mode: both round ``h`` and ``dh`` to bf16
+    before the products that use them, and cast the float32 weight and bias
+    gradients to the parameters' type. 1,037 rows leave the JAX backward a
+    ragged, zero-padded block. Tolerance: at most 1 bf16 ulp per element."""
+    args, g = _ff_inputs(rows, cin=16, hidden=64, cout=16, seed=rows)
+    jargs = [jnp.asarray(a, jnp.bfloat16) for a in args]
+    out, vjp = jax.vjp(lambda *a: jax_fused_ff(*a, True, True), *jargs)
+    want = [out, *vjp(jnp.asarray(g, jnp.bfloat16))]
+    leaves = [torch.from_numpy(a).bfloat16().requires_grad_() for a in args]
+    got_out = fused_ff(*leaves)
+    got = [got_out, *torch.autograd.grad(got_out, leaves, torch.from_numpy(g).bfloat16())]
+    for name, a, b in zip(("out", "dx", "dw1", "db1", "dw2", "db2"), got, want):
+        assert a.dtype == torch.bfloat16, (name, a.dtype)
+        _within_one_bf16_ulp(a.detach().float().numpy(), np.asarray(b.astype(jnp.float32)), name)
 
 
 # --- spectral mix backward ---------------------------------------------------------

@@ -15,7 +15,8 @@ Phases, each reporting on its own lines; every run goes through all six:
    backward of each autograd Function (dx, dW, db) against
    ``torch.autograd.grad`` through its plain forward.
    The ``sass`` line counts the tensor-core instructions (HMMA) of the
-   forward feed-forward kernel in the built library (``cuobjdump``).
+   forward and backward feed-forward kernels in the built library
+   (``cuobjdump``).
 4. ``main`` (inference): a synthetic [38, 64, 64, 20] trajectory file made
    from the seed, the normalizer pass, a checkpoint, then the port's
    ``infer`` on the flagship config (24 layers, width 64) for a 10-step
@@ -64,8 +65,8 @@ from fourierflow_tpu_torch.config import instantiate, load_config  # noqa: E402
 from fourierflow_tpu_torch.ops import (  # noqa: E402
     _cuda, fused_ff, fused_ff_bwd, fused_mix_2d, launch_counts, reset_launch_counts)
 from fourierflow_tpu_torch.ops.fused_ff import (  # noqa: E402
-    _DTYPE_CODE, _fwd_smem_bytes, _lib, fused_ff_bwd_cuda, fused_ff_bwd_plain, fused_ff_cuda,
-    fused_ff_plain)
+    _DTYPE_CODE, _bwd_smem_bytes, _fwd_smem_bytes, _lib, fused_ff_bwd_cuda, fused_ff_bwd_plain,
+    fused_ff_cuda, fused_ff_plain)
 from fourierflow_tpu_torch.ops.fused_spectral import (  # noqa: E402
     fused_mix_2d_adjoint_cuda, fused_mix_2d_adjoint_plain, fused_mix_2d_cuda, fused_mix_2d_plain)
 from fourierflow_tpu_torch.utils.checkpoint import save_state  # noqa: E402
@@ -98,8 +99,8 @@ KERNELS = {
 }
 TRAIN_TOL = 1e-3  # train step, kernel path vs plain path: max |err| / max |ref|, per tensor
 # The forward FF kernel's rows per block and round (8 warps of 32 bf16 rows; a
-# multiple of the f32 warp's 16), and a narrower shape than the flagship's
-# that it also takes.
+# multiple of the f32 warp's 16, and of the backward kernel's 64-row tile),
+# and a narrower shape than the flagship's that both FF kernels take.
 FF_TILE_ROWS = 256
 FF_NARROW = dict(cin=32, hidden=128, cout=40)
 
@@ -248,9 +249,9 @@ def phase_build():
 
 def phase_sass():
     """Tensor-core (HMMA) and CUDA-core FMA (FFMA) instructions in each
-    instantiation of the forward FF kernel, from ``cuobjdump --dump-sass``
-    of the built library; fails if one has no HMMA. Also holds the wrapper's
-    shared-memory formula to the kernel's."""
+    instantiation of the forward and backward FF kernels, from
+    ``cuobjdump --dump-sass`` of the built library; fails if one has no
+    HMMA. Also holds the wrapper's shared-memory formulas to the kernel's."""
     tool = shutil.which("cuobjdump") or os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump")
     lib = _cuda._lib_path("fused_ff")
     out = subprocess.run([tool, "--dump-sass", str(lib)], capture_output=True, text=True,
@@ -259,26 +260,30 @@ def phase_sass():
     for line in out.splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
-            if "ff_fwd_kernel" in name:
+            if "ff_fwd_kernel" in name or "ff_bwd_kernel" in name:
                 counts[name] = {"HMMA": 0, "FFMA": 0}
         elif name in counts:
             for op in counts[name]:
                 counts[name][op] += f" {op}." in line or f" {op} " in line
-    log(f"sass ff_fwd_kernel: {json.dumps(counts)}")
-    if len(counts) != 2 or not all(c["HMMA"] > 0 for c in counts.values()):
-        raise AssertionError(f"sass: the forward FF kernel lacks tensor-core instructions {counts}")
+    log(f"sass ff_fwd_kernel, ff_bwd_kernel: {json.dumps(counts)}")
+    if len(counts) != 4 or not all(c["HMMA"] > 0 for c in counts.values()):
+        raise AssertionError(f"sass: an FF kernel lacks tensor-core instructions {counts}")
     for dtype, code in _DTYPE_CODE.items():
-        want = _lib().ff_fwd_smem_bytes(code, H, C)
-        if _fwd_smem_bytes(H, C, dtype) != want:
-            raise AssertionError(f"fused_ff: the wrapper's shared-memory size for {dtype} is not "
-                                 f"the kernel's {want}")
+        for hidden, cout in ((H, C), (FF_NARROW["hidden"], FF_NARROW["cout"])):
+            sizes = ((_fwd_smem_bytes(hidden, cout, dtype),
+                      _lib().ff_fwd_smem_bytes(code, hidden, cout)),
+                     (_bwd_smem_bytes(hidden, dtype), _lib().ff_bwd_smem_bytes(code, hidden)))
+            for kernel, (got, want) in zip(("forward", "backward"), sizes):
+                if got != want:
+                    raise AssertionError(f"fused_ff {kernel}: the wrapper's shared-memory size for "
+                                         f"{dtype}, H {hidden} is {got}, the kernel's {want}")
 
 
-def ff_bwd_inputs(rows, dtype, dev, seed, model_layout=True):
+def ff_bwd_inputs(rows, dtype, dev, seed, model_layout=True, **widths):
     """x, g, w1, b1, w2 for the feed-forward's backward."""
-    x, w1, b1, w2, _ = ff_inputs(rows, dtype, dev, seed, model_layout)
-    g = torch.randn(rows, C, generator=torch.Generator().manual_seed(seed + 2)).to(dev, dtype)
-    return x, g, w1, b1, w2
+    x, w1, b1, w2, _ = ff_inputs(rows, dtype, dev, seed, model_layout, **widths)
+    g = torch.randn(rows, w2.shape[1], generator=torch.Generator().manual_seed(seed + 2))
+    return x, g.to(dev, dtype), w1, b1, w2
 
 
 def phase_check(dev, seed):
@@ -298,11 +303,14 @@ def phase_check(dev, seed):
             if (fused_ff.launches - before) != (rows > 0):
                 raise AssertionError(f"fused_ff: {fused_ff.launches - before} launches for "
                                      f"{rows} rows")
-        for rows, model_layout in ((ROWS, True), (1000 + 37, False), (1, True), (0, True)):
-            args = ff_bwd_inputs(rows, dtype, dev, seed, model_layout)
+        for rows, model_layout, widths in ((ROWS, True, {}), (1000 + 37, False, {}),
+                                           (FF_TILE_ROWS * 50 - 1, True, {}), (1, True, {}),
+                                           (0, True, {}), (999, True, FF_NARROW)):
+            args = ff_bwd_inputs(rows, dtype, dev, seed, model_layout, **widths)
             before = fused_ff_bwd.launches
             e = check(f"fused_ff_bwd[{tag}, rows {rows}, "
-                      f"{'model' if model_layout else 'contiguous'} weights]",
+                      f"{'model' if model_layout else 'contiguous'} weights"
+                      f"{', ' + str(widths) if widths else ''}]",
                       fused_ff_bwd_cuda, fused_ff_bwd_plain, args, dtype)
             if rows == ROWS:
                 errs[("fused_ff_bwd", dtype)] = e

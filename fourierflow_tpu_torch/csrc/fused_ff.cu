@@ -201,6 +201,13 @@ __device__ __forceinline__ void load_x_tile(T* xs, int ldx, const T* __restrict_
   }
 }
 
+template <int N>
+__device__ __forceinline__ void zero(float (&v)[N][4]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) v[n][e] = 0.f;
+}
 template <int M, int N>
 __device__ __forceinline__ void zero(float (&v)[M][N][4]) {
 #pragma unroll
@@ -440,7 +447,7 @@ __global__ void __launch_bounds__(32 * FwdShape<T>::warps, 1) ff_fwd_kernel(
 //
 // The TPU kernel keeps the four weight-gradient sums in one output block
 // across a grid that runs in order. Hopper blocks run in no order, and the
-// sums (C_in*H + H*C_out floats, 128 KB in f32 at the flagship) fit neither
+// sums (2*64*H + H + 64 floats, 129 KB in f32 at the flagship) fit neither
 // in registers nor twice in one SM's shared memory. So the grid is
 // persistent: one block per SM (the wrapper passes `blocks` = min(tiles,
 // SMs)), each looping over 64-row tiles blockIdx.x, blockIdx.x + blocks, ...
@@ -459,184 +466,427 @@ __global__ void __launch_bounds__(32 * FwdShape<T>::warps, 1) ff_fwd_kernel(
 // Bound at the flagship (rows 77,824, C 64, H 256): 10*rows*C*H = 12.75 GFLOP
 // and 59.8 MB in f32 (x and g in, dx out), so 0.077 ms in f32 done to f32
 // accuracy on tensor cores (operations at 495/3 TFLOP/s); in bf16 0.0129 ms
-// of operations against 0.0089 ms of bytes. This version computes five
-// 64x64x64 products per tile and chunk on CUDA cores in f32 (4x4 outputs per
-// thread); tensor cores are later work. As the JAX kernel does, h and dh are
-// rounded to x's type where they are stored to shared memory, before any
-// product or sum uses them (a no-op in f32). Shared memory: six padded 64x64
-// f32 tiles (x, g, W1 and W2 chunks, h, dh) and the sums, 232,192 bytes at
-// the flagship, so C_in <= 64, C_out <= 64 and H <= 256 at C = 64 (the
-// wrapper checks the size). Rows beyond `rows` are staged as zeros, so g = 0
-// there and they add nothing.
-constexpr int TX = 16;           // threads along columns
-constexpr int TY = 16;           // threads along rows
-constexpr int TD = 64;           // tile edge: rows per tile, hidden chunk, C_in and C_out bound
-constexpr int LD = TD + 1;       // padded row length of the staged tiles
-constexpr int NQ = TD / TX;      // output columns per thread (4)
-constexpr int RT = TD / TY;      // rows per thread (4)
+// of operations against 0.0089 ms of bytes.
+//
+// Design. Each tile and chunk takes five 64x64x64 products on the staged
+// tiles (x, g, the W1 and W2 chunks, h, dh), all on tensor cores through
+// warp-level mma.sync: m16n8k16 bf16 with f32 sums, and in f32 3xTF32
+// (m16n8k8, as in the forward kernel), which keeps f32 accuracy. Each of the
+// 8 warps computes the same 16x32 piece (rows 16 (warp % 4), columns
+// 32 (warp / 4)) of every 64x64 product, for every tile and chunk:
+//   1. pre = x @ W1[:, chunk]      A = x [r][c],   B from W1^T [j][c]
+//   2. gp  = g @ W2[chunk, :]^T    A = g [r][o],   B from W2^T [o][j] (transposed)
+//   3. dx += dh @ W1[:, chunk]^T   A = dh [r][j],  B from W1^T [j][c] (transposed)
+//   4. dW1[:, chunk] += x^T dh     A and B transposed: the depth is the rows
+//   5. dW2[chunk, :] += h^T g      the same
+// In bf16 the fragments come from ldmatrix (.trans where the depth runs
+// down a staged tile's rows); in f32 they are scalar loads, split into TF32
+// hi + lo as they are loaded. The f32 accumulator layout (lane holds rows g,
+// g + 8 and columns 2t, 2t + 1 of each n-tile) fixes who owns what: pre and
+// gp of one element meet in one thread, which forms h = relu(pre + b1) and
+// dh and stores both rounded to x's type, as the JAX kernel rounds them,
+// before any product or sum uses them (a no-op in f32); dx stays in
+// registers across the chunks; and each weight-gradient sum is owned by the
+// thread whose fragment holds it. The sums are kept in that fragment order
+// (one float4 per lane and n-tile, so a warp's read-modify-write touches
+// consecutive addresses) and put back in [C_in, H] / [H, C_out] order when
+// a block writes its partial row. db1 and db2 are column sums of the staged
+// dh and g tiles, four threads a column (add_column_sums); b1 sits in shared
+// memory as f32.
+// - The ReLU mask is decided in f32 where pre is near 0 (kMaskEps below).
+// - Tiles are staged with 16-byte cp.async where rows are contiguous (x, g,
+//   and the model's weight.t() views, whose inner stride is 1), else element
+//   by element; everything past rows, C_in, C_out or H is staged as zeros,
+//   so the products run over full 64-wide tiles and the padding adds zero.
+// - Layouts, chosen so that every fragment read hits 32 distinct banks: bf16
+//   rows are padded to 72 elements (144 bytes), which suits ldmatrix with or
+//   without .trans; f32 rows are 64 floats with the column XOR-swizzled by
+//   the row (BwdTile<float>), because the TF32 reads go both along and
+//   across rows and no single row pad serves both, and because f32 has no
+//   room for a pad beside the sums.
+// Shapes: C_in <= 64, C_out <= 64, and the shared memory of bwd_smem_bytes
+// (six staged tiles and the sums of every 64-wide chunk of H: H <= 256 in
+// f32 and <= 320 in bf16).
+constexpr int BT = 64;  // tile edge: rows per tile, hidden chunk, C_in and C_out bound
 
-__host__ __device__ __forceinline__ size_t bwd_sum_floats(int cin, int hidden, int cout) {
-  return (size_t)cin * hidden + hidden + (size_t)hidden * cout + cout;
+// Element (r, c) of a staged 64x64 tile is at off(r, c). bf16: rows padded to
+// 72 elements. f32: 64-float rows, column c stored at c ^ (8 (r % 4) + 4 (r / 4 % 2)),
+// so that the reads (r0 + g, c0 + t) and (r0 + t, c0 + g) of a warp (g < 8,
+// t < 4, r0 and c0 aligned) both fall on 32 distinct banks. The swizzle keeps
+// aligned groups of 4 floats together, so 16-byte copies and float2 stores work.
+template <typename T> struct BwdTile;
+template <> struct BwdTile<float> {
+  static constexpr int ld = BT;
+  __device__ __forceinline__ static int off(int r, int c) {
+    return r * BT + (c ^ (((r & 3) << 3) | (r & 4)));
+  }
+};
+template <> struct BwdTile<__nv_bfloat16> {
+  static constexpr int ld = BT + 8;
+  __device__ __forceinline__ static int off(int r, int c) { return r * ld + c; }
+};
+
+// Floats of the weight-gradient sums for `chunks` 64-wide chunks of H: dW1
+// and dW2 in fragment order (64 x 64 each per chunk), db1, db2.
+__host__ __device__ __forceinline__ size_t bwd_sum_floats(int chunks) {
+  return 2 * (size_t)chunks * BT * BT + (size_t)chunks * BT + BT;
 }
-__host__ __device__ __forceinline__ size_t bwd_smem_floats(int cin, int hidden, int cout) {
-  return 6 * (size_t)TD * LD + bwd_sum_floats(cin, hidden, cout);
+// Shared memory of a backward block: six staged tiles, the sums, and b1 in f32.
+template <typename T>
+__host__ __device__ __forceinline__ size_t bwd_smem_bytes(int hidden) {
+  const int chunks = (hidden + BT - 1) / BT;
+  return 6 * (size_t)BT * BwdTile<T>::ld * sizeof(T) +
+         sizeof(float) * (bwd_sum_floats(chunks) + (size_t)chunks * BT);
 }
 
-// acc[r][q] += sum_k A(m, k) B(k, n) over k < 64, for the thread's outputs
-// m = ty*RT + r, n = tx + TX*q, with A(m, k) = a[m*AM + k*AK] and
-// B(k, n) = b[k*BK + n*BN] in shared memory. A warp reads two distinct A
-// values (broadcast) and 16 B values on distinct banks (the +1 row pad).
-template <int AM, int AK, int BK, int BN>
-__device__ __forceinline__ void tile_mm(const float* __restrict__ a, const float* __restrict__ b,
-                                        float (&acc)[RT][NQ]) {
-  a += (threadIdx.x / TX) * RT * AM;
-  b += (threadIdx.x % TX) * BN;
-#pragma unroll 4
-  for (int k = 0; k < TD; ++k) {
-    float bv[NQ];
-#pragma unroll
-    for (int q = 0; q < NQ; ++q) bv[q] = b[k * BK + q * TX * BN];
-#pragma unroll
-    for (int r = 0; r < RT; ++r) {
-      const float av = a[r * AM + k * AK];
-#pragma unroll
-      for (int q = 0; q < NQ; ++q) acc[r][q] = fmaf(av, bv[q], acc[r][q]);
+// The ReLU mask [pre > 0] is a step, so pre near 0 must have the sign that
+// f32 arithmetic gives it, or dh gains or loses a whole g @ W2^T there. The
+// tensor-core pre of an element differs from its f32 value by a small part
+// of S = sum_c |x_c W1[c, j]|: 3xTF32 keeps about 2^-20 of each product, and
+// the tensor cores' f32 sums truncate. Product 1 also forms S on the tensor
+// cores (|x| @ |W1|, TF32 or bf16), and where |pre + b1| < 2^-15 S the
+// thread recomputes pre on CUDA cores as one chain of f32 FMAs over
+// c = 0, 1, ..., 63 (fma_chain), the order of a CUDA-core GEMM, which
+// decides the mask (and h) as the plain version's matmul does. Few elements
+// take that path, so it is a loop on a branch with one call site: calls
+// inside the unrolled epilogue cost more than the rare recomputes.
+constexpr float kMaskEps = 0x1p-15f;
+// Floats of one block's partial row: dW1 [cin, hidden], db1, dW2 [hidden, cout], db2.
+__host__ __device__ __forceinline__ int bwd_out_floats(int cin, int hidden, int cout) {
+  return cin * hidden + hidden + hidden * cout + cout;
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+// The 64x64 tile dst(r, c) = src[r * s_row + c * s_col] for r < n_rows and
+// c < n_cols, zero elsewhere, by the whole block: 16-byte cp.async (zero-
+// filling what lies outside) where rows are contiguous and aligned, else
+// element by element along whichever index has stride 1 in src.
+template <typename T>
+__device__ void stage_tile(T* dst, const T* __restrict__ src, int64_t s_row, int64_t s_col,
+                           int n_rows, int n_cols) {
+  using L = BwdTile<T>;
+  constexpr int V = 16 / sizeof(T);
+  if (s_col == 1 && s_row % V == 0 && n_cols % V == 0 &&
+      (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    for (int i = threadIdx.x; i < BT * (BT / V); i += NT) {
+      const int r = i / (BT / V), c = (i % (BT / V)) * V;
+      const bool in = r < n_rows && c < n_cols;
+      cp_async16(dst + L::off(r, c), in ? src + r * s_row + c : src, in ? 16 : 0);
     }
+  } else {
+    const bool rows_fast = s_row == 1;
+    for (int i = threadIdx.x; i < BT * BT; i += NT) {
+      const int r = rows_fast ? i % BT : i / BT, c = rows_fast ? i / BT : i % BT;
+      dst[L::off(r, c)] = r < n_rows && c < n_cols ? src[r * s_row + c * s_col] : from_f<T>(0.f);
+    }
+  }
+}
+
+// acc[j] += A B over a depth of 64 for the warp's 16x32 piece at rows m0,
+// columns n0 (n-tile j: columns n0 + 8j), in bf16: A(m, k) = a(m, k), or
+// a(k, m) with AT; B(k, n) = b(n, k), or b(k, n) with BK; a and b staged tiles.
+// With `sacc`, also sacc[j] += |A| |B|.
+template <bool AT, bool BK>
+__device__ __forceinline__ void warp_mm(const __nv_bfloat16* a, const __nv_bfloat16* b, int m0,
+                                        int n0, int lane, float (&acc)[4][4],
+                                        float (*sacc)[4] = nullptr) {
+  using L = BwdTile<__nv_bfloat16>;
+  const int i = lane / 8, r8 = lane % 8;
+#pragma unroll
+  for (int k0 = 0; k0 < BT; k0 += 16) {
+    uint32_t af[4];
+    if (AT)
+      ldmatrix_x4_trans(af, a + L::off(k0 + r8 + 8 * (i / 2), m0 + 8 * (i % 2)));
+    else
+      ldmatrix_x4(af, a + L::off(m0 + r8 + 8 * (i % 2), k0 + 8 * (i / 2)));
+#pragma unroll
+    for (int jp = 0; jp < 2; ++jp) {
+      const int n = n0 + 16 * jp;
+      uint32_t bf[4];
+      if (BK)
+        ldmatrix_x4_trans(bf, b + L::off(k0 + r8 + 8 * (i % 2), n + 8 * (i / 2)));
+      else
+        ldmatrix_x4(bf, b + L::off(n + r8 + 8 * (i / 2), k0 + 8 * (i % 2)));
+      const uint32_t b0[2] = {bf[0], bf[1]}, b1[2] = {bf[2], bf[3]};
+      mma_bf16(acc[2 * jp], af, b0);
+      mma_bf16(acc[2 * jp + 1], af, b1);
+      if (sacc != nullptr) {
+        constexpr uint32_t M = 0x7fff7fffu;  // |.| of two packed bf16
+        const uint32_t aa[4] = {af[0] & M, af[1] & M, af[2] & M, af[3] & M};
+        const uint32_t ba0[2] = {bf[0] & M, bf[1] & M}, ba1[2] = {bf[2] & M, bf[3] & M};
+        mma_bf16(sacc[2 * jp], aa, ba0);
+        mma_bf16(sacc[2 * jp + 1], aa, ba1);
+      }
+    }
+  }
+}
+
+// The same in f32 through 3xTF32, each fragment element split as it is loaded.
+// The thread's element of depth k = 8 kb + 4 e + t (kb = 4 kh + kl) lies
+// - along a row (A as a(m, k), B as b(n, k)): in row R + g (R a multiple of
+//   8, so its swizzle is g's) at 64 (R + g) + 32 kh + ((8 kl + 4 e + t) ^ swz(g));
+// - down the rows (A as a(k, m), B as b(k, n)): in column C + 8 j + g (C a
+//   multiple of 32) at 512 kb + 64 (4 e + t) + C + 8 (j ^ t) + (g ^ 4 e).
+// So each address is one of 8 offsets of the thread, computed once, plus a
+// constant of the unrolled loop.
+template <bool AT, bool BK>
+__device__ __forceinline__ void warp_mm(const float* a, const float* b, int m0, int n0, int lane,
+                                        float (&acc)[4][4], float (*sacc)[4] = nullptr) {
+  const int g = lane / 4, t = lane % 4;
+  const int sg = ((g & 3) << 3) | (g & 4);
+  // ao[kl][e] along rows m0 + g (+ 8 h), or ao[h][e] down the columns m0 + g + 8 h;
+  // bo[kl][e] along rows n0 + g (+ 8 j), or bo[j][e] down the columns n0 + 8 j + g.
+  int ao[4][2], bo[4][2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int along = (8 * i + 4 * e + t) ^ sg, down = 64 * (4 * e + t) + (g ^ (4 * e));
+      if (AT) {
+        if (i < 2) ao[i][e] = down + (m0 & 32) + 8 * ((((m0 >> 4) & 1) * 2 + i) ^ t);
+      } else {
+        ao[i][e] = 64 * (m0 + g) + along;
+      }
+      bo[i][e] = BK ? down + n0 + 8 * (i ^ t) : 64 * (n0 + g) + along;
+    }
+  const auto A = [&](int h, int e, int kb) {
+    return AT ? a[ao[h][e] + 512 * kb] : a[ao[kb % 4][e] + 512 * h + 32 * (kb / 4)];
+  };
+  const auto B = [&](int j, int e, int kb) {
+    return BK ? b[bo[j][e] + 512 * kb] : b[bo[kb % 4][e] + 512 * j + 32 * (kb / 4)];
+  };
+#pragma unroll
+  for (int kb = 0; kb < BT / 8; ++kb) {
+    uint32_t ah[4], al[4];
+    split_tf32(A(0, 0, kb), ah[0], al[0]);
+    split_tf32(A(1, 0, kb), ah[1], al[1]);
+    split_tf32(A(0, 1, kb), ah[2], al[2]);
+    split_tf32(A(1, 1, kb), ah[3], al[3]);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      uint32_t bh[2], bl[2];
+      split_tf32(B(j, 0, kb), bh[0], bl[0]);
+      split_tf32(B(j, 1, kb), bh[1], bl[1]);
+      mma_3xtf32(acc[j], ah, al, bh, bl);
+      if (sacc != nullptr) {  // one TF32 product of the |hi| parts
+        constexpr uint32_t M = 0x7fffffffu;
+        const uint32_t aa[4] = {ah[0] & M, ah[1] & M, ah[2] & M, ah[3] & M};
+        const uint32_t ba[2] = {bh[0] & M, bh[1] & M};
+        mma_tf32(sacc[j], aa, ba);
+      }
+    }
+  }
+}
+
+// sum over c < 64 of x(r, c) W1^T(j, c) as one chain of f32 FMAs, c = 0, 1,
+// ..., read 16 bytes at a time (the swizzle keeps aligned groups of 4 floats,
+// and bf16 rows are 16-byte aligned).
+__device__ __noinline__ float fma_chain(const float* xs, const float* w1t, int r, int j) {
+  using L = BwdTile<float>;
+  float s = 0.f;
+#pragma unroll
+  for (int c = 0; c < BT; c += 4) {
+    const float4 a = *reinterpret_cast<const float4*>(xs + L::off(r, c));
+    const float4 b = *reinterpret_cast<const float4*>(w1t + L::off(j, c));
+    s = fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, s))));
+  }
+  return s;
+}
+__device__ __noinline__ float fma_chain(const __nv_bfloat16* xs, const __nv_bfloat16* w1t, int r,
+                                        int j) {
+  using L = BwdTile<__nv_bfloat16>;
+  float s = 0.f;
+#pragma unroll
+  for (int c = 0; c < BT; c += 8) {
+    const uint4 a = *reinterpret_cast<const uint4*>(xs + L::off(r, c));
+    const uint4 b = *reinterpret_cast<const uint4*>(w1t + L::off(j, c));
+    const uint32_t av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float2 x2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&av[k]));
+      const float2 w2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&bv[k]));
+      s = fmaf(x2.y, w2.y, fmaf(x2.x, w2.x, s));
+    }
+  }
+  return s;
+}
+
+// s[col] += sum over the 64 rows of tile(r, col), for col < n, by the whole
+// block: four threads a column, each over rows q, q + 4, ... (q = tid % 4,
+// which puts a warp's reads on distinct banks), added up by shuffles.
+template <typename T>
+__device__ __forceinline__ void add_column_sums(float* s, const T* tile, int n) {
+  static_assert(NT == 4 * BT, "four threads a column");
+  using L = BwdTile<T>;
+  const int col = threadIdx.x / 4, q = threadIdx.x % 4;
+  float v = 0.f;
+#pragma unroll
+  for (int i = 0; i < BT / 4; ++i) v += to_f(tile[L::off(4 * i + q, col)]);
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  v += __shfl_xor_sync(0xffffffffu, v, 2);
+  if (q == 0 && col < n) s[col] += v;
+}
+
+// Position of entry (m, n) of chunk q's 64x64 weight-gradient sum in fragment
+// order: the warp whose piece holds it, its n-tile, the lane and the element.
+__device__ __forceinline__ int frag_index(int q, int m, int n) {
+  const int warp = m / 16 + 4 * (n / 32), j = n % 32 / 8;
+  const int lane = 4 * (m % 8) + n % 8 / 2, e = 2 * (m % 16 / 8) + n % 2;
+  return q * BT * BT + (((warp * 4 + j) * 32 + lane) * 4 + e);
+}
+
+// s += acc for the warp's piece of one chunk's sum, in fragment order.
+__device__ __forceinline__ void add_piece(float* s, int warp, int lane, const float (&acc)[4][4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    float4* p = reinterpret_cast<float4*>(s + ((warp * 4 + j) * 32 + lane) * 4);
+    float4 v = *p;
+    v.x += acc[j][0], v.y += acc[j][1], v.z += acc[j][2], v.w += acc[j][3];
+    *p = v;
   }
 }
 
 template <typename T>
-__global__ void __launch_bounds__(NT) ff_bwd_kernel(
+__global__ void __launch_bounds__(NT, 1) ff_bwd_kernel(
     const T* __restrict__ x, const T* __restrict__ g, const T* __restrict__ w1,
     const T* __restrict__ b1, const T* __restrict__ w2, T* __restrict__ dx,
     float* __restrict__ partial, int rows, int cin, int hidden, int cout, int w1_sc, int w1_sh,
     int w2_sh, int w2_so) {
-  extern __shared__ float smem[];
-  float* xs = smem;           // [row][c]
-  float* gs = xs + TD * LD;   // [row][o]
-  float* w1s = gs + TD * LD;  // [c][j]: W1[c, h0 + j]
-  float* w2s = w1s + TD * LD; // [j][o]: W2[h0 + j, o]
-  float* hs = w2s + TD * LD;  // [row][j]
-  float* dhs = hs + TD * LD;  // [row][j]
-  float* sums = dhs + TD * LD;
-  float* s_w1 = sums;                           // [cin][hidden]
-  float* s_b1 = s_w1 + (size_t)cin * hidden;    // [hidden]
-  float* s_w2 = s_b1 + hidden;                  // [hidden][cout]
-  float* s_b2 = s_w2 + (size_t)hidden * cout;   // [cout]
-  const int n_sums = (int)bwd_sum_floats(cin, hidden, cout);
+  using L = BwdTile<T>;
+  constexpr int TE = BT * L::ld;  // elements of one staged tile
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* xs = reinterpret_cast<T*>(smem_raw);  // [row][c]
+  T* gs = xs + TE;                          // [row][o]
+  T* w1t = gs + TE;                         // [j][c]: W1[c, h0 + j]
+  T* w2t = w1t + TE;                        // [o][j]: W2[h0 + j, o]
+  T* hs = w2t + TE;                         // [row][j]
+  T* dhs = hs + TE;                         // [row][j]
+  const int chunks = (hidden + BT - 1) / BT;
+  float* sums = reinterpret_cast<float*>(dhs + TE);
+  float* s_w1 = sums;                                 // dW1 per chunk, fragment order
+  float* s_w2 = s_w1 + (size_t)chunks * BT * BT;      // dW2 per chunk, fragment order
+  float* s_b1 = s_w2 + (size_t)chunks * BT * BT;      // [chunks * 64]
+  float* s_b2 = s_b1 + chunks * BT;                   // [64]
+  float* b1s = s_b2 + BT;                             // [chunks * 64]: b1, zero-padded
+  const int n_sums = (int)bwd_sum_floats(chunks);
 
-  const int tid = threadIdx.x;
-  const int tx = tid % TX;
-  const int ty = tid / TX;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gl = lane / 4, tl = lane % 4;
+  const int m0 = 16 * (warp % 4), n0 = 32 * (warp / 4);
   for (int i = tid; i < n_sums; i += NT) sums[i] = 0.f;
+  for (int i = tid; i < chunks * BT; i += NT) b1s[i] = i < hidden ? to_f(b1[i]) : 0.f;
 
-  const int n_tiles = (rows + TD - 1) / TD;
+  const int n_tiles = (rows + BT - 1) / BT;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int64_t row0 = (int64_t)tile * TD;
+    const int64_t row0 = (int64_t)tile * BT;
+    const int n_rows = rows - row0 < BT ? (int)(rows - row0) : BT;
     __syncthreads();  // the sums are zeroed; the last tile's tiles are consumed
-    // Element i of a 64x64 tile is (i / 64, i % 64); out-of-range entries are zeros.
-    for (int i = tid; i < TD * TD; i += NT) {
-      const int r = i / TD;
-      const int c = i % TD;
-      const int64_t gr = row0 + r;
-      xs[r * LD + c] = gr < rows && c < cin ? to_f(x[gr * cin + c]) : 0.f;
-      gs[r * LD + c] = gr < rows && c < cout ? to_f(g[gr * cout + c]) : 0.f;
-    }
+    stage_tile(xs, x + row0 * cin, cin, 1, n_rows, cin);
+    stage_tile(gs, g + row0 * cout, cout, 1, n_rows, cout);
+    cp_async_commit();
+    cp_async_wait_all();
     __syncthreads();
-    if (tid < cout) {
-      float s = 0.f;
-      for (int r = 0; r < TD; ++r) s += gs[r * LD + tid];
-      s_b2[tid] += s;
-    }
+    add_column_sums(s_b2, gs, cout);
 
-    float dxa[RT][NQ];
-#pragma unroll
-    for (int r = 0; r < RT; ++r)
-#pragma unroll
-      for (int q = 0; q < NQ; ++q) dxa[r][q] = 0.f;
-
-    for (int h0 = 0; h0 < hidden; h0 += TD) {
+    float dxa[4][4];
+    zero(dxa);
+    for (int q = 0; q < chunks; ++q) {
+      const int h0 = q * BT, n_h = min(BT, hidden - h0);
       __syncthreads();  // the last chunk's W1, W2, h and dh tiles are consumed
-      // W1 is staged with c fastest and W2 with j fastest: the order of the
-      // model's weight.t() views in memory.
-      for (int i = tid; i < TD * TD; i += NT) {
-        const int a = i % TD;
-        const int b = i / TD;
-        const int gh_b = h0 + b;
-        const int gh_a = h0 + a;
-        w1s[a * LD + b] = a < cin && gh_b < hidden ? to_f(w1[a * w1_sc + gh_b * w1_sh]) : 0.f;
-        w2s[a * LD + b] = gh_a < hidden && b < cout ? to_f(w2[gh_a * w2_sh + b * w2_so]) : 0.f;
+      stage_tile(w1t, w1 + (int64_t)h0 * w1_sh, w1_sh, w1_sc, n_h, cin);
+      stage_tile(w2t, w2 + (int64_t)h0 * w2_sh, w2_so, w2_sh, cout, n_h);
+      cp_async_commit();
+      cp_async_wait_all();
+      __syncthreads();
+
+      float pre[4][4], gp[4][4], mag[4][4];
+      zero(pre);
+      zero(gp);
+      zero(mag);
+      warp_mm<false, false>(xs, w1t, m0, n0, lane, pre, mag);  // x @ W1, |x| @ |W1|
+      warp_mm<false, true>(gs, w2t, m0, n0, lane, gp);         // g @ W2^T
+#pragma unroll
+      // pre += b1; the elements within 2^-15 S of 0 again on CUDA cores (one
+      // call site, on a branch that is rarely taken).
+      unsigned need = 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          pre[j][e] += b1s[h0 + n0 + 8 * j + 2 * tl + e % 2];
+          if (fabsf(pre[j][e]) < kMaskEps * mag[j][e]) need |= 1u << (4 * j + e);
+        }
+      while (need) {
+        const int k = __ffs(need) - 1, e = k % 4;
+        const int col = n0 + 8 * (k / 4) + 2 * tl + e % 2;
+        need &= need - 1;
+        const float v = fma_chain(xs, w1t, m0 + gl + 8 * (e / 2), col) + b1s[h0 + col];
+#pragma unroll
+        for (int i = 0; i < 16; ++i)
+          if (i == k) pre[i / 4][i % 4] = v;
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = n0 + 8 * j + 2 * tl;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = m0 + gl + 8 * half;
+          const float p0 = pre[j][2 * half], p1 = pre[j][2 * half + 1];
+          store2(hs + L::off(r, col), fmaxf(p0, 0.f), fmaxf(p1, 0.f));
+          store2(dhs + L::off(r, col), p0 > 0.f ? gp[j][2 * half] : 0.f,
+                 p1 > 0.f ? gp[j][2 * half + 1] : 0.f);
+        }
       }
       __syncthreads();
 
-      float pre[RT][NQ], gp[RT][NQ];
-#pragma unroll
-      for (int r = 0; r < RT; ++r)
-#pragma unroll
-        for (int q = 0; q < NQ; ++q) pre[r][q] = gp[r][q] = 0.f;
-      tile_mm<LD, 1, LD, 1>(xs, w1s, pre);  // x @ W1
-      tile_mm<LD, 1, 1, LD>(gs, w2s, gp);   // g @ W2^T
-#pragma unroll
-      for (int q = 0; q < NQ; ++q) {
-        const int j = tx + TX * q;
-        const float bb = h0 + j < hidden ? to_f(b1[h0 + j]) : 0.f;
-#pragma unroll
-        for (int r = 0; r < RT; ++r) {
-          const float p = pre[r][q] + bb;
-          hs[(ty * RT + r) * LD + j] = to_f(from_f<T>(fmaxf(p, 0.f)));
-          dhs[(ty * RT + r) * LD + j] = to_f(from_f<T>(p > 0.f ? gp[r][q] : 0.f));
-        }
-      }
-      __syncthreads();
-
-      tile_mm<LD, 1, 1, LD>(dhs, w1s, dxa);  // dx += dh @ W1^T
-      float t[RT][NQ];
-#pragma unroll
-      for (int r = 0; r < RT; ++r)
-#pragma unroll
-        for (int q = 0; q < NQ; ++q) t[r][q] = 0.f;
-      tile_mm<1, LD, LD, 1>(xs, dhs, t);  // x^T dh: rows (c), columns (j)
-#pragma unroll
-      for (int r = 0; r < RT; ++r) {
-        const int c = ty * RT + r;
-#pragma unroll
-        for (int q = 0; q < NQ; ++q) {
-          const int gh = h0 + tx + TX * q;
-          if (c < cin && gh < hidden) s_w1[c * hidden + gh] += t[r][q];
-          t[r][q] = 0.f;
-        }
-      }
-      tile_mm<1, LD, LD, 1>(hs, gs, t);  // h^T g: rows (j), columns (o)
-#pragma unroll
-      for (int r = 0; r < RT; ++r) {
-        const int gh = h0 + ty * RT + r;
-#pragma unroll
-        for (int q = 0; q < NQ; ++q) {
-          const int o = tx + TX * q;
-          if (gh < hidden && o < cout) s_w2[gh * cout + o] += t[r][q];
-        }
-      }
-      if (tid < TD && h0 + tid < hidden) {
-        float s = 0.f;
-        for (int r = 0; r < TD; ++r) s += dhs[r * LD + tid];
-        s_b1[h0 + tid] += s;
-      }
+      warp_mm<false, true>(dhs, w1t, m0, n0, lane, dxa);  // dx += dh @ W1^T
+      float t[4][4];
+      zero(t);
+      warp_mm<true, true>(xs, dhs, m0, n0, lane, t);  // x^T dh: rows c, columns j
+      add_piece(s_w1 + (size_t)q * BT * BT, warp, lane, t);
+      zero(t);
+      warp_mm<true, true>(hs, gs, m0, n0, lane, t);  // h^T g: rows j, columns o
+      add_piece(s_w2 + (size_t)q * BT * BT, warp, lane, t);
+      add_column_sums(s_b1 + h0, dhs, n_h);
     }
 
 #pragma unroll
-    for (int r = 0; r < RT; ++r) {
-      const int64_t gr = row0 + ty * RT + r;
-      if (gr >= rows) continue;
+    for (int j = 0; j < 4; ++j) {
+      const int col = n0 + 8 * j + 2 * tl;
 #pragma unroll
-      for (int q = 0; q < NQ; ++q) {
-        const int c = tx + TX * q;
-        if (c < cin) dx[gr * cin + c] = from_f<T>(dxa[r][q]);
+      for (int half = 0; half < 2; ++half) {
+        const int64_t gr = row0 + m0 + gl + 8 * half;
+        if (gr >= rows) continue;
+        T* p = dx + gr * cin + col;
+        if (cin % 2 == 0) {
+          if (col < cin) store2(p, dxa[j][2 * half], dxa[j][2 * half + 1]);
+        } else {
+          if (col < cin) p[0] = from_f<T>(dxa[j][2 * half]);
+          if (col + 1 < cin) p[1] = from_f<T>(dxa[j][2 * half + 1]);
+        }
       }
     }
   }
   __syncthreads();
-  float* dst = partial + (int64_t)blockIdx.x * n_sums;
-  for (int i = tid; i < n_sums; i += NT) dst[i] = sums[i];
+  // The partial row in output order: dW1 [cin, hidden], db1, dW2 [hidden, cout], db2.
+  float* dst = partial + (int64_t)blockIdx.x * bwd_out_floats(cin, hidden, cout);
+  const int n_w1 = cin * hidden, n_w2 = hidden * cout;
+  for (int i = tid; i < n_w1; i += NT) {
+    const int c = i / hidden, h = i % hidden;
+    dst[i] = s_w1[frag_index(h / BT, c, h % BT)];
+  }
+  for (int i = tid; i < hidden; i += NT) dst[n_w1 + i] = s_b1[i];
+  for (int i = tid; i < n_w2; i += NT) {
+    const int h = i / cout, o = i % cout;
+    dst[n_w1 + hidden + i] = s_w2[frag_index(h / BT, h % BT, o)];
+  }
+  for (int i = tid; i < cout; i += NT) dst[n_w1 + hidden + n_w2 + i] = s_b2[i];
 }
 
 // out[i] = sum over blocks b = 0, 1, ... of partial[b][i], in that order.
@@ -654,7 +904,8 @@ cudaError_t launch_bwd(const void* x, const void* g, const void* w1, const void*
                        const void* w2, void* dx, float* partial, float* out, int rows, int cin,
                        int hidden, int cout, int w1_sc, int w1_sh, int w2_sh, int w2_so,
                        int blocks, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * bwd_smem_floats(cin, hidden, cout);
+  const size_t smem = bwd_smem_bytes<T>(hidden);
+  if (smem > (size_t)MAX_SMEM) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(ff_bwd_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -664,7 +915,7 @@ cudaError_t launch_bwd(const void* x, const void* g, const void* w1, const void*
       cin, hidden, cout, w1_sc, w1_sh, w2_sh, w2_so);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int n = (int)bwd_sum_floats(cin, hidden, cout);
+  const int n = bwd_out_floats(cin, hidden, cout);
   ff_bwd_reduce_kernel<<<(n + NT - 1) / NT, NT, 0, stream>>>(partial, blocks, n, out);
   return cudaGetLastError();
 }
@@ -757,8 +1008,8 @@ extern "C" int ff_bwd(int dtype, const void* x, const void* g, const void* w1, c
                       const void* w2, void* dx, void* partial, void* out, int rows, int cin,
                       int hidden, int cout, int w1_sc, int w1_sh, int w2_sh, int w2_so,
                       int blocks, void* stream) {
-  if (rows <= 0 || cin <= 0 || cin > TD || hidden <= 0 || cout <= 0 || cout > TD ||
-      blocks <= 0 || blocks > (rows + TD - 1) / TD)
+  if (rows <= 0 || cin <= 0 || cin > BT || hidden <= 0 || cout <= 0 || cout > BT ||
+      blocks <= 0 || blocks > (rows + BT - 1) / BT)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* p = static_cast<float*>(partial);
@@ -772,6 +1023,8 @@ extern "C" int ff_bwd(int dtype, const void* x, const void* g, const void* w1, c
   return (int)cudaErrorInvalidValue;
 }
 
-extern "C" long long ff_bwd_smem_bytes(int cin, int hidden, int cout) {
-  return (long long)(sizeof(float) * bwd_smem_floats(cin, hidden, cout));
+// Shared memory bytes one backward block needs (dtype as in ff_bwd).
+extern "C" long long ff_bwd_smem_bytes(int dtype, int hidden) {
+  return dtype == 0 ? (long long)bwd_smem_bytes<float>(hidden)
+                    : (long long)bwd_smem_bytes<__nv_bfloat16>(hidden);
 }

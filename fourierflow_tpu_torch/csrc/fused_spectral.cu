@@ -41,9 +41,12 @@
 //
 // Types: x is float or bf16; the mode weights are float or x's type, and are
 // rounded to x's type when they are wider (as the plain version casts them).
-// The bases, all arithmetic and the spectra are f32. The first branch may
-// write an f32 scratch (used for bf16 output so the sum is rounded once);
-// `prev`, when given, is an f32 array added before the store. Plain C
+// All arithmetic is f32. For bf16 x the kernel rounds where the JAX kernel's
+// _branch does: the bases as they are staged, the spectra s as they are
+// stored, and the mixed spectra y as they are stored (round_as, a no-op for
+// f32 x); the inverse product stays f32. The first branch may write an f32
+// scratch (used for bf16 output so the sum of the two branches is rounded
+// once); `prev`, when given, is an f32 array added before the store. Plain C
 // interface, loaded with ctypes.
 
 #include <cuda_bf16.h>
@@ -63,9 +66,12 @@ template <> __device__ __forceinline__ float from_f<float>(float v) { return v; 
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
+// v rounded to x's type TI, in f32.
+template <typename TI>
+__device__ __forceinline__ float round_as(float v) { return to_f(from_f<TI>(v)); }
 // A mode weight of type TW as x's type TI would hold it, in f32.
 template <typename TI, typename TW>
-__device__ __forceinline__ float weight_f(TW v) { return to_f(from_f<TI>(to_f(v))); }
+__device__ __forceinline__ float weight_f(TW v) { return round_as<TI>(to_f(v)); }
 
 // Real and imaginary part of one mode weight; `pair` when they are adjacent
 // and aligned, so that one load fetches both.
@@ -130,12 +136,12 @@ __global__ void __launch_bounds__(NT) spectral_axis_kernel(
   for (int i = tid; i < n * KP; i += NT) {
     const int t = i / KP;
     const int k = i - t * KP;
-    et[i] = k < K ? fwd[t * K + k] : 0.f;
+    et[i] = k < K ? round_as<TI>(fwd[t * K + k]) : 0.f;
   }
   for (int i = tid; i < K * NP; i += NT) {
     const int k = i / NP;
     const int t = i - k * NP;
-    cb[i] = t < n ? inv[k * n + t] : 0.f;
+    cb[i] = t < n ? round_as<TI>(inv[k * n + t]) : 0.f;
   }
   for (int i = tid; i < L * n * C; i += NT) {
     const int l = i / (n * C);
@@ -177,7 +183,7 @@ __global__ void __launch_bounds__(NT) spectral_axis_kernel(
       float* sl = s + (l * C + c) * KS + k0;
 #pragma unroll
       for (int q = 0; q < KC; ++q)
-        if (k0 + q < K) sl[q] = acc[q];
+        if (k0 + q < K) sl[q] = round_as<TI>(acc[q]);
     }
   }
   __syncthreads();
@@ -204,8 +210,8 @@ __global__ void __launch_bounds__(NT) spectral_axis_kernel(
     }
 #pragma unroll
     for (int l = 0; l < L; ++l) {
-      y[(l * C + o) * KS + m] = yr[l];
-      y[(l * C + o) * KS + modes + m] = yi[l];
+      y[(l * C + o) * KS + m] = round_as<TI>(yr[l]);
+      y[(l * C + o) * KS + modes + m] = round_as<TI>(yi[l]);
     }
   }
   __syncthreads();

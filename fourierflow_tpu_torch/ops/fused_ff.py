@@ -22,12 +22,14 @@ MB f32 (19.9 MB bf16), about 31 us in f32 (operations) and 6 us in bf16
 (memory); backward 12.75 GFLOP and 59.8 MB f32, about 77 us in f32 and 13
 us in bf16 (operations). The kernel sources describe the tiling.
 
-Rounding, as in the JAX kernels: products and sums run in float32, and
-the hidden layer ``h`` and its gradient ``dh`` are rounded to x's type
-before any product or sum uses them (in bf16 the forward kernel feeds
-``h`` to the tensor cores in bf16). ``out`` and ``dx`` come out in x's
-type; weight and bias gradients come out in float32 and the Function casts
-them to the parameters' type. In float32 no rounding happens.
+Both kernels run their products on tensor cores (``mma.sync``: bf16 with
+float32 sums, and in float32 three TF32 products per product, which keeps
+float32 accuracy). Rounding, as in the JAX kernels: products and sums run
+in float32, and the hidden layer ``h`` and its gradient ``dh`` are rounded
+to x's type before any product or sum uses them (in bf16 both kernels feed
+them to the tensor cores in bf16). ``out`` and ``dx`` come out in x's type;
+weight and bias gradients come out in float32 and the Function casts them
+to the parameters' type. In float32 no rounding happens.
 """
 
 import ctypes
@@ -45,7 +47,7 @@ _MAX_C = 64  # C_in and C_out bound of both kernels (register fragments, 64-wide
 _FWD_PAD, _FWD_HC = 8, 64  # as PAD and HC in csrc/fused_ff.cu
 # Warps of a forward block and rows of a warp tile (FwdShape<T> in the source).
 _FWD_SHAPE = {torch.float32: (8, 16), torch.bfloat16: (8, 32)}
-_TILE_ROWS = 64  # rows per tile of the backward kernel
+_BWD_TILE = 64  # rows per tile, hidden chunk and C bound of the backward kernel (BT in the source)
 
 
 def fused_ff_plain(x, w1, b1, w2, b2):
@@ -84,7 +86,7 @@ def _lib():
     lib.ff_fwd_smem_bytes.restype = ll
     lib.ff_bwd.argtypes = [i, vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, i, i, i, i, vp]
     lib.ff_bwd.restype = i
-    lib.ff_bwd_smem_bytes.argtypes = [i, i, i]
+    lib.ff_bwd_smem_bytes.argtypes = [i, i]
     lib.ff_bwd_smem_bytes.restype = ll
     return lib
 
@@ -97,6 +99,18 @@ def _fwd_smem_bytes(hidden, cout, dtype):
     elems = (warps * warp_rows * (_MAX_C + _FWD_PAD) + hidden * (_MAX_C + _FWD_PAD)
              + _MAX_C * (hidden + _FWD_PAD))
     return elems * (torch.finfo(dtype).bits // 8) + 4 * (hidden + cout)
+
+
+def _bwd_smem_bytes(hidden, dtype):
+    """Shared memory of one backward block (``bwd_smem_bytes`` in the source):
+    six staged 64x64 tiles in x's type (bf16 rows padded to 72 elements),
+    the float32 sums of every 64-wide chunk of H (dW1 and dW2 64 x 64 each,
+    db1) and db2, and b1 in float32 (padded to whole chunks)."""
+    chunks = -(-hidden // _BWD_TILE)
+    ld = _BWD_TILE if dtype == torch.float32 else _BWD_TILE + 8
+    sums = 2 * chunks * _BWD_TILE ** 2 + chunks * _BWD_TILE + _BWD_TILE
+    tiles = 6 * _BWD_TILE * ld * (torch.finfo(dtype).bits // 8)
+    return tiles + 4 * (sums + chunks * _BWD_TILE)
 
 
 def _check_args(x, w1, b1, w2, b2=None, g=None):
@@ -120,8 +134,13 @@ def _check_args(x, w1, b1, w2, b2=None, g=None):
             raise ValueError(f"fused_ff kernel needs a contiguous {name}")
     if cout > _MAX_C:
         raise ValueError(f"fused_ff kernel takes C_out <= {_MAX_C}, got {cout}")
-    if g is not None and cin > _MAX_C:
-        raise ValueError(f"fused_ff backward kernel takes C_in <= {_MAX_C}, got {cin}")
+    if g is not None:
+        if cin > _MAX_C:
+            raise ValueError(f"fused_ff backward kernel takes C_in <= {_MAX_C}, got {cin}")
+        need = _bwd_smem_bytes(hidden, x.dtype)
+        if need > _cuda.MAX_SMEM:
+            raise ValueError(f"fused_ff backward: H={hidden} needs {need} B of shared memory in "
+                             f"{x.dtype}, more than {_cuda.MAX_SMEM}")
     if b2 is not None:
         if cin > _MAX_C or cin % 16:
             raise ValueError(f"fused_ff kernel takes C_in a multiple of 16 and <= {_MAX_C}, "
@@ -180,11 +199,7 @@ def fused_ff_bwd_cuda(x, g, w1, b1, w2):
     if rows == 0:
         return grads
     lib = _lib()
-    need = lib.ff_bwd_smem_bytes(cin, hidden, cout)
-    if need > _cuda.MAX_SMEM:
-        raise ValueError(f"fused_ff backward: C_in={cin}, H={hidden}, C_out={cout} needs "
-                         f"{need} B of shared memory")
-    blocks = min(-(-rows // _TILE_ROWS), _sm_count(x.device.index))
+    blocks = min(-(-rows // _BWD_TILE), _sm_count(x.device.index))
     partial = torch.empty(blocks, n, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         err = lib.ff_bwd(_DTYPE_CODE[x.dtype], x.data_ptr(), g.data_ptr(), w1.data_ptr(),

@@ -11,14 +11,19 @@ tensor both launch the hand-written kernel ``csrc/fused_spectral.cu``
 (which replaces the TPU kernel ``pallas_spectral.py::_make_mix_kernel``) or
 raise; they never fall back. The kernel transforms along one axis given by
 strides, so one call is two launches on the current stream: the Y branch
-writes, the X branch adds. For bf16 the Y branch writes a float32 scratch
-that the X branch reads, so the sum is rounded once, as in the plain
-version. The kernel reads the ``[C, C, M, 2]`` weights through their
-strides, in float32 or x's type, so the wrapper passes the parameters as
-they are. The gradient with respect to x is the same kernel on the adjoint
-operator, as ``_fused_mix_bwd`` launches the TPU kernel: transposed bases
-swapped, weights read (i, o)-transposed through swapped strides and
-conjugated in the kernel. The weight gradients are einsums over recomputed
+writes, the X branch adds. In bf16 both the kernel and the plain version
+round where the JAX kernel's ``_branch`` rounds: the bases, the spectra
+after the forward product and the mixed spectra, each to bf16, with every
+product and sum in float32; the Y branch writes a float32 scratch that
+the X branch reads, so the sum of the two branches is rounded once. The
+weight gradients round their spectra and products as ``_fused_mix_bwd``'s
+einsums in x's type do. In float32 nothing is rounded. The kernel reads
+the ``[C, C, M, 2]`` weights through their strides, in float32 or x's
+type, so the wrapper passes the parameters as they are. The gradient with
+respect to x is the same kernel on the adjoint operator, as
+``_fused_mix_bwd`` launches the TPU kernel: transposed bases swapped,
+weights read (i, o)-transposed through swapped strides and conjugated in
+the kernel. The weight gradients are einsums over recomputed
 spectra (:func:`ops.spectral.mix_axis_wgrad`), outside any kernel, as the
 JAX package leaves them to XLA. ``fused_mix_2d.launches`` and
 ``fused_mix_2d_adjoint.launches`` count calls that reached the kernel (one
@@ -46,16 +51,19 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def fused_mix_2d_plain(x: torch.Tensor, wy: torch.Tensor, wx: torch.Tensor) -> torch.Tensor:
-    """The plain PyTorch version: Y-axis branch + X-axis branch, summed in
+    """The plain PyTorch version: Y-axis branch + X-axis branch, each rounding
+    its bases and spectra to x's type as the JAX kernel does, summed in
     float32 and rounded once to x's type."""
-    return (mix_axis_f32(x, wy, 2) + mix_axis_f32(x, wx, 1)).to(x.dtype)
+    return (mix_axis_f32(x, wy, 2, round_to=x.dtype)
+            + mix_axis_f32(x, wx, 1, round_to=x.dtype)).to(x.dtype)
 
 
 def fused_mix_2d_adjoint_plain(g: torch.Tensor, wy: torch.Tensor, wx: torch.Tensor) -> torch.Tensor:
     """The gradient of :func:`fused_mix_2d_plain` with respect to x, given
-    the output gradient ``g``: both branches' adjoints, summed in float32
-    and rounded once to g's type."""
-    return (mix_axis_f32(g, wy, 2, adjoint=True) + mix_axis_f32(g, wx, 1, adjoint=True)).to(g.dtype)
+    the output gradient ``g``: both branches' adjoints, rounding as the
+    forward does, summed in float32 and rounded once to g's type."""
+    return (mix_axis_f32(g, wy, 2, adjoint=True, round_to=g.dtype)
+            + mix_axis_f32(g, wx, 1, adjoint=True, round_to=g.dtype)).to(g.dtype)
 
 
 @functools.lru_cache(maxsize=1)
@@ -167,8 +175,9 @@ class _FusedMix2d(torch.autograd.Function):
         g = g.contiguous()
         need_x, need_wy, need_wx = ctx.needs_input_grad
         dx = fused_mix_2d_adjoint(g, wy, wx) if need_x else None
-        dwy = mix_axis_wgrad(x, g, wy.shape[2], 2).to(wy.dtype) if need_wy else None
-        dwx = mix_axis_wgrad(x, g, wx.shape[2], 1).to(wx.dtype) if need_wx else None
+        wgrad = lambda w, axis: mix_axis_wgrad(x, g, w.shape[2], axis, round_to=x.dtype).to(w.dtype)
+        dwy = wgrad(wy, 2) if need_wy else None
+        dwx = wgrad(wx, 1) if need_wx else None
         return dx, dwy, dwx
 
 

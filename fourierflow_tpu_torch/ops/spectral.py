@@ -57,18 +57,33 @@ def _spatial_axis(x: torch.Tensor, axis: int) -> int:
     return axis
 
 
+def _rounder(dtype):
+    """``t -> t`` rounded to ``dtype`` and back to float32, or None where
+    that is a no-op (no dtype, or float32)."""
+    if dtype is None or dtype == torch.float32:
+        return None
+    return lambda t: t.to(dtype).float()
+
+
 def mix_axis_f32(x: torch.Tensor, weight: torch.Tensor, axis: int,
-                 adjoint: bool = False) -> torch.Tensor:
+                 adjoint: bool = False, round_to: torch.dtype = None) -> torch.Tensor:
     """:func:`spectral_mix_axis` before its result is rounded to x's type.
 
     With ``adjoint`` it applies the adjoint operator instead (the gradient
     with respect to x of ``sum(g * mix_axis_f32(x, weight, axis))`` at
     ``x = g``): the two bases swap places transposed, and the weights are
     (i, o)-transposed and conjugated, as the CUDA kernel's adjoint launch
-    does."""
+    does.
+
+    With ``round_to`` (bf16) it rounds where the JAX kernel's ``_branch``
+    does: the bases, the spectra after the forward product and the mixed
+    spectra after the mix; the products and sums stay float32."""
     axis = _spatial_axis(x, axis)
     n, modes = x.shape[axis], weight.shape[2]
     er, ei, cr, ci = dft_bases(n, modes, x.device)
+    rnd = _rounder(round_to)
+    if rnd:
+        er, ei, cr, ci = map(rnd, (er, ei, cr, ci))
     xm = x.movedim(axis, -2).float()                      # [..., n, Ci]
     w = weight.to(x.dtype).float()
     wr, wi = w[..., 0], w[..., 1]                         # [Ci, Co, M]
@@ -77,29 +92,49 @@ def mix_axis_f32(x: torch.Tensor, weight: torch.Tensor, axis: int,
         wr, wi = wr.transpose(0, 1), -wi.transpose(0, 1)
     sr = torch.einsum("...nc,nm->...mc", xm, er)
     si = torch.einsum("...nc,nm->...mc", xm, ei)
+    if rnd:
+        sr, si = rnd(sr), rnd(si)
     yr = torch.einsum("...mi,iom->...mo", sr, wr) - torch.einsum("...mi,iom->...mo", si, wi)
     yi = torch.einsum("...mi,iom->...mo", sr, wi) + torch.einsum("...mi,iom->...mo", si, wr)
+    if rnd:
+        yr, yi = rnd(yr), rnd(yi)
     out = torch.einsum("...mo,mn->...no", yr, cr) + torch.einsum("...mo,mn->...no", yi, ci)
     return out.movedim(-2, axis)
 
 
-def mix_axis_wgrad(x: torch.Tensor, g: torch.Tensor, modes: int, axis: int) -> torch.Tensor:
+def mix_axis_wgrad(x: torch.Tensor, g: torch.Tensor, modes: int, axis: int,
+                   round_to: torch.dtype = None) -> torch.Tensor:
     """Gradient of ``sum(g * mix_axis_f32(x, weight, axis))`` with respect to
     the ``[Ci, Co, M, 2]`` weight, in float32: the forward spectra of x
     against the inverse-basis spectra of g, summed over every other axis
-    (``_spectra``/``wgrad`` of ``fourierflow_tpu/ops/pallas_spectral.py``)."""
+    (``_spectra``/``wgrad`` of ``fourierflow_tpu/ops/pallas_spectral.py``).
+
+    With ``round_to`` (bf16) it rounds as that code's einsums in x's type
+    do: g and the bases to ``round_to``, each spectrum and each of the four
+    spectrum products once after its float32 sum, and the real and
+    imaginary sums of two products once more."""
     axis = _spatial_axis(x, axis)
     n = x.shape[axis]
     fwd, inv = stacked_bases(n, modes, x.device)
+    rnd = _rounder(round_to)
+    if rnd:
+        fwd, inv, g = rnd(fwd), rnd(inv), g.to(round_to)
 
     def spectra(t, basis):  # [M, N, 2C]: (real | imaginary) channels; N is every other axis
         lead, c = math.prod(t.shape[:axis]), t.shape[-1]
         s = basis @ t.float().reshape(lead, n, -1)          # [lead, 2M, rest * C], no copy of t
+        if rnd:
+            s = rnd(s)
         s = s.reshape(lead, 2, modes, -1, c).permute(2, 0, 3, 1, 4)
         return s.reshape(modes, -1, 2 * c)
 
     # One product per mode gives all four real blocks [[sr'hr, sr'hi], [si'hr, si'hi]].
     ci, co = x.shape[-1], g.shape[-1]
     u = spectra(x, fwd.t()).mT @ spectra(g, inv)            # [M, 2Ci, 2Co]
+    if rnd:
+        u = rnd(u)
     rr, ri, ir, ii = u[:, :ci, :co], u[:, :ci, co:], u[:, ci:, :co], u[:, ci:, co:]
-    return torch.stack([rr + ii, ri - ir], dim=-1).permute(1, 2, 0, 3)
+    dwr, dwi = rr + ii, ri - ir
+    if rnd:
+        dwr, dwi = rnd(dwr), rnd(dwi)
+    return torch.stack([dwr, dwi], dim=-1).permute(1, 2, 0, 3)

@@ -158,17 +158,18 @@ def test_fused_mix_2d_non_square_matches_two_jax_branches():
     _close_to_max(got, want)
 
 
-def test_fused_mix_2d_bf16_sums_in_f32_and_rounds_once():
-    """In bf16 the two branches are summed in float32 and rounded once, as
-    the kernel does; the weights are rounded to bf16 first."""
-    x, wy, wx = map(torch.from_numpy, _mix_inputs(sx=12, sy=10, m=3, seed=9))
-    xb = x.bfloat16()
-    f32 = lambda t: t.bfloat16().float()
-    want = (spectral_mix_axis(xb.float(), f32(wy), 2)
-            + spectral_mix_axis(xb.float(), f32(wx), 1)).bfloat16()
-    got = fused_mix_2d(xb, wy, wx)
+@pytest.mark.parametrize("n,m", [(16, 4), (16, 9), (15, 4)])
+def test_fused_mix_2d_bf16_matches_jax_interpret(n, m):
+    """bf16 forward against the JAX kernel in interpret mode: both round the
+    bases, the spectra and the mixed spectra to bf16 (``_branch``), sum the
+    two branches in float32 and round once, so the outputs agree to the
+    bit. The weights stay float32 parameters, rounded to bf16 inside."""
+    x, wy, wx = _mix_inputs(sx=n, sy=n, m=m, seed=n + m)
+    want = jax_fused_mix_2d(jnp.asarray(x, jnp.bfloat16), jnp.asarray(wy), jnp.asarray(wx), True)
+    want = _np(want.astype(jnp.float32))
+    got = fused_mix_2d(torch.from_numpy(x).bfloat16(), *map(torch.from_numpy, (wy, wx)))
     assert got.dtype == torch.bfloat16
-    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    np.testing.assert_array_equal(got.float().numpy(), want)
 
 
 def test_spectral_mix_axis_matches_torch_fft():
@@ -281,6 +282,34 @@ def test_fused_ff_kernel_argument_checks():
     # The backward kernel has its own limits: it takes C_in 8 and H 48.
     xb, w1b, b1b, w2b, _ = map(torch.from_numpy, _ff_inputs(6, cin=8, hidden=48, cout=8))
     _check_args(xb, w1b, b1b, w2b, g=torch.zeros(6, 8))
+    # Any C_in and C_out up to 64 (zero-padded to 64 in shared memory), and H up
+    # to what six staged 64x64 tiles and the float32 sums of every 64-wide chunk
+    # of H leave room for: 256 in float32, 320 in bf16.
+    from fourierflow_tpu_torch.ops.fused_ff import _bwd_smem_bytes
+
+    def bwd(rows=6, cin=16, hidden=64, cout=16, dtype=torch.float32):
+        a = [torch.from_numpy(t).to(dtype) for t in _ff_inputs(rows, cin, hidden, cout)[:4]]
+        _check_args(*a, g=torch.zeros(rows, cout, dtype=dtype))
+
+    bwd(cin=64, hidden=256, cout=64)
+    bwd(cin=32, hidden=128, cout=40)
+    bwd(cin=24, hidden=100, cout=12, dtype=torch.bfloat16)
+    bwd(cin=64, hidden=320, cout=64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="shared memory"):
+        bwd(cin=8, hidden=257, cout=8)
+    with pytest.raises(ValueError, match="shared memory"):
+        bwd(cin=8, hidden=321, cout=8, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="C_in <= 64"):
+        bwd(cin=80)
+    with pytest.raises(ValueError, match="C_out <= 64"):
+        bwd(cout=72)
+    # The formula, at the flagship (H 256) and the narrow shape (H 128): the
+    # tiles (6 x 64 x 64 f32, or 6 x 64 x 72 bf16), 2 x 64 x H + H + 64 sums
+    # and H of b1, 4 bytes each.
+    assert _bwd_smem_bytes(256, torch.float32) == 98_304 + 4 * (33_088 + 256)
+    assert _bwd_smem_bytes(256, torch.bfloat16) == 55_296 + 4 * (33_088 + 256)
+    assert _bwd_smem_bytes(128, torch.float32) == 98_304 + 4 * (16_576 + 128)
+    assert _bwd_smem_bytes(128, torch.bfloat16) == 55_296 + 4 * (16_576 + 128)
     # Tensors that need a gradient are taken: the backward kernel exists.
     _check_args(x.requires_grad_(), w1.requires_grad_(), b1, w2, b2)
     with torch.no_grad():

@@ -168,6 +168,30 @@ def test_fused_mix_2d_function_matches_jax_kernel_vjp(n, m):
         _close_to_max(a, b, what=name)
 
 
+@pytest.mark.parametrize("n,m", [(16, 4), (16, 9), (15, 4)])
+def test_fused_mix_2d_bf16_matches_jax_kernel_vjp(n, m):
+    """In bf16 the port's Function, forward and backward (dx, dwy, dwx),
+    against ``jax.vjp`` of the JAX kernel in interpret mode: both round the
+    bases and spectra to bf16 in the forward and adjoint launches, and in
+    the weight gradient round each spectrum, each einsum and each sum of
+    two einsums to bf16 before the cast to the parameters' float32.
+    Tolerance: at most 1 bf16 ulp per element, and at least 99.9% of the
+    elements of each result equal (all are, at these sizes, on the CPU)."""
+    args, g = _mix_inputs(sx=n, sy=n, m=m, seed=n + m + 1)
+    jargs = [jnp.asarray(args[0], jnp.bfloat16), *map(jnp.asarray, args[1:])]
+    out, vjp = jax.vjp(lambda *a: jax_fused_mix_2d(*a, True), *jargs)
+    want = [out, *vjp(jnp.asarray(g, jnp.bfloat16))]
+    leaves = [torch.from_numpy(args[0]).bfloat16().requires_grad_(),
+              *(torch.from_numpy(a).requires_grad_() for a in args[1:])]
+    got_out = fused_mix_2d(*leaves)
+    got = [got_out, *torch.autograd.grad(got_out, leaves, torch.from_numpy(g).bfloat16())]
+    for name, a, b in zip(("out", "dx", "dwy", "dwx"), got, want):
+        assert a.dtype == (torch.float32 if name.startswith("dw") else torch.bfloat16), name
+        a, b = a.detach().float().numpy(), np.asarray(b.astype(jnp.float32))
+        _within_one_bf16_ulp(a, b, name)
+        assert np.mean(a == b) >= 0.999, (name, np.mean(a == b))
+
+
 def test_fused_mix_2d_function_non_square_matches_jax_branches():
     args, g = _mix_inputs(sx=12, sy=10, m=3, seed=5)
 

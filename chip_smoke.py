@@ -11,12 +11,16 @@ Phases, each reporting on its own lines; every run goes through all six:
    model hands them over; with ragged rows (one row short of a whole tile,
    1037, 1 and 0), contiguous weights and a narrower shape for the
    feed-forward, and odd, non-square and Nyquist-mode grids, strided and
-   bf16 mode weights for the spectral mix and its adjoint; and the whole
+   bf16 mode weights, line counts that are not a multiple of the kernel's
+   10 lines a block, above one round of blocks and below one block, for the
+   spectral mix and its adjoint; two runs of each kernel at the flagship
+   bit-identical; and the whole
    backward of each autograd Function (dx, dW, db) against
    ``torch.autograd.grad`` through its plain forward.
-   The ``sass`` line counts the tensor-core instructions (HMMA) of the
+   The ``sass`` lines count the tensor-core instructions (HMMA) of the
    forward and backward feed-forward kernels in the built library
-   (``cuobjdump``).
+   (``cuobjdump``), hold the wrappers' shared-memory formulas to the
+   kernels' and give the spectral kernel's registers and spills.
 4. ``main`` (inference): a synthetic [38, 64, 64, 20] trajectory file made
    from the seed, the normalizer pass, a checkpoint, then the port's
    ``infer`` on the flagship config (24 layers, width 64) for a 10-step
@@ -68,7 +72,8 @@ from fourierflow_tpu_torch.ops.fused_ff import (  # noqa: E402
     _DTYPE_CODE, _bwd_smem_bytes, _fwd_smem_bytes, _lib, fused_ff_bwd_cuda, fused_ff_bwd_plain,
     fused_ff_cuda, fused_ff_plain)
 from fourierflow_tpu_torch.ops.fused_spectral import (  # noqa: E402
-    fused_mix_2d_adjoint_cuda, fused_mix_2d_adjoint_plain, fused_mix_2d_cuda, fused_mix_2d_plain)
+    _lib as _spectral_lib, _smem_bytes as _mix_smem_bytes, fused_mix_2d_adjoint_cuda,
+    fused_mix_2d_adjoint_plain, fused_mix_2d_cuda, fused_mix_2d_plain)
 from fourierflow_tpu_torch.utils.checkpoint import save_state  # noqa: E402
 
 CONFIG = "configs/torus_li/markov/24_layers.yaml"
@@ -103,6 +108,16 @@ TRAIN_TOL = 1e-3  # train step, kernel path vs plain path: max |err| / max |ref|
 # and a narrower shape than the flagship's that both FF kernels take.
 FF_TILE_ROWS = 256
 FF_NARROW = dict(cin=32, hidden=128, cout=40)
+# Spectral-mix grids (batch, X, Y, modes) and weight options checked on the
+# card: the flagship (1,216 lines an axis launch: 122 blocks of 10 lines, one
+# round on 132 SMs); odd, non-square and Nyquist-mode grids; strided weights
+# (copied to contiguous runs by the wrapper); 1,472 lines, not a multiple of
+# the kernel's 10 lines a block and more than one round; 7 and 9 lines, less
+# than one block; 20 channels (bf16 rows of x then are not 16-byte pieces).
+MIX_CASES = (((B, N, N, M), {}), ((2, 63, 65, M), {}), ((2, 32, 32, 17), {}),
+             ((3, 48, 40, 12), dict(strided=True)), ((23, N, N, M), {}), ((1, 7, 9, 4), {}),
+             ((2, 24, 20, 6), dict(c=20)))
+MIX_BF16_CASES = (((2, 40, 48, 12), dict(w_dtype=torch.bfloat16)),)
 
 
 def log(*args):
@@ -122,16 +137,16 @@ def ff_inputs(rows, dtype, dev, seed, model_layout=True, cin=C, hidden=H, cout=C
     return x, r(cin, hidden, scale=cin ** -0.5), b1, r(hidden, cout, scale=hidden ** -0.5), b2
 
 
-def mix_inputs(b, sx, sy, modes, dtype, dev, seed, w_dtype=torch.float32, strided=False):
+def mix_inputs(b, sx, sy, modes, dtype, dev, seed, w_dtype=torch.float32, strided=False, c=C):
     """x and two [C, C, M, 2] mode weights: float32 parameters as the model
     holds them, or ``w_dtype``; ``strided`` makes them non-contiguous views."""
     g = torch.Generator(device="cpu").manual_seed(seed)
-    x = torch.randn(b, sx, sy, C, generator=g).to(dev, dtype)
-    scale = (2.0 / (2 * C * modes * 2)) ** 0.5
+    x = torch.randn(b, sx, sy, c, generator=g).to(dev, dtype)
+    scale = (2.0 / (2 * c * modes * 2)) ** 0.5
     if strided:
-        w = lambda: (torch.randn(modes, 2, C, C, generator=g) * scale).to(dev, w_dtype).permute(2, 3, 0, 1)
+        w = lambda: (torch.randn(modes, 2, c, c, generator=g) * scale).to(dev, w_dtype).permute(2, 3, 0, 1)
     else:
-        w = lambda: (torch.randn(C, C, modes, 2, generator=g) * scale).to(dev, w_dtype)
+        w = lambda: (torch.randn(c, c, modes, 2, generator=g) * scale).to(dev, w_dtype)
     return x, w(), w()
 
 
@@ -247,11 +262,35 @@ def phase_build():
                 log(f"ptxas {name}: {line.strip()}")
 
 
+def ptxas_report(log, kernel):
+    """{instance: (registers, spill stores, spill loads)} of every entry
+    function whose name holds ``kernel``, from a ``-Xptxas -v`` log."""
+    report, name, spills = {}, None, (0, 0)
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if kernel in line else None
+        elif name and "spill stores" in line:
+            words = line.split()
+            spills = (int(words[words.index("spill") - 2]), int(words[-4]))
+        elif name and "Used" in line and "registers" in line:
+            words = line.split()
+            report[name] = (int(words[words.index("registers,") - 1]), *spills)
+            name = None
+    # Template arguments of each instance, demangled where c++filt is found.
+    tool, names = shutil.which("c++filt"), list(report)
+    if tool:
+        names = subprocess.run([tool], input="\n".join(names), capture_output=True, text=True,
+                               check=True, timeout=60).stdout.splitlines()
+    short = lambda s: s.split(kernel)[-1].split(">(")[0].lstrip("<").replace("__nv_bfloat16", "bf16")
+    return {short(s): v for s, v in zip(names, report.values(), strict=True)}
+
+
 def phase_sass():
     """Tensor-core (HMMA) and CUDA-core FMA (FFMA) instructions in each
     instantiation of the forward and backward FF kernels, from
     ``cuobjdump --dump-sass`` of the built library; fails if one has no
-    HMMA. Also holds the wrapper's shared-memory formulas to the kernel's."""
+    HMMA. Also holds the wrapper's shared-memory formulas to the kernels',
+    and prints the spectral kernel's registers and spills."""
     tool = shutil.which("cuobjdump") or os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump")
     lib = _cuda._lib_path("fused_ff")
     out = subprocess.run([tool, "--dump-sass", str(lib)], capture_output=True, text=True,
@@ -277,6 +316,25 @@ def phase_sass():
                 if got != want:
                     raise AssertionError(f"fused_ff {kernel}: the wrapper's shared-memory size for "
                                          f"{dtype}, H {hidden} is {got}, the kernel's {want}")
+    wtypes = ((torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+              (torch.bfloat16, torch.bfloat16))
+    for (_, sx, sy, modes), opts in MIX_CASES + MIX_BF16_CASES:
+        c = opts.get("c", C)
+        for n in (sx, sy):
+            for xt, wt in wtypes:
+                got = _mix_smem_bytes(n, modes, c, xt, wt)
+                want = _spectral_lib().spectral_axis_smem_bytes(
+                    _DTYPE_CODE[xt], _DTYPE_CODE[wt], n, modes, c)
+                if got != want:
+                    raise AssertionError(f"fused_mix_2d: the wrapper's shared-memory size at n {n}, "
+                                         f"M {modes}, {xt}/{wt} is {got}, the kernel's {want}")
+    log(f"sass fused_mix_2d: shared memory at the flagship {_mix_smem_bytes(N, M, C, *wtypes[0])} "
+        f"B (f32), {_mix_smem_bytes(N, M, C, *wtypes[1])} B (bf16 x); the wrapper's formula "
+        f"holds at every checked shape")
+    if "fused_spectral" in _cuda.build_logs:
+        report = ptxas_report(_cuda.build_logs["fused_spectral"], "spectral_axis_kernel")
+        log(f"ptxas spectral_axis_kernel (registers, spill stores, spill loads): "
+            f"{json.dumps(report)}")
 
 
 def ff_bwd_inputs(rows, dtype, dev, seed, model_layout=True, **widths):
@@ -323,12 +381,9 @@ def phase_check(dev, seed):
                 raise AssertionError("fused_ff_bwd launched a kernel for 0 rows")
         check_function(f"fused_ff[{tag}, rows 1037, model weights]", fused_ff, fused_ff_plain,
                        ff_inputs(1000 + 37, dtype, dev, seed), dtype, seed)
-        cases = [((B, N, N, M), {}), ((2, 63, 65, M), {}), ((2, 32, 32, 17), {}),
-                 ((3, 48, 40, 12), dict(strided=True))]
-        if dtype == torch.bfloat16:
-            cases.append(((2, 40, 48, 12), dict(w_dtype=dtype)))
+        cases = MIX_CASES + (MIX_BF16_CASES if dtype == torch.bfloat16 else ())
         for (b, sx, sy, modes), opts in cases:
-            what = f"[{tag}, {b}x{sx}x{sy}x{C}, M {modes}, {opts or 'f32 weights'}]"
+            what = f"[{tag}, {b}x{sx}x{sy}x{opts.get('c', C)}, M {modes}, {opts or 'f32 weights'}]"
             args = mix_inputs(b, sx, sy, modes, dtype, dev, seed, **opts)
             e = check(f"fused_mix_2d{what}", fused_mix_2d_cuda, fused_mix_2d_plain, args, dtype)
             e_adj = check(f"fused_mix_2d_adjoint{what}", fused_mix_2d_adjoint_cuda,
@@ -336,6 +391,11 @@ def phase_check(dev, seed):
             if (b, sx, sy) == (B, N, N):
                 errs[("fused_mix_2d", dtype)] = e
                 errs[("fused_mix_2d_adjoint", dtype)] = e_adj
+                for name, fn in (("fused_mix_2d", fused_mix_2d_cuda),
+                                 ("fused_mix_2d_adjoint", fused_mix_2d_adjoint_cuda)):
+                    if not torch.equal(fn(*args), fn(*args)):
+                        raise AssertionError(f"{name}: two runs on one input differ")
+                log(f"check fused_mix_2d, fused_mix_2d_adjoint[{tag}]: bit-identical in two runs")
         check_function(f"fused_mix_2d[{tag}, 2x63x65x{C}, M {M}]", fused_mix_2d,
                        fused_mix_2d_plain, mix_inputs(2, 63, 65, M, dtype, dev, seed), dtype, seed)
     return errs

@@ -14,20 +14,53 @@
 // deterministic with no atomics. Each axis has its own n and basis, so
 // non-square grids need no extra work.
 //
-// Per block: L = 4 lines [L, n, C] of one axis are staged in shared memory
-// with the forward basis [n, 2M] and the inverse basis [2M, n]; the block
-// forms the spectra [L, C, 2M], mixes them mode by mode against Wr[m], Wi[m]
-// read from device memory (L2-resident: 1 MB for both branches in f32),
-//   yr = sr @ Wr - si @ Wi,  yi = sr @ Wi + si @ Wr,
-// applies the inverse basis and writes or accumulates the lines. The mode
-// weights are read in the parameter's own [Ci, Co, M, 2] layout through its
-// strides; the mixing step gives consecutive threads consecutive modes, which
-// reads a contiguous parameter coalesced.
+// Layout. A block of NT = 512 threads owns LB = 10 lines of one axis, so the
+// flagship's 1,216 lines a launch (x [19, 64, 64, 64], M 16) make 122 blocks:
+// one round on the H100's 132 SMs, one block an SM, no partial second round.
+// Shared memory (smem_layout below; every region a multiple of 16 bytes):
+//   ws [WS][IC][C][M][2] weight ring: WS = 2 stages of IC = 4 input channels,
+//                        in the weights' own type (64 KiB in f32)
+//   xr [XS][LB][TC][C]   x ring: XS = 2 stages of TC = 8 samples of every
+//                        line, in x's type (40 KiB in f32)
+//   et [n][KP]           forward basis, columns interleaved (2m real, 2m + 1
+//                        imaginary), zero-padded to KP (a multiple of 8)
+//   cb [2M][NP]          inverse basis, rows interleaved, zero-padded to NP
+//                        (a multiple of 8) samples
+//   s  [LB][C][KS]       spectra, then the mixed spectra over them; KS =
+//                        2 (M | 1), so a row is an odd number of 8-byte pairs
+//                        and pair accesses of consecutive c fall in distinct banks
+//   lb [LB]              each line's offset in x and out (int64)
+// At the flagship that is 65,536 + 40,960 + 8,192 + 8,192 + 87,040 + 80 =
+// 210,000 bytes in f32 (189,520 for bf16 x, 156,752 for bf16 x and weights).
 //
-// Bound at the flagship shapes (x [19, 64, 64, 64], M 16): 2.55 GFLOP for
-// both branches against 39.8 MB (f32) moved, so memory-bound in bf16 and
-// close to balanced in f32. Known weakness of this first version: every
-// block rereads the whole weight set from L2 (2 M C^2 values per branch).
+// Phases of a block:
+// 1. Forward product s[l, c, k] = sum_t x[l, t, c] et[t, k]. x streams
+//    through the ring by 16-byte cp.async (element loads where rows are not
+//    16-byte pieces), the copy of chunk q + 1 in flight while chunk q is
+//    used. Each thread's 16-byte pieces of a stage are fixed for the whole
+//    kernel, so staging divides by nothing. A thread owns one c, LG = 5 lines and KC = 8 columns (40 sums in
+//    registers): at the flagship exactly one item a thread. Wider spectra
+//    take more passes over x.
+// 2. Mix. A thread owns one mode m and P output channels o (o = og + j G,
+//    G = NT / M; P = 2 at the flagship), for all LB lines, in registers. The
+//    weights stream through their ring in chunks of IC input channels by
+//    cp.async (16-byte pieces of each contiguous (i, o) run of 2M values, or
+//    one (re, im) pair a copy), chunk k + 1 in flight while chunk k mixes
+//    (chunk 0 is copied during phase 1);
+//    each chunk crosses L2 once a block and serves all LB lines. The i-sum
+//    runs i = 0..C-1 in order, yr = fma(sr, a, fma(-si, b, yr)). After a
+//    barrier the mixed spectra overwrite s.
+// 3. Inverse and store: out[l, t, o] = sum_k y[l, o, k] cb[k, t]; a thread
+//    owns one o, LG lines and SC = 8 samples; warps store 32 consecutive o,
+//    and the X launch loads all of its prev values before its first store.
+//
+// L2 traffic an axis launch at the flagship, f32: the weights 122 x 512 KiB
+// = 64.0 MB in bulk copies (the first version read them 304 times, 159 MB,
+// one scalar pair load per 16 FMAs), x 19.9 MB once, out 19.9 MB (and prev
+// 19.9 MB on the X branch). Bound of a call (both launches) at the flagship:
+// 2.55 GFLOP against 39.8 MB (f32), memory-bound in bf16 and close to
+// balanced in f32 on tensor cores; this kernel's arithmetic is 0.64 G FMA
+// an axis launch on CUDA cores, about 23 us at one block an SM.
 //
 // The adjoint (the gradient with respect to x; the TPU package's
 // _fused_mix_bwd launches its kernel a second time in the same way) is this
@@ -35,12 +68,12 @@
 // basis transposed and the inverse basis the forward one transposed (the
 // wrapper passes cached contiguous transposes; they carry irdft's Hermitian
 // weights, so the adjoint is no forward rDFT), the weights are read
-// (i, o)-transposed by swapping the w_si and w_so strides, and `conj`
-// negates the imaginary weight in the mixing loop. Its bound is the
-// forward's.
+// (i, o)-transposed by swapping the w_si and w_so strides (still runs of 2M
+// contiguous values), and `conj` negates the imaginary weight in the mix.
+// Its bound is the forward's.
 //
 // Types: x is float or bf16; the mode weights are float or x's type, and are
-// rounded to x's type when they are wider (as the plain version casts them).
+// rounded to x's type as they are read (as the plain version casts them).
 // All arithmetic is f32. For bf16 x the kernel rounds where the JAX kernel's
 // _branch does: the bases as they are staged, the spectra s as they are
 // stored, and the mixed spectra y as they are stored (round_as, a no-op for
@@ -55,9 +88,18 @@
 
 namespace {
 
-constexpr int L = 4;      // lines per block
-constexpr int KC = 16;    // spectrum rows (forward) / samples (inverse) per register chunk
-constexpr int NT = 256;   // threads per block
+constexpr int NT = 512;   // threads per block
+constexpr int LB = 10;    // lines per block
+constexpr int LG = 5;     // lines per thread in the forward and inverse products
+constexpr int KC = 8;     // spectrum columns per thread in the forward product
+constexpr int SC = 8;     // samples per thread in the inverse product
+constexpr int TC = 8;     // samples of every line per x stage
+constexpr int XS = 2;     // x stages (copies XS - 1 chunks ahead)
+constexpr int IC = 4;     // input channels per weight stage
+constexpr int WS = 2;     // weight stages (copies WS - 1 chunks ahead)
+constexpr int PMAX = 3;   // output channels per thread and mode in the mix, at most
+constexpr int kMaxSmem = 232448;  // bytes of shared memory one block may use
+static_assert(LB % LG == 0, "lines split into whole groups");
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -69,191 +111,394 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 // v rounded to x's type TI, in f32.
 template <typename TI>
 __device__ __forceinline__ float round_as(float v) { return to_f(from_f<TI>(v)); }
-// A mode weight of type TW as x's type TI would hold it, in f32.
-template <typename TI, typename TW>
-__device__ __forceinline__ float weight_f(TW v) { return round_as<TI>(to_f(v)); }
 
-// Real and imaginary part of one mode weight; `pair` when they are adjacent
-// and aligned, so that one load fetches both.
+// Real and imaginary part of one staged mode weight, as x's type TI would
+// hold them, in f32.
 template <typename TI>
-__device__ __forceinline__ void load_weight(const float* p, int64_t sp, bool pair, float& a,
-                                            float& b) {
-  if (pair) {
-    const float2 v = *reinterpret_cast<const float2*>(p);
-    a = weight_f<TI>(v.x), b = weight_f<TI>(v.y);
-  } else {
-    a = weight_f<TI>(p[0]), b = weight_f<TI>(p[sp]);
-  }
+__device__ __forceinline__ void load_pair(const float* p, float& a, float& b) {
+  const float2 v = *reinterpret_cast<const float2*>(p);
+  a = round_as<TI>(v.x), b = round_as<TI>(v.y);
 }
 template <typename TI>
-__device__ __forceinline__ void load_weight(const __nv_bfloat16* p, int64_t sp, bool pair,
-                                            float& a, float& b) {
-  if (pair) {
-    const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(p);
-    a = __low2float(v), b = __high2float(v);
-  } else {
-    a = to_f(p[0]), b = to_f(p[sp]);
-  }
+__device__ __forceinline__ void load_pair(const __nv_bfloat16* p, float& a, float& b) {
+  const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(p);
+  a = __low2float(v), b = __high2float(v);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(src_bytes));
+}
+template <int BYTES>
+__device__ __forceinline__ void cp_async_ca(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(src), "n"(BYTES));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 __host__ __device__ __forceinline__ int round_up(int a, int b) { return (a + b - 1) / b * b; }
 
-// Shared memory layout in floats; et and cb are multiples of 16 floats long
-// so the float4 reads of both bases are aligned:
-//   et [n][KP]     forward basis, columns 0..M-1 real, M..2M-1 imaginary, zero-padded to KP
-//   cb [2M][NP]    inverse basis, zero-padded to NP samples
-//   s  [L][C][2M+1] spectra (the odd row length keeps a warp's rows in different banks)
-//   xs [L][n][C]   input lines; reused for the mixed spectra y [L][C][2M+1]
-__host__ __device__ __forceinline__ size_t smem_floats(int n, int modes, int c) {
-  const int k = 2 * modes;
-  const int kp = round_up(k, KC);
-  const int np = round_up(n, KC);
-  const int r = n > k + 1 ? n : k + 1;
-  return (size_t)n * kp + (size_t)k * np + (size_t)L * c * (k + 1) + (size_t)L * r * c;
+// Byte offsets of the shared-memory regions (see the header).
+struct SmemLayout {
+  int K, KP, KS, NP;
+  size_t ws, xr, et, cb, s, lb, total;
+};
+__host__ __device__ __forceinline__ SmemLayout smem_layout(int n, int modes, int c, int x_size,
+                                                           int w_size) {
+  SmemLayout L;
+  L.K = 2 * modes;
+  L.KP = round_up(L.K, KC);
+  L.KS = 2 * (modes | 1);
+  L.NP = round_up(n, SC);
+  L.ws = 0;
+  L.xr = L.ws + (size_t)WS * IC * c * L.K * w_size;
+  L.et = L.xr + (size_t)XS * LB * TC * c * x_size;
+  L.cb = L.et + (size_t)n * L.KP * 4;
+  L.s = L.cb + (size_t)L.K * L.NP * 4;
+  L.lb = L.s + (size_t)LB * c * L.KS * 4;
+  L.total = L.lb + (size_t)LB * 8;
+  return L;
 }
 
 template <typename TI, typename TW, typename TO>
-__global__ void __launch_bounds__(NT) spectral_axis_kernel(
-    const TI* __restrict__ x, const float* __restrict__ fwd, const float* __restrict__ inv,
-    const TW* __restrict__ w, int64_t w_si, int64_t w_so, int64_t w_sm, int64_t w_sp, bool pair,
-    float wi_sign, const float* prev, TO* out, int n_lines, int lines_per_batch, int64_t batch_stride,
-    int64_t line_stride, int64_t elem_stride, int n, int modes, int C) {
+struct Params {
+  const TI* x;
+  const float* fwd;
+  const float* inv;
+  const TW* w;  // (i, o, m, part) at w[i * w_si + o * w_so + 2 m + part]
+  int64_t w_si, w_so;
+  float wi_sign;
+  bool x_vec, w_vec;  // stage x / the weights in 16-byte pieces
+  const float* prev;
+  TO* out;
+  int n_lines, lines_per_batch;
+  int64_t batch_stride, line_stride, elem_stride;
+  int n, modes, c;
+};
+
+template <typename TI, typename TW, typename TO, int P>
+__global__ void __launch_bounds__(NT, 1) spectral_axis_kernel(const Params<TI, TW, TO> p) {
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int K = 2 * modes;
-  const int KS = K + 1;
-  const int KP = round_up(K, KC);
-  const int NP = round_up(n, KC);
-  float* et = smem;
-  float* cb = et + n * KP;
-  float* s = cb + K * NP;
-  float* xs = s + L * C * KS;
-  float* y = xs;
+  char* smem = reinterpret_cast<char*>(smem4);
+  const int n = p.n, modes = p.modes, C = p.c;
+  const SmemLayout L = smem_layout(n, modes, C, sizeof(TI), sizeof(TW));
+  const int K = L.K, KP = L.KP, KS = L.KS, NP = L.NP;
+  TW* ws = reinterpret_cast<TW*>(smem + L.ws);
+  TI* xr = reinterpret_cast<TI*>(smem + L.xr);
+  float* et = reinterpret_cast<float*>(smem + L.et);
+  float* cb = reinterpret_cast<float*>(smem + L.cb);
+  float* s = reinterpret_cast<float*>(smem + L.s);
 
   const int tid = threadIdx.x;
-  const int line0 = blockIdx.x * L;
+  const int line0 = blockIdx.x * LB;
+  const int x_stage = LB * TC * C;  // elements of one x stage
+  const int w_stage = IC * C * K;   // elements of one weight stage
+  const int nq_t = (n + TC - 1) / TC;
+  // The forward product's items (line group, column chunk, c) and passes.
+  const int kch = KP / KC;
+  const int items = (LB / LG) * kch * C;
+  const int passes = (items + NT - 1) / NT;
+  const int nq = passes * nq_t;  // x chunks over all passes
+  const int nk = (C + IC - 1) / IC;
 
+  // Offset in x and out of each line of the block (sample 0, channel 0), -1
+  // past n_lines.
+  int64_t* lbase = reinterpret_cast<int64_t*>(smem + L.lb);
+  if (tid < LB) {
+    const int g = line0 + tid;
+    const int b = g / p.lines_per_batch;
+    lbase[tid] =
+        g < p.n_lines ? b * p.batch_stride + (g - b * p.lines_per_batch) * p.line_stride : -1;
+  }
+  __syncthreads();
+
+  // Each thread's share of a ring stage is fixed for the whole kernel, so
+  // that staging divides by nothing: the 16-byte column xe (we) of the rows
+  // xrow0 + j rsx of an x stage (runs wrun0 + j rsw of a weight stage).
+  constexpr int EX = 16 / sizeof(TI), EW = 16 / sizeof(TW);
+  const int px = max(C / EX, 1), pw = max(K / EW, 1);  // pieces of a row, of a run
+  const int rsx = NT / px, rsw = NT / pw;
+  const int xe = tid % px * EX, xrow0 = tid / px;
+  const int we = tid % pw * EW, wrun0 = tid / pw;
+  const int wi0 = wrun0 / C, wo0 = wrun0 - wi0 * C;
+  const int wdi = rsw / C, wdo = rsw - wdi * C;  // (i, o) step of rsw runs
+
+  // Start the copy of x chunk q < nq (samples TC (q % nq_t) onwards of every
+  // line) into stage q % XS; lines past n_lines are zero-filled. One commit
+  // group, empty for q >= nq.
+  auto stage_x = [=](int q) {
+    if (q < nq) {
+      const int t0 = (q % nq_t) * TC;
+      const int rows = min(TC, n - t0);
+      TI* dst = xr + (q % XS) * x_stage;
+      if (p.x_vec) {
+        for (int r = xrow0; r < LB * TC && xrow0 < rsx; r += rsx) {
+          const int tt = r % TC;
+          const int64_t base = lbase[r / TC];
+          if (tt >= rows) continue;
+          const bool on = base >= 0;
+          cp_async16(dst + r * C + xe, on ? p.x + base + (t0 + tt) * p.elem_stride + xe : p.x,
+                     on ? 16 : 0);
+        }
+      } else {
+        for (int i = tid; i < LB * rows * C; i += NT) {
+          const int l = i / (rows * C);
+          const int rem = i - l * rows * C;
+          const int tt = rem / C;
+          const int c = rem - tt * C;
+          const int64_t base = lbase[l];
+          dst[(l * TC + tt) * C + c] =
+              base >= 0 ? p.x[base + (t0 + tt) * p.elem_stride + c] : from_f<TI>(0.f);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  // Start the copy of weight chunk k < nk (input channels IC k onwards) into
+  // stage k % WS, laid out [i][o][m][2]. One commit group, empty for k >= nk.
+  auto stage_w = [=](int k) {
+    if (k < nk) {
+      const int i0 = k * IC;
+      const int ni = min(IC, C - i0);
+      TW* dst = ws + (k % WS) * w_stage;
+      const TW* src = p.w + i0 * p.w_si;
+      if (p.w_vec) {
+        int ii = wi0, o = wo0;
+        for (int r = wrun0; r < ni * C && wrun0 < rsw; r += rsw) {
+          cp_async16(dst + r * K + we, src + ii * p.w_si + o * p.w_so + we, 16);
+          ii += wdi, o += wdo;
+          if (o >= C) o -= C, ++ii;
+        }
+      } else {
+        for (int i = tid; i < ni * C * modes; i += NT) {
+          const int run = i / modes;
+          const int m = i - run * modes;
+          const int ii = run / C;
+          const int o = run - ii * C;
+          cp_async_ca<(int)(2 * sizeof(TW))>(dst + run * K + 2 * m,
+                                             src + ii * p.w_si + o * p.w_so + 2 * m);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  // Commit order: x chunks 0..XS-2, then weight chunks 0..WS-2; in the loops
+  // each step commits one group, so the waits below count groups exactly.
+  for (int q = 0; q < XS - 1; ++q) stage_x(q);
+  for (int k = 0; k < WS - 1; ++k) stage_w(k);
   for (int i = tid; i < n * KP; i += NT) {
     const int t = i / KP;
     const int k = i - t * KP;
-    et[i] = k < K ? round_as<TI>(fwd[t * K + k]) : 0.f;
+    et[i] = k < K ? round_as<TI>(p.fwd[t * K + (k & 1) * modes + (k >> 1)]) : 0.f;
   }
   for (int i = tid; i < K * NP; i += NT) {
     const int k = i / NP;
     const int t = i - k * NP;
-    cb[i] = t < n ? round_as<TI>(inv[k * n + t]) : 0.f;
+    cb[i] = t < n ? round_as<TI>(p.inv[((k & 1) * modes + (k >> 1)) * n + t]) : 0.f;
   }
-  for (int i = tid; i < L * n * C; i += NT) {
-    const int l = i / (n * C);
-    const int rem = i - l * n * C;
-    const int t = rem / C;
-    const int c = rem - t * C;
-    const int g = line0 + l;
-    float v = 0.f;
-    if (g < n_lines) {
-      const int b = g / lines_per_batch;
-      const int a = g - b * lines_per_batch;
-      v = to_f(x[b * batch_stride + a * line_stride + t * elem_stride + c]);
-    }
-    xs[i] = v;
-  }
-  __syncthreads();
 
-  // 1. Spectra: s[l, c, k] = sum_t x[l, t, c] * et[t, k].
-  for (int p = tid; p < L * C; p += NT) {
-    const int l = p / C;
-    const int c = p - l * C;
-    const float* xl = xs + l * n * C + c;
-    for (int k0 = 0; k0 < KP; k0 += KC) {
-      float acc[KC];
+  // 1. Forward product. Item (group, column chunk, c), c fastest.
+  for (int pass = 0, q = 0; pass < passes; ++pass) {
+    const int item = tid + pass * NT;
+    const bool active = item < items;
+    const int c = item % C;
+    const int kc = (item / C) % kch;
+    const int grp = item / (C * kch);
+    float acc[LG][KC];
 #pragma unroll
-      for (int q = 0; q < KC; ++q) acc[q] = 0.f;
-      for (int t = 0; t < n; ++t) {
-        const float xv = xl[t * C];
-        const float4* e4 = reinterpret_cast<const float4*>(et + t * KP + k0);
+    for (int l = 0; l < LG; ++l)
 #pragma unroll
-        for (int q = 0; q < KC / 4; ++q) {
-          const float4 e = e4[q];
-          acc[4 * q + 0] = fmaf(xv, e.x, acc[4 * q + 0]);
-          acc[4 * q + 1] = fmaf(xv, e.y, acc[4 * q + 1]);
-          acc[4 * q + 2] = fmaf(xv, e.z, acc[4 * q + 2]);
-          acc[4 * q + 3] = fmaf(xv, e.w, acc[4 * q + 3]);
-        }
-      }
-      float* sl = s + (l * C + c) * KS + k0;
+      for (int j = 0; j < KC; ++j) acc[l][j] = 0.f;
+    for (int tq = 0; tq < nq_t; ++tq, ++q) {
+      // x chunk q has landed once at most the groups committed after it
+      // are pending: before chunk XS - 1 those include the weight chunks.
+      if (q < XS - 1)
+        cp_async_wait<XS + WS - 3>();
+      else
+        cp_async_wait<XS - 2>();
+      __syncthreads();  // ... for every thread; stage (q - 1) % XS is free
+      stage_x(q + XS - 1);
+      if (!active) continue;
+      const int rows = min(TC, n - tq * TC);
+      const TI* xb = xr + (q % XS) * x_stage + grp * LG * TC * C + c;
+      const float* eb = et + tq * TC * KP + kc * KC;
 #pragma unroll
-      for (int q = 0; q < KC; ++q)
-        if (k0 + q < K) sl[q] = round_as<TI>(acc[q]);
-    }
-  }
-  __syncthreads();
-
-  // 2. Per-mode complex mixing into y (which reuses the input lines' space).
-  for (int p = tid; p < modes * C; p += NT) {
-    const int o = p / modes;
-    const int m = p - o * modes;
-    float yr[L], yi[L];
+      for (int tt = 0; tt < TC; ++tt) {
+        if (tt < rows) {
+          const float4 e0 = *reinterpret_cast<const float4*>(eb + tt * KP);
+          const float4 e1 = *reinterpret_cast<const float4*>(eb + tt * KP + 4);
 #pragma unroll
-    for (int l = 0; l < L; ++l) yr[l] = yi[l] = 0.f;
-    const TW* wp = w + o * w_so + m * w_sm;
-    for (int i = 0; i < C; ++i, wp += w_si) {
-      float a, b;
-      load_weight<TI>(wp, w_sp, pair, a, b);
-      b *= wi_sign;
-#pragma unroll
-      for (int l = 0; l < L; ++l) {
-        const float sr = s[(l * C + i) * KS + m];
-        const float si = s[(l * C + i) * KS + modes + m];
-        yr[l] = fmaf(sr, a, fmaf(-si, b, yr[l]));
-        yi[l] = fmaf(sr, b, fmaf(si, a, yi[l]));
-      }
-    }
-#pragma unroll
-    for (int l = 0; l < L; ++l) {
-      y[(l * C + o) * KS + m] = round_as<TI>(yr[l]);
-      y[(l * C + o) * KS + modes + m] = round_as<TI>(yi[l]);
-    }
-  }
-  __syncthreads();
-
-  // 3. Inverse: out[l, t, o] = sum_k y[l, o, k] * cb[k, t]; write or accumulate.
-  for (int p = tid; p < L * C; p += NT) {
-    const int l = p / C;
-    const int o = p - l * C;
-    const int g = line0 + l;
-    if (g >= n_lines) continue;
-    const int b = g / lines_per_batch;
-    const int a = g - b * lines_per_batch;
-    const int64_t base = b * batch_stride + a * line_stride + o;
-    for (int t0 = 0; t0 < NP; t0 += KC) {
-      float acc[KC];
-#pragma unroll
-      for (int q = 0; q < KC; ++q) acc[q] = 0.f;
-      for (int k = 0; k < K; ++k) {
-        const float yv = y[(l * C + o) * KS + k];
-        const float4* c4 = reinterpret_cast<const float4*>(cb + k * NP + t0);
-#pragma unroll
-        for (int q = 0; q < KC / 4; ++q) {
-          const float4 e = c4[q];
-          acc[4 * q + 0] = fmaf(yv, e.x, acc[4 * q + 0]);
-          acc[4 * q + 1] = fmaf(yv, e.y, acc[4 * q + 1]);
-          acc[4 * q + 2] = fmaf(yv, e.z, acc[4 * q + 2]);
-          acc[4 * q + 3] = fmaf(yv, e.w, acc[4 * q + 3]);
-        }
-      }
-#pragma unroll
-      for (int q = 0; q < KC; ++q) {
-        const int t = t0 + q;
-        if (t < n) {
-          const int64_t idx = base + t * elem_stride;
-          float v = acc[q];
-          if (prev != nullptr) v += prev[idx];
-          out[idx] = from_f<TO>(v);
+          for (int l = 0; l < LG; ++l) {
+            const float xv = to_f(xb[(l * TC + tt) * C]);
+            acc[l][0] = fmaf(xv, e0.x, acc[l][0]);
+            acc[l][1] = fmaf(xv, e0.y, acc[l][1]);
+            acc[l][2] = fmaf(xv, e0.z, acc[l][2]);
+            acc[l][3] = fmaf(xv, e0.w, acc[l][3]);
+            acc[l][4] = fmaf(xv, e1.x, acc[l][4]);
+            acc[l][5] = fmaf(xv, e1.y, acc[l][5]);
+            acc[l][6] = fmaf(xv, e1.z, acc[l][6]);
+            acc[l][7] = fmaf(xv, e1.w, acc[l][7]);
+          }
         }
       }
     }
+    if (active) {
+#pragma unroll
+      for (int l = 0; l < LG; ++l) {
+        float* sl = s + ((grp * LG + l) * C + c) * KS + kc * KC;
+#pragma unroll
+        for (int j = 0; j < KC; j += 2)
+          if (kc * KC + j < K)
+            *reinterpret_cast<float2*>(sl + j) =
+                make_float2(round_as<TI>(acc[l][j]), round_as<TI>(acc[l][j + 1]));
+      }
+    }
+  }
+
+  // 2. Per-mode complex mix, weights streamed through the ring.
+  {
+    const int G = NT / modes;
+    const int m = tid % modes;
+    const int og = tid / modes;
+    const bool mixer = og < G;
+    float yr[P][LB], yi[P][LB];
+#pragma unroll
+    for (int j = 0; j < P; ++j)
+#pragma unroll
+      for (int l = 0; l < LB; ++l) yr[j][l] = yi[j][l] = 0.f;
+    for (int k = 0; k < nk; ++k) {
+      // Weight chunk k: all but the WS - 2 newest groups done.
+      if (k == 0)
+        cp_async_wait<0>();
+      else
+        cp_async_wait<WS - 2>();
+      __syncthreads();  // ... for every thread; s complete; stage (k - 1) % WS free
+      stage_w(k + WS - 1);
+      if (!mixer) continue;
+      const TW* wst = ws + (k % WS) * w_stage;
+      const int ni = min(IC, C - k * IC);
+#pragma unroll
+      for (int ii = 0; ii < IC; ++ii) {
+        if (ii >= ni) break;
+        const int i = k * IC + ii;
+        float a[P], b[P];
+#pragma unroll
+        for (int j = 0; j < P; ++j) {
+          const int o = og + j * G;
+          a[j] = b[j] = 0.f;
+          if (o < C) load_pair<TI>(wst + ((ii * C + o) * modes + m) * 2, a[j], b[j]);
+          b[j] *= p.wi_sign;
+        }
+        const float* sp = s + i * KS + 2 * m;
+#pragma unroll
+        for (int l = 0; l < LB; ++l) {
+          const float2 sv = *reinterpret_cast<const float2*>(sp + l * C * KS);
+#pragma unroll
+          for (int j = 0; j < P; ++j) {
+            yr[j][l] = fmaf(sv.x, a[j], fmaf(-sv.y, b[j], yr[j][l]));
+            yi[j][l] = fmaf(sv.x, b[j], fmaf(sv.y, a[j], yi[j][l]));
+          }
+        }
+      }
+    }
+    __syncthreads();  // every spectrum read: the mixed spectra go over them
+    if (mixer) {
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+        const int o = og + j * G;
+        if (o >= C) continue;
+#pragma unroll
+        for (int l = 0; l < LB; ++l)
+          *reinterpret_cast<float2*>(s + (l * C + o) * KS + 2 * m) =
+              make_float2(round_as<TI>(yr[j][l]), round_as<TI>(yi[j][l]));
+      }
+    }
+    __syncthreads();
+  }
+
+  // 3. Inverse and store. Item (group, sample chunk, o), o fastest.
+  const int tch = NP / SC;
+  for (int item = tid; item < (LB / LG) * tch * C; item += NT) {
+    const int o = item % C;
+    const int tc = (item / C) % tch;
+    const int grp = item / (C * tch);
+    float acc[LG][SC];
+#pragma unroll
+    for (int l = 0; l < LG; ++l)
+#pragma unroll
+      for (int j = 0; j < SC; ++j) acc[l][j] = 0.f;
+    const float* yb = s + (grp * LG * C + o) * KS;
+    const float* cbt = cb + tc * SC;
+    for (int m = 0; m < modes; ++m) {
+      float2 yv[LG];
+#pragma unroll
+      for (int l = 0; l < LG; ++l) yv[l] = *reinterpret_cast<const float2*>(yb + l * C * KS + 2 * m);
+#pragma unroll
+      for (int h = 0; h < SC; h += 4) {
+        const float4 er = *reinterpret_cast<const float4*>(cbt + 2 * m * NP + h);
+        const float4 ei = *reinterpret_cast<const float4*>(cbt + (2 * m + 1) * NP + h);
+#pragma unroll
+        for (int l = 0; l < LG; ++l) {
+          acc[l][h + 0] = fmaf(yv[l].y, ei.x, fmaf(yv[l].x, er.x, acc[l][h + 0]));
+          acc[l][h + 1] = fmaf(yv[l].y, ei.y, fmaf(yv[l].x, er.y, acc[l][h + 1]));
+          acc[l][h + 2] = fmaf(yv[l].y, ei.z, fmaf(yv[l].x, er.z, acc[l][h + 2]));
+          acc[l][h + 3] = fmaf(yv[l].y, ei.w, fmaf(yv[l].x, er.w, acc[l][h + 3]));
+        }
+      }
+    }
+    int64_t base[LG];  // of each line's sample 0, channel o; -1 past n_lines
+#pragma unroll
+    for (int l = 0; l < LG; ++l) {
+      const int64_t b = lbase[grp * LG + l];
+      base[l] = b >= 0 ? b + o : -1;
+    }
+    // All of prev is loaded before any store (out may alias it for all the
+    // compiler knows, which would put each load behind the previous store).
+    if (p.prev != nullptr) {
+#pragma unroll
+      for (int l = 0; l < LG; ++l)
+#pragma unroll
+        for (int j = 0; j < SC; ++j)
+          if (base[l] >= 0 && tc * SC + j < n)
+            acc[l][j] += p.prev[base[l] + (tc * SC + j) * p.elem_stride];
+    }
+#pragma unroll
+    for (int l = 0; l < LG; ++l)
+#pragma unroll
+      for (int j = 0; j < SC; ++j)
+        if (base[l] >= 0 && tc * SC + j < n)
+          p.out[base[l] + (tc * SC + j) * p.elem_stride] = from_f<TO>(acc[l][j]);
   }
 }
+
+template <typename TI, typename TW, typename TO, int P>
+cudaError_t launch_p(const Params<TI, TW, TO>& p, size_t smem, cudaStream_t stream) {
+  // The opt-in to more than 48 KB of shared memory, once per instance.
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      spectral_axis_kernel<TI, TW, TO, P>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid((unsigned)((p.n_lines + LB - 1) / LB));
+  spectral_axis_kernel<TI, TW, TO, P><<<grid, NT, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// Output channels per thread and mode in the mix (0 if C is too wide).
+__host__ __device__ __forceinline__ int mix_pairs(int modes, int c) {
+  const int g = NT / modes;
+  const int pr = g > 0 ? (c + g - 1) / g : PMAX + 1;
+  return pr <= PMAX ? pr : 0;
+}
+
+bool aligned(const void* ptr, int bytes) { return reinterpret_cast<uintptr_t>(ptr) % bytes == 0; }
 
 template <typename TI, typename TW, typename TO>
 cudaError_t launch(const void* x, const void* fwd, const void* inv, const void* w,
@@ -261,21 +506,39 @@ cudaError_t launch(const void* x, const void* fwd, const void* inv, const void* 
                    const void* prev, void* out, int n_lines, int lines_per_batch, int64_t batch_stride,
                    int64_t line_stride, int64_t elem_stride, int n, int modes, int c,
                    cudaStream_t stream) {
-  const size_t smem = sizeof(float) * smem_floats(n, modes, c);
-  cudaError_t err = cudaFuncSetAttribute(spectral_axis_kernel<TI, TW, TO>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)((n_lines + L - 1) / L));
-  const bool pair = w_sp == 1 && w_si % 2 == 0 && w_so % 2 == 0 && w_sm % 2 == 0 &&
-                    reinterpret_cast<uintptr_t>(w) % (2 * sizeof(TW)) == 0;
-  spectral_axis_kernel<TI, TW, TO><<<grid, NT, smem, stream>>>(
-      static_cast<const TI*>(x), static_cast<const float*>(fwd), static_cast<const float*>(inv),
-      static_cast<const TW*>(w), w_si, w_so, w_sm, w_sp, pair, conj ? -1.f : 1.f,
-      static_cast<const float*>(prev),
-      static_cast<TO*>(out), n_lines, lines_per_batch, batch_stride, line_stride, elem_stride, n,
-      modes, c);
-  return cudaGetLastError();
+  const size_t smem = smem_layout(n, modes, c, sizeof(TI), sizeof(TW)).total;
+  const int pairs = mix_pairs(modes, c);
+  // Every (i, o) run of 2M weights must be contiguous and (re, im)-aligned.
+  const int wpair = 2 * sizeof(TW);
+  if (smem > (size_t)kMaxSmem || pairs == 0 || w_sp != 1 || w_sm != 2 ||
+      (w_si * (int64_t)sizeof(TW)) % wpair || (w_so * (int64_t)sizeof(TW)) % wpair ||
+      !aligned(w, wpair))
+    return cudaErrorInvalidValue;
+  Params<TI, TW, TO> p;
+  p.x = static_cast<const TI*>(x);
+  p.fwd = static_cast<const float*>(fwd);
+  p.inv = static_cast<const float*>(inv);
+  p.w = static_cast<const TW*>(w);
+  p.w_si = w_si, p.w_so = w_so;
+  p.wi_sign = conj ? -1.f : 1.f;
+  const int64_t ex = 16 / sizeof(TI), ew = 16 / sizeof(TW);
+  p.x_vec = c % ex == 0 && c / ex <= NT && batch_stride % ex == 0 && line_stride % ex == 0 &&
+            elem_stride % ex == 0 && aligned(x, 16);
+  p.w_vec = (2 * modes) % ew == 0 && 2 * modes / ew <= NT && w_si % ew == 0 && w_so % ew == 0 &&
+            aligned(w, 16);
+  p.prev = static_cast<const float*>(prev);
+  p.out = static_cast<TO*>(out);
+  p.n_lines = n_lines, p.lines_per_batch = lines_per_batch;
+  p.batch_stride = batch_stride, p.line_stride = line_stride, p.elem_stride = elem_stride;
+  p.n = n, p.modes = modes, p.c = c;
+  switch (pairs) {
+    case 1: return launch_p<TI, TW, TO, 1>(p, smem, stream);
+    case 2: return launch_p<TI, TW, TO, 2>(p, smem, stream);
+    default: return launch_p<TI, TW, TO, 3>(p, smem, stream);
+  }
 }
+
+int dtype_size(int code) { return code == 0 ? 4 : 2; }
 
 }  // namespace
 
@@ -283,16 +546,21 @@ extern "C" const char* cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Shared memory bytes one block needs, for the wrapper's checks.
-extern "C" long long spectral_axis_smem_bytes(int n, int modes, int c) {
-  return (long long)(sizeof(float) * smem_floats(n, modes, c));
+// Shared memory bytes one block needs (dtype codes as below), for the
+// wrapper's checks.
+extern "C" long long spectral_axis_smem_bytes(int in_dtype, int w_dtype, int n, int modes, int c) {
+  return (long long)smem_layout(n, modes, c, dtype_size(in_dtype), dtype_size(w_dtype)).total;
 }
 
 // Dtype codes: 0 = float32, 1 = bfloat16. x is float32 or bfloat16; w is
 // float32 or x's type; out is float32, or bfloat16 when x is. w (i, o, m, part)
 // is at w[i * w_si + o * w_so + m * w_sm + part * w_sp], part 0 real, 1
-// imaginary; with conj != 0 the imaginary part is negated. prev may be null.
-// Returns a cudaError_t (0 on success).
+// imaginary; the kernel takes w_sm = 2, w_sp = 1 (each (i, o) run of 2M
+// values contiguous) with w_si, w_so even and w aligned to a (re, im) pair.
+// With conj != 0 the imaginary part is negated. prev may be null. Takes
+// C <= 3 (512 / M) and what fits in 232,448 bytes of shared memory.
+// Returns a cudaError_t (0 on success; cudaErrorInvalidValue for anything
+// it does not take).
 extern "C" int spectral_axis(int in_dtype, int w_dtype, int out_dtype, const void* x,
                              const void* fwd, const void* inv, const void* w, long long w_si,
                              long long w_so, long long w_sm, long long w_sp, int conj,

@@ -19,7 +19,7 @@ the X branch reads, so the sum of the two branches is rounded once. The
 weight gradients round their spectra and products as ``_fused_mix_bwd``'s
 einsums in x's type do. In float32 nothing is rounded. The kernel reads
 the ``[C, C, M, 2]`` weights through their strides, in float32 or x's
-type, so the wrapper passes the parameters as they are. The gradient with
+type, so the wrapper passes the model's parameters as they are. The gradient with
 respect to x is the same kernel on the adjoint operator, as
 ``_fused_mix_bwd`` launches the TPU kernel: transposed bases swapped,
 weights read (i, o)-transposed through swapped strides and conjugated in
@@ -31,9 +31,18 @@ per call, not per branch).
 
 Bound (H100 SXM data sheet, flagship x [19, 64, 64, 64], M 16), for the
 forward and the adjoint alike: 2.55 GFLOP and 39.8 MB f32 (19.9 MB bf16)
-per call; about 38 us in f32 and 6 us in bf16. See the kernel source for
-the design and its known weakness (each block rereads the mode weights
-from L2).
+per call; about 15 us in f32 (operations, 3xTF32 on tensor cores) and 6 us
+in bf16 (bytes). The kernel keeps its arithmetic on CUDA cores (0.64 G FMA
+an axis launch). Its layout (see the kernel source): 10 lines a block of
+512 threads, 122 blocks at the flagship (one round on 132 SMs), the mode
+weights streamed through a double-buffered shared-memory ring by
+``cp.async`` in chunks of 4 input channels, each chunk read from L2 once a
+block (64 MB an axis launch in f32), x streamed the same way in chunks of
+8 samples. :func:`_smem_bytes` mirrors the kernel's shared-memory size; a
+shape that does not fit, or a C wider than ``3 * (512 // M)``, raises a
+``ValueError``. Weights whose (i, o) runs of 2M values are not contiguous
+(``[..., M, 2]`` strides other than ``(2, 1)``) are copied to a contiguous
+tensor first.
 """
 
 import ctypes
@@ -48,6 +57,11 @@ __all__ = ["fused_mix_2d", "fused_mix_2d_plain", "fused_mix_2d_cuda", "fused_mix
            "fused_mix_2d_adjoint_plain", "fused_mix_2d_adjoint_cuda"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# As in csrc/fused_spectral.cu: threads and lines a block (NT, LB); x stages
+# and samples of each (XS, TC); weight stages and input channels of each
+# (WS, IC); spectrum columns and samples a thread (KC, SC); output channels
+# a thread and mode in the mix, at most (PMAX).
+_NT, _LB, _XS, _TC, _WS, _IC, _KC, _SC, _PMAX = 512, 10, 2, 8, 2, 4, 8, 8, 3
 
 
 def fused_mix_2d_plain(x: torch.Tensor, wy: torch.Tensor, wx: torch.Tensor) -> torch.Tensor:
@@ -73,7 +87,7 @@ def _lib():
     lib.spectral_axis.argtypes = [i, i, i, vp, vp, vp, vp, ll, ll, ll, ll, i, vp, vp, i, i, ll, ll,
                                   ll, i, i, i, vp]
     lib.spectral_axis.restype = i
-    lib.spectral_axis_smem_bytes.argtypes = [i, i, i]
+    lib.spectral_axis_smem_bytes.argtypes = [i, i, i, i, i]
     lib.spectral_axis_smem_bytes.restype = ll
     return lib
 
@@ -84,6 +98,20 @@ def _adjoint_bases(n: int, modes: int, device: torch.device):
     transposed ``[n, 2M]`` and the forward one transposed ``[2M, n]``."""
     fwd, inv = stacked_bases(n, modes, device)
     return inv.t().contiguous(), fwd.t().contiguous()
+
+
+def _smem_bytes(n: int, modes: int, c: int, x_dtype: torch.dtype, w_dtype: torch.dtype) -> int:
+    """Shared memory of one block (``smem_layout`` in the source): the
+    weight ring (WS stages of IC input channels, [C, 2M] each, in the
+    weights' type), the x ring (XS stages of LB lines x TC samples x C, in
+    x's type), the forward basis [n, 2M padded to KC], the inverse basis
+    [2M, n padded to SC] and the spectra [LB, C, 2 (M | 1)], in float32,
+    and an int64 offset for each of the LB lines."""
+    up = lambda a, b: -(-a // b) * b
+    xs, wsz = (torch.finfo(t).bits // 8 for t in (x_dtype, w_dtype))
+    k = 2 * modes
+    return (_WS * _IC * c * k * wsz + _XS * _LB * _TC * c * xs + 4 * n * up(k, _KC)
+            + 4 * k * up(n, _SC) + 4 * _LB * c * 2 * (modes | 1) + 8 * _LB)
 
 
 def _check_args(x, wy, wx):
@@ -101,8 +129,25 @@ def _check_args(x, wy, wx):
             raise TypeError(f"{name} is {w.dtype}; the kernel takes float32 or x's {x.dtype}")
         if w.dim() != 4 or w.shape[0] != c or w.shape[1] != c or w.shape[3] != 2:
             raise ValueError(f"{name} must be [C, C, M, 2] with C={c}, got {tuple(w.shape)}")
-        if w.shape[2] > n // 2 + 1:
-            raise ValueError(f"{name} has {w.shape[2]} modes; axis length {n} allows {n // 2 + 1}")
+        modes = w.shape[2]
+        if not 1 <= modes <= n // 2 + 1:
+            raise ValueError(f"{name} has {modes} modes; axis length {n} allows {n // 2 + 1}")
+        # The mix gives each thread one mode and up to PMAX output channels.
+        if c > _PMAX * (_NT // modes):
+            raise ValueError(f"fused_mix_2d kernel takes C <= {_PMAX} * (512 // M) = "
+                             f"{_PMAX * (_NT // modes)} at M {modes}, got C {c}")
+        need = _smem_bytes(n, modes, c, x.dtype, w.dtype)
+        if need > _cuda.MAX_SMEM:
+            raise ValueError(f"fused_mix_2d: {name} at n={n}, M={modes}, C={c} needs {need} B of "
+                             f"shared memory in {x.dtype}, more than {_cuda.MAX_SMEM}")
+
+
+def _stageable(w: torch.Tensor) -> torch.Tensor:
+    """``w`` itself where every (i, o) run of 2M values is contiguous and
+    (re, im)-aligned, as the kernel stages it; else a contiguous copy."""
+    ok = (w.stride(3) == 1 and w.stride(2) == 2 and w.stride(0) % 2 == 0 and w.stride(1) % 2 == 0
+          and w.data_ptr() % (2 * w.element_size()) == 0)
+    return w if ok else w.clone(memory_format=torch.contiguous_format)
 
 
 def _launch(x: torch.Tensor, wy: torch.Tensor, wx: torch.Tensor, adjoint: bool) -> torch.Tensor:
@@ -110,10 +155,7 @@ def _launch(x: torch.Tensor, wy: torch.Tensor, wx: torch.Tensor, adjoint: bool) 
     _check_args(x, wy, wx)
     lib = _lib()
     b, sx, sy, c = x.shape
-    for n, w in ((sy, wy), (sx, wx)):
-        need = lib.spectral_axis_smem_bytes(n, w.shape[2], c)
-        if need > _cuda.MAX_SMEM:
-            raise ValueError(f"fused_mix_2d: n={n}, C={c} needs {need} B of shared memory")
+    wy, wx = _stageable(wy), _stageable(wx)
     out = torch.empty_like(x)
     code = _DTYPE_CODE[x.dtype]
     first = out if x.dtype == torch.float32 else torch.empty(x.shape, dtype=torch.float32,

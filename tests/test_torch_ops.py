@@ -336,3 +336,47 @@ def test_fused_mix_kernel_argument_checks():
         _check_args(x, wy, wx.double())
     # Tensors that need a gradient are taken: the adjoint launch exists.
     _check_args(x.requires_grad_(), wy.requires_grad_(), wx)
+    with pytest.raises(ValueError, match="has 0 modes"):
+        _check_args(x.detach(), torch.zeros(8, 8, 0, 2), wx)
+
+    # The kernel's own limits: each thread mixes one mode for at most three
+    # output channels, C <= 3 * (512 // M), and a block's rings, bases and
+    # spectra fit in 232,448 bytes of shared memory.
+    def mix(b=1, sx=64, sy=64, c=64, m=16, dtype=torch.float32, w_dtype=torch.float32):
+        _check_args(torch.zeros(b, sx, sy, c, dtype=dtype),
+                    *(torch.zeros(c, c, m, 2, dtype=w_dtype) for _ in range(2)))
+
+    mix()
+    mix(dtype=torch.bfloat16)
+    mix(sx=63, sy=65)
+    mix(sx=32, sy=32, m=17)
+    mix(sx=128, sy=128)
+    mix(c=48, m=32, dtype=torch.bfloat16, w_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match=r"C <= 3 \* \(512 // M\) = 48 at M 32, got C 49"):
+        mix(c=49, m=32, dtype=torch.bfloat16, w_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="shared memory"):
+        mix(c=72)
+    mix(c=72, dtype=torch.bfloat16, w_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="wx at n=160, M=16, C=64 needs 234576 B of shared memory"):
+        mix(sx=160)
+
+
+def test_fused_mix_kernel_smem_formula():
+    """The wrapper's mirror of the kernel's shared-memory layout: the weight
+    ring (2 x 4 input channels x C x 2M in the weights' type), the x ring
+    (2 x 10 lines x 8 samples x C in x's type), the bases [n, 2M padded to
+    8] and [2M, n padded to 8], and the spectra [10, C, 2 (M | 1)], in f32, and 10 int64 line
+    offsets.
+    ``chip_smoke.py`` holds it to the kernel's own at every checked shape."""
+    from fourierflow_tpu_torch.ops.fused_spectral import _smem_bytes
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    # The flagship (n 64, M 16, C 64).
+    assert _smem_bytes(64, 16, 64, f32, f32) == 65_536 + 40_960 + 8_192 + 8_192 + 87_040 + 80
+    assert _smem_bytes(64, 16, 64, bf16, f32) == 65_536 + 20_480 + 8_192 + 8_192 + 87_040 + 80
+    assert _smem_bytes(64, 16, 64, bf16, bf16) == 32_768 + 20_480 + 8_192 + 8_192 + 87_040 + 80
+    # An odd n (padded to 72 samples), 17 modes (34 columns padded to 40;
+    # rows of 34), and a small grid with rows of 2 x 5.
+    assert _smem_bytes(65, 16, 64, f32, f32) == 65_536 + 40_960 + 8_320 + 9_216 + 87_040 + 80
+    assert _smem_bytes(32, 17, 64, f32, f32) == 69_632 + 40_960 + 5_120 + 4_352 + 87_040 + 80
+    assert _smem_bytes(7, 4, 64, f32, f32) == 16_384 + 40_960 + 224 + 256 + 25_600 + 80

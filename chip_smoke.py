@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--seed N]
 
-Phases, each reporting on its own lines; every run goes through all six:
+Phases, each reporting on its own lines; every run goes through all eight:
 
 1. ``device``: the card's name and power limit (nvidia-smi), torch and CUDA versions.
 2. ``build``: compile every CUDA source in ``csrc/``, all at once.
@@ -21,20 +21,33 @@ Phases, each reporting on its own lines; every run goes through all six:
    forward and backward feed-forward kernels in the built library
    (``cuobjdump``), hold the wrappers' shared-memory formulas to the
    kernels' and give the spectral kernel's registers and spills.
-4. ``main`` (inference): a synthetic [38, 64, 64, 20] trajectory file made
-   from the seed, the normalizer pass, a checkpoint, then the port's
-   ``infer`` on the flagship config (24 layers, width 64) for a 10-step
-   rollout at batch 19, with the launch counts read around it;
-   ``valid_step`` on the same batch; and the model's kernel path against
-   its plain path on a small input.
-5. ``train``: the port's ``train`` on the flagship config at full width on
-   the same synthetic file (the normalizer epoch, then one epoch of 18
-   steps of batch 19, a validation rollout and the test pass), with the
-   launch counts read around it; exactly 24 launches of each kernel in one
-   train step; one train step's loss and every parameter gradient on the
-   kernel path against the plain path (a float32 CPU copy); the time of a
-   train step, and its device time by kernel group from a profiler trace.
-6. ``time``: each kernel, its plain version and a PyTorch yardstick the port
+4. ``generate``: the port's ``navier_stokes`` on the card at the flagship's
+   grid (64x64, 20 records, li force, mu 1e-5, delta 1e-4, seed 23893,
+   batch 50, t 20), cut to 100 trajectories (each cut printed against the
+   protocol); the file's invariants (finite, zero-mean fields that change
+   between records, enstrophy within the forcing's bound); the card's solve of two
+   of its initial fields against the CPU's and against a float64 numpy
+   Crank-Nicolson reference; the CUDA-graph solve against the eager one, to
+   the bit; the solver's time per step at batch 50 and 1,200, eager and
+   graph, beside its bound, and the projected time of the protocol dataset.
+5. ``main`` (inference): the generated file (``train/u``), the normalizer
+   pass, a checkpoint, then the port's ``infer`` on the flagship config (24
+   layers, width 64) for a 10-step rollout at batch 19, with the launch
+   counts read around it; ``valid_step`` on the same batch; and the model's
+   kernel path against its plain path on a small input.
+6. ``train``: the port's ``train`` on the flagship config at full width on
+   the same file (the normalizer epoch, then one epoch of 18 steps of
+   batch 19, a validation rollout and the test pass), with the launch
+   counts read around it; exactly 24 launches of each kernel in one train
+   step; one train step's loss and every parameter gradient on the kernel
+   path against the plain path (a float32 CPU copy); the time of a train
+   step, and its device time by kernel group from a profiler trace.
+7. ``baseline``: the port's ``train`` on the FNO-4 config (width 20, 12
+   modes, 4 layers, batch 20, 10-step unroll) on the same file for one
+   epoch of 4 steps and the test pass; its time per train step; one train
+   step's loss and every gradient on the card against a float32 CPU copy.
+   No hand-written kernel lies on this path (torch.fft and matmuls).
+8. ``time``: each kernel, its plain version and a PyTorch yardstick the port
    never calls, by their device time in a profiler trace (and the kernel's
    wall time back to back, between CUDA events); the least time the card
    could take and the kernel's time over it. It runs last, so that no
@@ -63,7 +76,12 @@ import torch.nn.functional as F
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+from fourierflow_tpu_torch.builders import load_array  # noqa: E402
+from fourierflow_tpu_torch.builders.synthetic import (  # noqa: E402
+    gaussian_random_field, solve_navier_stokes_2d)
+from fourierflow_tpu_torch.builders.synthetic.ns_2d import li_force  # noqa: E402
 from fourierflow_tpu_torch.commands import infer, train  # noqa: E402
+from fourierflow_tpu_torch.commands.generate import navier_stokes  # noqa: E402
 from fourierflow_tpu_torch.commands.train import build_routine  # noqa: E402
 from fourierflow_tpu_torch.config import instantiate, load_config  # noqa: E402
 from fourierflow_tpu_torch.ops import (  # noqa: E402
@@ -77,6 +95,7 @@ from fourierflow_tpu_torch.ops.fused_spectral import (  # noqa: E402
 from fourierflow_tpu_torch.utils.checkpoint import save_state  # noqa: E402
 
 CONFIG = "configs/torus_li/markov/24_layers.yaml"
+ZONGYI_CONFIG = "configs/torus_li/zongyi/4_layers.yaml"
 N_STEPS = 10
 N_LAYERS = 24
 # Flagship shapes: batch 19 on a 64x64 grid, width 64, hidden 256, 16 modes.
@@ -103,6 +122,22 @@ KERNELS = {
                                           "(second launch, _fused_mix_bwd :191)", path="train"),
 }
 TRAIN_TOL = 1e-3  # train step, kernel path vs plain path: max |err| / max |ref|, per tensor
+# The generate phase: the flagship's dataset call (scripts/torus_li_study.py: s 64, t 20,
+# 20 records, li force, mu 1e-5, delta 1e-4, seed 23893, all trajectories in train) at
+# the CLI's batch of 50, cut to two batches; the protocol beside it.
+GEN = dict(n_train=100, n_valid=0, n_test=0, s=N, t=20.0, steps=20, mu=1e-5, mu_min=1e-5,
+           mu_max=1e-5, seed=23893, delta=1e-4, batch_size=50, force="li")
+PROTOCOL = dict(n_train=1200, t=20.0, delta=1e-4)
+GEN_CHECK_STEPS = 300  # steps of the card-vs-CPU and float64-reference solves
+GEN_TOL = 1e-5  # card vs CPU solve of the same w0: max |err| / max |CPU|
+REF_TOL = 1e-4  # card vs the float64 numpy reference: max |err| / max |reference|
+MEAN_TOL = 1e-3  # |spatial mean| of every field / max |u|
+# Enstrophy: advection conserves it and viscosity dissipates it, so the RMS vorticity
+# grows at most by the force's RMS per unit time: rms(u(t)) <= rms(a) + t rms(f). Held
+# with this slack for the discretisation.
+ENSTROPHY_SLACK = 1.1
+STEP_BATCHES = (50, 1200)  # solver batches timed
+TIMED_STEPS = (1000, 3000)  # time per step: the difference of these two runs
 # The forward FF kernel's rows per block and round (8 warps of 32 bf16 rows; a
 # multiple of the f32 warp's 16, and of the backward kernel's 64-row tile),
 # and a narrower shape than the flagship's that both FF kernels take.
@@ -216,24 +251,29 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters=20, warmup=3):
+def device_ms(fn, iters=20, warmup=3, attempts=3):
     """Device time per call: the summed durations of the kernels and copies
-    that ``iters`` calls ran on the card, from a torch.profiler trace."""
+    that ``iters`` calls ran on the card, from a torch.profiler trace. A
+    trace with no device activity at all (seen once in a long run, after
+    CUDA graphs and several traces) is taken again, up to ``attempts``
+    traces in all."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
-    if us <= 0:
-        raise AssertionError("time: the profiler saw no device time")
-    return us / iters / 1e3
+    for attempt in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
+        if us > 0:
+            return us / iters / 1e3
+        log(f"time: trace {attempt + 1} of {attempts} held no device activity")
+    raise AssertionError("time: the profiler saw no device time")
 
 
 def bound(flops, nbytes, dtype):
@@ -481,26 +521,157 @@ def phase_time(dev, seed):
     return rows
 
 
-def synthetic_trajectories(path, seed, b=2 * B, n=N, t=20):
-    """Smooth random vorticity-like fields with drifting phases, unit std."""
-    rs = np.random.RandomState(seed)
-    k = np.fft.fftfreq(n) * n
-    kx, ky = np.meshgrid(k, k[: n // 2 + 1], indexing="ij")
-    amp = np.exp(-(kx ** 2 + ky ** 2) / (2 * 4.0 ** 2))
-    coef = (rs.randn(b, n, n // 2 + 1) + 1j * rs.randn(b, n, n // 2 + 1)) * amp
-    omega = 0.3 * rs.randn(n, n // 2 + 1)
-    w = np.stack([np.fft.irfft2(coef * np.exp(1j * omega * s), s=(n, n)) for s in range(t)], -1)
-    w = (w / w.std()).astype(np.float32)
-    np.save(path, w)
-    return w.shape
+def reference_cn_steps(w0, visc, delta_t, n_steps, f):
+    """Independent float64 numpy Crank-Nicolson steps with full fft2 (the
+    math of the reference solver), for one field ``w0 [n, n]``."""
+    n = w0.shape[-1]
+    k1 = np.fft.fftfreq(n, d=1.0 / n)
+    kx, ky = np.meshgrid(k1, k1, indexing="ij")
+    lap = 4 * np.pi**2 * (kx**2 + ky**2)
+    lap[0, 0] = 1.0
+    k_max = n // 2
+    dealias = (np.abs(ky) <= 2.0 / 3.0 * k_max) & (np.abs(kx) <= 2.0 / 3.0 * k_max)
+    w_h = np.fft.fft2(w0)
+    f_h = np.fft.fft2(f)
+    for _ in range(n_steps):
+        psi_h = w_h / lap
+        q = np.real(np.fft.ifft2(2j * np.pi * ky * psi_h))
+        v = np.real(np.fft.ifft2(-2j * np.pi * kx * psi_h))
+        w_x = np.real(np.fft.ifft2(2j * np.pi * kx * w_h))
+        w_y = np.real(np.fft.ifft2(2j * np.pi * ky * w_h))
+        F_h = np.fft.fft2(q * w_x + v * w_y) * dealias
+        factor = 0.5 * delta_t * visc * lap
+        w_h = (-delta_t * F_h + delta_t * f_h + (1.0 - factor) * w_h) / (1.0 + factor)
+    return np.real(np.fft.ifft2(w_h))
 
 
-def phase_main(dev, seed):
+def solver_step_ms(dev, batch, graph_steps, seed):
+    """Time per solver step (64x64, li, mu 1e-5, delta 1e-4) at ``batch``:
+    the difference of two timed solves of TIMED_STEPS steps after a
+    warm-up, so the fixed costs of a call (graph capture, transforms in and
+    out) cancel."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    w0 = gaussian_random_field(batch, N, alpha=2.5, tau=7.0, generator=gen, device=dev)
+    run = lambda k: solve_navier_stokes_2d(w0, 1e-5, k * 1e-4, 1e-4, 1, graph_steps=graph_steps)
+    run(200)
+    wall = []
+    for k in TIMED_STEPS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(k)
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t0)
+    steps = [math.ceil(k * 1e-4 / 1e-4) for k in TIMED_STEPS]
+    return (wall[1] - wall[0]) / (steps[1] - steps[0]) * 1e3
+
+
+def phase_generate(dev, tmp, seed):
+    """The port's ``navier_stokes`` on the card at the flagship's grid (cut
+    as printed), the file's invariants, the card's solve against the CPU's
+    and against the float64 reference, the CUDA-graph path against the
+    eager one, and the solver's time per step."""
+    phase_start = time.perf_counter()
+    path = os.path.join(tmp, "ns_li_64.h5")
+    log(f"generate: cut: {GEN['n_train']} trajectories against the protocol's "
+        f"{PROTOCOL['n_train']:,}")
+    if GEN["t"] != PROTOCOL["t"]:
+        log(f"generate: cut: t {GEN['t']:g} against the protocol's {PROTOCOL['t']:g} (20 records "
+            f"every {GEN['t'] / GEN['steps']:g} time units instead of every "
+            f"{PROTOCOL['t'] / GEN['steps']:g})")
+    log(f"generate: kept: t {GEN['t']:g}, delta {GEN['delta']:g}, s {GEN['s']}, {GEN['steps']} "
+        f"records, force {GEN['force']}, mu {GEN['mu']:g}, seed {GEN['seed']}, batch "
+        f"{GEN['batch_size']}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    navier_stokes(path, device=dev, **GEN)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    u, a = load_array(path, "train/u"), load_array(path, "train/a")
+    mu = load_array(path, "train/mu")
+    n_steps = math.ceil(GEN["t"] / GEN["delta"])
+    log(f"generate: navier_stokes wrote {os.path.getsize(path):,} B in {wall:.3f} s "
+        f"({n_steps:,} steps a batch, {GEN['n_train'] // GEN['batch_size']} batches); "
+        f"u {u.shape}, a {a.shape}, mu {sorted(set(mu.tolist()))}")
+    if u.shape != (GEN["n_train"], N, N, GEN["steps"]) or a.shape != (GEN["n_train"], N, N):
+        raise AssertionError(f"generate: shapes u {u.shape}, a {a.shape}")
+    if not (np.isfinite(u).all() and np.isfinite(a).all()):
+        raise AssertionError("generate: non-finite fields")
+    mean = float(np.abs(u.mean(axis=(1, 2))).max() / np.abs(u).max())
+    change = float(np.abs(u[..., 1] - u[..., 0]).max())
+    rms = lambda x: np.sqrt((x.astype(np.float64) ** 2).mean(axis=(1, 2)))
+    times = np.arange(1, GEN["steps"] + 1) * (n_steps // GEN["steps"]) * GEN["delta"]
+    bound = rms(a)[:, None] + times * rms(li_force(N)[None])
+    growth = rms(u) / bound
+    log(f"generate: invariants: max |spatial mean| / max |u| {mean:.3e} (tol {MEAN_TOL:g}); "
+        f"max |u[..., 1] - u[..., 0]| {change:.4f}; enstrophy: rms(u) / (rms(a) + t rms(f)) "
+        f"at most {growth.max():.4f} (bound {ENSTROPHY_SLACK:g}), rms(u) at t "
+        f"{times[-1]:g} in [{rms(u[..., -1]).min():.4f}, {rms(u[..., -1]).max():.4f}] from "
+        f"[{rms(a).min():.4f}, {rms(a).max():.4f}]; max |u| {np.abs(u).max():.4f}")
+    if not (mean <= MEAN_TOL and change > 0 and growth.max() <= ENSTROPHY_SLACK):
+        raise AssertionError("generate: an invariant does not hold")
+
+    # The same w0 on the card and on the CPU, and against the float64 reference.
+    w0 = torch.from_numpy(a[:2].copy())
+    t_end = GEN_CHECK_STEPS * GEN["delta"]
+    kw = dict(visc=GEN["mu"], t_end=t_end, delta_t=GEN["delta"], record_steps=3)
+    card = solve_navier_stokes_2d(w0.to(dev), **kw)[0].cpu()
+    cpu = solve_navier_stokes_2d(w0, **kw)[0]
+    err, rel = rel_err(card, cpu)
+    taken = 3 * (math.ceil(t_end / GEN["delta"]) // 3)
+    log(f"generate: card vs CPU solve ({N}x{N}, li, mu {GEN['mu']:g}, delta {GEN['delta']:g}, "
+        f"{taken} steps, 2 trajectories): max_abs_err {err:.3e} rel {rel:.3e} tol {GEN_TOL:g}")
+    if not rel <= GEN_TOL:
+        raise AssertionError(f"generate: the card's solve disagrees with the CPU's ({rel:.3e})")
+    ref = np.stack([reference_cn_steps(a[i].astype(np.float64), GEN["mu"], GEN["delta"], taken,
+                                       li_force(N).astype(np.float64)) for i in range(2)])
+    err, rel = rel_err(card[..., -1], torch.from_numpy(ref))
+    corr = float(np.corrcoef(card[..., -1].numpy().ravel(), ref.ravel())[0, 1])
+    log(f"generate: card vs float64 numpy reference ({taken} steps): max_abs_err {err:.3e} "
+        f"rel {rel:.3e} tol {REF_TOL:g}; correlation {corr:.9f}")
+    if not (rel <= REF_TOL and corr > 0.999999):
+        raise AssertionError("generate: the card's solve disagrees with the float64 reference")
+
+    # The CUDA-graph path against the eager path, to the bit.
+    wb = torch.from_numpy(a[:GEN["batch_size"]].copy()).to(dev)
+    kw = dict(visc=GEN["mu"], t_end=527 * GEN["delta"], delta_t=GEN["delta"], record_steps=5)
+    eager = solve_navier_stokes_2d(wb, graph_steps=0, **kw)[0]
+    graph = solve_navier_stokes_2d(wb, **kw)[0]
+    if not torch.equal(eager, graph):
+        raise AssertionError("generate: the CUDA-graph solve differs from the eager one")
+    log("generate: CUDA-graph solve equals the eager solve to the bit (batch 50, 5 records "
+        "of 105 steps: 2 graph replays and 5 eager steps each)")
+
+    step_ms = {}
+    for batch in STEP_BATCHES:
+        state_bytes = 2 * batch * N * (N // 2 + 1) * 8  # complex64 state, read and written
+        bound_ms = state_bytes / MEM_RATE * 1e3
+        for mode, graph_steps in (("eager", 0), ("graph", 50)):
+            ms = solver_step_ms(dev, batch, graph_steps, seed)
+            step_ms[(batch, mode)] = ms
+            log(f"generate: solver step at batch {batch} ({mode}): {ms:.4f} ms; bound "
+                f"{bound_ms:.5f} ms (the state read and written once, bytes); ms/bound "
+                f"{ms / bound_ms:.1f}")
+    protocol_steps = math.ceil(PROTOCOL["t"] / PROTOCOL["delta"])
+    batches = PROTOCOL["n_train"] // GEN["batch_size"]
+    for mode in ("eager", "graph"):
+        proj = batches * protocol_steps * step_ms[(GEN["batch_size"], mode)] / 1e3
+        log(f"generate: projected protocol dataset ({PROTOCOL['n_train']:,} trajectories, "
+            f"{batches} batches of {GEN['batch_size']} x {protocol_steps:,} steps, {mode}): "
+            f"{proj:.1f} s of solver steps")
+    log(f"generate: phase took {time.perf_counter() - phase_start:.1f} s")
+    return path, step_ms
+
+
+def data_overrides(data_path):
+    """The flagship's builder on the generated file: 19 trajectories to
+    train on, the last 19 to test on."""
+    return [f"builder.data_path={data_path}", "builder.key=train/u",
+            f"builder.train_size={B}", f"builder.test_size={B}"]
+
+
+def phase_main(dev, seed, data_path):
     with tempfile.TemporaryDirectory() as tmp:
-        data_path = os.path.join(tmp, "trajectories.npy")
-        log(f"main: synthetic data {synthetic_trajectories(data_path, seed)}")
-        overrides = [f"builder.data_path={data_path}", f"builder.train_size={B}",
-                     f"builder.test_size={B}"]
+        overrides = data_overrides(data_path)
         cfg = load_config(CONFIG, overrides)
         builder = instantiate(cfg["builder"])
         routine = build_routine(cfg["routine"])
@@ -549,14 +720,11 @@ def phase_main(dev, seed):
     return counts
 
 
-def phase_train(dev, seed):
+def phase_train(dev, seed, data_path):
     """The port's ``train`` on the flagship at full width, then one train
     step counted, checked against its plain path, and timed."""
     with tempfile.TemporaryDirectory() as tmp:
-        data_path = os.path.join(tmp, "trajectories.npy")
-        synthetic_trajectories(data_path, seed)
-        overrides = [f"builder.data_path={data_path}", f"builder.train_size={B}",
-                     f"builder.test_size={B}", "trainer.max_epochs=2"]
+        overrides = data_overrides(data_path) + ["trainer.max_epochs=2"]
         reset_launch_counts()
         trainer, state = train.main(CONFIG, overrides, config_dir=tmp, device="cuda")
         counts = launch_counts()
@@ -629,16 +797,77 @@ def phase_train(dev, seed):
     return counts
 
 
+def phase_baseline(dev, data_path):
+    """The port's ``train`` on the FNO-4 baseline config at full width on the
+    generated file (80 trajectories to train on in 4 steps of 20, the last
+    20 to test on), then its time per train step and one step on the card
+    against a float32 CPU copy."""
+    overrides = [f"builder.data_path={data_path}", "builder.key=train/u",
+                 "builder.train_size=80", "builder.test_size=20", "trainer.max_epochs=1"]
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer, state = train.main(ZONGYI_CONFIG, overrides, config_dir=tmp, device=dev)
+    logs = trainer.logs
+    losses = {k: float(v) for k, v in logs.items() if "loss" in k and np.ndim(v) == 0}
+    log(f"baseline: {trainer.global_step} steps, n_params {logs['n_params']:,}, "
+        f"{json.dumps(losses)}, test time_until {logs['test_time_until']:g}, epoch_time "
+        f"{logs['epoch_time']:.3f} s")
+    if trainer.global_step != 4 or not all(math.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"baseline: {trainer.global_step} steps, losses {losses}")
+
+    cfg = load_config(ZONGYI_CONFIG, overrides)
+    builder = instantiate(cfg["builder"])
+    routine = build_routine(cfg["routine"], builder)
+    batch = builder.sample_batch()
+    if batch["x"].shape != (20, N, N, 12) or batch["y"].shape != (20, N, N, 10):
+        raise AssertionError(f"baseline: batch x {batch['x'].shape}, y {batch['y'].shape}")
+    for _ in range(3):
+        state, _ = routine.train_step(state, batch)
+    torch.cuda.synchronize()
+    t0, cpu0 = time.perf_counter(), time.process_time()
+    for _ in range(10):
+        state, metrics = routine.train_step(state, batch)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / 10 * 1e3
+    cpu_ms = (time.process_time() - cpu0) / 10 * 1e3
+    if not math.isfinite(float(metrics["train_loss"])):
+        raise AssertionError("baseline: non-finite loss in the timed steps")
+    log(f"baseline: {step_ms:.3f} ms per train step (batch 20, 10-step unroll, f32, mean of 10 "
+        f"after 3 warm-ups); host CPU time {cpu_ms:.3f} ms per step")
+    profile_train_step(routine, state, batch, None, step_ms, label="baseline",
+                       groups=BASELINE_GROUPS, host_top=8)
+
+    plain = dataclasses.replace(state, model=copy.deepcopy(state.model).cpu())
+    loss, grads, _ = routine.loss_and_grads(state, batch)
+    want_loss, want_grads, _ = routine.loss_and_grads(plain, batch)
+    names = [n for n, _ in state.model.named_parameters()]
+    rels = {n: rel_err(a, b)[1] for n, a, b in zip(names, grads, want_grads, strict=True)}
+    loss_rel = abs(float(loss) - float(want_loss)) / abs(float(want_loss))
+    worst = max(rels, key=rels.get)
+    log(f"baseline: step on the card vs a float32 CPU copy: loss {float(loss):.6f} vs "
+        f"{float(want_loss):.6f} (rel {loss_rel:.2e}); gradients of {len(rels)} parameters, "
+        f"largest rel {rels[worst]:.2e} ({worst}), tol {TRAIN_TOL:.0e}")
+    if not (loss_rel <= TRAIN_TOL and rels[worst] <= TRAIN_TOL):
+        raise AssertionError("baseline: the card disagrees with the CPU")
+    return step_ms
+
+
 # Device-time groups of a train step, by kernel name.
 STEP_GROUPS = (("spectral kernel (forward + adjoint)", ("spectral_axis_kernel",)),
                ("FF backward kernel", ("ff_bwd",)), ("FF forward kernel", ("ff_fwd_kernel",)),
                ("cuBLAS GEMM (weight gradients, projections)", ("gemm", "gemv", "xmma")))
 
 
-def profile_train_step(routine, state, batch, gen, step_ms, steps=2):
+# Device-time groups of an FNO-4 train step.
+BASELINE_GROUPS = (("cuFFT", ("fft",)),
+                   ("cuBLAS GEMM (mode mixing, linear layers)", ("gemm", "gemv", "xmma")))
+
+
+def profile_train_step(routine, state, batch, gen, step_ms, steps=2, label="train",
+                       groups=STEP_GROUPS, host_top=0):
     """Device time of a train step by kernel group, from a torch.profiler
     trace of ``steps`` steps; the idle share is taken against the untraced
-    step time."""
+    step time. ``host_top`` > 0 also lists the operators with the most
+    host (self CPU) time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -646,24 +875,29 @@ def profile_train_step(routine, state, batch, gen, step_ms, steps=2):
         for _ in range(steps):
             state, _ = routine.train_step(state, batch, gen)
         torch.cuda.synchronize()
-    groups = {name: 0.0 for name, _ in STEP_GROUPS}
+    totals = {name: 0.0 for name, _ in groups}
     other, by_name = "other (elementwise, reductions, copies, AdamW)", {}
-    groups[other] = 0.0
+    totals[other] = 0.0
     for e in prof.events():
         if e.device_type != DeviceType.CUDA or e.is_user_annotation:
             continue
         us, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (us + e.time_range.elapsed_us() / steps, n + 1)
     for name, (us, _) in by_name.items():
-        groups[next((g for g, keys in STEP_GROUPS if any(k in name for k in keys)), other)] += us
-    device_ms = sum(groups.values()) / 1e3
+        totals[next((g for g, keys in groups if any(k in name for k in keys)), other)] += us
+    device_ms = sum(totals.values()) / 1e3
     launches = sum(n for _, n in by_name.values()) // steps
-    log(f"train: traced device time {device_ms:.3f} ms per step in {launches} device "
+    log(f"{label}: traced device time {device_ms:.3f} ms per step in {launches} device "
         f"operations; idle {max(0.0, 1 - device_ms / step_ms):.1%} of the {step_ms:.3f} ms step")
-    for name, us in groups.items():
-        log(f"train:   {us / 1e3:8.3f} ms  {name}")
+    for name, us in totals.items():
+        log(f"{label}:   {us / 1e3:8.3f} ms  {name}")
     for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
-        log(f"train:   top {us / 1e3:8.3f} ms  {n // steps:4d}x  {name[:90]}")
+        log(f"{label}:   top {us / 1e3:8.3f} ms  {n // steps:4d}x  {name[:90]}")
+    if host_top:
+        ops = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)[:host_top]
+        for a in ops:
+            log(f"{label}:   host {a.self_cpu_time_total / steps / 1e3:8.3f} ms  "
+                f"{a.count // steps:5d}x  {a.key[:80]}")
 
 
 def main():
@@ -682,7 +916,11 @@ def main():
     phase_build()
     phase_sass()
     errs = phase_check(dev, args.seed)
-    counts = {"infer": phase_main(dev, args.seed), "train": phase_train(dev, args.seed)}
+    with tempfile.TemporaryDirectory() as tmp:
+        data_path, _ = phase_generate(dev, tmp, args.seed)
+        counts = {"infer": phase_main(dev, args.seed, data_path),
+                  "train": phase_train(dev, args.seed, data_path)}
+        phase_baseline(dev, data_path)
     times = phase_time(dev, args.seed)
 
     kernels = []

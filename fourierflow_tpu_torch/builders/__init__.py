@@ -1,4 +1,5 @@
 from .base import Builder, iterate_batches, load_array
 from .ns_markov import NSMarkovBuilder
+from .ns_zongyi import NSZongyiBuilder
 
-__all__ = ["Builder", "iterate_batches", "load_array", "NSMarkovBuilder"]
+__all__ = ["Builder", "iterate_batches", "load_array", "NSMarkovBuilder", "NSZongyiBuilder"]

@@ -11,14 +11,19 @@ __all__ = ["Builder", "iterate_batches", "num_batches", "load_array"]
 
 
 def load_array(path: str, key: str = "u") -> np.ndarray:
-    """Load a dataset array from .npy, .h5/.hdf5 (h5py) or .mat (scipy;
-    MATLAB v7.3 files through h5py)."""
+    """Load a dataset array from .npy, .h5/.hdf5 (h5py, or ``utils.hdf5``
+    where h5py is not installed) or .mat (scipy; MATLAB v7.3 files through
+    h5py)."""
     path = os.path.expandvars(os.path.expanduser(path))
     if path.endswith(".npy"):
         return np.load(path)
     if path.endswith((".h5", ".hdf5")):
-        import h5py
+        try:
+            import h5py
+        except ImportError:
+            from ..utils.hdf5 import read_dataset
 
+            return read_dataset(path, key)
         with h5py.File(path, "r") as f:
             return f[key][...]
     import scipy.io

@@ -1,8 +1,8 @@
 """CLI entry point: ``python -m fourierflow_tpu_torch.commands <cmd> ...``.
 
-Commands ported so far: ``train`` and ``infer``. Both run on CUDA unless
-``--device cpu`` is given, and raise when no GPU is present and the CPU
-was not asked for.
+Commands ported so far: ``train``, ``infer`` and ``generate
+navier-stokes``. Each runs on CUDA unless ``--device cpu`` is given, and
+raises when no GPU is present and the CPU was not asked for.
 """
 
 import argparse
@@ -34,6 +34,22 @@ def main(argv=None):
     p_infer.add_argument("--n-steps", type=int, default=100)
     p_infer.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
 
+    p_gen = sub.add_parser("generate", help="generate datasets")
+    gen_sub = p_gen.add_subparsers(dest="generator", required=True)
+    p_ns = gen_sub.add_parser("navier-stokes", help="torus Navier-Stokes trajectories (h5)")
+    p_ns.add_argument("path")
+    for name, typ, default in [
+        ("n-train", int, 1000), ("n-valid", int, 200), ("n-test", int, 200),
+        ("s", int, 256), ("t", float, 20.0), ("steps", int, 20),
+        ("mu", float, 1e-5), ("mu-min", float, 1e-5), ("mu-max", float, 1e-5),
+        ("seed", int, 23893), ("delta", float, 1e-4), ("batch-size", int, 50),
+        ("force", str, "li"), ("cycles", int, 2), ("scaling", float, 0.1),
+        ("t-scaling", float, 0.2),
+    ]:
+        p_ns.add_argument(f"--{name}", type=typ, default=default)
+    p_ns.add_argument("--varying-force", action="store_true")
+    p_ns.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+
     args = parser.parse_args(argv)
     if args.command == "train":
         from .train import main as train_main
@@ -45,6 +61,15 @@ def main(argv=None):
 
         infer_main(args.config_path, args.checkpoint_path, overrides=args.overrides,
                    n_steps=args.n_steps, trial=args.trial, device=args.device)
+    elif args.command == "generate" and args.generator == "navier-stokes":
+        from .generate import navier_stokes
+
+        navier_stokes(args.path, n_train=args.n_train, n_valid=args.n_valid, n_test=args.n_test,
+                      s=args.s, t=args.t, steps=args.steps, mu=args.mu, mu_min=args.mu_min,
+                      mu_max=args.mu_max, seed=args.seed, delta=args.delta,
+                      batch_size=args.batch_size, force=args.force, cycles=args.cycles,
+                      scaling=args.scaling, t_scaling=args.t_scaling,
+                      varying_force=args.varying_force, device=args.device)
 
 
 if __name__ == "__main__":

@@ -44,7 +44,7 @@ def main(config_path: str, checkpoint_path: Optional[str] = None,
     dev = resolve_device(device)
     cfg = load_config(config_path, overrides)
     builder = instantiate(cfg["builder"])
-    routine = build_routine(cfg["routine"])
+    routine = build_routine(cfg["routine"], builder)
 
     batch = next(builder.test_batches())
     state = routine.init(7231 + trial, builder.sample_batch(), dev)

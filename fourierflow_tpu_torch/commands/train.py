@@ -23,7 +23,8 @@ import torch
 from ..config import instantiate, load_config
 from ..device import resolve_device
 from ..routines.base import make_optimizer
-from ..schedulers import cosine_with_warmup
+from ..schedulers import (cosine_with_warmup, exponential_with_warmup, linear_with_warmup,
+                          step_lr, swa_lr)
 from ..trainers import JSONLogger, ModelCheckpoint, Trainer
 from ..utils.checkpoint import load_state
 
@@ -31,17 +32,19 @@ logger = logging.getLogger(__name__)
 
 __all__ = ["ExistingExperimentFound", "build_routine", "build_trainer", "main"]
 
-# The schedules ported so far, by the callable a scheduler node names.
-_SCHEDULES = (cosine_with_warmup,)
+# The schedules ported, by the callable a scheduler node names.
+_SCHEDULES = (cosine_with_warmup, linear_with_warmup, exponential_with_warmup, step_lr, swa_lr)
 
 
-def build_routine(routine_cfg: dict):
+def build_routine(routine_cfg: dict, builder=None):
     """Construct a routine from a config node, with its optimizer: the
     config's ``functools.partial(torch.optim.AdamW, lr=..., weight_decay=...)``
     gives the learning rate and weight decay (1e-4 when an AdamW node omits
     it, 0 for another optimizer, as the JAX package reads them), the
-    scheduler node a per-step schedule of that rate, ``clip_val`` and
-    ``accumulate_grad_batches`` the rest of ``make_optimizer``'s chain."""
+    scheduler node a per-step schedule of that rate (a node with ``interval:
+    epoch`` is given the ``builder``'s batches per epoch as
+    ``steps_per_epoch``), ``clip_val`` and ``accumulate_grad_batches`` the
+    rest of ``make_optimizer``'s chain."""
     cfg = dict(routine_cfg)
     opt = instantiate(cfg.pop("optimizer", None))
     kw = dict(opt.keywords) if isinstance(opt, partial) else {}
@@ -57,7 +60,10 @@ def build_routine(routine_cfg: dict):
         fn = sch.func if isinstance(sch, partial) else sch
         if fn not in _SCHEDULES:
             raise NotImplementedError(f"scheduler {fn!r} is not ported yet")
-        schedule = sch(lr=lr)
+        kwargs = {}
+        if isinstance(sch_cfg, dict) and sch_cfg.get("interval") == "epoch" and builder is not None:
+            kwargs["steps_per_epoch"] = builder.batches_per_epoch
+        schedule = sch(lr=lr, **kwargs)
 
     optimizer = make_optimizer(lr=lr, weight_decay=weight_decay, schedule=schedule,
                                clip_val=cfg.pop("clip_val", None),
@@ -110,7 +116,7 @@ def main(config_path: str, overrides: Optional[List[str]] = None, trial: int = 0
     seed = 7231 + trial
 
     builder = instantiate(cfg["builder"])
-    routine = build_routine(cfg["routine"])
+    routine = build_routine(cfg["routine"], builder)
     if (cfg.get("trainer") or {}).get("track_grad_norm") not in (None, -1, False):
         routine.track_grad_norm = True
 

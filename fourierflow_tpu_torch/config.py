@@ -52,9 +52,16 @@ _PORT_PREFIX = "fourierflow_tpu_torch."
 # The reference's names for what this package has ported.
 TARGET_TRANSLATION = {
     "fourierflow.builders.NSMarkovBuilder": "fourierflow_tpu_torch.builders.NSMarkovBuilder",
+    "fourierflow.builders.NSZongyiBuilder": "fourierflow_tpu_torch.builders.NSZongyiBuilder",
     "fourierflow.modules.FNOFactorized2DBlock": "fourierflow_tpu_torch.models.FNOFactorized2DBlock",
+    "fourierflow.modules.FNOZongyi2DBlock": "fourierflow_tpu_torch.models.FNOZongyi2DBlock",
     "fourierflow.routines.Grid2DMarkovExperiment": "fourierflow_tpu_torch.routines.Grid2DMarkovRoutine",
+    "fourierflow.routines.Grid2DRolloutExperiment": "fourierflow_tpu_torch.routines.Grid2DRolloutRoutine",
     "fourierflow.schedulers.CosineWithWarmupScheduler": "fourierflow_tpu_torch.schedulers.cosine_with_warmup",
+    "fourierflow.schedulers.LinearWithWarmupScheduler": "fourierflow_tpu_torch.schedulers.linear_with_warmup",
+    "fourierflow.schedulers.ExponentialWithWarmupScheduler":
+        "fourierflow_tpu_torch.schedulers.exponential_with_warmup",
+    "torch.optim.lr_scheduler.StepLR": "fourierflow_tpu_torch.schedulers.step_lr",
     "fourierflow.callbacks.CustomModelCheckpoint": "fourierflow_tpu_torch.trainers.ModelCheckpoint",
     "pytorch_lightning.callbacks.LearningRateMonitor": None,
     "pytorch_lightning.callbacks.ModelSummary": None,

@@ -1,5 +1,7 @@
 """Plain PyTorch spectral ops (counterpart of ``fourierflow_tpu/ops/spectral.py``).
 
+``spectral_conv_2d_full`` is the original FNO's 2D spectral convolution
+(``torch.fft`` and a complex product on two corners of the modes).
 ``spectral_mix_axis`` is one separable F-FNO branch: truncated orthonormal
 rDFT along one spatial axis, per-mode complex channel mixing, inverse rDFT.
 It is computed with the truncated-DFT basis matmuls of ``ops/dft.py`` in
@@ -14,8 +16,10 @@ import math
 import torch
 
 from .dft import irdft_basis, rdft_basis
+from .fourier import irfft2
 
-__all__ = ["spectral_mix_axis", "mix_axis_f32", "mix_axis_wgrad", "dft_bases", "stacked_bases"]
+__all__ = ["spectral_mix_axis", "mix_axis_f32", "mix_axis_wgrad", "dft_bases", "stacked_bases",
+           "spectral_conv_2d_full"]
 
 
 @functools.lru_cache(maxsize=64)
@@ -138,3 +142,32 @@ def mix_axis_wgrad(x: torch.Tensor, g: torch.Tensor, modes: int, axis: int,
     if rnd:
         dwr, dwi = rnd(dwr), rnd(dwi)
     return torch.stack([dwr, dwi], dim=-1).permute(1, 2, 0, 3)
+
+
+def spectral_conv_2d_full(x: torch.Tensor, weight1: torch.Tensor, weight2: torch.Tensor, *,
+                          norm: str = "backward") -> torch.Tensor:
+    """The original FNO's full 2D spectral convolution: ``rfft2`` over the
+    grid, per-mode complex channel mixing on the two corner blocks of modes
+    (the first and the last ``m1`` x frequencies, the first ``m2`` y
+    frequencies; where they overlap the second block wins), the other modes
+    zero, and the inverse ``ops.fourier.irfft2``.
+
+    Args:
+      x: ``[batch, sx, sy, in_channels]`` real.
+      weight1, weight2: ``[in, out, m1, m2, 2]`` real/imaginary pairs.
+      norm: accepted as the JAX package accepts it; the forward and inverse
+        scales cancel, so every normalisation gives the same result.
+    Returns:
+      ``[batch, sx, sy, out_channels]``.
+    """
+    del norm
+    b, sx, sy, _ = x.shape
+    m1, m2 = weight1.shape[2], weight1.shape[3]
+    xf = torch.fft.rfft2(x, dim=(1, 2))  # [b, sx, sy//2+1, in]
+    cw = lambda w: torch.view_as_complex(w.contiguous())  # [in, out, m1, m2]
+    top = torch.einsum("bxyi,ioxy->bxyo", xf[:, :m1, :m2], cw(weight1))
+    bottom = torch.einsum("bxyi,ioxy->bxyo", xf[:, -m1:, :m2], cw(weight2))
+    out = xf.new_zeros(b, sx, sy // 2 + 1, weight1.shape[1])
+    out[:, :m1, :m2] = top
+    out[:, -m1:, :m2] = bottom
+    return irfft2(out, (sx, sy), dim=(1, 2))

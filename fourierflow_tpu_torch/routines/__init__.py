@@ -1,4 +1,5 @@
 from .base import Routine, State
 from .grid_2d_markov import Grid2DMarkovRoutine
+from .grid_2d_rollout import Grid2DRolloutRoutine
 
-__all__ = ["Routine", "State", "Grid2DMarkovRoutine"]
+__all__ = ["Routine", "State", "Grid2DMarkovRoutine", "Grid2DRolloutRoutine"]

@@ -22,7 +22,8 @@ import torch.nn as nn
 
 from ..layers import NormalizerState
 
-__all__ = ["State", "Routine", "OptimizerSpec", "make_optimizer"]
+__all__ = ["State", "Routine", "OptimizerSpec", "make_optimizer", "rho_time_until",
+           "nan_to_9999"]
 
 
 @dataclass
@@ -74,6 +75,24 @@ def make_optimizer(lr: float = 1e-3, weight_decay: float = 1e-4,
     makes one update (optax's ``MultiSteps``; the steps between change
     nothing)."""
     return OptimizerSpec(lr, weight_decay, schedule, clip_val, int(accumulate_grad_batches))
+
+
+def rho_time_until(preds: torch.Tensor, yy: torch.Tensor, step_size: float):
+    """Vorticity correlation rho(t) of ``preds`` and ``yy [b, X, Y, T]``,
+    averaged over the batch, and the time (``step_size`` per step) until
+    rho first drops below 0.95 (all of T when it never does)."""
+    pn = torch.linalg.vector_norm(preds, dim=(1, 2), keepdim=True)
+    yn = torch.linalg.vector_norm(yy, dim=(1, 2), keepdim=True)
+    p = ((preds / pn) * (yy / yn)).sum(dim=(1, 2)).mean(dim=0)
+    diverged = p < 0.95
+    t = torch.where(diverged.any(), torch.argmax(diverged.int()),
+                    torch.tensor(p.shape[0], device=p.device))
+    return p, t * step_size
+
+
+def nan_to_9999(v: torch.Tensor) -> torch.Tensor:
+    """A loss that is NaN reads 9999.9, as the reference logs it."""
+    return torch.where(torch.isnan(v), torch.full_like(v, 9999.9), v)
 
 
 def _params(model: nn.Module):

@@ -22,7 +22,7 @@ from ..layers import (
     normalizer_init,
     normalizer_inverse,
 )
-from .base import Routine, State
+from .base import Routine, State, nan_to_9999, rho_time_until
 
 __all__ = ["Grid2DMarkovRoutine"]
 
@@ -163,28 +163,16 @@ class Grid2DMarkovRoutine(Routine):
             preds.append(im[..., 0])
         return torch.stack(preds, dim=-1), torch.stack(step_losses), yy
 
-    def _rho_time_until(self, preds, yy):
-        """Mean vorticity correlation rho(t) over the batch and the sim time
-        until rho drops below 0.95."""
-        pn = torch.linalg.vector_norm(preds, dim=(1, 2), keepdim=True)
-        yn = torch.linalg.vector_norm(yy, dim=(1, 2), keepdim=True)
-        p = ((preds / pn) * (yy / yn)).sum(dim=(1, 2)).mean(dim=0)
-        diverged = p < 0.95
-        t = torch.where(diverged.any(), torch.argmax(diverged.int()),
-                        torch.tensor(p.shape[0], device=p.device))
-        return p, t * self.step_size
-
     def compute_losses(self, preds, step_losses, yy):
         """Mean step loss, full-field N-MSE (NaN reads 9999.9), rho(t) and
         the time until rho < 0.95."""
         b = preds.shape[0]
         loss = step_losses.mean()
         loss_full = lp_loss_rel(preds.reshape(b, -1), yy.reshape(b, -1))
-        p, time_until = self._rho_time_until(preds, yy)
-        nan_to = lambda v: torch.where(torch.isnan(v), torch.full_like(v, 9999.9), v)
+        p, time_until = rho_time_until(preds, yy, self.step_size)
         return {
-            "loss_avg": nan_to(loss),
-            "loss": nan_to(loss_full),
+            "loss_avg": nan_to_9999(loss),
+            "loss": nan_to_9999(loss_full),
             "time_until": time_until,
             "corr": p.mean(),
             "correlations": p,

@@ -1,6 +1,7 @@
-"""Carry F-FNO weights from the JAX package's flax parameter tree to this
-package's ``state_dict`` (the inverse of the JAX package's
-``utils/torch_import.py::convert_ffno_state_dict``).
+"""Carry weights from the JAX package's flax parameter trees to this
+package's ``state_dict``s: F-FNO (the inverse of the JAX package's
+``utils/torch_import.py::convert_ffno_state_dict``) and the original FNO
+(of ``convert_zongyi_state_dict``).
 
 Input: the flax params of an ``FNOFactorized2DBlock`` as a nested dict of
 numpy arrays (with or without the outer ``"params"`` level) and its number
@@ -23,7 +24,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-__all__ = ["state_dict_from_flax"]
+__all__ = ["state_dict_from_flax", "zongyi_state_dict_from_flax"]
 
 _LAYER_W = re.compile(r"layers_(\d+)_fourier_weight_([xy])$")
 _LAYER_FF = re.compile(r"layers_(\d+)_(backcast_ff|forecast_ff)$")
@@ -52,6 +53,39 @@ def _ff(p: Mapping, base: str, out: Dict[str, torch.Tensor]) -> None:
         if m is None:
             raise KeyError(f"unexpected FeedForward entry {base}.{name}")
         _linear(lin, f"{base}.layers.{m.group(1)}.0", out)
+
+
+_ZONGYI_LAYER = re.compile(r"layers_(\d+)$")
+_ZONGYI_HEAD = {"WNLinear_0": "feedforward.0", "WNLinear_1": "feedforward.2"}
+
+
+def zongyi_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax ``FNOZongyi2DBlock`` params -> port ``state_dict``: ``in_proj``,
+    ``layers_{i}`` (``fourier_weight_1/2`` -> ``fourier_weight.0/1``,
+    ``linear``) and the head ``WNLinear_0/1`` -> ``feedforward.0/2``. The
+    tree of ``Grid2DRolloutRoutine`` with Fourier positions (``conv`` and
+    ``in_proj``) becomes ``FourierPositionNet``'s ``conv.*`` and ``in_proj.*``."""
+    if "params" in params:
+        params = params["params"]
+    out: Dict[str, torch.Tensor] = {}
+    if "conv" in params:
+        out.update({f"conv.{k}": v for k, v in zongyi_state_dict_from_flax(params["conv"]).items()})
+        _linear(params["in_proj"], "in_proj", out)
+        return out
+    for name, value in params.items():
+        m = _ZONGYI_LAYER.match(name)
+        if name == "in_proj":
+            _linear(value, "in_proj", out)
+        elif name in _ZONGYI_HEAD:
+            _linear(value, _ZONGYI_HEAD[name], out)
+        elif m:
+            base = f"spectral_layers.{m.group(1)}"
+            out[f"{base}.fourier_weight.0"] = _tensor(value["fourier_weight_1"])
+            out[f"{base}.fourier_weight.1"] = _tensor(value["fourier_weight_2"])
+            _linear(value["linear"], f"{base}.linear", out)
+        else:
+            raise KeyError(f"unexpected FNOZongyi2DBlock parameter {name!r}")
+    return out
 
 
 def state_dict_from_flax(params: Mapping, n_layers: int) -> Dict[str, torch.Tensor]:

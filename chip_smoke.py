@@ -2,15 +2,16 @@
 
     python3 chip_smoke.py [--seed N]
 
-Phases, each reporting on its own lines; every run goes through all eight:
+Phases, each reporting on its own lines; every run goes through all nine:
 
 1. ``device``: the card's name and power limit (nvidia-smi), torch and CUDA versions.
 2. ``build``: compile every CUDA source in ``csrc/``, all at once.
 3. ``check``: each kernel against its plain PyTorch version at the flagship
    shapes, in float32 (TF32 off) and bf16, with the weights laid out as the
    model hands them over; with ragged rows (one row short of a whole tile,
-   1037, 1 and 0), contiguous weights and a narrower shape for the
-   feed-forward, and odd, non-square and Nyquist-mode grids, strided and
+   1037, 1 and 0), the 4,096 rows of a serving step at batch 1, contiguous
+   weights and a narrower shape for the feed-forward, the serving batch 1
+   grid and odd, non-square and Nyquist-mode grids, strided and
    bf16 mode weights, line counts that are not a multiple of the kernel's
    10 lines a block, above one round of blocks and below one block, for the
    spectral mix and its adjoint; two runs of each kernel at the flagship
@@ -35,19 +36,33 @@ Phases, each reporting on its own lines; every run goes through all eight:
    layers, width 64) for a 10-step rollout at batch 19, with the launch
    counts read around it; ``valid_step`` on the same batch; and the model's
    kernel path against its plain path on a small input.
-6. ``train``: the port's ``train`` on the flagship config at full width on
+6. ``serve``: on the same file, the flagship after its normalizer pass and
+   3 train steps, saved as a port checkpoint under ``trial-0-*`` and as a
+   reference-style Lightning ``.ckpt``. ``export`` writes the 20-step
+   rollout at batch 1 and at batch 19 (the export's seconds and file size
+   printed); each artifact's graph holds 24 x 20 nodes of each forward
+   operator and none of the backward ones; its call on a test trajectory's
+   frame launches each forward kernel 24 x 20 times and agrees with the
+   live serving module and with ``routine.rollout`` (1e-5); ms per rollout
+   step of the artifact and of the eager rollout (median, min and max of 15
+   calls). Then ``test`` through ``find_checkpoint`` and through the
+   Lightning file (equal, finite logs), ``predict`` with the config and
+   without (the DNS baseline, with and without the solver's per-call
+   set-up, and the ratios to the model) and ``sample`` (the pickle's predictions
+   ``[19, 64, 64, 10]``, finite).
+7. ``train``: the port's ``train`` on the flagship config at full width on
    the same file (the normalizer epoch, then one epoch of 18 steps of
    batch 19, a validation rollout and the test pass), with the launch
    counts read around it; exactly 24 launches of each kernel in one train
    step; one train step's loss and every parameter gradient on the kernel
    path against the plain path (a float32 CPU copy); the time of a train
    step, and its device time by kernel group from a profiler trace.
-7. ``baseline``: the port's ``train`` on the FNO-4 config (width 20, 12
+8. ``baseline``: the port's ``train`` on the FNO-4 config (width 20, 12
    modes, 4 layers, batch 20, 10-step unroll) on the same file for one
    epoch of 4 steps and the test pass; its time per train step; one train
    step's loss and every gradient on the card against a float32 CPU copy.
    No hand-written kernel lies on this path (torch.fft and matmuls).
-8. ``time``: each kernel, its plain version and a PyTorch yardstick the port
+9. ``time``: each kernel, its plain version and a PyTorch yardstick the port
    never calls, by their device time in a profiler trace (and the kernel's
    wall time back to back, between CUDA events); the least time the card
    could take and the kernel's time over it. It runs last, so that no
@@ -62,9 +77,12 @@ import argparse
 import copy
 import dataclasses
 import json
+import logging
 import math
 import os
+import pickle
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -80,7 +98,9 @@ from fourierflow_tpu_torch.builders import load_array  # noqa: E402
 from fourierflow_tpu_torch.builders.synthetic import (  # noqa: E402
     gaussian_random_field, solve_navier_stokes_2d)
 from fourierflow_tpu_torch.builders.synthetic.ns_2d import li_force  # noqa: E402
-from fourierflow_tpu_torch.commands import infer, train  # noqa: E402
+from fourierflow_tpu_torch.commands import (  # noqa: E402
+    export, infer, predict, sample, train)
+from fourierflow_tpu_torch.commands import test as test_command  # noqa: E402
 from fourierflow_tpu_torch.commands.generate import navier_stokes  # noqa: E402
 from fourierflow_tpu_torch.commands.train import build_routine  # noqa: E402
 from fourierflow_tpu_torch.config import instantiate, load_config  # noqa: E402
@@ -93,6 +113,7 @@ from fourierflow_tpu_torch.ops.fused_spectral import (  # noqa: E402
     _lib as _spectral_lib, _smem_bytes as _mix_smem_bytes, fused_mix_2d_adjoint_cuda,
     fused_mix_2d_adjoint_plain, fused_mix_2d_cuda, fused_mix_2d_plain)
 from fourierflow_tpu_torch.utils.checkpoint import save_state  # noqa: E402
+from fourierflow_tpu_torch.utils.serving import load_exported, make_rollout_fn  # noqa: E402
 
 CONFIG = "configs/torus_li/markov/24_layers.yaml"
 ZONGYI_CONFIG = "configs/torus_li/zongyi/4_layers.yaml"
@@ -149,10 +170,19 @@ FF_NARROW = dict(cin=32, hidden=128, cout=40)
 # (copied to contiguous runs by the wrapper); 1,472 lines, not a multiple of
 # the kernel's 10 lines a block and more than one round; 7 and 9 lines, less
 # than one block; 20 channels (bf16 rows of x then are not 16-byte pieces).
-MIX_CASES = (((B, N, N, M), {}), ((2, 63, 65, M), {}), ((2, 32, 32, 17), {}),
-             ((3, 48, 40, 12), dict(strided=True)), ((23, N, N, M), {}), ((1, 7, 9, 4), {}),
-             ((2, 24, 20, 6), dict(c=20)))
+# The second case is the serving artifact's batch 1 (64 lines an axis launch,
+# the last block partly filled).
+MIX_CASES = (((B, N, N, M), {}), ((1, N, N, M), {}), ((2, 63, 65, M), {}),
+             ((2, 32, 32, 17), {}), ((3, 48, 40, 12), dict(strided=True)), ((23, N, N, M), {}),
+             ((1, 7, 9, 4), {}), ((2, 24, 20, 6), dict(c=20)))
 MIX_BF16_CASES = (((2, 40, 48, 12), dict(w_dtype=torch.bfloat16)),)
+# The serve phase: the exported rollout's steps and batches, and its tolerance against
+# the live serving module and the eager rollout (max |err| / max |reference|, f32).
+SERVE_STEPS = 20
+SERVE_BATCHES = (1, B)
+SERVE_TOL = 1e-5
+SERVE_TRAIN_STEPS = 3
+SERVE_CALLS = 15  # calls timed for ms per rollout step
 
 
 def log(*args):
@@ -388,7 +418,9 @@ def phase_check(dev, seed):
     errs = {}
     for dtype in DTYPES:
         tag = str(dtype).replace("torch.", "")
-        for rows, model_layout, widths in ((ROWS, True, {}), (1000 + 37, False, {}),
+        # N * N rows: one rollout step of the serving artifact at batch 1.
+        for rows, model_layout, widths in ((ROWS, True, {}), (N * N, True, {}),
+                                           (1000 + 37, False, {}),
                                            (FF_TILE_ROWS * 50 - 1, True, {}), (1, True, {}),
                                            (0, True, {}), (999, True, FF_NARROW)):
             before = fused_ff.launches
@@ -720,6 +752,147 @@ def phase_main(dev, seed, data_path):
     return counts
 
 
+def rollout_step_ms(fn, n_calls=SERVE_CALLS):
+    """Wall time per rollout step of ``fn()`` (one rollout of SERVE_STEPS
+    steps) in each of ``n_calls`` calls after one warm-up, each call ended
+    by ``torch.cuda.synchronize()``: ``(median, min, max)``."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n_calls):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) / SERVE_STEPS * 1e3)
+    return statistics.median(times), min(times), max(times)
+
+
+def save_lightning(path, state):
+    """The state's weights and normalizer as the reference's Lightning
+    checkpoint holds them: the model under ``conv.``, the normalizer's
+    buffers under ``normalizer.``."""
+    sd = {f"conv.{k}": v.detach().cpu() for k, v in state.model.state_dict().items()}
+    norm = state.normalizer
+    for name in ("sum", "sum_squared", "count"):
+        sd[f"normalizer.{name}"] = getattr(norm, name).detach().cpu()
+    torch.save({"state_dict": sd, "epoch": 1}, path)
+
+
+def phase_serve(dev, seed, data_path):
+    """The serving path and the inference commands on the flagship at full
+    width: export, the artifact against the live rollout, test through both
+    checkpoint formats, predict and sample."""
+    overrides = data_overrides(data_path)
+    cfg = load_config(CONFIG, overrides)
+    builder = instantiate(cfg["builder"])
+    routine = build_routine(cfg["routine"], builder)
+    state = routine.init(7231, builder.sample_batch(), dev)  # the commands' seed, trial 0
+    rng = np.random.default_rng(seed)
+    for batch in builder.train_batches(rng):
+        state = routine.accumulate_step(state, batch)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for _, batch in zip(range(SERVE_TRAIN_STEPS), builder.train_batches(rng)):
+        state, _ = routine.train_step(state, batch, gen)
+    routine.n_steps = SERVE_STEPS
+    frames = torch.as_tensor(builder.test_data["data"][:B, ..., :1], device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "checkpoints", "trial-0-1", "last.ckpt")
+        save_state(ckpt, state)
+        lightning = os.path.join(tmp, "reference.ckpt")
+        save_lightning(lightning, state)
+        live = make_rollout_fn(routine, state, SERVE_STEPS)
+
+        reset_launch_counts()
+        for batch_size in SERVE_BATCHES:
+            path = os.path.join(tmp, f"rollout-b{batch_size}.pt2")
+            t0 = time.perf_counter()
+            export.main(CONFIG, path, checkpoint_path=ckpt, overrides=overrides,
+                        n_steps=SERVE_STEPS, batch_size=batch_size, size=N, device="cuda")
+            seconds = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            artifact = load_exported(path)
+            load_s = time.perf_counter() - t0
+            nodes = {}
+            for node in artifact.program.graph.nodes:
+                if node.op == "call_function" and "fourierflow_tpu_torch" in str(node.target):
+                    name = str(node.target).split(".")[1]
+                    nodes[name] = nodes.get(name, 0) + 1
+            log(f"serve: export at batch {batch_size}: {seconds:.2f} s (restore, trace, save, "
+                f"load back), file {os.path.getsize(path):,} B, "
+                f"{len(artifact.program.graph.nodes)} graph nodes, operator nodes {nodes}; "
+                f"load {load_s:.2f} s")
+            want_nodes = {name: N_LAYERS * SERVE_STEPS for name in ("fused_mix_2d", "fused_ff")}
+            if nodes != want_nodes:
+                raise AssertionError(f"serve: the artifact's operator nodes {nodes}, expected "
+                                     f"{want_nodes}")
+            w0 = frames[:batch_size]
+            before = launch_counts()
+            got = artifact(w0)
+            torch.cuda.synchronize()
+            calls = {k: v - before[k] for k, v in launch_counts().items()}
+            want_calls = {k: N_LAYERS * SERVE_STEPS if KERNELS[k]["path"] == "infer" else 0
+                          for k in calls}
+            log(f"serve: launches in one call of the artifact at batch {batch_size}: {calls}")
+            if calls != want_calls:
+                raise AssertionError(f"serve: the artifact launched {calls}, expected {want_calls}")
+            if tuple(got.shape) != (batch_size, N, N, SERVE_STEPS):
+                raise AssertionError(f"serve: artifact output {tuple(got.shape)}")
+            data = torch.cat([w0, torch.zeros(batch_size, N, N, SERVE_STEPS, device=dev)], -1)
+            eager = lambda: routine.rollout(state, {"data": data})[0]
+            with torch.no_grad():
+                compare(f"serve: artifact vs live module, batch {batch_size}", got, live(w0),
+                        SERVE_TOL)
+            compare(f"serve: artifact vs routine.rollout, batch {batch_size}", got, eager(),
+                    SERVE_TOL)
+            fmt = lambda t: f"{t[0]:.3f} ms/step (min {t[1]:.3f}, max {t[2]:.3f})"
+            art_ms, eager_ms = rollout_step_ms(lambda: artifact(w0)), rollout_step_ms(eager)
+            log(f"serve: rollout at batch {batch_size}: artifact {fmt(art_ms)}, eager "
+                f"routine.rollout {fmt(eager_ms)} ({SERVE_STEPS} steps a call, median of "
+                f"{SERVE_CALLS} calls after a warm-up)")
+
+        logs = test_command.main(CONFIG, overrides=overrides, config_dir=tmp, device="cuda")
+        ref_logs = test_command.main(CONFIG, overrides=overrides, torch_checkpoint=lightning,
+                                     device="cuda")
+        scalars = {k: float(v) for k, v in logs.items() if np.ndim(v) == 0}
+        log(f"serve: test through find_checkpoint {json.dumps(scalars)}")
+        if sorted(logs) != sorted(ref_logs) or not all(
+                np.array_equal(logs[k], ref_logs[k]) for k in logs):
+            raise AssertionError(f"serve: test logs differ between the port checkpoint and the "
+                                 f"Lightning file: {scalars} vs {ref_logs}")
+        if not all(np.isfinite(v).all() for v in logs.values()):
+            raise AssertionError(f"serve: non-finite test logs {scalars}")
+        log("serve: test through the Lightning checkpoint: logs equal")
+
+        model_s = predict.main(CONFIG, ckpt, overrides=overrides, device="cuda")
+        dns_s = predict.main(None, device="cuda")
+        # The timed solve includes the solver's per-call set-up (its graph's
+        # capture); twice the records less one run leaves it out.
+        dns_steady = 2 * predict.time_dns_baseline(steps=20, device="cuda") - dns_s
+        if not (0 < model_s < math.inf and 0 < dns_s < math.inf and 0 < dns_steady < math.inf):
+            raise AssertionError(f"serve: predict {model_s}, DNS baseline {dns_s}, steady "
+                                 f"{dns_steady}")
+        log(f"serve: predict: F-FNO {model_s:.6e} s/sample/sim-second over "
+            f"{min(GEN['n_train'], 512)} trajectories; DNS "
+            f"baseline {dns_s:.6e} (32 samples, 64x64, 1,000 steps of 1e-4, one solve with its "
+            f"set-up); DNS / F-FNO {dns_s / model_s:.2f}; DNS without the set-up {dns_steady:.6e} "
+            f"(2,000 steps less 1,000), DNS / F-FNO {dns_steady / model_s:.2f}")
+
+        pkl = sample.main(CONFIG, ckpt, overrides=overrides, out_path=os.path.join(tmp, "s.pkl"),
+                          device="cuda")
+        with open(pkl, "rb") as f:
+            batch, preds = pickle.load(f)
+        n_steps = cfg["routine"]["n_steps"]
+        if preds.shape != (B, N, N, n_steps) or not np.isfinite(preds).all():
+            raise AssertionError(f"serve: sample preds {preds.shape}")
+        log(f"serve: sample wrote [batch {sorted(batch)}, preds {preds.shape}], finite")
+        counts = launch_counts()
+    log(f"serve: launches over the serve path {counts}")
+    for name, meta in KERNELS.items():
+        if meta["path"] == "infer" and counts[name] < 1:
+            raise AssertionError(f"serve: {name} was never launched on the serve path")
+    return counts
+
+
 def phase_train(dev, seed, data_path):
     """The port's ``train`` on the flagship at full width, then one train
     step counted, checked against its plain path, and timed."""
@@ -908,6 +1081,9 @@ def main():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         sys.exit(1)
     os.chdir(os.path.dirname(os.path.abspath(__file__)))
+    # The export's own line: its trace time, file size and node count.
+    logging.basicConfig(level=logging.WARNING, stream=sys.stdout, format="%(message)s")
+    logging.getLogger("fourierflow_tpu_torch.utils.serving").setLevel(logging.INFO)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -919,6 +1095,7 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         data_path, _ = phase_generate(dev, tmp, args.seed)
         counts = {"infer": phase_main(dev, args.seed, data_path),
+                  "serve": phase_serve(dev, args.seed, data_path),
                   "train": phase_train(dev, args.seed, data_path)}
         phase_baseline(dev, data_path)
     times = phase_time(dev, args.seed)

@@ -79,3 +79,7 @@ class Builder:
     def sample_batch(self) -> Dict[str, np.ndarray]:
         """One batch for model init and shape inference."""
         return next(iterate_batches(self.train_data, self.batch_size))
+
+    def inference_data(self) -> Dict[str, np.ndarray]:
+        """The trajectories the ``predict`` command rolls out."""
+        raise NotImplementedError(f"{type(self).__name__} has no inference data")

@@ -40,3 +40,8 @@ class NSMarkovBuilder(Builder):
             return a.reshape(-1, *a.shape[2:])[..., None]
 
         return {"x": flat(x), "y": flat(y), "dx": flat(dx), "dy": flat(dy)}
+
+    def inference_data(self):
+        """The first 512 trajectories ``[B, X, Y, T]``."""
+        data = load_array(self.data_path, self.key).astype(np.float32)[:512]
+        return {"data": data}

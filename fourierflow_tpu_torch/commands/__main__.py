@@ -1,13 +1,25 @@
 """CLI entry point: ``python -m fourierflow_tpu_torch.commands <cmd> ...``.
 
-Commands ported so far: ``train``, ``infer`` and ``generate
-navier-stokes``. Each runs on CUDA unless ``--device cpu`` is given, and
-raises when no GPU is present and the CPU was not asked for.
+Commands ported so far: ``train``, ``test``, ``predict``, ``infer``,
+``export``, ``sample`` and ``generate navier-stokes``, with the JAX
+package's flags (``export`` without ``--platforms``). Each runs on CUDA
+unless ``--device cpu`` is given, and raises when no GPU is present and the
+CPU was not asked for.
 """
 
 import argparse
 import logging
 import sys
+
+
+def _add_common(p):
+    p.add_argument("config_path", help="experiment config YAML")
+    p.add_argument("overrides", nargs="*", help="dotted-path overrides key=value")
+    p.add_argument("--trial", type=int, default=0)
+
+
+def _add_device(p):
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
 
 
 def main(argv=None):
@@ -17,22 +29,61 @@ def main(argv=None):
     sub = parser.add_subparsers(dest="command", required=True)
 
     p_train = sub.add_parser("train", help="train (and test) one trial of an experiment")
-    p_train.add_argument("config_path", help="experiment config YAML")
-    p_train.add_argument("overrides", nargs="*", help="dotted-path overrides key=value")
-    p_train.add_argument("--trial", type=int, default=0)
+    _add_common(p_train)
     p_train.add_argument("--force", action="store_true", help="train again over existing results")
     p_train.add_argument("--no-test", action="store_true", help="skip the test pass")
     p_train.add_argument("--config-dir", default=None,
                          help="where checkpoints/ goes (default: the config's directory)")
-    p_train.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    _add_device(p_train)
+
+    p_test = sub.add_parser("test", help="evaluate a checkpoint on the test split")
+    _add_common(p_test)
+    p_test.add_argument("--checkpoint-path", default=None,
+                        help="defaults to the newest trial checkpoint")
+    p_test.add_argument("--torch-checkpoint", default=None,
+                        help="reference (PyTorch Lightning) .ckpt to evaluate instead")
+    p_test.add_argument("--config-dir", default=None,
+                        help="where checkpoints/ is (default: the config's directory)")
+    _add_device(p_test)
+
+    p_predict = sub.add_parser("predict", help="inference time (s/sample/sim-second)")
+    p_predict.add_argument("config_path", nargs="?", default=None,
+                           help="experiment config (omit to time the DNS baseline)")
+    p_predict.add_argument("overrides", nargs="*")
+    p_predict.add_argument("--trial", type=int, default=0)
+    p_predict.add_argument("--checkpoint-path", default=None)
+    _add_device(p_predict)
 
     p_infer = sub.add_parser("infer", help="timed autoregressive rollout")
-    p_infer.add_argument("config_path", help="experiment config YAML")
-    p_infer.add_argument("overrides", nargs="*", help="dotted-path overrides key=value")
-    p_infer.add_argument("--trial", type=int, default=0)
+    _add_common(p_infer)
     p_infer.add_argument("--checkpoint-path", default=None)
+    p_infer.add_argument("--torch-checkpoint", default=None,
+                         help="reference (PyTorch Lightning) .ckpt to load instead of a port "
+                              "checkpoint")
     p_infer.add_argument("--n-steps", type=int, default=100)
-    p_infer.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    _add_device(p_infer)
+
+    p_export = sub.add_parser("export", help="write the rollout as a torch.export artifact")
+    p_export.add_argument("config_path", help="experiment config YAML")
+    p_export.add_argument("out_path")
+    p_export.add_argument("overrides", nargs="*", help="dotted-path overrides key=value")
+    p_export.add_argument("--trial", type=int, default=0)
+    p_export.add_argument("--checkpoint-path", default=None)
+    p_export.add_argument("--torch-checkpoint", default=None)
+    p_export.add_argument("--n-steps", type=int, default=20)
+    p_export.add_argument("--batch-size", type=int, default=1)
+    p_export.add_argument("--size", type=int, default=64)
+    p_export.add_argument("--precision", default=None, choices=["highest"],
+                          help="float32 matmul precision of the artifact; the port computes at "
+                               "'highest' only (the JAX export's 'default' and 'high' would make "
+                               "the artifact differ from the live model)")
+    _add_device(p_export)
+
+    p_sample = sub.add_parser("sample", help="pickle one (batch, pred) pair")
+    _add_common(p_sample)
+    p_sample.add_argument("--checkpoint-path", default=None)
+    p_sample.add_argument("--out-path", default=None)
+    _add_device(p_sample)
 
     p_gen = sub.add_parser("generate", help="generate datasets")
     gen_sub = p_gen.add_subparsers(dest="generator", required=True)
@@ -48,7 +99,7 @@ def main(argv=None):
     ]:
         p_ns.add_argument(f"--{name}", type=typ, default=default)
     p_ns.add_argument("--varying-force", action="store_true")
-    p_ns.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    _add_device(p_ns)
 
     args = parser.parse_args(argv)
     if args.command == "train":
@@ -56,11 +107,35 @@ def main(argv=None):
 
         train_main(args.config_path, args.overrides, trial=args.trial, no_test=args.no_test,
                    force=args.force, config_dir=args.config_dir, device=args.device)
+    elif args.command == "test":
+        from .test import main as test_main
+
+        test_main(args.config_path, args.checkpoint_path, overrides=args.overrides,
+                  trial=args.trial, torch_checkpoint=args.torch_checkpoint,
+                  config_dir=args.config_dir, device=args.device)
+    elif args.command == "predict":
+        from .predict import main as predict_main
+
+        predict_main(args.config_path, args.checkpoint_path, overrides=args.overrides,
+                     trial=args.trial, device=args.device)
     elif args.command == "infer":
         from .infer import main as infer_main
 
         infer_main(args.config_path, args.checkpoint_path, overrides=args.overrides,
-                   n_steps=args.n_steps, trial=args.trial, device=args.device)
+                   n_steps=args.n_steps, trial=args.trial, device=args.device,
+                   torch_checkpoint=args.torch_checkpoint)
+    elif args.command == "export":
+        from .export import main as export_main
+
+        export_main(args.config_path, args.out_path, checkpoint_path=args.checkpoint_path,
+                    torch_checkpoint=args.torch_checkpoint, overrides=args.overrides,
+                    n_steps=args.n_steps, batch_size=args.batch_size, size=args.size,
+                    trial=args.trial, precision=args.precision, device=args.device)
+    elif args.command == "sample":
+        from .sample import main as sample_main
+
+        sample_main(args.config_path, args.checkpoint_path, overrides=args.overrides,
+                    trial=args.trial, out_path=args.out_path, device=args.device)
     elif args.command == "generate" and args.generator == "navier-stokes":
         from .generate import navier_stokes
 

@@ -1,7 +1,8 @@
 """``infer`` command: timed autoregressive rollout (counterpart of
 ``fourierflow_tpu/commands/infer.py``).
 
-Loads the config, builds the routine, restores a checkpoint, runs one
+Loads the config, builds the routine, restores a checkpoint (the port's
+own, or a reference Lightning ``.ckpt`` with ``torch_checkpoint``), runs one
 warm-up rollout and then one timed rollout that ends with
 ``torch.cuda.synchronize()`` and a real value fetch. Prints
 ``{"shape", "elapsed", "inference_time"}``: the timed rollout's seconds and
@@ -19,8 +20,7 @@ from ..config import instantiate, load_config
 from ..device import resolve_device
 from ..ops import launch_counts
 from ..routines.base import State
-from ..utils.checkpoint import load_state
-from .train import build_routine
+from .train import build_routine, restore_state
 
 logger = logging.getLogger(__name__)
 
@@ -40,16 +40,14 @@ class InferRun:
 
 def main(config_path: str, checkpoint_path: Optional[str] = None,
          overrides: Optional[List[str]] = None, n_steps: int = 100, trial: int = 0,
-         device: Optional[str] = None) -> InferRun:
+         device: Optional[str] = None, torch_checkpoint: Optional[str] = None) -> InferRun:
     dev = resolve_device(device)
     cfg = load_config(config_path, overrides)
     builder = instantiate(cfg["builder"])
     routine = build_routine(cfg["routine"], builder)
 
     batch = next(builder.test_batches())
-    state = routine.init(7231 + trial, builder.sample_batch(), dev)
-    if checkpoint_path:
-        state = load_state(checkpoint_path, state)
+    state = restore_state(routine, builder, dev, trial, checkpoint_path, torch_checkpoint)
 
     # Evaluation trajectories [b, X, Y, T]; when shorter than the rollout,
     # the first frame is repeated in front as dummy targets (timing only).

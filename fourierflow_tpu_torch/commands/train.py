@@ -27,10 +27,11 @@ from ..schedulers import (cosine_with_warmup, exponential_with_warmup, linear_wi
                           step_lr, swa_lr)
 from ..trainers import JSONLogger, ModelCheckpoint, Trainer
 from ..utils.checkpoint import load_state
+from ..utils.torch_import import import_reference_checkpoint
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["ExistingExperimentFound", "build_routine", "build_trainer", "main"]
+__all__ = ["ExistingExperimentFound", "build_routine", "build_trainer", "restore_state", "main"]
 
 # The schedules ported, by the callable a scheduler node names.
 _SCHEDULES = (cosine_with_warmup, linear_with_warmup, exponential_with_warmup, step_lr, swa_lr)
@@ -88,6 +89,20 @@ def build_trainer(trainer_cfg: Optional[dict], callbacks=(), device=None) -> Tra
         callbacks=list(callbacks),
         device=device,
     )
+
+
+def restore_state(routine, builder, device, trial: int = 0, checkpoint_path: Optional[str] = None,
+                  torch_checkpoint: Optional[str] = None):
+    """The routine's state initialised with seed 7231 + trial on ``device``,
+    then restored from the port's own checkpoint (``load_state``) and from
+    a reference Lightning checkpoint (``import_reference_checkpoint``),
+    where given."""
+    state = routine.init(7231 + trial, builder.sample_batch(), device)
+    if checkpoint_path:
+        state = load_state(checkpoint_path, state)
+    if torch_checkpoint:
+        state = import_reference_checkpoint(torch_checkpoint, state)
+    return state
 
 
 def resolve_test_state(callbacks, state):

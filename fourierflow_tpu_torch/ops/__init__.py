@@ -1,11 +1,22 @@
 """Spectral and feed-forward ops, each with a plain PyTorch version and a
-hand-written CUDA kernel (see ``csrc/``)."""
+hand-written CUDA kernel (see ``csrc/``).
 
-from .fused_ff import fused_ff, fused_ff_bwd
-from .fused_spectral import fused_mix_2d, fused_mix_2d_adjoint
-from .spectral import spectral_mix_axis
+The four kernels are operators of the ``fourierflow_tpu_torch`` namespace
+(``torch.ops.fourierflow_tpu_torch.{fused_ff, fused_ff_bwd, fused_mix_2d,
+fused_mix_2d_adjoint}``), defined in ``LIBRARY`` when this package is
+imported: a program exported with ``torch.export`` names them, so it loads
+after this import.
+"""
 
-__all__ = ["fused_ff", "fused_ff_bwd", "fused_mix_2d", "fused_mix_2d_adjoint",
+import torch
+
+LIBRARY = torch.library.Library("fourierflow_tpu_torch", "DEF")
+
+from .fused_ff import fused_ff, fused_ff_bwd  # noqa: E402
+from .fused_spectral import fused_mix_2d, fused_mix_2d_adjoint  # noqa: E402
+from .spectral import spectral_mix_axis  # noqa: E402
+
+__all__ = ["LIBRARY", "fused_ff", "fused_ff_bwd", "fused_mix_2d", "fused_mix_2d_adjoint",
            "spectral_mix_axis", "KERNELS", "launch_counts", "reset_launch_counts"]
 
 # The kernel wrappers by name: the forward ones run in the rollout, all four

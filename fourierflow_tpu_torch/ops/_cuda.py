@@ -6,6 +6,11 @@ library's file name carries a hash of its source and flags, so an edited
 source is rebuilt and an unchanged one is reused. Builds happen at first
 use (never at import) into ``fourierflow_tpu_torch/_build/``, which git
 ignores; :func:`build` starts one ``nvcc`` per source, all at once.
+
+:func:`register_op` makes a kernel a PyTorch operator with a plain (CPU),
+a kernel (CUDA) and a shape-only (Meta) implementation, so that
+``torch.export`` records each call as one node that launches the kernel
+when the exported program runs on the card.
 """
 
 import ctypes
@@ -19,7 +24,7 @@ from pathlib import Path
 from typing import Dict, Iterable
 
 __all__ = ["KERNEL_SOURCES", "MAX_SMEM", "build", "load", "check", "stream_ptr", "build_logs",
-           "dispatch"]
+           "check_device", "register_op"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
@@ -112,11 +117,22 @@ def stream_ptr(device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-def dispatch(x, plain, kernel, what: str):
-    """``plain`` for a tensor on the CPU, ``kernel`` for one on a CUDA
-    device; any other device raises."""
-    if x.device.type == "cpu":
-        return plain
-    if x.device.type != "cuda":
+def check_device(x, what: str) -> None:
+    """Raise unless ``x`` lies on the CPU or a CUDA device."""
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{what} runs on cpu or cuda, not {x.device}")
-    return kernel
+
+
+def register_op(library, name: str, schema: str, plain, kernel, meta):
+    """Define ``library``'s operator ``name`` with ``schema`` (its
+    arguments and results, as ``"(Tensor x) -> Tensor"``): ``plain`` runs
+    on CPU tensors, ``kernel`` on CUDA tensors, ``meta`` gives the results'
+    shapes and types only (fake tensors while ``torch.export`` traces).
+    Tensors of any other device find no implementation and raise. Returns
+    the operator (its default overload), callable like a function."""
+    import torch
+
+    library.define(name + schema)
+    for fn, key in ((plain, "CPU"), (kernel, "CUDA"), (meta, "Meta")):
+        library.impl(name, fn, key)
+    return getattr(getattr(torch.ops, library.ns), name).default

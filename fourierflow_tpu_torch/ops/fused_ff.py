@@ -6,11 +6,15 @@
 caller (``layers.FeedForward``). It is a ``torch.autograd.Function``: the
 forward and the backward each run on the device of ``x``.
 
-On a CPU tensor the forward runs :func:`fused_ff_plain` and the backward
-:func:`fused_ff_bwd_plain`. On a CUDA tensor they launch the hand-written
-kernels of ``csrc/fused_ff.cu`` (``ff_fwd`` replaces the TPU kernel
-``pallas_ff.py::_ff_kernel``, ``ff_bwd`` replaces ``_make_bwd_kernel``) or
-raise; they never fall back. The kernels read ``w1`` and ``w2`` through
+Forward and backward are the operators ``torch.ops.fourierflow_tpu_torch.
+fused_ff`` and ``fused_ff_bwd``. On a CPU tensor they run
+:func:`fused_ff_plain` and :func:`fused_ff_bwd_plain`. On a CUDA tensor they
+launch the hand-written kernels of ``csrc/fused_ff.cu`` (``ff_fwd`` replaces
+the TPU kernel ``pallas_ff.py::_ff_kernel``, ``ff_bwd`` replaces
+``_make_bwd_kernel``) or raise; they never fall back. Their Meta
+implementations give shapes only, so ``torch.export`` keeps each forward
+call as one node that launches ``ff_fwd`` when the program runs on the
+card. The kernels read ``w1`` and ``w2`` through
 their strides, so a transposed view of torch's ``[out, in]`` weight goes in
 without a copy. ``fused_ff.launches`` and ``fused_ff_bwd.launches`` count
 calls that reached a kernel.
@@ -37,7 +41,7 @@ import functools
 
 import torch
 
-from . import _cuda
+from . import LIBRARY, _cuda
 
 __all__ = ["fused_ff", "fused_ff_plain", "fused_ff_cuda", "fused_ff_bwd", "fused_ff_bwd_plain",
            "fused_ff_bwd_cuda"]
@@ -53,8 +57,10 @@ _BWD_TILE = 64  # rows per tile, hidden chunk and C bound of the backward kernel
 def fused_ff_plain(x, w1, b1, w2, b2):
     """The plain PyTorch version: products and sums in float32, the hidden
     layer rounded to x's type before the second product, the result cast
-    to x's type."""
-    f = lambda t: t.float()
+    to x's type. The weights are copied contiguous first: on some CPUs the
+    BLAS takes another path (and sums in another order) for a transposed
+    view, and the result must not depend on the weights' layout."""
+    f = lambda t: t.float().contiguous()
     h = torch.relu(f(x) @ f(w1) + f(b1)).to(x.dtype)
     return (f(h) @ f(w2) + f(b2)).to(x.dtype)
 
@@ -64,10 +70,11 @@ def fused_ff_bwd_plain(x, g, w1, b1, w2):
     ``(dx, dw1, db1, dw2, db2)``, ``dx`` in x's type and shape, the rest
     float32 in the parameters' shapes (``_ff_bwd`` of the JAX package).
     Products and sums run in float32; ``h`` and ``dh`` are rounded to x's
-    type before they enter any of them."""
+    type before they enter any of them. The weights are copied contiguous
+    first, as in :func:`fused_ff_plain`."""
     cin, cout = x.shape[-1], g.shape[-1]
     xf, gf = x.reshape(-1, cin).float(), g.reshape(-1, cout).float()
-    w1f, w2f = w1.float(), w2.float()
+    w1f, w2f = w1.float().contiguous(), w2.float().contiguous()
     rnd = lambda t: t.to(x.dtype).float()
     pre = xf @ w1f + b1.float()
     h = rnd(torch.relu(pre))
@@ -178,6 +185,10 @@ def fused_ff_cuda(x, w1, b1, w2, b2):
     return out
 
 
+def _fused_ff_meta(x, w1, b1, w2, b2):
+    return x.new_empty(*x.shape[:-1], w2.shape[-1])
+
+
 @functools.lru_cache(maxsize=16)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -211,19 +222,36 @@ def fused_ff_bwd_cuda(x, g, w1, b1, w2):
     return grads
 
 
+def _fused_ff_bwd_meta(x, g, w1, b1, w2):
+    f32 = lambda *shape: x.new_empty(shape, dtype=torch.float32)
+    cin, hidden, cout = x.shape[-1], w1.shape[-1], w2.shape[-1]
+    return torch.empty_like(x), f32(cin, hidden), f32(hidden), f32(hidden, cout), f32(cout)
+
+
+_FF_OP = _cuda.register_op(
+    LIBRARY, "fused_ff", "(Tensor x, Tensor w1, Tensor b1, Tensor w2, Tensor b2) -> Tensor",
+    fused_ff_plain, fused_ff_cuda, _fused_ff_meta)
+_FF_BWD_OP = _cuda.register_op(
+    LIBRARY, "fused_ff_bwd",
+    "(Tensor x, Tensor g, Tensor w1, Tensor b1, Tensor w2) "
+    "-> (Tensor, Tensor, Tensor, Tensor, Tensor)",
+    fused_ff_bwd_plain, fused_ff_bwd_cuda, _fused_ff_bwd_meta)
+
+
 def fused_ff_bwd(x, g, w1, b1, w2):
     """``(dx, dw1, db1, dw2, db2)`` of :func:`fused_ff` given the output
     gradient ``g``, on the device of ``x``."""
-    kernel = _cuda.dispatch(x, fused_ff_bwd_plain, fused_ff_bwd_cuda, "fused_ff_bwd")
-    return kernel(x, g, w1, b1, w2)
+    _cuda.check_device(x, "fused_ff_bwd")
+    return _FF_BWD_OP(x, g, w1, b1, w2)
 
 
 class _FusedFF(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w1, b1, w2, b2):
+        _cuda.check_device(x, "fused_ff")
         ctx.save_for_backward(x, w1, b1, w2)
         ctx.b2_dtype = b2.dtype
-        return _cuda.dispatch(x, fused_ff_plain, fused_ff_cuda, "fused_ff")(x, w1, b1, w2, b2)
+        return _FF_OP(x, w1, b1, w2, b2)
 
     @staticmethod
     def backward(ctx, g):

@@ -5,11 +5,15 @@
 a ``torch.autograd.Function``: the forward and the backward each run on
 the device of ``x``.
 
-On a CPU tensor the forward runs :func:`fused_mix_2d_plain` and the
-gradient with respect to x :func:`fused_mix_2d_adjoint_plain`. On a CUDA
-tensor both launch the hand-written kernel ``csrc/fused_spectral.cu``
+The forward and the gradient with respect to x are the operators
+``torch.ops.fourierflow_tpu_torch.fused_mix_2d`` and
+``fused_mix_2d_adjoint``. On a CPU tensor they run
+:func:`fused_mix_2d_plain` and :func:`fused_mix_2d_adjoint_plain`. On a
+CUDA tensor both launch the hand-written kernel ``csrc/fused_spectral.cu``
 (which replaces the TPU kernel ``pallas_spectral.py::_make_mix_kernel``) or
-raise; they never fall back. The kernel transforms along one axis given by
+raise; they never fall back. Their Meta implementations give shapes only,
+so ``torch.export`` keeps each forward call as one node that launches the
+kernel when the program runs on the card. The kernel transforms along one axis given by
 strides, so one call is two launches on the current stream: the Y branch
 writes, the X branch adds. In bf16 both the kernel and the plain version
 round where the JAX kernel's ``_branch`` rounds: the bases, the spectra
@@ -50,7 +54,7 @@ import functools
 
 import torch
 
-from . import _cuda
+from . import LIBRARY, _cuda
 from .spectral import mix_axis_f32, mix_axis_wgrad, stacked_bases
 
 __all__ = ["fused_mix_2d", "fused_mix_2d_plain", "fused_mix_2d_cuda", "fused_mix_2d_adjoint",
@@ -198,18 +202,31 @@ def fused_mix_2d_adjoint_cuda(g: torch.Tensor, wy: torch.Tensor, wx: torch.Tenso
     return out
 
 
+def _mix_meta(x: torch.Tensor, wy: torch.Tensor, wx: torch.Tensor) -> torch.Tensor:
+    return torch.empty_like(x)
+
+
+_MIX_SCHEMA = "(Tensor x, Tensor wy, Tensor wx) -> Tensor"
+_MIX_OP = _cuda.register_op(LIBRARY, "fused_mix_2d", _MIX_SCHEMA, fused_mix_2d_plain,
+                            fused_mix_2d_cuda, _mix_meta)
+_MIX_ADJOINT_OP = _cuda.register_op(LIBRARY, "fused_mix_2d_adjoint", _MIX_SCHEMA,
+                                    fused_mix_2d_adjoint_plain, fused_mix_2d_adjoint_cuda,
+                                    _mix_meta)
+
+
 def fused_mix_2d_adjoint(g: torch.Tensor, wy: torch.Tensor, wx: torch.Tensor) -> torch.Tensor:
     """The gradient of :func:`fused_mix_2d` with respect to x given the
     output gradient ``g``, on the device of ``g``."""
-    return _cuda.dispatch(g, fused_mix_2d_adjoint_plain, fused_mix_2d_adjoint_cuda,
-               "fused_mix_2d_adjoint")(g, wy, wx)
+    _cuda.check_device(g, "fused_mix_2d_adjoint")
+    return _MIX_ADJOINT_OP(g, wy, wx)
 
 
 class _FusedMix2d(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, wy, wx):
+        _cuda.check_device(x, "fused_mix_2d")
         ctx.save_for_backward(x, wy, wx)
-        return _cuda.dispatch(x, fused_mix_2d_plain, fused_mix_2d_cuda, "fused_mix_2d")(x, wy, wx)
+        return _MIX_OP(x, wy, wx)
 
     @staticmethod
     def backward(ctx, g):

@@ -133,6 +133,20 @@ class Grid2DMarkovRoutine(Routine):
         finally:
             state.model.train(training)
 
+    def rollout_step(self, model, norm, im: torch.Tensor):
+        """One step of the rollout from ``im [b, X, Y, 1]``: its features,
+        normalized by ``norm`` (anything with the normalizer's ``mean`` and
+        ``std``) where the routine normalizes, the model, denormalized.
+        Returns ``(out, next im)``; with ``learn_difference`` the model's
+        output is added to ``im``."""
+        x = self.build_features(im)
+        if self.should_normalize:
+            x = normalizer_apply(norm, x)
+        out = model(x)["forecast"]
+        if self.should_normalize:
+            out = normalizer_inverse(norm, out, channel=0)
+        return out, (im + out if self.learn_difference else out)
+
     @torch.no_grad()
     def _rollout(self, state: State, batch):
         data = torch.as_tensor(batch["data"], device=state.device)
@@ -141,24 +155,16 @@ class Grid2DMarkovRoutine(Routine):
         n_steps = min(self.n_steps or t_total - 1, t_total - 1)
         w0 = data[..., -n_steps - 1, None]
         yy = data[..., -n_steps:]
-        norm = state.normalizer
         im = w0
         preds, step_losses = [], []
         for t in range(n_steps):
-            x = self.build_features(im)
-            if self.should_normalize:
-                x = normalizer_apply(norm, x)
-            out = state.model(x)["forecast"]
-            if self.should_normalize:
-                out = normalizer_inverse(norm, out, channel=0)
+            out, im = self.rollout_step(state.model, state.normalizer, im)
             if self.learn_difference:
                 # The true previous state at t=0, the previous target after.
                 prev = w0[..., 0] if t == 0 else yy[..., t - 1]
                 target = yy[..., t] - prev
-                im = im + out
             else:
                 target = yy[..., t]
-                im = out
             step_losses.append(lp_loss_rel(out.reshape(b, -1), target.reshape(b, -1)))
             preds.append(im[..., 0])
         return torch.stack(preds, dim=-1), torch.stack(step_losses), yy

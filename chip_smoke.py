@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--seed N]
 
-Phases, each reporting on its own lines; every run goes through all nine:
+Phases, each reporting on its own lines; every run goes through all ten:
 
 1. ``device``: the card's name and power limit (nvidia-smi), torch and CUDA versions.
 2. ``build``: compile every CUDA source in ``csrc/``, all at once.
@@ -62,7 +62,26 @@ Phases, each reporting on its own lines; every run goes through all nine:
    epoch of 4 steps and the test pass; its time per train step; one train
    step's loss and every gradient on the card against a float32 CPU copy.
    No hand-written kernel lies on this path (torch.fft and matmuls).
-9. ``time``: each kernel, its plain version and a PyTorch yardstick the port
+9. ``context``: the torus_vis slice. ``navier_stokes`` writes
+   ``torus_vis.h5`` and ``torus_vis_force.h5`` on the card (the JAX study's
+   recipe: 64x64, t 20, 200 records, random force of 2 cycles, static or
+   varying, mu in [1e-5, 1e-4], seeds 48396 / 48397), cut to one batch a
+   split (19 / 4 / 4 trajectories), and their invariants are held.
+   ``train`` on the registry names ``torus_vis/01_baseline`` and
+   ``torus_vis_force/01_baseline`` at full width (24 layers, width 64, 5
+   input channels; the normalizer pass, 3 steps, the 10-step validation
+   rollouts fed the force, the test pass), then ``test`` on the checkpoint
+   (the same logs); 3 more steps of each, and of the ablations
+   ``with_velocity``, ``shuffle_xy_grid`` and ``no_factorization`` (FNO++) at
+   24 layers on the torus_li file, each held to a float32 CPU copy of the
+   same step (loss, gradients and parameters after it) and timed with the
+   host CPU time beside it. ``export`` of ``torus_vis/02_no_mu`` at batch 1
+   and 20 steps: an artifact that takes a force, equal to the live serving
+   module to the bit, launching A and B 24 x 20 times a call, timed beside
+   the eager rollout. Every kernel must be launched on this path.
+10. ``time`` (in a child process of this script, which starts with no CUDA
+   graph and no profiler session behind it): each kernel, its plain version
+   and a PyTorch yardstick the port
    never calls, by their device time in a profiler trace (and the kernel's
    wall time back to back, between CUDA events); the least time the card
    could take and the kernel's time over it. It runs last, so that no
@@ -183,6 +202,19 @@ SERVE_BATCHES = (1, B)
 SERVE_TOL = 1e-5
 SERVE_TRAIN_STEPS = 3
 SERVE_CALLS = 15  # calls timed for ms per rollout step
+# The context phase: the torus_vis recipe (scripts/torus_vis_study.py:50-63: s 64, t 20, 200
+# records, delta 1e-4, random force of 2 cycles, mu in [1e-5, 1e-4]) cut to one batch a
+# split, read at builder.ssr=1 as the study does (:123); the file's seed and whether its
+# force varies; the registry names it trains, holds and times at full width.
+VIS_GEN = dict(n_train=B, n_valid=4, n_test=4, s=N, t=20.0, steps=200, mu_min=1e-5,
+               mu_max=1e-4, delta=1e-4, batch_size=50, force="random", cycles=2)
+VIS_FILES = {"torus_vis.h5": (48396, False), "torus_vis_force.h5": (48397, True)}
+VIS_CONFIGS = ("torus_vis/01_baseline", "torus_vis_force/01_baseline")
+ABLATIONS = ("torus_li/ablation/with_velocity/24_layers",
+             "torus_li/ablation/shuffle_xy_grid/24_layers",
+             "torus_li/ablation/no_factorization/24_layers")
+SERVE_CONFIG = "torus_vis/02_no_mu"
+CONTEXT_STEPS = 3  # train steps of each configuration, each held to a CPU copy
 
 
 def log(*args):
@@ -281,12 +313,15 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters=20, warmup=3, attempts=3):
-    """Device time per call: the summed durations of the kernels and copies
-    that ``iters`` calls ran on the card, from a torch.profiler trace. A
-    trace with no device activity at all (seen once in a long run, after
-    CUDA graphs and several traces) is taken again, up to ``attempts``
-    traces in all."""
+def device_ms(fn, iters=20, warmup=3, attempts=5):
+    """Device time per call of ``fn``, from a torch.profiler trace of
+    ``iters`` calls: for each kernel or copy, its mean duration times the
+    number of times a call runs it. A trace can lose an event or two (a
+    kernel seen 19 times in 20 calls); the mean of the events it kept
+    stands for the lost ones. A trace that lost more (none at all, seen in
+    a long run after CUDA graphs and several traces; or a count more than a
+    tenth of ``iters`` off a whole number of calls) is taken again, up to
+    ``attempts`` traces in all."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -298,12 +333,22 @@ def device_ms(fn, iters=20, warmup=3, attempts=3):
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
-        if us > 0:
-            return us / iters / 1e3
-        log(f"time: trace {attempt + 1} of {attempts} held no device activity")
-    raise AssertionError("time: the profiler saw no device time")
+        durations = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
+                durations.setdefault(e.name, []).append(e.time_range.elapsed_us())
+        per_call = {name: round(len(us) / iters) for name, us in durations.items()}
+        if durations and all(n >= 1 and abs(len(durations[k]) / iters - n) <= 0.1
+                             for k, n in per_call.items()):
+            lost = {k[:40]: n * iters - len(durations[k]) for k, n in per_call.items()
+                    if len(durations[k]) != n * iters}
+            if lost:
+                log(f"time: trace {attempt + 1} lost {lost} of {iters} calls' events; their "
+                    f"kernels' mean durations stand for them")
+            return sum(n * statistics.fmean(durations[k]) for k, n in per_call.items()) / 1e3
+        log(f"time: trace {attempt + 1} of {attempts} lost device activity: "
+            f"{ {k[:40]: len(us) for k, us in durations.items()} } in {iters} calls")
+    raise AssertionError("time: the profiler saw no whole trace of the device's work")
 
 
 def bound(flops, nbytes, dtype):
@@ -950,10 +995,7 @@ def phase_train(dev, seed, data_path):
 
     # One step from one state, on the kernel path and on the plain path (a
     # float32 CPU copy), without noise: loss and every parameter gradient.
-    norm = state.normalizer
-    plain = dataclasses.replace(state, model=copy.deepcopy(state.model).cpu(), normalizer=(
-        dataclasses.replace(norm, sum=norm.sum.cpu(), sum_squared=norm.sum_squared.cpu(),
-                            count=norm.count.cpu(), n_accumulations=norm.n_accumulations.cpu())))
+    plain = cpu_copy(routine, state)
     quiet = copy.copy(routine)
     quiet.noise_std = 0.0
     loss, grads, _ = quiet.loss_and_grads(state, batch)
@@ -1009,7 +1051,7 @@ def phase_baseline(dev, data_path):
     profile_train_step(routine, state, batch, None, step_ms, label="baseline",
                        groups=BASELINE_GROUPS, host_top=8)
 
-    plain = dataclasses.replace(state, model=copy.deepcopy(state.model).cpu())
+    plain = cpu_copy(routine, state)
     loss, grads, _ = routine.loss_and_grads(state, batch)
     want_loss, want_grads, _ = routine.loss_and_grads(plain, batch)
     names = [n for n, _ in state.model.named_parameters()]
@@ -1022,6 +1064,219 @@ def phase_baseline(dev, data_path):
     if not (loss_rel <= TRAIN_TOL and rels[worst] <= TRAIN_TOL):
         raise AssertionError("baseline: the card disagrees with the CPU")
     return step_ms
+
+
+def cpu_copy(routine, state):
+    """A float32 CPU copy of ``state``: the model, the normalizer, and the
+    optimizer and schedule with their state and step."""
+    norm = state.normalizer
+    copy_ = routine.make_train_state(copy.deepcopy(state.model).cpu(), norm and dataclasses.replace(
+        norm, sum=norm.sum.cpu(), sum_squared=norm.sum_squared.cpu(), count=norm.count.cpu(),
+        n_accumulations=norm.n_accumulations.cpu()))
+    copy_.optimizer.load_state_dict(state.optimizer.state_dict())  # moves it to the CPU
+    if state.scheduler is not None:
+        copy_.scheduler.load_state_dict(state.scheduler.state_dict())
+    return dataclasses.replace(copy_, step=state.step)
+
+
+def hold_steps(label, routine, state, batches):
+    """Each of ``batches`` as one train step without noise on the card and
+    on a CPU copy of the same state: the loss, the gradients the update used
+    (``p.grad``) and the parameters after it, each tensor within TRAIN_TOL
+    (max |err| / max |CPU|). Returns the card's state after the steps."""
+    quiet = copy.copy(routine)
+    quiet.noise_std = 0.0
+    names = [n for n, _ in state.model.named_parameters()]
+    for i, batch in enumerate(batches):
+        plain = cpu_copy(routine, state)
+        state, metrics = quiet.train_step(state, batch)
+        plain, want = quiet.train_step(plain, batch)
+        loss, want_loss = float(metrics["train_loss"]), float(want["train_loss"])
+        loss_rel = abs(loss - want_loss) / abs(want_loss)
+        rels = {}
+        for n, a, b in zip(names, state.model.parameters(), plain.model.parameters(), strict=True):
+            rels[n] = max(rel_err(a.grad, b.grad)[1], rel_err(a, b)[1])
+        worst = max(rels, key=rels.get)
+        log(f"context: {label} step {i + 1} on the card vs a float32 CPU copy: loss {loss:.6f} "
+            f"vs {want_loss:.6f} (rel {loss_rel:.2e}); gradients and parameters after the step "
+            f"of {len(rels)} tensors, largest rel {rels[worst]:.2e} ({worst}), tol {TRAIN_TOL:.0e}")
+        if not (loss_rel <= TRAIN_TOL and rels[worst] <= TRAIN_TOL):
+            raise AssertionError(f"context: {label} step {i + 1} disagrees with its CPU copy")
+    return state
+
+
+def time_steps(label, routine, state, batch, dev, steps=5):
+    """ms per train step (mean of ``steps`` after 2 warm-ups, with noise)
+    and the host CPU time per step."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for _ in range(2):
+        state, _ = routine.train_step(state, batch, gen)
+    torch.cuda.synchronize()
+    t0, cpu0 = time.perf_counter(), time.process_time()
+    for _ in range(steps):
+        state, metrics = routine.train_step(state, batch, gen)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / steps * 1e3
+    cpu_ms = (time.process_time() - cpu0) / steps * 1e3
+    if not math.isfinite(float(metrics["train_loss"])):
+        raise AssertionError(f"context: {label}: non-finite loss in the timed steps")
+    log(f"context: {label}: {step_ms:.3f} ms per train step (batch {B}, f32, mean of {steps} "
+        f"after 2 warm-ups); host CPU time {cpu_ms:.3f} ms per step")
+    return state
+
+
+def generate_vis(dev, tmp):
+    """The torus_vis and torus_vis_force files on the card, and their
+    invariants."""
+    paths = {}
+    for fname, (vis_seed, varying) in VIS_FILES.items():
+        path = os.path.join(tmp, fname)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        navier_stokes(path, seed=vis_seed, varying_force=varying, device=dev, **VIS_GEN)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = VIS_GEN["n_train"] + VIS_GEN["n_valid"] + VIS_GEN["n_test"]
+        for split, count in (("train", VIS_GEN["n_train"]), ("valid", VIS_GEN["n_valid"]),
+                             ("test", VIS_GEN["n_test"])):
+            u, f = load_array(path, f"{split}/u"), load_array(path, f"{split}/f")
+            mu = load_array(path, f"{split}/mu")
+            f_shape = (count, N, N, VIS_GEN["steps"]) if varying else (count, N, N)
+            if u.shape != (count, N, N, VIS_GEN["steps"]) or f.shape != f_shape:
+                raise AssertionError(f"context: {fname} {split}: u {u.shape}, f {f.shape}")
+            if not (np.isfinite(u).all() and np.isfinite(f).all() and np.abs(f).max() > 0
+                    and np.abs(u[..., 1] - u[..., 0]).max() > 0):
+                raise AssertionError(f"context: {fname} {split}: fields not finite, force zero "
+                                     "or trajectories constant")
+            if not (VIS_GEN["mu_min"] <= mu.min() and mu.max() <= VIS_GEN["mu_max"]
+                    and len(set(mu.tolist())) == count):
+                raise AssertionError(f"context: {fname} {split}: mu {mu}")
+        log(f"context: generate {fname} (seed {vis_seed}, {'varying' if varying else 'static'} "
+            f"random force): {n} trajectories ({VIS_GEN['n_train']} / {VIS_GEN['n_valid']} / "
+            f"{VIS_GEN['n_test']}, one batch a split, {math.ceil(VIS_GEN['t'] / VIS_GEN['delta']):,} "
+            f"steps a batch, {VIS_GEN['steps']} records) in {wall:.3f} s, "
+            f"{os.path.getsize(path):,} B; cut: the reference's 1,000 / 200 / 200 at 256^2 "
+            f"(read at ssr 4)")
+        paths[fname] = path
+    return paths
+
+
+def phase_context(dev, tmp, li_path):
+    """The torus_vis slice at full width: generate its two files, train
+    ``torus_vis/01_baseline`` and ``torus_vis_force/01_baseline`` through
+    ``train`` (normalizer pass, 3 steps, the validation rollouts, the test
+    pass) and ``test``, hold 3 further steps of each and of 3 ablations to a
+    CPU copy, time them, and serve ``torus_vis/02_no_mu`` through an
+    artifact that takes a force."""
+    phase_start = time.perf_counter()
+    vis = generate_vis(dev, tmp)
+    reset_launch_counts()
+    for name in VIS_CONFIGS:
+        path = vis["torus_vis.h5" if name.startswith("torus_vis/") else "torus_vis_force.h5"]
+        overrides = [f"builder.data_path={path}", "builder.ssr=1", "trainer.max_epochs=2",
+                     f"trainer.limit_train_batches={CONTEXT_STEPS}"]
+        before = launch_counts()
+        with tempfile.TemporaryDirectory() as run:
+            trainer, state = train.main(name, overrides, config_dir=run, device="cuda")
+            logs = test_command.main(name, overrides=overrides, config_dir=run, device="cuda")
+        launched = {k: v - before[k] for k, v in launch_counts().items()}
+        scalars = {k: float(v) for k, v in logs.items() if np.ndim(v) == 0}
+        log(f"context: {name}: train ({trainer.global_step} steps after the normalizer pass, "
+            f"n_params {trainer.logs['n_params']:,}, input channels "
+            f"{state.model.in_proj.in_features}), test {json.dumps(scalars)}; launches {launched}")
+        if trainer.global_step != CONTEXT_STEPS or logs["test_correlations"].shape != (N_STEPS,):
+            raise AssertionError(f"context: {name}: {trainer.global_step} steps, correlations "
+                                 f"{logs['test_correlations'].shape}")
+        if not all(np.isfinite(v).all() for v in logs.values()) or not all(
+                np.array_equal(logs[k], trainer.logs[k]) for k in logs):
+            raise AssertionError(f"context: {name}: test logs not finite or not train's {scalars}")
+        if not all(n > 0 for n in launched.values()):
+            raise AssertionError(f"context: {name}: a kernel was never launched {launched}")
+        cfg = load_config(name, overrides)
+        builder = instantiate(cfg["builder"])
+        routine = build_routine(cfg["routine"], builder)
+        batches = list(zip(range(CONTEXT_STEPS), builder.train_batches(np.random.default_rng(0))))
+        state = hold_steps(name, routine, state, [b for _, b in batches])
+        time_steps(name, routine, state, batches[0][1], dev)
+
+    for name in ABLATIONS:
+        overrides = data_overrides(li_path)
+        cfg = load_config(name, overrides)
+        builder = instantiate(cfg["builder"])
+        routine = build_routine(cfg["routine"], builder)
+        state = routine.init(7231, builder.sample_batch(), dev)
+        batches = [b for _, b in zip(range(2 * CONTEXT_STEPS),
+                                     builder.train_batches(np.random.default_rng(0)))]
+        for batch in batches[:CONTEXT_STEPS]:
+            state = routine.accumulate_step(state, batch)
+        before = launch_counts()
+        state = hold_steps(name, routine, state, batches[CONTEXT_STEPS:])
+        launched = {k: v - before[k] for k, v in launch_counts().items()}
+        log(f"context: {name}: n_params {routine.n_params(state):,}, input channels "
+            f"{state.model.in_proj.in_features}; launches in {CONTEXT_STEPS} steps {launched}")
+        time_steps(name, routine, state, batches[0], dev)
+
+    serve_context(dev, vis["torus_vis.h5"])
+    counts = launch_counts()
+    log(f"context: launches over the context path {counts}; phase took "
+        f"{time.perf_counter() - phase_start:.1f} s")
+    for name, n in counts.items():
+        if n < 1:
+            raise AssertionError(f"context: {name} was never launched on the context path")
+    return counts
+
+
+def serve_context(dev, path):
+    """``torus_vis/02_no_mu`` (force, no viscosity) after its normalizer
+    pass, exported at batch 1 and SERVE_STEPS steps: the artifact against
+    the live serving module to the bit, its launches, and its ms per step
+    beside the eager rollout's, both fed the same static force."""
+    overrides = [f"builder.data_path={path}", "builder.ssr=1"]
+    cfg = load_config(SERVE_CONFIG, overrides)
+    builder = instantiate(cfg["builder"])
+    routine = build_routine(cfg["routine"], builder)
+    state = routine.init(7231, builder.sample_batch(), dev)  # the commands' seed, trial 0
+    for _, batch in zip(range(CONTEXT_STEPS), builder.train_batches(np.random.default_rng(0))):
+        state = routine.accumulate_step(state, batch)
+    routine.n_steps = SERVE_STEPS
+    test = builder.test_data
+    w0 = torch.as_tensor(test["data"][:1, ..., :1], device=dev)
+    force = torch.as_tensor(test["f"][:1], device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "last.ckpt")
+        save_state(ckpt, state)
+        art = os.path.join(tmp, "rollout-force.pt2")
+        t0 = time.perf_counter()
+        export.main(SERVE_CONFIG, art, checkpoint_path=ckpt, overrides=overrides,
+                    n_steps=SERVE_STEPS, batch_size=1, size=N, device="cuda")
+        seconds = time.perf_counter() - t0
+        artifact = load_exported(art)
+        size = os.path.getsize(art)
+    if not artifact.takes_force:
+        raise AssertionError("context: the artifact of a force-taking routine takes no force")
+    before = launch_counts()
+    got = artifact(w0, force)
+    torch.cuda.synchronize()
+    calls = {k: v - before[k] for k, v in launch_counts().items()}
+    want_calls = {k: N_LAYERS * SERVE_STEPS if KERNELS[k]["path"] == "infer" else 0
+                  for k in calls}
+    log(f"context: serve {SERVE_CONFIG}: export {seconds:.2f} s, file {size:,} B; launches in one "
+        f"call {calls}")
+    if calls != want_calls:
+        raise AssertionError(f"context: the artifact launched {calls}, expected {want_calls}")
+    with torch.no_grad():
+        live = make_rollout_fn(routine, state, SERVE_STEPS)(w0, force)
+    if tuple(got.shape) != (1, N, N, SERVE_STEPS) or not torch.equal(got, live):
+        raise AssertionError(f"context: the artifact {tuple(got.shape)} differs from the live "
+                             f"module (max |err| {rel_err(got, live)[0]:.3e})")
+    data = torch.cat([w0, torch.zeros(1, N, N, SERVE_STEPS, device=dev)], -1)
+    eager = lambda: routine.rollout(state, {"data": data, "f": force})[0]
+    compare("context: artifact vs routine.rollout with the force", got, eager(), SERVE_TOL)
+    fmt = lambda t: f"{t[0]:.3f} ms/step (min {t[1]:.3f}, max {t[2]:.3f})"
+    log(f"context: serve {SERVE_CONFIG}: the artifact equals the live module to the bit; rollout "
+        f"at batch 1: artifact {fmt(rollout_step_ms(lambda: artifact(w0, force)))}, eager "
+        f"routine.rollout {fmt(rollout_step_ms(eager))} ({SERVE_STEPS} steps a call, median of "
+        f"{SERVE_CALLS} calls after a warm-up)")
 
 
 # Device-time groups of a train step, by kernel name.
@@ -1073,9 +1328,27 @@ def profile_train_step(routine, state, batch, gen, step_ms, steps=2, label="trai
                 f"{a.count // steps:5d}x  {a.key[:80]}")
 
 
+def phase_time_apart(seed):
+    """Phase ``time`` in a child process of this script, which starts with
+    no CUDA graph and no earlier profiler session (in the parent, after the
+    solver's graphs of phases generate and context, traces lost device
+    activity); its rows come back through a JSON file."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "time.json")
+        sys.stdout.flush()
+        subprocess.run([sys.executable, os.path.abspath(__file__), "--seed", str(seed),
+                        "--time-json", path], check=True, timeout=900)
+        with open(path) as f:
+            rows = json.load(f)
+    return {(r["name"], getattr(torch, r["dtype"])): dict(r["row"], bound=tuple(r["row"]["bound"]))
+            for r in rows}
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
+    # Internal: run phase time alone and write its rows to this JSON file.
+    parser.add_argument("--time-json", default=None, help=argparse.SUPPRESS)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1087,6 +1360,12 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    if args.time_json:
+        rows = phase_time(dev, args.seed)
+        with open(args.time_json, "w") as f:
+            json.dump([{"name": name, "dtype": str(dtype).replace("torch.", ""), "row": row}
+                       for (name, dtype), row in rows.items()], f)
+        return
 
     card = phase_device()
     phase_build()
@@ -1098,7 +1377,8 @@ def main():
                   "serve": phase_serve(dev, args.seed, data_path),
                   "train": phase_train(dev, args.seed, data_path)}
         phase_baseline(dev, data_path)
-    times = phase_time(dev, args.seed)
+        counts["context"] = phase_context(dev, tmp, data_path)
+    times = phase_time_apart(args.seed)
 
     kernels = []
     for name, meta in KERNELS.items():

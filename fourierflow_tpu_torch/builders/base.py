@@ -10,31 +10,33 @@ import numpy as np
 __all__ = ["Builder", "iterate_batches", "num_batches", "load_array"]
 
 
-def load_array(path: str, key: str = "u") -> np.ndarray:
-    """Load a dataset array from .npy, .h5/.hdf5 (h5py, or ``utils.hdf5``
-    where h5py is not installed) or .mat (scipy; MATLAB v7.3 files through
-    h5py)."""
+def load_array(path: str, key: str = "u", index=Ellipsis) -> np.ndarray:
+    """Load ``array[index]`` of a dataset from .npy, .h5/.hdf5 (h5py, or
+    ``utils.hdf5`` where h5py is not installed) or .mat (scipy; MATLAB
+    v7.3 files through h5py). From .npy and .h5 only what ``index`` keeps
+    is read."""
     path = os.path.expandvars(os.path.expanduser(path))
     if path.endswith(".npy"):
-        return np.load(path)
+        return np.array(np.load(path, mmap_mode="r")[index])
     if path.endswith((".h5", ".hdf5")):
         try:
             import h5py
         except ImportError:
             from ..utils.hdf5 import read_dataset
 
-            return read_dataset(path, key)
+            a = read_dataset(path, key, mmap=True)[index]
+            return np.array(a, dtype=a.dtype.newbyteorder("="))
         with h5py.File(path, "r") as f:
-            return f[key][...]
+            return f[key][index]
     import scipy.io
 
     try:
-        return scipy.io.loadmat(path)[key]
+        return scipy.io.loadmat(path)[key][index]
     except NotImplementedError:
         import h5py
 
         with h5py.File(path, "r") as f:
-            return np.asarray(f[key]).T
+            return np.asarray(f[key]).T[index]
 
 
 def num_batches(n: int, batch_size: int, drop_last: bool = False) -> int:

@@ -1,10 +1,11 @@
 """CLI entry point: ``python -m fourierflow_tpu_torch.commands <cmd> ...``.
 
 Commands ported so far: ``train``, ``test``, ``predict``, ``infer``,
-``export``, ``sample`` and ``generate navier-stokes``, with the JAX
-package's flags (``export`` without ``--platforms``). Each runs on CUDA
-unless ``--device cpu`` is given, and raises when no GPU is present and the
-CPU was not asked for.
+``export``, ``sample``, ``generate navier-stokes`` and ``configs
+list|export``, with the JAX package's flags (``export`` without
+``--platforms``). An experiment is a YAML file or a name of the registry
+(``configs list``). Each runs on CUDA unless ``--device cpu`` is given, and
+raises when no GPU is present and the CPU was not asked for.
 """
 
 import argparse
@@ -13,7 +14,7 @@ import sys
 
 
 def _add_common(p):
-    p.add_argument("config_path", help="experiment config YAML")
+    p.add_argument("config_path", help="experiment config YAML or registry name")
     p.add_argument("overrides", nargs="*", help="dotted-path overrides key=value")
     p.add_argument("--trial", type=int, default=0)
 
@@ -33,7 +34,8 @@ def main(argv=None):
     p_train.add_argument("--force", action="store_true", help="train again over existing results")
     p_train.add_argument("--no-test", action="store_true", help="skip the test pass")
     p_train.add_argument("--config-dir", default=None,
-                         help="where checkpoints/ goes (default: the config's directory)")
+                         help="where checkpoints/ goes (default: the YAML's directory, or the "
+                              "registry name as a directory)")
     _add_device(p_train)
 
     p_test = sub.add_parser("test", help="evaluate a checkpoint on the test split")
@@ -43,7 +45,7 @@ def main(argv=None):
     p_test.add_argument("--torch-checkpoint", default=None,
                         help="reference (PyTorch Lightning) .ckpt to evaluate instead")
     p_test.add_argument("--config-dir", default=None,
-                        help="where checkpoints/ is (default: the config's directory)")
+                        help="where checkpoints/ is (default: as in train)")
     _add_device(p_test)
 
     p_predict = sub.add_parser("predict", help="inference time (s/sample/sim-second)")
@@ -64,7 +66,7 @@ def main(argv=None):
     _add_device(p_infer)
 
     p_export = sub.add_parser("export", help="write the rollout as a torch.export artifact")
-    p_export.add_argument("config_path", help="experiment config YAML")
+    p_export.add_argument("config_path", help="experiment config YAML or registry name")
     p_export.add_argument("out_path")
     p_export.add_argument("overrides", nargs="*", help="dotted-path overrides key=value")
     p_export.add_argument("--trial", type=int, default=0)
@@ -100,6 +102,11 @@ def main(argv=None):
         p_ns.add_argument(f"--{name}", type=typ, default=default)
     p_ns.add_argument("--varying-force", action="store_true")
     _add_device(p_ns)
+
+    p_cfg = sub.add_parser("configs", help="list or export registry experiments")
+    p_cfg.add_argument("action", choices=["list", "export"])
+    p_cfg.add_argument("name", nargs="?", default=None)
+    p_cfg.add_argument("--out-dir", default="configs")
 
     args = parser.parse_args(argv)
     if args.command == "train":
@@ -145,6 +152,16 @@ def main(argv=None):
                       batch_size=args.batch_size, force=args.force, cycles=args.cycles,
                       scaling=args.scaling, t_scaling=args.t_scaling,
                       varying_force=args.varying_force, device=args.device)
+    elif args.command == "configs":
+        from ..experiments import experiment_names, materialize
+
+        if args.action == "list":
+            for name in experiment_names():
+                print(name)
+        else:
+            if args.name is None:
+                raise SystemExit("export needs an experiment name")
+            print(materialize(args.name, args.out_dir))
 
 
 if __name__ == "__main__":

@@ -2,7 +2,9 @@
 ``fourierflow_tpu/commands/infer.py``).
 
 Loads the config, builds the routine, restores a checkpoint (the port's
-own, or a reference Lightning ``.ckpt`` with ``torch_checkpoint``), runs one
+own, or a reference Lightning ``.ckpt`` with ``torch_checkpoint``), takes
+the first test batch (its trajectories, and its force and viscosity where
+the builder gives them), runs one
 warm-up rollout and then one timed rollout that ends with
 ``torch.cuda.synchronize()`` and a real value fetch. Prints
 ``{"shape", "elapsed", "inference_time"}``: the timed rollout's seconds and
@@ -50,13 +52,18 @@ def main(config_path: str, checkpoint_path: Optional[str] = None,
     state = restore_state(routine, builder, dev, trial, checkpoint_path, torch_checkpoint)
 
     # Evaluation trajectories [b, X, Y, T]; when shorter than the rollout,
-    # the first frame is repeated in front as dummy targets (timing only).
+    # the first frame is repeated in front as dummy targets (timing only),
+    # and so is a time-varying force's.
     data = torch.as_tensor(batch.get("data", batch.get("x")), device=dev)
     routine.n_steps = n_steps
+    sim_batch = {k: torch.as_tensor(batch[k], device=dev) for k in ("f", "mu") if k in batch}
     if data.shape[-1] < n_steps + 1:
-        pad = data[..., :1].expand(*data.shape[:-1], n_steps + 1 - data.shape[-1])
-        data = torch.cat([pad, data], dim=-1)
-    sim_batch = {"data": data}
+        pad = lambda a: torch.cat(
+            [a[..., :1].expand(*a.shape[:-1], n_steps + 1 - a.shape[-1]), a], dim=-1)
+        data = pad(data)
+        if "f" in sim_batch and sim_batch["f"].dim() == 4:
+            sim_batch["f"] = pad(sim_batch["f"])
+    sim_batch["data"] = data
 
     def sync():
         if dev.type == "cuda":

@@ -12,7 +12,7 @@ import torch
 
 from ..config import instantiate, load_config
 from ..device import resolve_device
-from .train import build_routine, restore_state
+from .train import build_routine, experiment_dir, restore_state
 
 logger = logging.getLogger(__name__)
 
@@ -29,7 +29,7 @@ def main(config_path: str, checkpoint_path: Optional[str] = None,
          overrides: Optional[List[str]] = None, trial: int = 0, out_path: Optional[str] = None,
          device: Optional[str] = None) -> str:
     """Writes ``[batch, preds]`` (numpy arrays) to ``out_path``, by default
-    ``sample.pkl`` beside the config. Returns the path."""
+    ``sample.pkl`` in ``experiment_dir(config_path)``. Returns the path."""
     dev = resolve_device(device)
     cfg = load_config(config_path, overrides)
     builder = instantiate(cfg["builder"])
@@ -44,8 +44,8 @@ def main(config_path: str, checkpoint_path: Optional[str] = None,
         preds = logs.get("preds", logs)
 
     if out_path is None:
-        base = config_path if os.path.isdir(os.path.dirname(config_path)) else "."
-        out_path = os.path.join(os.path.dirname(base) or ".", "sample.pkl")
+        os.makedirs(experiment_dir(config_path), exist_ok=True)
+        out_path = os.path.join(experiment_dir(config_path), "sample.pkl")
     with open(out_path, "wb") as f:
         pickle.dump([_numpy(batch), _numpy(preds)], f)
     logger.info("wrote %s", out_path)

@@ -16,7 +16,7 @@ import numpy as np
 
 from ..config import instantiate, load_config
 from ..device import resolve_device
-from .train import build_routine, build_trainer, restore_state
+from .train import build_routine, build_trainer, experiment_dir, restore_state
 
 logger = logging.getLogger(__name__)
 
@@ -26,8 +26,8 @@ __all__ = ["find_checkpoint", "main"]
 def find_checkpoint(config_path: str, trial: int, config_dir: Optional[str] = None) -> str:
     """The newest run's ``best.ckpt`` of this trial, else its ``last.ckpt``,
     under ``<config_dir>/checkpoints/trial-<trial>-*/`` (``config_dir``
-    defaults to the config's directory, as in ``train``)."""
-    config_dir = config_dir or os.path.dirname(os.path.abspath(config_path))
+    defaults to ``experiment_dir(config_path)``, as in ``train``)."""
+    config_dir = config_dir or experiment_dir(config_path)
     for name in ("best.ckpt", "last.ckpt"):
         paths = sorted(glob.glob(os.path.join(config_dir, "checkpoints", f"trial-{trial}-*",
                                               name)))

@@ -1,10 +1,12 @@
 """``train`` command: config-driven experiment runner (counterpart of
 ``fourierflow_tpu/commands/train.py``).
 
-Loads an experiment YAML (builder / routine / trainer / callbacks), seeds
-with 7231 + trial, trains with the per-batch Trainer on the chosen device
-(CUDA unless the CPU is asked for), writes ``last.ckpt`` and
-``metrics.jsonl`` under ``<config_dir>/checkpoints/trial-<n>-<time>/``, and
+Loads an experiment, a YAML file or a registry name (builder / routine /
+trainer / callbacks), seeds with 7231 + trial, trains with the per-batch
+Trainer on the chosen device (CUDA unless the CPU is asked for), writes
+``last.ckpt`` and ``metrics.jsonl`` under
+``<config_dir>/checkpoints/trial-<n>-<time>/`` (``config_dir`` defaults to
+``experiment_dir``), and
 tests with the best monitored checkpoint (or the final state). Resuming,
 ``pretrained_path``, profiling and the JAX package's parallel trainer keys
 are not ported yet.
@@ -31,7 +33,8 @@ from ..utils.torch_import import import_reference_checkpoint
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["ExistingExperimentFound", "build_routine", "build_trainer", "restore_state", "main"]
+__all__ = ["ExistingExperimentFound", "build_routine", "build_trainer", "experiment_dir",
+           "restore_state", "main"]
 
 # The schedules ported, by the callable a scheduler node names.
 _SCHEDULES = (cosine_with_warmup, linear_with_warmup, exponential_with_warmup, step_lr, swa_lr)
@@ -117,6 +120,16 @@ def resolve_test_state(callbacks, state):
     return state
 
 
+def experiment_dir(config_path: str) -> str:
+    """Where an experiment's runs go: the directory of a YAML file, or, for
+    a registry name, the name itself as a directory (in the reference every
+    experiment is a directory ``name/config.yaml``), so that
+    ``torus_li/markov/4_layers`` and ``torus_li/markov/24_layers`` keep
+    their own ``checkpoints/``."""
+    p = os.path.abspath(config_path)
+    return os.path.dirname(p) if os.path.isfile(p) else p
+
+
 class ExistingExperimentFound(RuntimeError):
     """Results for this trial exist and ``force`` was not given."""
 
@@ -124,8 +137,9 @@ class ExistingExperimentFound(RuntimeError):
 def main(config_path: str, overrides: Optional[List[str]] = None, trial: int = 0,
          no_test: bool = False, force: bool = False, config_dir: Optional[str] = None,
          device: Optional[str] = None):
-    """Train (and test) one trial. ``config_dir`` replaces the config's
-    directory as the place of ``checkpoints/``. Returns ``(trainer, state)``."""
+    """Train (and test) one trial. ``config_dir`` replaces
+    ``experiment_dir(config_path)`` as the place of ``checkpoints/``.
+    Returns ``(trainer, state)``."""
     dev = resolve_device(device)
     cfg = load_config(config_path, overrides)
     seed = 7231 + trial
@@ -135,7 +149,7 @@ def main(config_path: str, overrides: Optional[List[str]] = None, trial: int = 0
     if (cfg.get("trainer") or {}).get("track_grad_norm") not in (None, -1, False):
         routine.track_grad_norm = True
 
-    config_dir = config_dir or os.path.dirname(os.path.abspath(config_path))
+    config_dir = config_dir or experiment_dir(config_path)
     checkpoints = os.path.join(config_dir, "checkpoints")
     if glob.glob(os.path.join(checkpoints, f"trial-{trial}-*")) and not force:
         raise ExistingExperimentFound(

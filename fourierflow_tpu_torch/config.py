@@ -1,6 +1,6 @@
-"""Config system: YAML plus ``_target_`` instantiation (counterpart of
-``fourierflow_tpu/config.py``), reading the repo's experiment configs
-unchanged:
+"""Config system: YAML or the experiment registry, plus ``_target_``
+instantiation (counterpart of ``fourierflow_tpu/config.py``), reading the
+repo's experiment configs unchanged:
 
 - ``${oc.env:VAR}`` / ``${oc.env:VAR,default}`` environment values
 - ``${get_method: dotted.path}`` callables, resolved at instantiation
@@ -51,10 +51,12 @@ _PORT_PREFIX = "fourierflow_tpu_torch."
 
 # The reference's names for what this package has ported.
 TARGET_TRANSLATION = {
+    "fourierflow.builders.NSContextualBuilder": "fourierflow_tpu_torch.builders.NSContextualBuilder",
     "fourierflow.builders.NSMarkovBuilder": "fourierflow_tpu_torch.builders.NSMarkovBuilder",
     "fourierflow.builders.NSZongyiBuilder": "fourierflow_tpu_torch.builders.NSZongyiBuilder",
     "fourierflow.modules.FNOFactorized2DBlock": "fourierflow_tpu_torch.models.FNOFactorized2DBlock",
     "fourierflow.modules.FNOZongyi2DBlock": "fourierflow_tpu_torch.models.FNOZongyi2DBlock",
+    "fourierflow.modules.FNOPlus2DBlock": "fourierflow_tpu_torch.models.FNOPlus2DBlock",
     "fourierflow.routines.Grid2DMarkovExperiment": "fourierflow_tpu_torch.routines.Grid2DMarkovRoutine",
     "fourierflow.routines.Grid2DRolloutExperiment": "fourierflow_tpu_torch.routines.Grid2DRolloutRoutine",
     "fourierflow.schedulers.CosineWithWarmupScheduler": "fourierflow_tpu_torch.schedulers.cosine_with_warmup",
@@ -142,9 +144,16 @@ def apply_overrides(cfg: Dict, overrides: List[str]) -> Dict:
 
 
 def load_config(path: str, overrides: Optional[List[str]] = None) -> Dict:
-    """Load an experiment config from a YAML file and apply overrides."""
-    with open(path) as f:
-        cfg = yaml.load(f, Loader=_YamlLoader)
+    """Load an experiment config from a YAML file, or, when ``path`` is not
+    a file, from the experiment registry by name (``torus_vis/01_baseline``;
+    see ``experiments.py``), and apply overrides."""
+    if os.path.isfile(path):
+        with open(path) as f:
+            cfg = yaml.load(f, Loader=_YamlLoader)
+    else:
+        from .experiments import get_experiment
+
+        cfg = get_experiment(path)
     cfg = apply_overrides(cfg, overrides or [])
     return _interpolate(cfg)
 

@@ -12,6 +12,7 @@ import math
 from dataclasses import dataclass, replace
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -157,12 +158,35 @@ def fourier_encode(x: torch.Tensor, max_freq: float, num_bands: int = 4, base: f
     return torch.cat([torch.sin(xs), torch.cos(xs), orig], dim=-1)
 
 
+def _linspace(low: float, high: float, n: int, dtype, device) -> torch.Tensor:
+    """``n`` points from ``low`` to ``high``, as the JAX package's
+    ``jnp.linspace`` computes them on the CPU (XLA folds ``high / (n - 1)``
+    and fuses the sum): in float32, ``t = i * (1 / (n - 1))`` and point
+    ``i * (high / (n - 1)) + low * (1 - t)`` with one rounding, the last
+    point ``high``: the same bits for up to 256 points (a 1,024-point
+    linspace of XLA's differs by an ulp in places). ``torch.linspace`` sums
+    from both ends and differs by an ulp."""
+    f32 = np.float32
+    if n == 1:
+        return torch.full((1,), low, dtype=dtype, device=device)
+    i = np.arange(n - 1, dtype=f32)
+    r = f32(1) / f32(n - 1)
+    rest = f32(low) * (f32(1) - i * r)
+    # The float64 sum of the exact product and ``rest`` rounds once, as a fused multiply-add.
+    out = (i.astype(np.float64) * np.float64(r * f32(high)) + rest).astype(f32)
+    return torch.from_numpy(np.append(out, f32(high))).to(device=device, dtype=dtype)
+
+
 def encode_positions(dim_sizes, low: float = -1.0, high: float = 1.0, fourier: bool = False,
                      max_freq: Optional[float] = None, num_bands: int = 8, base: float = 2.0,
-                     dtype=torch.float32, device=None):
+                     dtype=torch.float32, device=None, exact: bool = False):
     """Meshgrid of linspace positions ``[*dim_sizes, len(dim_sizes)]``,
-    optionally Fourier-encoded."""
-    grids = [torch.linspace(low, high, s, dtype=dtype, device=device) for s in dim_sizes]
+    optionally Fourier-encoded. With ``exact`` the points are the JAX
+    package's (``_linspace``), else ``torch.linspace``'s."""
+    if exact:
+        grids = [_linspace(low, high, s, dtype, device) for s in dim_sizes]
+    else:
+        grids = [torch.linspace(low, high, s, dtype=dtype, device=device) for s in dim_sizes]
     pos = torch.stack(torch.meshgrid(*grids, indexing="ij"), dim=-1)
     if not fourier:
         return pos

@@ -1,20 +1,26 @@
 """Markov (one-step) routine for 2D torus Navier-Stokes, the main F-FNO
-experiment (counterpart of ``fourierflow_tpu/routines/grid_2d_markov.py``).
+experiment and the torus_vis ones (counterpart of
+``fourierflow_tpu/routines/grid_2d_markov.py``).
 
-Feature building (vorticity plus position channels), the epoch-0
-normalizer pass, the one-step training step (normalizer accumulating up to
-its cap, Gaussian input noise, relative-L2 loss), the autoregressive
-rollout as a Python loop, and the rollout metrics (N-MSE, vorticity
-correlation rho(t), time until rho < 0.95). Velocity, force and viscosity
-channels and the shuffled-grid ablation raise NotImplementedError.
+Feature building (vorticity, the velocity recovered from it spectrally,
+position channels, the force and the viscosity), the epoch-0 normalizer
+pass, the one-step training step (normalizer accumulating up to its cap,
+Gaussian input noise, the shuffled-grid ablation, relative-L2 loss), the
+autoregressive rollout as a Python loop with a static or a time-varying
+force, and the rollout metrics (N-MSE, vorticity correlation rho(t), time
+until rho < 0.95). ``pred_path``/``save_predictions``, the ``corr_data``
+branch and the super-resolution evaluation are not ported yet.
 """
 
+import logging
 from dataclasses import replace
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..layers import (
+    WNLinear,
     encode_positions,
     lp_loss_rel,
     normalizer_accumulate,
@@ -22,7 +28,10 @@ from ..layers import (
     normalizer_init,
     normalizer_inverse,
 )
+from ..utils.grids import TORUS, velocity_from_vorticity
 from .base import Routine, State, nan_to_9999, rho_time_until
+
+logger = logging.getLogger(__name__)
 
 __all__ = ["Grid2DMarkovRoutine"]
 
@@ -34,47 +43,102 @@ class Grid2DMarkovRoutine(Routine):
                  max_accumulations: float = 1e6, should_normalize: bool = True,
                  use_fourier_position: bool = False, noise_std: float = 0.0,
                  use_velocity: bool = False, learn_difference: bool = False,
-                 step_size: float = 1.0, k_max: int = 32, shuffle_grid: bool = False,
-                 conv=None, optimizer=None, track_grad_norm: bool = False):
+                 step_size: float = 1.0, k_max: int = 32,
+                 domain=TORUS, shuffle_grid: bool = False,
+                 grid_size=(64,), pred_path=None, conv=None, optimizer=None,
+                 track_grad_norm: bool = False):
         super().__init__(optimizer, track_grad_norm)
-        for name, on in (("use_velocity", use_velocity), ("append_force", append_force),
-                         ("append_mu", append_mu), ("shuffle_grid", shuffle_grid)):
-            if on:
-                raise NotImplementedError(f"Grid2DMarkovRoutine {name} is not ported yet")
+        if pred_path is not None:
+            raise NotImplementedError("Grid2DMarkovRoutine pred_path (save_predictions) is not "
+                                      "ported yet")
         # `conv` is the reference's name for the model argument.
         self.model = model if model is not None else conv
         self.n_steps = n_steps
         self.num_freq_bands, self.freq_base = num_freq_bands, freq_base
         self.low, self.high = low, high
         self.use_position = use_position
+        self.append_force, self.append_mu = append_force, append_mu
         self.max_accumulations = max_accumulations
         self.should_normalize = should_normalize
         self.use_fourier_position = use_fourier_position
         self.noise_std = noise_std
+        self.use_velocity = use_velocity
         self.learn_difference = learn_difference
         self.step_size = step_size
         self.k_max = k_max
+        self.domain = domain
+        # The shuffled-grid ablation: one fixed permutation of each axis,
+        # applied to the model's input in training and undone on its output.
+        self.shuffle_grid = shuffle_grid
+        if shuffle_grid:
+            if isinstance(grid_size, int):
+                grid_size = (grid_size,)
+            if len(grid_size) != 1:
+                raise ValueError("shuffle_grid takes one grid size")
+            rs = np.random.RandomState(0)
+            self.x_idx = torch.from_numpy(rs.permutation(grid_size[0]))
+            self.y_idx = torch.from_numpy(rs.permutation(grid_size[0]))
+            self.x_inv, self.y_inv = torch.argsort(self.x_idx), torch.argsort(self.y_idx)
+            self._on_device = {}  # the four permutations by device, copied there once
 
     # --- features -----------------------------------------------------------
-    def build_features(self, w: torch.Tensor) -> torch.Tensor:
+    def build_features(self, w: torch.Tensor, force: Optional[torch.Tensor] = None,
+                       mu: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``w [b, X, Y, 1]`` raw vorticity -> ``[b, X, Y, input_dim]``,
-        before normalisation."""
+        before normalisation: w, then the velocity (u, v), the positions,
+        the force (``[b, X, Y]``, or ``[b, X, Y, c]`` as it is) and the
+        viscosity ``mu [b]`` broadcast over the grid."""
         b, sx, sy, _ = w.shape
         feats = [w]
+        if self.use_velocity:
+            u, v = velocity_from_vorticity(w[..., 0], self.domain)
+            feats += [u[..., None], v[..., None]]
         if self.use_position:
             pos = encode_positions([sx, sy], self.low, self.high,
                                    fourier=self.use_fourier_position, max_freq=self.k_max,
                                    num_bands=self.num_freq_bands, base=self.freq_base,
-                                   dtype=w.dtype, device=w.device)
+                                   dtype=w.dtype, device=w.device, exact=True)
             feats.append(pos[None].expand(b, *pos.shape))
+        if self.append_force:
+            force = torch.as_tensor(force, device=w.device)
+            feats.append(force if force.dim() == 4 else force[..., None])
+        if self.append_mu:
+            mu = torch.as_tensor(mu, device=w.device, dtype=w.dtype)
+            feats.append(mu[:, None, None, None].expand(b, sx, sy, 1))
         return torch.cat(feats, dim=-1)
+
+    def _batch_features(self, batch, device) -> torch.Tensor:
+        """The features of a batch of training pairs (``x``, ``f``, ``mu``)."""
+        return self.build_features(torch.as_tensor(batch["x"], device=device), batch.get("f"),
+                                   batch.get("mu"))
+
+    def _fit_input_layer(self, n_feats: int) -> None:
+        """Size the model's input layer to the routine's features, as flax
+        infers it from the data: a configured ``input_dim`` that differs is
+        replaced (and logged)."""
+        old = getattr(self.model, "in_proj", None)
+        if not isinstance(old, WNLinear) or old.in_features == n_feats:
+            return
+        logger.info("%s input_dim %d -> %d, the routine's feature channels",
+                    type(self.model).__name__, old.in_features, n_feats)
+        self.model.in_proj = WNLinear(n_feats, old.out_features, wnorm=old.wnorm,
+                                      use_bias=old.bias is not None, dtype=old.dtype)
 
     # --- contract -------------------------------------------------------------
     def init(self, seed: int, sample_batch, device) -> State:
         """Initialise the model from ``seed`` on ``device`` (in train mode),
-        a fresh normalizer sized from ``sample_batch``, and the optimizer."""
-        w = sample_batch["x"] if "x" in sample_batch else sample_batch["data"][..., :1]
-        n_feats = self.build_features(torch.as_tensor(w[:1])).shape[-1]
+        its input layer sized to the features of ``sample_batch``, a fresh
+        normalizer and the optimizer."""
+        if "x" in sample_batch:
+            w, f = sample_batch["x"][:1], sample_batch.get("f")
+        else:  # whole trajectories: the first frame, and its force
+            w, f = sample_batch["data"][:1, ..., :1], sample_batch.get("f")
+            if f is not None and np.ndim(f) == 4:
+                f = f[..., 0]
+        mu = sample_batch.get("mu")
+        n_feats = self.build_features(torch.as_tensor(w), None if f is None else f[:1],
+                                      None if mu is None else mu[:1]).shape[-1]
+        self._fit_input_layer(n_feats)
         self.model.cpu().reset_parameters(torch.Generator().manual_seed(seed))
         self.model.to(device).train()
         normalizer = (normalizer_init(n_feats, self.max_accumulations, device=device)
@@ -86,8 +150,15 @@ class Grid2DMarkovRoutine(Routine):
         """Epoch-0 pass: gather normalizer statistics only."""
         if not self.should_normalize:
             return state
-        x = self.build_features(torch.as_tensor(batch["x"], device=state.device))
+        x = self._batch_features(batch, state.device)
         return replace(state, normalizer=normalizer_accumulate(state.normalizer, x))
+
+    def _permutations(self, device):
+        """``(x_idx, y_idx, x_inv, y_inv)`` on ``device``."""
+        if device not in self._on_device:
+            self._on_device[device] = tuple(
+                t.to(device) for t in (self.x_idx, self.y_idx, self.x_inv, self.y_inv))
+        return self._on_device[device]
 
     def loss_and_grads(self, state: State, batch, rng: Optional[torch.Generator] = None):
         """The training loss of one batch of (x, y) pairs and its gradients
@@ -95,9 +166,11 @@ class Grid2DMarkovRoutine(Routine):
         normalizer)``: the statistics keep accumulating up to their cap
         before they are applied, as in the reference's training mode. The
         noise ``noise_std * N(0, 1)`` on the normalized features is drawn
-        from ``rng``, a generator on the state's device."""
+        from ``rng``, a generator on the state's device. With
+        ``shuffle_grid`` the model sees the grid permuted (after the noise)
+        and its output is permuted back before the normalizer's inverse."""
         dev = state.device
-        x = self.build_features(torch.as_tensor(batch["x"], device=dev))
+        x = self._batch_features(batch, dev)
         norm = state.normalizer
         if self.should_normalize:
             norm = normalizer_accumulate(norm, x)
@@ -106,9 +179,14 @@ class Grid2DMarkovRoutine(Routine):
             if rng is None:
                 raise ValueError("noise_std > 0 needs a generator (rng) on the state's device")
             x = x + self.noise_std * torch.randn(x.shape, generator=rng, device=dev, dtype=x.dtype)
+        if self.shuffle_grid:
+            x_idx, y_idx, x_inv, y_inv = self._permutations(dev)
+            x = x[:, x_idx][:, :, y_idx]
         targets = torch.as_tensor(batch["dy" if self.learn_difference else "y"], device=dev)
         b = x.shape[0]
         im = state.model(x)["forecast"]
+        if self.shuffle_grid:
+            im = im[:, :, y_inv][:, x_inv]
         if self.should_normalize:
             im = normalizer_inverse(norm, im, channel=0)
         loss = lp_loss_rel(im.reshape(b, -1), targets.reshape(b, -1))
@@ -124,8 +202,12 @@ class Grid2DMarkovRoutine(Routine):
     def rollout(self, state: State, batch):
         """Autoregressive rollout over the trailing ``n_steps`` of
         ``batch["data"] [b, X, Y, T]``, re-building features from each
-        prediction. Returns ``(preds [b, X, Y, n], step_losses [n], yy)``.
-        The model runs in eval mode and is put back in the mode it was in."""
+        prediction, with the batch's force (``f``: static ``[b, X, Y]``, or
+        ``[b, X, Y, T]`` of which step t takes ``f[..., T - n_steps + t]``)
+        and viscosity (``mu [b]``). Returns ``(preds [b, X, Y, n],
+        step_losses [n], yy)``. The model runs in eval mode and is put back
+        in the mode it was in. The grid is not shuffled, as in the
+        reference."""
         training = state.model.training
         state.model.eval()
         try:
@@ -133,13 +215,14 @@ class Grid2DMarkovRoutine(Routine):
         finally:
             state.model.train(training)
 
-    def rollout_step(self, model, norm, im: torch.Tensor):
-        """One step of the rollout from ``im [b, X, Y, 1]``: its features,
-        normalized by ``norm`` (anything with the normalizer's ``mean`` and
-        ``std``) where the routine normalizes, the model, denormalized.
-        Returns ``(out, next im)``; with ``learn_difference`` the model's
-        output is added to ``im``."""
-        x = self.build_features(im)
+    def rollout_step(self, model, norm, im: torch.Tensor, force: Optional[torch.Tensor] = None,
+                     mu: Optional[torch.Tensor] = None):
+        """One step of the rollout from ``im [b, X, Y, 1]`` with this step's
+        force and viscosity: its features, normalized by ``norm`` (anything
+        with the normalizer's ``mean`` and ``std``) where the routine
+        normalizes, the model, denormalized. Returns ``(out, next im)``;
+        with ``learn_difference`` the model's output is added to ``im``."""
+        x = self.build_features(im, force, mu)
         if self.should_normalize:
             x = normalizer_apply(norm, x)
         out = model(x)["forecast"]
@@ -149,16 +232,24 @@ class Grid2DMarkovRoutine(Routine):
 
     @torch.no_grad()
     def _rollout(self, state: State, batch):
-        data = torch.as_tensor(batch["data"], device=state.device)
+        dev = state.device
+        data = torch.as_tensor(batch["data"], device=dev)
         b, t_total = data.shape[0], data.shape[-1]
         # Clamp to the available horizon.
         n_steps = min(self.n_steps or t_total - 1, t_total - 1)
         w0 = data[..., -n_steps - 1, None]
         yy = data[..., -n_steps:]
+        force = batch.get("f") if self.append_force else None
+        if force is not None:
+            force = torch.as_tensor(force, device=dev)
+        mu = batch.get("mu") if self.append_mu else None
         im = w0
         preds, step_losses = [], []
         for t in range(n_steps):
-            out, im = self.rollout_step(state.model, state.normalizer, im)
+            f_t = force
+            if force is not None and force.dim() == 4:
+                f_t = force[..., force.shape[-1] - n_steps + t]
+            out, im = self.rollout_step(state.model, state.normalizer, im, f_t, mu)
             if self.learn_difference:
                 # The true previous state at t=0, the previous target after.
                 prev = w0[..., 0] if t == 0 else yy[..., t - 1]
@@ -186,5 +277,7 @@ class Grid2DMarkovRoutine(Routine):
         }
 
     def valid_step(self, state: State, batch):
+        if "corr_data" in batch:
+            raise NotImplementedError("Grid2DMarkovRoutine's corr_data metrics are not ported yet")
         preds, step_losses, yy = self.rollout(state, batch)
         return self.compute_losses(preds, step_losses, yy)

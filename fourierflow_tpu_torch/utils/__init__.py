@@ -1,4 +1,5 @@
 from .checkpoint import load_state, save_state
-from .weights import state_dict_from_flax, zongyi_state_dict_from_flax
+from .weights import plus_state_dict_from_flax, state_dict_from_flax, zongyi_state_dict_from_flax
 
-__all__ = ["load_state", "save_state", "state_dict_from_flax", "zongyi_state_dict_from_flax"]
+__all__ = ["load_state", "save_state", "plus_state_dict_from_flax", "state_dict_from_flax",
+           "zongyi_state_dict_from_flax"]

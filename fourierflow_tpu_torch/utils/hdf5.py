@@ -248,8 +248,11 @@ def _dtype(body: bytes) -> np.dtype:
     raise NotImplementedError(f"HDF5 reader: datatype class {cls & 0x0F}")
 
 
-def read_dataset(path: str, key: str) -> np.ndarray:
-    """The dataset ``key`` (``"group/name"``) of the HDF5 file at ``path``."""
+def read_dataset(path: str, key: str, mmap: bool = False) -> np.ndarray:
+    """The dataset ``key`` (``"group/name"``) of the HDF5 file at ``path``.
+    With ``mmap`` a read-only ``np.memmap`` of it, so that a slice reads
+    only what it keeps (as h5py's slicing does); a dataset that was never
+    written reads as zeros either way."""
     with open(path, "rb") as f:
         head = f.read(96)
         if head[:8] != _SIGNATURE:
@@ -277,8 +280,10 @@ def read_dataset(path: str, key: str) -> np.ndarray:
             raise NotImplementedError(f"HDF5 reader: {key} is not stored contiguously")
         address, _ = struct.unpack_from("<QQ", layout, 2)
         count = int(np.prod(shape))
-        if address == _UNDEF:  # never written: the default fill value
+        if address == _UNDEF or count == 0:  # never written: the default fill value
             return np.zeros(shape, dtype.newbyteorder("="))
+        if mmap:
+            return np.memmap(path, dtype=dtype, mode="r", offset=address, shape=tuple(shape))
         f.seek(address)
         data = np.frombuffer(f.read(count * dtype.itemsize), dtype=dtype, count=count)
         return data.reshape(shape).astype(dtype.newbyteorder("="))

@@ -1,6 +1,7 @@
 """Carry weights from the JAX package's flax parameter trees to this
 package's ``state_dict``s: F-FNO (the inverse of the JAX package's
-``utils/torch_import.py::convert_ffno_state_dict``) and the original FNO
+``utils/torch_import.py::convert_ffno_state_dict``), FNO++ (the same tree
+with full spectral weights ``fourier_weight_{1,2}``) and the original FNO
 (of ``convert_zongyi_state_dict``).
 
 Input: the flax params of an ``FNOFactorized2DBlock`` as a nested dict of
@@ -24,12 +25,13 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-__all__ = ["state_dict_from_flax", "zongyi_state_dict_from_flax"]
+__all__ = ["state_dict_from_flax", "plus_state_dict_from_flax", "zongyi_state_dict_from_flax"]
 
 _LAYER_W = re.compile(r"layers_(\d+)_fourier_weight_([xy])$")
+_PLUS_LAYER_W = re.compile(r"layers_(\d+)_fourier_weight_([12])$")
 _LAYER_FF = re.compile(r"layers_(\d+)_(backcast_ff|forecast_ff)$")
 _FF_LIN = re.compile(r"WNLinear_(\d+)$")
-_BRANCH = {"y": 0, "x": 1}
+_BRANCH = {"y": 0, "x": 1, "1": 0, "2": 1}
 
 
 def _tensor(a) -> torch.Tensor:
@@ -90,13 +92,27 @@ def zongyi_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
 
 def state_dict_from_flax(params: Mapping, n_layers: int) -> Dict[str, torch.Tensor]:
     """Flax ``FNOFactorized2DBlock`` params -> port ``state_dict``."""
+    return _block_state_dict(params, n_layers, ("fourier_weight_y", "fourier_weight_x"),
+                             _LAYER_W, "FNOFactorized2DBlock")
+
+
+def plus_state_dict_from_flax(params: Mapping, n_layers: int) -> Dict[str, torch.Tensor]:
+    """Flax ``FNOPlus2DBlock`` params -> port ``state_dict``: as F-FNO's,
+    with ``fourier_weight_1``/``_2`` ``[in, out, m, m, 2]`` becoming
+    ``fourier_weight.0``/``.1``."""
+    return _block_state_dict(params, n_layers, ("fourier_weight_1", "fourier_weight_2"),
+                             _PLUS_LAYER_W, "FNOPlus2DBlock")
+
+
+def _block_state_dict(params: Mapping, n_layers: int, shared_w, layer_w: re.Pattern,
+                      what: str) -> Dict[str, torch.Tensor]:
     if "params" in params:
         params = params["params"]
     out: Dict[str, torch.Tensor] = {}
     for name, value in params.items():
         if name == "in_proj":
             _linear(value, "in_proj", out)
-        elif name in ("fourier_weight_y", "fourier_weight_x"):
+        elif name in shared_w:
             w = _tensor(value)
             for base in ["", *(f"spectral_layers.{i}." for i in range(n_layers))]:
                 out[f"{base}fourier_weight.{_BRANCH[name[-1]]}"] = w
@@ -105,12 +121,12 @@ def state_dict_from_flax(params: Mapping, n_layers: int) -> Dict[str, torch.Tens
                 _ff(value, base, out)
         elif _FF_LIN.match(name):
             _linear(value, f"out.{_FF_LIN.match(name).group(1)}", out)
-        elif _LAYER_W.match(name):
-            i, axis = _LAYER_W.match(name).groups()
-            out[f"spectral_layers.{i}.fourier_weight.{_BRANCH[axis]}"] = _tensor(value)
+        elif layer_w.match(name):
+            i, branch = layer_w.match(name).groups()
+            out[f"spectral_layers.{i}.fourier_weight.{_BRANCH[branch]}"] = _tensor(value)
         elif _LAYER_FF.match(name):
             i, kind = _LAYER_FF.match(name).groups()
             _ff(value, f"spectral_layers.{i}.{kind}", out)
         else:
-            raise KeyError(f"unexpected FNOFactorized2DBlock parameter {name!r}")
+            raise KeyError(f"unexpected {what} parameter {name!r}")
     return out

@@ -1,0 +1,113 @@
+"""The port's experiment registry (the torus families) against the JAX
+package's, on the CPU.
+
+- Names: the port's ``experiment_names()`` equals the ``torus_li``,
+  ``torus_vis`` and ``torus_vis_force`` names of the JAX registry.
+- Nodes: every such config equals JAX's, with the JAX package's target
+  prefix mapped onto the port's.
+- Instantiation: every routine builds in the port at 2 layers, initialises
+  on a batch of its builder's layout and runs its model forward.
+- ``load_config`` reads a registry name, ``configs list|export`` on the
+  command line, and each name is its own run directory.
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+import yaml
+
+from fourierflow_tpu.experiments import experiment_names as jax_experiment_names
+from fourierflow_tpu.experiments import get_experiment as jax_get_experiment
+from fourierflow_tpu_torch.commands.__main__ import main as cli
+from fourierflow_tpu_torch.commands.train import build_routine, experiment_dir
+from fourierflow_tpu_torch.config import load_config
+from fourierflow_tpu_torch.experiments import experiment_names, get_experiment
+from fourierflow_tpu_torch.routines import Grid2DMarkovRoutine
+
+FAMILIES = ("torus_li", "torus_vis", "torus_vis_force")
+NAMES = experiment_names()
+GRID = 32  # the smallest grid that holds 16 (F-FNO) and 12 (FNO-4) modes
+
+
+def _port_targets(node):
+    """``node`` with the JAX package's names mapped onto the port's."""
+    if isinstance(node, dict):
+        return {k: _port_targets(v) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_port_targets(v) for v in node]
+    if isinstance(node, str):
+        return node.replace("fourierflow_tpu.", "fourierflow_tpu_torch.")
+    return node
+
+
+def test_names_equal_the_jax_torus_names():
+    want = [n for n in jax_experiment_names() if n.split("/")[0] in FAMILIES]
+    assert NAMES == want
+    assert len(NAMES) == 99
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_config_equals_jax(name):
+    assert get_experiment(name) == _port_targets(jax_get_experiment(name))
+
+
+def _sample_batch(cfg):
+    """A batch of the builder's layout on a GRID x GRID grid."""
+    rng = np.random.RandomState(0)
+    field = lambda c: rng.randn(2, GRID, GRID, c).astype(np.float32)
+    target = cfg["builder"]["_target_"].rsplit(".", 1)[1]
+    if target == "NSZongyiBuilder":  # 10 input frames and 2 position channels
+        return {"x": field(12), "y": field(10)}
+    batch = {"x": field(1), "y": field(1)}
+    if target == "NSContextualBuilder":
+        batch.update(f=field(1)[..., 0], mu=np.array([1e-5, 1e-4], np.float32))
+    return batch
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_routine_instantiates(name):
+    cfg = load_config(name, ["routine.conv.n_layers=2"])
+    routine = build_routine(cfg["routine"])
+    batch = _sample_batch(cfg)
+    state = routine.init(0, batch, "cpu")
+    x = torch.from_numpy(batch["x"])
+    if isinstance(routine, Grid2DMarkovRoutine):
+        x = routine.build_features(x, batch.get("f"), batch.get("mu"))
+    with torch.no_grad():
+        out = state.model(x)["forecast"]
+    assert out.shape == (2, GRID, GRID, 1) and torch.isfinite(out).all()
+
+
+def test_load_config_reads_the_registry_with_overrides():
+    cfg = load_config("torus_vis/02_no_mu", ["builder.ssr=1", "routine.conv.n_layers=4"])
+    assert cfg["builder"]["ssr"] == 1 and cfg["routine"]["conv"]["n_layers"] == 4
+    assert cfg["builder"]["data_path"].endswith("/torus/torus_vis.h5")
+    assert cfg["routine"]["append_force"] and not cfg["routine"]["append_mu"]
+    assert get_experiment("experiments/torus_vis/02_no_mu/config.yaml") == get_experiment(
+        "torus_vis/02_no_mu")
+    with pytest.raises(KeyError, match="close matches"):
+        get_experiment("torus_vis/02_no_nu")
+
+
+def test_each_name_is_its_own_run_directory(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    four, deep = (experiment_dir(f"torus_li/markov/{n}_layers") for n in (4, 24))
+    assert four != deep and four == str(tmp_path / "torus_li/markov/4_layers")
+    yaml_path = tmp_path / "exp" / "config.yaml"
+    os.makedirs(yaml_path.parent)
+    yaml_path.write_text("{}")
+    assert experiment_dir(str(yaml_path)) == str(tmp_path / "exp")
+
+
+def test_configs_cli_lists_and_exports(tmp_path, capsys):
+    cli(["configs", "list"])
+    assert capsys.readouterr().out.split() == NAMES
+    cli(["configs", "export", "torus_vis_force/06_shared_all_no_fork", "--out-dir",
+         str(tmp_path)])
+    path = capsys.readouterr().out.strip()
+    assert path == str(tmp_path / "torus_vis_force/06_shared_all_no_fork.yaml")
+    with open(path) as f:
+        assert yaml.safe_load(f) == get_experiment("torus_vis_force/06_shared_all_no_fork")
+    assert load_config(path) == load_config("torus_vis_force/06_shared_all_no_fork")

@@ -382,7 +382,13 @@ def test_export_refuses_other_precisions_and_devices(tmp_path):
 
 
 def test_rollout_fn_refuses_a_force_channel():
+    """The serving module refuses a force where its routine appends none,
+    and a force laid out [X, Y] (the JAX export's declaration, with which
+    its serving function raises): it takes [b, X, Y]."""
     _, _, pr, ps = _routines()
+    w0 = torch.from_numpy(_w0())
+    with pytest.raises(ValueError, match="takes w0 alone"):
+        make_rollout_fn(pr, ps, 2)(w0, torch.zeros(2, GRID, GRID))
     pr.append_force = True
-    with pytest.raises(NotImplementedError, match="force"):
-        make_rollout_fn(pr, ps, 2)
+    with pytest.raises(ValueError, match=r"force must be \[b, X, Y\]"):
+        make_rollout_fn(pr, ps, 2)(w0, torch.zeros(GRID, GRID))

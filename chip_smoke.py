@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--seed N]
 
-Phases, each reporting on its own lines; every run goes through all ten:
+Phases, each reporting on its own lines; every run goes through all eleven:
 
 1. ``device``: the card's name and power limit (nvidia-smi), torch and CUDA versions.
 2. ``build``: compile every CUDA source in ``csrc/``, all at once.
@@ -13,15 +13,17 @@ Phases, each reporting on its own lines; every run goes through all ten:
    weights and a narrower shape for the feed-forward, the serving batch 1
    grid and odd, non-square and Nyquist-mode grids, strided and
    bf16 mode weights, line counts that are not a multiple of the kernel's
-   10 lines a block, above one round of blocks and below one block, for the
-   spectral mix and its adjoint; two runs of each kernel at the flagship
+   10 lines a block, above one round of blocks and below one block, and the
+   torus_kochkov shapes (32^2 to 256^2, 16 to 64 modes, in mode chunks), for
+   the spectral mix and its adjoint; two runs of each kernel at the flagship
    bit-identical; and the whole
    backward of each autograd Function (dx, dW, db) against
    ``torch.autograd.grad`` through its plain forward.
    The ``sass`` lines count the tensor-core instructions (HMMA) of the
    forward and backward feed-forward kernels in the built library
-   (``cuobjdump``), hold the wrappers' shared-memory formulas to the
-   kernels' and give the spectral kernel's registers and spills.
+   (``cuobjdump``), hold the wrappers' shared-memory formulas and the
+   spectral kernel's mode chunks to the kernels' and give the spectral
+   kernel's registers and spills.
 4. ``generate``: the port's ``navier_stokes`` on the card at the flagship's
    grid (64x64, 20 records, li force, mu 1e-5, delta 1e-4, seed 23893,
    batch 50, t 20), cut to 100 trajectories (each cut printed against the
@@ -79,13 +81,34 @@ Phases, each reporting on its own lines; every run goes through all ten:
    and 20 steps: an artifact that takes a force, equal to the live serving
    module to the bit, launching A and B 24 x 20 times a call, timed beside
    the eager rollout. Every kernel must be launched on this path.
-10. ``time`` (in a child process of this script, which starts with no CUDA
+10. ``kolmogorov``: the Kolmogorov-flow slice. ``generate kolmogorov`` by
+   registry name writes the protocol's initial conditions and trajectories
+   of the three splits on the card, cut as printed (a 256^2 simulation at
+   its own CFL step, the warm-up's 40 time units and the records' cadence
+   kept, 4 / 2 / 2 trajectories, 800 records, outputs at 32-256), and their
+   invariants are held (finite, zero-mean vorticity, the curl of the stored
+   velocities, the enstrophy bound of the forced, damped flow); the card's
+   CN-RK4 solve is held to the CPU's (20 steps), one step to a float64
+   numpy CN-RK4 and the CUDA-graph run to the eager one (to the bit); the
+   solver is timed at 256^2 and at the protocol's 2048^2 x 32, and the
+   protocol's train data projected from it. ``train`` and ``test`` on
+   ``torus_kochkov/ffno/grid_sizes/64`` at full width (24 layers, width 64,
+   5 channels, batch 32; the validation with the reduced 32^2 metrics), a
+   rollout written by ``save_predictions`` and read back, 24 launches of
+   each kernel in one step, 3 steps held to a float32 CPU copy and timed;
+   ``grid_sizes/128`` (M 32, batch 8) and ``/256`` (M 64, batch 2): 2 steps
+   each held and timed the same way; ``test`` of the 64^2 checkpoint at 256^2
+   (``superresolution/train_with_x64/256``); ``train`` of
+   ``multi_resolution/x32_x64`` on 32^2 and 64^2 batches in turn.
+11. ``time`` (in a child process of this script, which starts with no CUDA
    graph and no profiler session behind it): each kernel, its plain version
    and a PyTorch yardstick the port
    never calls, by their device time in a profiler trace (and the kernel's
    wall time back to back, between CUDA events); the least time the card
-   could take and the kernel's time over it. It runs last, so that no
-   profiler session precedes the timed rollout and train steps.
+   could take and the kernel's time over it; the spectral mix and its
+   adjoint also at x [8, 128, 128, 64] M 32 and [2, 256, 256, 64] M 64. It
+   runs last, so that no profiler session precedes the timed rollout and
+   train steps.
 
 Prints a JSON line of per-kernel numbers, then as its last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero; it
@@ -129,7 +152,8 @@ from fourierflow_tpu_torch.ops.fused_ff import (  # noqa: E402
     _DTYPE_CODE, _bwd_smem_bytes, _fwd_smem_bytes, _lib, fused_ff_bwd_cuda, fused_ff_bwd_plain,
     fused_ff_cuda, fused_ff_plain)
 from fourierflow_tpu_torch.ops.fused_spectral import (  # noqa: E402
-    _lib as _spectral_lib, _smem_bytes as _mix_smem_bytes, fused_mix_2d_adjoint_cuda,
+    _lib as _spectral_lib, _mode_chunk as _mix_mode_chunk, _smem_bytes as _mix_smem_bytes,
+    fused_mix_2d_adjoint_cuda,
     fused_mix_2d_adjoint_plain, fused_mix_2d_cuda, fused_mix_2d_plain)
 from fourierflow_tpu_torch.utils.checkpoint import save_state  # noqa: E402
 from fourierflow_tpu_torch.utils.serving import load_exported, make_rollout_fn  # noqa: E402
@@ -194,6 +218,12 @@ FF_NARROW = dict(cin=32, hidden=128, cout=40)
 MIX_CASES = (((B, N, N, M), {}), ((1, N, N, M), {}), ((2, 63, 65, M), {}),
              ((2, 32, 32, 17), {}), ((3, 48, 40, 12), dict(strided=True)), ((23, N, N, M), {}),
              ((1, 7, 9, 4), {}), ((2, 24, 20, 6), dict(c=20)))
+# The torus_kochkov shapes: grid_sizes/64 and multi_resolution's 32^2 at batch 32,
+# grid_sizes/128 (M 32, two mode chunks of 16), grid_sizes/256 (M 64, chunks of 12), the
+# 256^2 super-resolution test (M 16, chunks of 8) and predictions/256 (M 32, chunks of 12).
+KOL_MIX_CASES = (((32, N, N, M), {}), ((32, 32, 32, M), {}), ((8, 128, 128, 32), {}),
+                 ((2, 256, 256, 64), {}), ((2, 256, 256, M), {}), ((12, 256, 256, 32), {}))
+KOL_TIME_CASES = ((8, 128, 128, 32), (2, 256, 256, 64))
 MIX_BF16_CASES = (((2, 40, 48, 12), dict(w_dtype=torch.bfloat16)),)
 # The serve phase: the exported rollout's steps and batches, and its tolerance against
 # the live serving module and the eager rollout (max |err| / max |reference|, f32).
@@ -215,6 +245,28 @@ ABLATIONS = ("torus_li/ablation/with_velocity/24_layers",
              "torus_li/ablation/no_factorization/24_layers")
 SERVE_CONFIG = "torus_vis/02_no_mu"
 CONTEXT_STEPS = 3  # train steps of each configuration, each held to a CPU copy
+# The kolmogorov phase: the protocol's data configs
+# (data/kolmogorov/re_1000/{initial_conditions,trajectories}/{split}: a 2048^2 simulation, 32
+# trajectories a split, a warm-up of 2,852 x 64 steps (40 time units), then a record every 16
+# steps, 9,764 of them) cut to a 256^2 simulation at its own CFL step (8 times the 2048^2
+# one), so that 8 and 2 steps keep the warm-up's and the records' simulated time; 4 / 2 / 2
+# trajectories; 800 records (a 10-step rollout at k 20 of the "_4" files); outputs at 32, 64
+# and 128 (k 4), and 256 in train and test (grid_sizes/256 trains on it, the super-resolution
+# test reads it).
+KOL_PROTOCOL = dict(sim=2048, n=32, ic_inner=64, warmup=2852, traj_inner=16, outer=9764)
+KOL_SIM = 256
+KOL_SPLITS = {"train": 4, "valid": 2, "test": 2}
+KOL_IC_INNER, KOL_TRAJ_INNER, KOL_OUTER = 8, 2, 800
+KOL_CHECK_STEPS = 20  # the card's solve against the CPU's, 20 steps of 0.00175
+KOL_SOLVER_TOL = 1e-5  # card vs CPU solve: max |err| / max |CPU|
+KOL_REF_TOL = 1e-5  # one step vs the float64 numpy CN-RK4: max |err| / max |reference|
+KOL_TIMED_STEPS = (8, 24)  # time per solver step: the difference of these two runs
+KOL_CONFIG = "torus_kochkov/ffno/grid_sizes/64"
+KOL_GRIDS = ("torus_kochkov/ffno/grid_sizes/128", "torus_kochkov/ffno/grid_sizes/256")
+KOL_SUPERRES = "torus_kochkov/ffno/superresolution/train_with_x64/256"
+KOL_MULTI = "torus_kochkov/ffno/multi_resolution/x32_x64"
+KOL_STEPS = 3  # train steps after the normalizer pass, and steps held to a CPU copy
+KOL_GRID_STEPS = 2  # steps of grid_sizes/128 and /256 held to a CPU copy (the run's time)
 
 
 def log(*args):
@@ -433,16 +485,23 @@ def phase_sass():
                                          f"{dtype}, H {hidden} is {got}, the kernel's {want}")
     wtypes = ((torch.float32, torch.float32), (torch.bfloat16, torch.float32),
               (torch.bfloat16, torch.bfloat16))
-    for (_, sx, sy, modes), opts in MIX_CASES + MIX_BF16_CASES:
+    chunks = {}
+    for (_, sx, sy, modes), opts in MIX_CASES + KOL_MIX_CASES + MIX_BF16_CASES:
         c = opts.get("c", C)
         for n in (sx, sy):
             for xt, wt in wtypes:
-                got = _mix_smem_bytes(n, modes, c, xt, wt)
-                want = _spectral_lib().spectral_axis_smem_bytes(
-                    _DTYPE_CODE[xt], _DTYPE_CODE[wt], n, modes, c)
+                got = (_mix_smem_bytes(n, modes, c, xt, wt), _mix_mode_chunk(n, modes, c, xt, wt))
+                want = (_spectral_lib().spectral_axis_smem_bytes(
+                    _DTYPE_CODE[xt], _DTYPE_CODE[wt], n, modes, c),
+                    _spectral_lib().spectral_axis_mode_chunk(
+                        _DTYPE_CODE[xt], _DTYPE_CODE[wt], n, modes, c))
                 if got != want:
-                    raise AssertionError(f"fused_mix_2d: the wrapper's shared-memory size at n {n}, "
-                                         f"M {modes}, {xt}/{wt} is {got}, the kernel's {want}")
+                    raise AssertionError(f"fused_mix_2d: the wrapper's (shared memory, mode chunk) "
+                                         f"at n {n}, M {modes}, {xt}/{wt} is {got}, the kernel's "
+                                         f"{want}")
+                if xt == wt == torch.float32 and c == C:
+                    chunks[f"n {n}, M {modes}"] = got[1]
+    log(f"sass fused_mix_2d: mode chunks (f32) {json.dumps(chunks)}")
     log(f"sass fused_mix_2d: shared memory at the flagship {_mix_smem_bytes(N, M, C, *wtypes[0])} "
         f"B (f32), {_mix_smem_bytes(N, M, C, *wtypes[1])} B (bf16 x); the wrapper's formula "
         f"holds at every checked shape")
@@ -498,7 +557,7 @@ def phase_check(dev, seed):
                 raise AssertionError("fused_ff_bwd launched a kernel for 0 rows")
         check_function(f"fused_ff[{tag}, rows 1037, model weights]", fused_ff, fused_ff_plain,
                        ff_inputs(1000 + 37, dtype, dev, seed), dtype, seed)
-        cases = MIX_CASES + (MIX_BF16_CASES if dtype == torch.bfloat16 else ())
+        cases = MIX_CASES + KOL_MIX_CASES + (MIX_BF16_CASES if dtype == torch.bfloat16 else ())
         for (b, sx, sy, modes), opts in cases:
             what = f"[{tag}, {b}x{sx}x{sy}x{opts.get('c', C)}, M {modes}, {opts or 'f32 weights'}]"
             args = mix_inputs(b, sx, sy, modes, dtype, dev, seed, **opts)
@@ -557,6 +616,15 @@ def _library_mix_adjoint(x, wy, wx):
     return lambda: torch.autograd.grad(y, xg, g, retain_graph=True)
 
 
+def mix_flops(b, sx, sy, modes, c):
+    """Operations of one spectral-mix call on x [b, sx, sy, c]: along each
+    axis, every line's forward and inverse truncated DFT (n x 2M x C
+    products each) and its per-mode complex C x C mix (4 M C^2 products),
+    two operations a product."""
+    return 2 * sum(b * lines * (2 * n * 2 * modes * c + 4 * modes * c * c)
+                   for n, lines in ((sy, sx), (sx, sy)))
+
+
 def timed(kernel, plain, library, flops, nbytes, dtype):
     """Device times of a kernel, its plain version and its library
     yardstick; the kernel's wall time back to back; the bound."""
@@ -580,18 +648,24 @@ def phase_time(dev, seed):
         rows[("fused_ff_bwd", dtype)] = timed(
             lambda: fused_ff_bwd_cuda(*bargs), lambda: fused_ff_bwd_plain(*bargs),
             _library_ff_bwd(*bargs), flops, nbytes, dtype)
-        x, wy, wx = mix_inputs(B, N, N, M, dtype, dev, seed)
-        flops = B * 2 * (N * 2 * M * N * C + 4 * M * N * C * C + N * N * 2 * M * C) * 2
-        nbytes = 2 * x.numel() * isz + (wy.numel() + wx.numel()) * wy.element_size()
-        rows[("fused_mix_2d", dtype)] = timed(
-            lambda: fused_mix_2d_cuda(x, wy, wx), lambda: fused_mix_2d_plain(x, wy, wx),
-            _library_mix(x, wy, wx), flops, nbytes, dtype)
-        rows[("fused_mix_2d_adjoint", dtype)] = timed(
-            lambda: fused_mix_2d_adjoint_cuda(x, wy, wx),
-            lambda: fused_mix_2d_adjoint_plain(x, wy, wx), _library_mix_adjoint(x, wy, wx),
-            flops, nbytes, dtype)
-    for (name, dtype), r in rows.items():
-        log(f"time {name}[{str(dtype).replace('torch.', '')}]: kernel {r['ms']:.4f} ms "
+        # The flagship's shape (keyed (name, dtype)), then the torus_kochkov ones (keyed
+        # (name, dtype, shape)). Operations and bytes as in mix_flops; the mode chunks
+        # do not enter the bound.
+        for shape in ((B, N, N, M),) + KOL_TIME_CASES:
+            x, wy, wx = mix_inputs(*shape, dtype, dev, seed)
+            flops = mix_flops(*shape, C)
+            nbytes = 2 * x.numel() * isz + (wy.numel() + wx.numel()) * wy.element_size()
+            tail = () if shape == (B, N, N, M) else (shape,)
+            rows[("fused_mix_2d", dtype) + tail] = timed(
+                lambda: fused_mix_2d_cuda(x, wy, wx), lambda: fused_mix_2d_plain(x, wy, wx),
+                _library_mix(x, wy, wx), flops, nbytes, dtype)
+            rows[("fused_mix_2d_adjoint", dtype) + tail] = timed(
+                lambda: fused_mix_2d_adjoint_cuda(x, wy, wx),
+                lambda: fused_mix_2d_adjoint_plain(x, wy, wx), _library_mix_adjoint(x, wy, wx),
+                flops, nbytes, dtype)
+    for (name, dtype, *shape), r in rows.items():
+        at = f" at x [{', '.join(map(str, shape[0][:3]))}, {C}] M {shape[0][3]}" if shape else ""
+        log(f"time {name}[{str(dtype).replace('torch.', '')}]{at}: kernel {r['ms']:.4f} ms "
             f"(back to back {r['wall_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
             f"library {r['library_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms ({r['bound'][1]}), "
             f"ms/bound {r['ms'] / r['bound'][0]:.2f}")
@@ -1079,7 +1153,7 @@ def cpu_copy(routine, state):
     return dataclasses.replace(copy_, step=state.step)
 
 
-def hold_steps(label, routine, state, batches):
+def hold_steps(label, routine, state, batches, phase="context"):
     """Each of ``batches`` as one train step without noise on the card and
     on a CPU copy of the same state: the loss, the gradients the update used
     (``p.grad``) and the parameters after it, each tensor within TRAIN_TOL
@@ -1097,15 +1171,15 @@ def hold_steps(label, routine, state, batches):
         for n, a, b in zip(names, state.model.parameters(), plain.model.parameters(), strict=True):
             rels[n] = max(rel_err(a.grad, b.grad)[1], rel_err(a, b)[1])
         worst = max(rels, key=rels.get)
-        log(f"context: {label} step {i + 1} on the card vs a float32 CPU copy: loss {loss:.6f} "
+        log(f"{phase}: {label} step {i + 1} on the card vs a float32 CPU copy: loss {loss:.6f} "
             f"vs {want_loss:.6f} (rel {loss_rel:.2e}); gradients and parameters after the step "
             f"of {len(rels)} tensors, largest rel {rels[worst]:.2e} ({worst}), tol {TRAIN_TOL:.0e}")
         if not (loss_rel <= TRAIN_TOL and rels[worst] <= TRAIN_TOL):
-            raise AssertionError(f"context: {label} step {i + 1} disagrees with its CPU copy")
+            raise AssertionError(f"{phase}: {label} step {i + 1} disagrees with its CPU copy")
     return state
 
 
-def time_steps(label, routine, state, batch, dev, steps=5):
+def time_steps(label, routine, state, batch, dev, steps=5, phase="context"):
     """ms per train step (mean of ``steps`` after 2 warm-ups, with noise)
     and the host CPU time per step."""
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1119,9 +1193,9 @@ def time_steps(label, routine, state, batch, dev, steps=5):
     step_ms = (time.perf_counter() - t0) / steps * 1e3
     cpu_ms = (time.process_time() - cpu0) / steps * 1e3
     if not math.isfinite(float(metrics["train_loss"])):
-        raise AssertionError(f"context: {label}: non-finite loss in the timed steps")
-    log(f"context: {label}: {step_ms:.3f} ms per train step (batch {B}, f32, mean of {steps} "
-        f"after 2 warm-ups); host CPU time {cpu_ms:.3f} ms per step")
+        raise AssertionError(f"{phase}: {label}: non-finite loss in the timed steps")
+    log(f"{phase}: {label}: {step_ms:.3f} ms per train step (batch {len(batch['x'])}, f32, mean "
+        f"of {steps} after 2 warm-ups); host CPU time {cpu_ms:.3f} ms per step")
     return state
 
 
@@ -1279,6 +1353,332 @@ def serve_context(dev, path):
         f"{SERVE_CALLS} calls after a warm-up)")
 
 
+# --- phase kolmogorov ----------------------------------------------------------------------
+def _kol_overrides(split, kind):
+    """The cuts of the protocol's data config ``kind`` for ``split``."""
+    ks = tuple(size for size in (32, 64, 128) if size < KOL_SIM) + (
+        (KOL_SIM,) if split != "valid" or kind == "initial_conditions" else ())
+    k = 1 if kind == "initial_conditions" else 4
+    over = [f"sim_grid.shape=[{KOL_SIM},{KOL_SIM}]", f"n_trajectories={KOL_SPLITS[split]}",
+            f"generation_batch={KOL_SPLITS[split]}",
+            "out_sizes=" + json.dumps([{"size": size, "k": k} for size in ks])]
+    if kind == "initial_conditions":
+        return over + [f"inner_steps={KOL_IC_INNER}"]
+    return over + [f"inner_steps={KOL_TRAJ_INNER}", f"outer_steps={KOL_OUTER}",
+                   f"init_path=${{oc.env:DATA_ROOT}}/kolmogorov/re_1000/initial_conditions/"
+                   f"{split}_{KOL_SIM}.nc"]
+
+
+def reference_cnrk4_step(w, visc, drag, dt):
+    """One float64 numpy CN-RK4 step of the Kolmogorov vorticity equation on
+    [0, 2 pi)^2 (integer wavenumbers, full fft2, the circular 2/3 filter,
+    forcing cos(4y) along x, viscosity and linear drag), for one field."""
+    from fourierflow_tpu_torch.utils.equations import _CK_ALPHAS, _CK_BETAS, _CK_GAMMAS
+
+    n = w.shape[-1]
+    m = np.fft.fftfreq(n, d=1.0 / n)
+    mx, my = np.meshgrid(m, m, indexing="ij")
+    lap = -(mx ** 2 + my ** 2)
+    lap_safe = np.where(lap == 0, 1.0, lap)
+    filt = (mx ** 2 + my ** 2) <= (2.0 / 3.0 * (n // 2)) ** 2
+    y = np.arange(n) * 2 * np.pi / n
+    f_hat = np.fft.fft2(np.broadcast_to(np.cos(4 * y)[None, :], (n, n)))
+    curl_f = 1j * (-my * f_hat)
+    real = lambda a: np.real(np.fft.ifft2(a))
+    linear = visc * lap - drag
+
+    def explicit(w_hat):
+        psi = -w_hat / lap_safe
+        vx, vy = real(1j * my * psi), real(-1j * mx * psi)
+        adv = np.fft.fft2(-(real(1j * mx * w_hat) * vx + real(1j * my * w_hat) * vy))
+        return adv * filt + curl_f
+
+    u = np.fft.fft2(w)
+    h = np.zeros_like(u)
+    for k in range(5):
+        h = explicit(u) + _CK_BETAS[k] * h
+        mu = 0.5 * dt * (_CK_ALPHAS[k + 1] - _CK_ALPHAS[k])
+        u = (u + _CK_GAMMAS[k] * dt * h + mu * linear * u) / (1 - mu * linear)
+    return real(u)
+
+
+def generate_kolmogorov_data(dev, root):
+    """The protocol's initial conditions and trajectories of the three splits
+    through ``generate kolmogorov`` by registry name, cut as printed, and
+    the files' invariants. Returns the seconds each call took."""
+    from fourierflow_tpu_torch.commands.generate import kolmogorov as generate
+    from fourierflow_tpu_torch.ops.fourier import irfft2
+    from fourierflow_tpu_torch.utils.grids import Grid, rfft_mesh
+    from fourierflow_tpu_torch.utils.spectral import velocity_to_vorticity_fd
+
+    base = os.path.join(root, "kolmogorov", "re_1000")
+    p = KOL_PROTOCOL
+    scale = p["sim"] // KOL_SIM
+    log(f"kolmogorov: cut: simulated at {KOL_SIM}^2 instead of {p['sim']}^2, at its own CFL "
+        f"step ({scale}x the {p['sim']}^2 one): inner steps {KOL_IC_INNER} / {KOL_TRAJ_INNER} "
+        f"for the protocol's {p['ic_inner']} / {p['traj_inner']} keep the simulated time "
+        f"(warm-up {p['warmup']} outer steps, 40 time units)")
+    log(f"kolmogorov: cut: {' / '.join(str(n) for n in KOL_SPLITS.values())} trajectories "
+        f"(train / valid / test) instead of {p['n']} each; {KOL_OUTER} records instead of "
+        f"{p['outer']:,}; outputs at 32, 64, 128 (k 4) and {KOL_SIM} (train, test) instead of "
+        f"32-128 (k 1) and 32-256 (k 4)")
+    seconds = {}
+    for kind in ("initial_conditions", "trajectories"):
+        for split in KOL_SPLITS:
+            name = f"data/kolmogorov/re_1000/{kind}/{split}"
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            paths = generate(name, _kol_overrides(split, kind), device=dev,
+                             out_dir=os.path.join(base, kind))
+            seconds[(kind, split)] = time.perf_counter() - t0
+            log(f"kolmogorov: generate {name}: {seconds[(kind, split)]:.2f} s, "
+                f"{sum(os.path.getsize(q) for q in paths):,} B in {len(paths)} files")
+    total = sum(e.stat().st_size for d in ("initial_conditions", "trajectories")
+                for e in os.scandir(os.path.join(base, d)))
+    log(f"kolmogorov: {total:,} B of data")
+
+    # Invariants: finite, zero-mean vorticity, velocities whose finite-difference
+    # curl is the stored vorticity (spectral at the simulation's own size), and the
+    # enstrophy: d rms(w)/dt <= rms(curl f) - drag rms(w), so rms(w(t)) <= max(rms(w(0)),
+    # rms(curl f) / drag) with rms(curl f) = 4 / sqrt(2) and drag 0.1.
+    bound_rms = 4 / math.sqrt(2) / 0.1
+    for split in KOL_SPLITS:
+        w0 = load_array(os.path.join(base, "initial_conditions", f"{split}_{KOL_SIM}.h5"),
+                        "vorticity")
+        rms0 = np.sqrt((w0.astype(np.float64) ** 2).mean(axis=(1, 2))).max()
+        for size in sorted({32, 64, 128, KOL_SIM}):
+            path = os.path.join(base, "trajectories", f"{split}_{size}_4.h5")
+            if not os.path.exists(path):
+                continue
+            w, vx, vy = (load_array(path, f) for f in ("vorticity", "vx", "vy"))
+            shape = (KOL_SPLITS[split], KOL_OUTER // 4, size, size)
+            if w.shape != shape or not all(np.isfinite(a).all() for a in (w, vx, vy)):
+                raise AssertionError(f"kolmogorov: {path}: shape {w.shape}, or not finite")
+            mean = float(np.abs(w.mean(axis=(2, 3))).max() / np.abs(w).max())
+            if size < KOL_SIM:  # downsampled: the vorticity is the fd curl of the velocities
+                grid = Grid((size, size), domain=((0, 2 * np.pi), (0, 2 * np.pi)))
+                curl = velocity_to_vorticity_fd(torch.from_numpy(vx), torch.from_numpy(vy), grid)
+                how, tol = "fd", 1e-5
+            else:  # the simulation's own fields: the spectral curl
+                kx, ky = (torch.from_numpy(k) for k in rfft_mesh((size, size)))
+                vx_hat, vy_hat = (torch.fft.rfft2(torch.from_numpy(v)) for v in (vx, vy))
+                curl = irfft2(2j * np.pi * (kx * vy_hat - ky * vx_hat), (size, size))
+                how, tol = "spectral", 1e-4
+            curl_err = rel_err(curl, torch.from_numpy(w))[1]
+            curl_ok, curl_txt = curl_err <= tol, f"{how} curl of (vx, vy) vs w: rel {curl_err:.2e} (tol {tol:g})"
+            rms = np.sqrt((w.astype(np.float64) ** 2).mean(axis=(2, 3)))
+            log(f"kolmogorov: {split}_{size}_4: {w.shape}, max |spatial mean| / max |w| "
+                f"{mean:.2e} (tol {MEAN_TOL:g}); {curl_txt}; rms(w) in "
+                f"[{rms.min():.4f}, {rms.max():.4f}] from rms(w0) <= {rms0:.4f}; "
+                f"max |w| {np.abs(w).max():.3f}")
+            enstrophy_ok = size < KOL_SIM or rms.max() <= ENSTROPHY_SLACK * max(rms0, bound_rms)
+            if not (mean <= MEAN_TOL and curl_ok and enstrophy_ok
+                    and np.abs(w[:, 1] - w[:, 0]).max() > 0):
+                raise AssertionError(f"kolmogorov: an invariant of {path} does not hold")
+    return seconds
+
+
+def kolmogorov_solver_checks(dev, root):
+    """The card's solve against the CPU's and against one float64 step, the
+    CUDA-graph run against the eager one, and the solver's time per step."""
+    from fourierflow_tpu_torch.ops.fourier import irfft2
+    from fourierflow_tpu_torch.utils.equations import graph_repeated, repeated
+
+    name = "data/kolmogorov/re_1000/trajectories/test"
+    grid = (KOL_SIM, KOL_SIM)
+    cfg = load_config(name, [f"sim_grid.shape=[{KOL_SIM},{KOL_SIM}]"])
+    dt = instantiate(cfg["time_step"])
+    step = instantiate(cfg["step_fn"])
+    eq = cfg["step_fn"]["equation"]
+    w0 = load_array(os.path.join(root, "kolmogorov", "re_1000", "initial_conditions",
+                                 f"test_{KOL_SIM}.h5"), "vorticity")
+    state = torch.fft.rfft2(torch.from_numpy(w0))
+    card = irfft2(repeated(step, KOL_CHECK_STEPS)(state.to(dev)), grid).cpu()
+    cpu = irfft2(repeated(step, KOL_CHECK_STEPS)(state), grid)
+    err, rel = rel_err(card, cpu)
+    log(f"kolmogorov: card vs CPU solve ({KOL_SIM}^2, Re 1000, dt {dt:.6g}, {KOL_CHECK_STEPS} "
+        f"steps, {len(w0)} fields): max_abs_err {err:.3e} rel {rel:.3e} tol {KOL_SOLVER_TOL:g}")
+    if not rel <= KOL_SOLVER_TOL:
+        raise AssertionError("kolmogorov: the card's solve disagrees with the CPU's")
+    one = irfft2(step(state.to(dev)), grid).cpu()
+    ref = np.stack([reference_cnrk4_step(w.astype(np.float64), eq["viscosity"], eq["drag"], dt)
+                    for w in w0])
+    err, rel = rel_err(one, torch.from_numpy(ref))
+    log(f"kolmogorov: one step on the card vs a float64 numpy CN-RK4: max_abs_err {err:.3e} "
+        f"rel {rel:.3e} tol {KOL_REF_TOL:g}")
+    if not rel <= KOL_REF_TOL:
+        raise AssertionError("kolmogorov: the card's step disagrees with the float64 reference")
+    s = state.to(dev)
+    eager = repeated(step, 21)(s)
+    graph = graph_repeated(step, s, 8)(s, 21)
+    if not torch.equal(eager, graph):
+        raise AssertionError("kolmogorov: the CUDA-graph solve differs from the eager one")
+    log("kolmogorov: CUDA-graph solve equals the eager solve to the bit (21 steps: 2 replays "
+        "of an 8-step graph and 5 eager steps)")
+    del eager, graph
+
+    step_ms = {}
+    for n, batch, graph_steps in ((KOL_SIM, KOL_SPLITS["train"], 8),
+                                  (KOL_SIM, KOL_SPLITS["train"], 0),
+                                  (KOL_PROTOCOL["sim"], KOL_PROTOCOL["n"], 0)):
+        cfg = load_config(name, [f"sim_grid.shape=[{n},{n}]"])
+        step = instantiate(cfg["step_fn"])
+        x = torch.linspace(0, 2 * math.pi * (1 - 1 / n), n, device=dev)
+        w = torch.sin(4 * x)[None, :, None] * torch.cos(3 * x)[None, None, :] + 0.1 * torch.randn(
+            batch, n, n, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+        s = torch.fft.rfft2(w)
+        run = graph_repeated(step, s, graph_steps)
+        run(s, KOL_TIMED_STEPS[0])
+        wall = []
+        for k in KOL_TIMED_STEPS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(s, k)
+            torch.cuda.synchronize()
+            wall.append(time.perf_counter() - t0)
+        ms = (wall[1] - wall[0]) / (KOL_TIMED_STEPS[1] - KOL_TIMED_STEPS[0]) * 1e3
+        step_ms[(n, batch, graph_steps)] = ms
+        state_bytes = 2 * batch * n * (n // 2 + 1) * 8  # complex64 state, read and written
+        log(f"kolmogorov: solver step at {n}^2, batch {batch} "
+            f"({f'graph of {graph_steps}' if graph_steps else 'eager'}): {ms:.4f} ms; bound "
+            f"{state_bytes / MEM_RATE * 1e3:.5f} ms (the state read and written once, bytes)")
+        del step, run, s, w
+        torch.cuda.empty_cache()
+    p = KOL_PROTOCOL
+    ms = step_ms[(p["sim"], p["n"], 0)]
+    for kind, steps in (("initial_conditions", p["warmup"] * p["ic_inner"]),
+                        ("trajectories", p["outer"] * p["traj_inner"])):
+        log(f"kolmogorov: projected protocol data/kolmogorov/re_1000/{kind}/train ({p['n']} "
+            f"trajectories in one batch at {p['sim']}^2, {steps:,} steps): {steps * ms / 1e3:.1f} s "
+            f"of solver steps")
+    return step_ms
+
+
+def kolmogorov_train_64(dev, run):
+    """``train`` of the grid_sizes/64 config at full width (normalizer pass,
+    KOL_STEPS steps, the validation with the reduced metrics, the test pass),
+    ``test`` on its checkpoint, a rollout saved by ``save_predictions`` and
+    read back, 24 launches of each kernel in one step, KOL_STEPS steps held
+    to a CPU copy and timed. Returns the checkpoint."""
+    overrides = ["trainer.max_epochs=2", f"trainer.limit_train_batches={KOL_STEPS}"]
+    trainer, state = train.main(KOL_CONFIG, overrides, config_dir=run, device="cuda")
+    logs = trainer.logs
+    scalars = lambda d: {k: round(float(v), 6) for k, v in d.items() if np.ndim(v) == 0}
+    log(f"kolmogorov: {KOL_CONFIG}: train ({trainer.global_step} steps after the normalizer "
+        f"pass, n_params {logs['n_params']:,}, input channels "
+        f"{state.model.in_proj.in_features}): valid_time_until {logs['valid_time_until']:g}, "
+        f"valid_reduced_time_until {logs['valid_reduced_time_until']:g}, valid_corr "
+        f"{logs['valid_corr']:.6f}, valid_reduced_corr {logs['valid_reduced_corr']:.6f}, "
+        f"valid_loss {logs['valid_loss']:.6f}")
+    test_logs = test_command.main(KOL_CONFIG, overrides=overrides, config_dir=run, device="cuda")
+    log(f"kolmogorov: {KOL_CONFIG}: test {json.dumps(scalars(test_logs))}")
+    if (trainer.global_step != KOL_STEPS or state.model.in_proj.in_features != 5
+            or test_logs["test_reduced_correlations"].shape != (N_STEPS,)
+            or not all(np.isfinite(np.asarray(v, np.float64)).all() for v in test_logs.values())):
+        raise AssertionError(f"kolmogorov: {KOL_CONFIG}: {trainer.global_step} steps, logs "
+                             f"{scalars(test_logs)}")
+    ckpt = os.path.join(next(os.scandir(os.path.join(run, "checkpoints"))).path, "last.ckpt")
+
+    cfg = load_config(KOL_CONFIG, overrides)
+    builder = instantiate(cfg["builder"])
+    routine = build_routine(cfg["routine"], builder)
+    batch = next(builder.test_batches())
+    preds = routine.rollout(state, batch)[0]
+    path = routine.save_predictions(preds, times=batch["times"][0, -preds.shape[-1]:],
+                                    path=os.path.join(run, "predictions.h5"))
+    saved = {k: load_array(path, k) for k in ("vorticity", "vx", "vy", "time", "x", "y")}
+    shapes = {k: v.shape for k, v in saved.items()}
+    if (saved["vorticity"].shape != tuple(preds.shape) or saved["vx"].shape != tuple(preds.shape)
+            or not np.array_equal(saved["vorticity"], preds.cpu().numpy())
+            or saved["x"].shape != (N,)):
+        raise AssertionError(f"kolmogorov: save_predictions wrote {shapes}")
+    log(f"kolmogorov: save_predictions wrote {os.path.getsize(path):,} B, read back: {shapes}, "
+        f"the vorticity equal to the rollout's")
+
+    train_batches = [b for _, b in zip(range(KOL_STEPS), builder.train_batches(
+        np.random.default_rng(0)))]
+    before = launch_counts()
+    state, _ = routine.train_step(state, train_batches[0], trainer.step_generator(dev))
+    torch.cuda.synchronize()
+    step_counts = {k: v - before[k] for k, v in launch_counts().items()}
+    log(f"kolmogorov: launches in one train step {step_counts}")
+    if any(n != N_LAYERS for n in step_counts.values()):
+        raise AssertionError(f"kolmogorov: expected {N_LAYERS} launches of each kernel per step")
+    state = hold_steps(KOL_CONFIG, routine, state, train_batches, phase="kolmogorov")
+    time_steps(KOL_CONFIG, routine, state, train_batches[0], dev, phase="kolmogorov")
+    return ckpt
+
+
+def phase_kolmogorov(dev, tmp):
+    """The Kolmogorov slice: its data on the card through ``generate
+    kolmogorov`` by registry name, the solver held to the CPU, to a float64
+    step and to its eager self, ``torus_kochkov/ffno/grid_sizes/64`` at full
+    width through ``train`` and ``test`` with the reduced metrics and saved
+    predictions, 128^2 and 256^2 steps held to CPU copies, the 256^2
+    super-resolution test of the 64^2 checkpoint and multi-resolution
+    training."""
+    phase_start = time.perf_counter()
+    root = os.path.join(tmp, "data")
+    os.environ["DATA_ROOT"] = root  # the registry's data paths
+    reset_launch_counts()
+    generate_kolmogorov_data(dev, root)
+    kolmogorov_solver_checks(dev, root)
+    with tempfile.TemporaryDirectory() as run:
+        ckpt = kolmogorov_train_64(dev, run)
+        before = launch_counts()
+        logs = test_command.main(KOL_SUPERRES, ckpt, device="cuda")
+        launched = {k: v - before[k] for k, v in launch_counts().items()}
+    log(f"kolmogorov: {KOL_SUPERRES}: test of the 64^2 checkpoint on the {KOL_SIM}^2 test "
+        f"trajectories: test_time_until {logs['test_time_until']:g}, test_reduced_time_until "
+        f"{logs['test_reduced_time_until']:g}, test_reduced_corr {logs['test_reduced_corr']:.6f}; "
+        f"launches {launched}")
+    if not (np.isfinite(logs["test_loss"]) and launched["fused_mix_2d"] == N_LAYERS * N_STEPS):
+        raise AssertionError(f"kolmogorov: {KOL_SUPERRES}: {logs['test_loss']}, {launched}")
+
+    for name in KOL_GRIDS:
+        over = []
+        if name.endswith(f"/{KOL_SIM}"):  # no valid file at this size: the test split stands in
+            over = [f"builder.valid_dataset.{k}=${{oc.env:DATA_ROOT}}/kolmogorov/re_1000/{d}/test_"
+                    f"{KOL_SIM}{suffix}.nc" for k, d, suffix in (
+                        ("path", "trajectories", "_4"), ("init_path", "initial_conditions", ""))]
+        cfg = load_config(name, over)
+        builder = instantiate(cfg["builder"])
+        routine = build_routine(cfg["routine"], builder)
+        state = routine.init(7231, builder.sample_batch(), dev)
+        batches = [b for _, b in zip(range(2 * KOL_GRID_STEPS),
+                                     builder.train_batches(np.random.default_rng(0)))]
+        for batch in batches[:KOL_GRID_STEPS]:
+            state = routine.accumulate_step(state, batch)
+        before = launch_counts()
+        state = hold_steps(name, routine, state, batches[KOL_GRID_STEPS:], phase="kolmogorov")
+        launched = {k: v - before[k] for k, v in launch_counts().items()}
+        log(f"kolmogorov: {name}: batch {len(batches[0]['x'])} of "
+            f"{batches[0]['x'].shape[1]}^2, modes {cfg['routine']['conv']['modes']}; launches in "
+            f"{KOL_GRID_STEPS} steps {launched}")
+        if any(n != N_LAYERS * KOL_GRID_STEPS for n in launched.values()):
+            raise AssertionError(f"kolmogorov: {name}: launches {launched}")
+        time_steps(name, routine, state, batches[0], dev, phase="kolmogorov")
+
+    overrides = ["trainer.max_epochs=2", "trainer.limit_train_batches=4"]
+    cfg = load_config(KOL_MULTI, overrides)
+    sizes = [b["x"].shape[1] for _, b in zip(range(4), instantiate(cfg["builder"]).train_batches(
+        np.random.default_rng(0)))]
+    with tempfile.TemporaryDirectory() as run:
+        trainer, _ = train.main(KOL_MULTI, overrides, config_dir=run, device="cuda")
+    log(f"kolmogorov: {KOL_MULTI}: {trainer.global_step} steps on batches of {sizes}^2 in turn, "
+        f"valid_loss {trainer.logs['valid_loss']:.6f}, test_loss {trainer.logs['test_loss']:.6f}")
+    if sizes != [32, 64, 32, 64] or trainer.global_step != 4 or not np.isfinite(
+            trainer.logs["test_loss"]):
+        raise AssertionError(f"kolmogorov: {KOL_MULTI}: sizes {sizes}, {trainer.global_step} steps")
+    counts = launch_counts()
+    log(f"kolmogorov: launches over the kolmogorov path {counts}; phase took "
+        f"{time.perf_counter() - phase_start:.1f} s")
+    for name, n in counts.items():
+        if n < 1:
+            raise AssertionError(f"kolmogorov: {name} was never launched on the kolmogorov path")
+    return counts
+
+
 # Device-time groups of a train step, by kernel name.
 STEP_GROUPS = (("spectral kernel (forward + adjoint)", ("spectral_axis_kernel",)),
                ("FF backward kernel", ("ff_bwd",)), ("FF forward kernel", ("ff_fwd_kernel",)),
@@ -1340,8 +1740,8 @@ def phase_time_apart(seed):
                         "--time-json", path], check=True, timeout=900)
         with open(path) as f:
             rows = json.load(f)
-    return {(r["name"], getattr(torch, r["dtype"])): dict(r["row"], bound=tuple(r["row"]["bound"]))
-            for r in rows}
+    return {(r["name"], getattr(torch, r["dtype"])) + tuple(tuple(x) for x in r["shape"]):
+            dict(r["row"], bound=tuple(r["row"]["bound"])) for r in rows}
 
 
 def main():
@@ -1363,8 +1763,8 @@ def main():
     if args.time_json:
         rows = phase_time(dev, args.seed)
         with open(args.time_json, "w") as f:
-            json.dump([{"name": name, "dtype": str(dtype).replace("torch.", ""), "row": row}
-                       for (name, dtype), row in rows.items()], f)
+            json.dump([{"name": name, "dtype": str(dtype).replace("torch.", ""), "shape": shape,
+                        "row": row} for (name, dtype, *shape), row in rows.items()], f)
         return
 
     card = phase_device()
@@ -1378,17 +1778,26 @@ def main():
                   "train": phase_train(dev, args.seed, data_path)}
         phase_baseline(dev, data_path)
         counts["context"] = phase_context(dev, tmp, data_path)
+        counts["kolmogorov"] = phase_kolmogorov(dev, tmp)
     times = phase_time_apart(args.seed)
 
     kernels = []
     for name, meta in KERNELS.items():
         t = times[(name, torch.float32)]
-        kernels.append({"name": name, "route": "cuda", "source": meta["source"],
-                        "replaces": meta["replaces"], "launches": counts[meta["path"]][name],
-                        "launches_by_path": {p: c[name] for p, c in counts.items()},
-                        "max_abs_err": errs[(name, torch.float32)],
-                        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
-                        "bound_by": t["bound"][1], "library_ms": t["library_ms"]})
+        entry = {"name": name, "route": "cuda", "source": meta["source"],
+                 "replaces": meta["replaces"], "launches": counts[meta["path"]][name],
+                 "launches_by_path": {p: c[name] for p, c in counts.items()},
+                 "max_abs_err": errs[(name, torch.float32)],
+                 "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
+                 "bound_by": t["bound"][1], "library_ms": t["library_ms"]}
+        shapes = [{"x": [*shape[:3], C], "modes": shape[3], "dtype": "float32", "ms": r["ms"],
+                   "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+                   "bound_by": r["bound"][1], "library_ms": r["library_ms"]}
+                  for (n, dtype, *rest), r in times.items()
+                  if n == name and dtype == torch.float32 and rest for shape in rest]
+        if shapes:
+            entry["torus_kochkov_shapes"] = shapes
+        kernels.append(entry)
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,10 @@
 from .base import Builder, iterate_batches, load_array
+from .kolmogorov import (KolmogorovBuilder, KolmogorovMarkovDataset, KolmogorovMultiDataset,
+                         KolmogorovTrajectoryDataset)
 from .ns_contextual import NSContextualBuilder
 from .ns_markov import NSMarkovBuilder
 from .ns_zongyi import NSZongyiBuilder
 
-__all__ = ["Builder", "iterate_batches", "load_array", "NSContextualBuilder", "NSMarkovBuilder",
-           "NSZongyiBuilder"]
+__all__ = ["Builder", "iterate_batches", "load_array", "KolmogorovBuilder",
+           "KolmogorovMarkovDataset", "KolmogorovMultiDataset", "KolmogorovTrajectoryDataset",
+           "NSContextualBuilder", "NSMarkovBuilder", "NSZongyiBuilder"]

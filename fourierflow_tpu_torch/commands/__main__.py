@@ -1,9 +1,9 @@
 """CLI entry point: ``python -m fourierflow_tpu_torch.commands <cmd> ...``.
 
 Commands ported so far: ``train``, ``test``, ``predict``, ``infer``,
-``export``, ``sample``, ``generate navier-stokes`` and ``configs
-list|export``, with the JAX package's flags (``export`` without
-``--platforms``). An experiment is a YAML file or a name of the registry
+``export``, ``sample``, ``generate navier-stokes``, ``generate kolmogorov``
+and ``configs list|export``, with the JAX package's flags (``export``
+without ``--platforms``). An experiment is a YAML file or a name of the registry
 (``configs list``). Each runs on CUDA unless ``--device cpu`` is given, and
 raises when no GPU is present and the CPU was not asked for.
 """
@@ -102,6 +102,13 @@ def main(argv=None):
         p_ns.add_argument(f"--{name}", type=typ, default=default)
     p_ns.add_argument("--varying-force", action="store_true")
     _add_device(p_ns)
+    p_kol = gen_sub.add_parser("kolmogorov", help="Kolmogorov flow data from a data config (h5)")
+    p_kol.add_argument("config_path", help="data config YAML or registry name")
+    p_kol.add_argument("overrides", nargs="*", help="dotted-path overrides key=value")
+    p_kol.add_argument("--out-dir", default=None,
+                       help="where the files go (default: the config's directory, or the "
+                            "registry name's parent as a directory)")
+    _add_device(p_kol)
 
     p_cfg = sub.add_parser("configs", help="list or export registry experiments")
     p_cfg.add_argument("action", choices=["list", "export"])
@@ -152,6 +159,10 @@ def main(argv=None):
                       batch_size=args.batch_size, force=args.force, cycles=args.cycles,
                       scaling=args.scaling, t_scaling=args.t_scaling,
                       varying_force=args.varying_force, device=args.device)
+    elif args.command == "generate" and args.generator == "kolmogorov":
+        from .generate import kolmogorov
+
+        kolmogorov(args.config_path, args.overrides, device=args.device, out_dir=args.out_dir)
     elif args.command == "configs":
         from ..experiments import experiment_names, materialize
 

@@ -10,12 +10,26 @@ trajectory), all float32, in a new file written by ``utils.hdf5`` (which needs n
 ``torch.Generator`` seeded with ``seed``, so the dataset is a different
 draw from the same distribution as the JAX package's (which draws from
 ``jax.random``); the viscosities come from the same
-``np.random.RandomState(seed + 1234)``. ``kolmogorov`` is not ported yet.
+``np.random.RandomState(seed + 1234)``.
+
+``kolmogorov`` runs a Kolmogorov data config (a YAML file or a registry name
+such as ``data/kolmogorov/re_1000/trajectories/train``) with the
+pseudo-spectral generator, ``generation_batch`` trajectories at a time on
+the device, and writes the JAX package's files beside the config (or in
+``out_dir``): ``{stem}_{size}_{k}.h5`` trajectories ``[S, T, X, Y]`` of
+``vx``, ``vy`` and ``vorticity`` with ``time`` and ``elapsed``, or
+``{stem}_{size}.h5`` warmed initial conditions ``[S, X, Y]``, each with the
+attributes ``dt`` and ``inner_steps``. A file is written under ``.tmp`` and
+renamed when the run is complete. An ``init_path`` (``.nc`` read as
+``.h5``) gives the initial vorticities. The trajectories' random fields come
+from a ``torch.Generator`` seeded with the config's ``seed``.
 """
 
+import contextlib
 import logging
 import os
 import time
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -26,7 +40,84 @@ from ..utils.hdf5 import H5Writer
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["navier_stokes"]
+__all__ = ["navier_stokes", "kolmogorov"]
+
+
+def kolmogorov(config_path: str, overrides: Optional[List[str]] = None, device=None,
+               out_dir: Optional[str] = None) -> List[str]:
+    """Generate the dataset of a Kolmogorov data config on ``device`` (CUDA
+    unless the CPU is asked for). Returns the paths written."""
+    from ..builders.base import load_array
+    from ..builders.kolmogorov import _resolve_data_path, check_method, generate_kolmogorov
+    from ..config import instantiate, load_config
+
+    dev = resolve_device(device)
+    cfg = load_config(config_path, overrides)
+    out_dir = out_dir or os.path.dirname(os.path.abspath(config_path))
+    os.makedirs(out_dir, exist_ok=True)
+    stem = os.path.splitext(os.path.basename(config_path))[0]
+
+    sim_grid = instantiate(cfg["sim_grid"])
+    out_vorticity = cfg.get("out_vorticity", True)
+    dt = cfg["time_step"]
+    if not isinstance(dt, float):
+        dt = instantiate(dt)
+    n_traj, inner_steps = cfg["n_trajectories"], cfg["inner_steps"]
+    outer_steps, warmup_steps = cfg["outer_steps"], cfg.get("warmup_steps", 0)
+    method = cfg.get("method", "pseudo_spectral")
+    check_method(method, sim_grid)
+    downsample_fn = instantiate(cfg["downsample_fn"])
+    init_path = cfg.get("init_path")
+    if init_path:
+        init_path = _resolve_data_path(os.path.splitext(init_path)[0] + ".h5")
+    fields = ["vx", "vy"] + (["vorticity"] if out_vorticity else [])
+
+    layouts = {}
+    for o in cfg["out_sizes"]:
+        size, k = o["size"], o["k"]
+        layout = {"elapsed": ((n_traj,), np.float32)}
+        if outer_steps > 0:
+            path = os.path.join(out_dir, f"{stem}_{size}_{k}.h5")
+            t_len = outer_steps // k
+            layout.update({f: ((n_traj, t_len, size, size), np.float32) for f in fields})
+            layout["time"] = ((t_len,), np.float32)
+            times = (dt * inner_steps * k * np.arange(1, t_len + 1)).astype(np.float32)
+        else:
+            path = os.path.join(out_dir, f"{stem}_{size}.h5")
+            layout.update({f: ((n_traj, size, size), np.float32) for f in fields})
+            times = None
+        layouts[(size, k)] = (path, layout, times)
+
+    gen = torch.Generator(device=dev).manual_seed(cfg["seed"])
+    gen_batch = max(1, int(cfg.get("generation_batch", 1)))
+    step_fn = instantiate(cfg["step_fn"])
+    with contextlib.ExitStack() as stack:
+        files = {}
+        for key, (path, layout, times) in layouts.items():
+            files[key] = stack.enter_context(H5Writer(
+                path, layout, attrs={"dt": float(dt), "inner_steps": int(inner_steps)},
+                atomic=True))
+            if times is not None:
+                files[key].write("time", 0, times)
+        for start in range(0, n_traj, gen_batch):
+            bsz = min(gen_batch, n_traj - start)
+            rows = np.s_[start:start + bsz]
+            initial = None if not init_path else {
+                "vorticity": load_array(init_path, "vorticity", rows)}
+            outs, elapsed = generate_kolmogorov(
+                sim_grid=sim_grid, out_sizes=cfg["out_sizes"], method=method, step_fn=step_fn,
+                downsample_fn=downsample_fn, batch=bsz, generator=gen, initial_field=initial,
+                peak_wavenumber=cfg.get("peak_wavenumber", 4.0),
+                max_velocity=cfg.get("max_velocity", 7.0), inner_steps=inner_steps,
+                outer_steps=outer_steps, warmup_steps=warmup_steps, out_vorticity=out_vorticity,
+                device=dev)
+            for key, f in files.items():
+                for name in fields:
+                    f.write(name, start, outs[key][name])
+                f.write("elapsed", start, np.full(bsz, elapsed / bsz, np.float32))
+            logger.info("trajectories %d-%d/%d done in %.2f s", start + 1, start + bsz, n_traj,
+                        elapsed)
+    return [path for path, _, _ in layouts.values()]
 
 
 def navier_stokes(

@@ -17,6 +17,11 @@
 // Layout. A block of NT = 512 threads owns LB = 10 lines of one axis, so the
 // flagship's 1,216 lines a launch (x [19, 64, 64, 64], M 16) make 122 blocks:
 // one round on the H100's 132 SMs, one block an SM, no partial second round.
+// A block walks the M modes in chunks of MC (mode_chunk below: all M where
+// they fit, as at the flagship; else the largest multiple of 4 that fits,
+// evened out: 16 of 32 at n 128, 12 of 64 and 8 of 16 at n 256), so that its
+// shared memory depends on MC and not on M; the regions below hold one
+// chunk, and M reads MC there.
 // Shared memory (smem_layout below; every region a multiple of 16 bytes):
 //   ws [WS][IC][C][M][2] weight ring: WS = 2 stages of IC = 4 input channels,
 //                        in the weights' own type (64 KiB in f32)
@@ -53,6 +58,13 @@
 // 3. Inverse and store: out[l, t, o] = sum_k y[l, o, k] cb[k, t]; a thread
 //    owns one o, LG lines and SC = 8 samples; warps store 32 consecutive o,
 //    and the X launch loads all of its prev values before its first store.
+// With more than one mode chunk the three phases run once a chunk: each
+// chunk stages its bases, reads x again (the last forward step of a chunk
+// starts the next one's first x chunk, the last mix step its first weight
+// chunk), and phase 3 adds its inverse to a float32 partial sum `acc` of
+// out's layout, which the owner of each element carries from chunk to chunk
+// (prev, or nothing, starts it; the last chunk stores out). At n 256 and M
+// 64 that is 6 chunks: x read 6 times and acc read and written 5 times.
 //
 // L2 traffic an axis launch at the flagship, f32: the weights 122 x 512 KiB
 // = 64.0 MB in bulk copies (the first version read them 304 times, 159 MB,
@@ -145,17 +157,18 @@ __device__ __forceinline__ void cp_async_wait() {
 
 __host__ __device__ __forceinline__ int round_up(int a, int b) { return (a + b - 1) / b * b; }
 
-// Byte offsets of the shared-memory regions (see the header).
+// Byte offsets of the shared-memory regions (see the header), for a chunk
+// of `chunk` modes.
 struct SmemLayout {
   int K, KP, KS, NP;
   size_t ws, xr, et, cb, s, lb, total;
 };
-__host__ __device__ __forceinline__ SmemLayout smem_layout(int n, int modes, int c, int x_size,
+__host__ __device__ __forceinline__ SmemLayout smem_layout(int n, int chunk, int c, int x_size,
                                                            int w_size) {
   SmemLayout L;
-  L.K = 2 * modes;
+  L.K = 2 * chunk;
   L.KP = round_up(L.K, KC);
-  L.KS = 2 * (modes | 1);
+  L.KS = 2 * (chunk | 1);
   L.NP = round_up(n, SC);
   L.ws = 0;
   L.xr = L.ws + (size_t)WS * IC * c * L.K * w_size;
@@ -165,6 +178,33 @@ __host__ __device__ __forceinline__ SmemLayout smem_layout(int n, int modes, int
   L.lb = L.s + (size_t)LB * c * L.KS * 4;
   L.total = L.lb + (size_t)LB * 8;
   return L;
+}
+
+// Output channels per thread and mode in the mix (0 if C is too wide).
+__host__ __device__ __forceinline__ int mix_pairs(int chunk, int c) {
+  const int g = NT / chunk;
+  const int pr = g > 0 ? (c + g - 1) / g : PMAX + 1;
+  return pr <= PMAX ? pr : 0;
+}
+
+// Modes a block takes at once: all M where that fits in shared memory and
+// the mix's thread mapping; else the largest multiple of 4 that fits (or 3,
+// 2, 1), evened out over the chunks it needs (M 64 at n 256: 12 x 5 + 4).
+// 0 if not even one mode fits.
+int mode_chunk(int n, int modes, int c, int x_size, int w_size) {
+  auto fits = [&](int mc) {
+    return smem_layout(n, mc, c, x_size, w_size).total <= (size_t)kMaxSmem && mix_pairs(mc, c) > 0;
+  };
+  if (fits(modes)) return modes;
+  int best = 0;
+  for (int mc = 4; mc < modes; mc += 4)
+    if (fits(mc)) best = mc;
+  for (int mc = modes - 1 < 3 ? modes - 1 : 3; best == 0 && mc >= 1; --mc)
+    if (fits(mc)) best = mc;
+  if (best == 0) return 0;
+  const int chunks = (modes + best - 1) / best;
+  const int even = round_up((modes + chunks - 1) / chunks, 4);
+  return even < best ? even : best;
 }
 
 template <typename TI, typename TW, typename TO>
@@ -177,19 +217,21 @@ struct Params {
   float wi_sign;
   bool x_vec, w_vec;  // stage x / the weights in 16-byte pieces
   const float* prev;
+  float* acc;  // the output's partial sums between mode chunks (f32, out's layout)
   TO* out;
   int n_lines, lines_per_batch;
   int64_t batch_stride, line_stride, elem_stride;
-  int n, modes, c;
+  int n, modes, chunk, c;
 };
 
 template <typename TI, typename TW, typename TO, int P>
 __global__ void __launch_bounds__(NT, 1) spectral_axis_kernel(const Params<TI, TW, TO> p) {
   extern __shared__ float4 smem4[];
   char* smem = reinterpret_cast<char*>(smem4);
-  const int n = p.n, modes = p.modes, C = p.c;
-  const SmemLayout L = smem_layout(n, modes, C, sizeof(TI), sizeof(TW));
-  const int K = L.K, KP = L.KP, KS = L.KS, NP = L.NP;
+  const int n = p.n, M = p.modes, MC = p.chunk, C = p.c;
+  const int nch = (M + MC - 1) / MC;  // mode chunks
+  const SmemLayout L = smem_layout(n, MC, C, sizeof(TI), sizeof(TW));
+  const int K = L.K, KP = L.KP, KS = L.KS, NP = L.NP;  // of a whole chunk
   TW* ws = reinterpret_cast<TW*>(smem + L.ws);
   TI* xr = reinterpret_cast<TI*>(smem + L.xr);
   float* et = reinterpret_cast<float*>(smem + L.et);
@@ -205,8 +247,8 @@ __global__ void __launch_bounds__(NT, 1) spectral_axis_kernel(const Params<TI, T
   const int kch = KP / KC;
   const int items = (LB / LG) * kch * C;
   const int passes = (items + NT - 1) / NT;
-  const int nq = passes * nq_t;  // x chunks over all passes
-  const int nk = (C + IC - 1) / IC;
+  const int nq = nch * passes * nq_t;  // x chunks over all passes and mode chunks
+  const int nk = (C + IC - 1) / IC;    // weight chunks of a mode chunk
 
   // Offset in x and out of each line of the block (sample 0, channel 0), -1
   // past n_lines.
@@ -219,20 +261,17 @@ __global__ void __launch_bounds__(NT, 1) spectral_axis_kernel(const Params<TI, T
   }
   __syncthreads();
 
-  // Each thread's share of a ring stage is fixed for the whole kernel, so
-  // that staging divides by nothing: the 16-byte column xe (we) of the rows
-  // xrow0 + j rsx of an x stage (runs wrun0 + j rsw of a weight stage).
+  // Each thread's share of an x stage is fixed for the whole kernel, so that
+  // staging x divides by nothing: the 16-byte column xe of the rows
+  // xrow0 + j rsx.
   constexpr int EX = 16 / sizeof(TI), EW = 16 / sizeof(TW);
-  const int px = max(C / EX, 1), pw = max(K / EW, 1);  // pieces of a row, of a run
-  const int rsx = NT / px, rsw = NT / pw;
+  const int px = max(C / EX, 1);  // pieces of a row
+  const int rsx = NT / px;
   const int xe = tid % px * EX, xrow0 = tid / px;
-  const int we = tid % pw * EW, wrun0 = tid / pw;
-  const int wi0 = wrun0 / C, wo0 = wrun0 - wi0 * C;
-  const int wdi = rsw / C, wdo = rsw - wdi * C;  // (i, o) step of rsw runs
 
   // Start the copy of x chunk q < nq (samples TC (q % nq_t) onwards of every
-  // line) into stage q % XS; lines past n_lines are zero-filled. One commit
-  // group, empty for q >= nq.
+  // line; every mode chunk reads x again) into stage q % XS; lines past
+  // n_lines are zero-filled. One commit group, empty for q >= nq.
   auto stage_x = [=](int q) {
     if (q < nq) {
       const int t0 = (q % nq_t) * TC;
@@ -262,25 +301,40 @@ __global__ void __launch_bounds__(NT, 1) spectral_axis_kernel(const Params<TI, T
     cp_async_commit();
   };
 
-  // Start the copy of weight chunk k < nk (input channels IC k onwards) into
-  // stage k % WS, laid out [i][o][m][2]. One commit group, empty for k >= nk.
-  auto stage_w = [=](int k) {
-    if (k < nk) {
+  // A whole mode chunk's share of a weight stage for each thread, fixed for
+  // the whole kernel: the 16-byte piece we of the runs wrun0 + j rsw (runs
+  // of 2 MC values), the first at (wi0, wo0), each rsw runs on (wdi, wdo).
+  const int pw = max(K / EW, 1), rsw = NT / pw;
+  const int we = tid % pw * EW, wrun0 = tid / pw;
+  const int wi0 = wrun0 / C, wo0 = wrun0 - wi0 * C;
+  const int wdi = rsw / C, wdo = rsw - wdi * C;
+
+  // Start the copy of weight chunk k (input channels IC k onwards) of mode
+  // chunk ch < nch into stage (ch nk + k) % WS, laid out [i][o][MC][2]. One
+  // commit group, empty for ch >= nch.
+  auto stage_w = [=](int ch, int k) {
+    if (ch < nch) {
       const int i0 = k * IC;
       const int ni = min(IC, C - i0);
-      TW* dst = ws + (k % WS) * w_stage;
-      const TW* src = p.w + i0 * p.w_si;
-      if (p.w_vec) {
-        int ii = wi0, o = wo0;
-        for (int r = wrun0; r < ni * C && wrun0 < rsw; r += rsw) {
-          cp_async16(dst + r * K + we, src + ii * p.w_si + o * p.w_so + we, 16);
-          ii += wdi, o += wdo;
+      const int m0 = ch * MC, mc = min(MC, M - m0);
+      TW* dst = ws + ((ch * nk + k) % WS) * w_stage;
+      const TW* src = p.w + i0 * p.w_si + 2 * m0;
+      if (p.w_vec && (2 * mc) % EW == 0) {
+        int e = we, r0 = wrun0, rs = rsw, di = wdi, dd = wdo, ii = wi0, o = wo0;
+        if (mc != MC) {  // a last, shorter chunk: its own share
+          const int pl = 2 * mc / EW;
+          rs = NT / pl, e = tid % pl * EW, r0 = tid / pl;
+          di = rs / C, dd = rs - di * C, ii = r0 / C, o = r0 - ii * C;
+        }
+        for (int r = r0; r < ni * C && r0 < rs; r += rs) {
+          cp_async16(dst + r * K + e, src + ii * p.w_si + o * p.w_so + e, 16);
+          ii += di, o += dd;
           if (o >= C) o -= C, ++ii;
         }
       } else {
-        for (int i = tid; i < ni * C * modes; i += NT) {
-          const int run = i / modes;
-          const int m = i - run * modes;
+        for (int i = tid; i < ni * C * mc; i += NT) {
+          const int run = i / mc;
+          const int m = i - run * mc;
           const int ii = run / C;
           const int o = run - ii * C;
           cp_async_ca<(int)(2 * sizeof(TW))>(dst + run * K + 2 * m,
@@ -292,191 +346,222 @@ __global__ void __launch_bounds__(NT, 1) spectral_axis_kernel(const Params<TI, T
   };
 
   // Commit order: x chunks 0..XS-2, then weight chunks 0..WS-2; in the loops
-  // each step commits one group, so the waits below count groups exactly.
+  // each step commits one group, so the waits below count groups exactly. The
+  // last forward step of a mode chunk starts the next one's first x chunk,
+  // the last mix step its first weight chunk: the first forward step of
+  // every mode chunk sees the same groups behind its x chunk as chunk 0's.
   for (int q = 0; q < XS - 1; ++q) stage_x(q);
-  for (int k = 0; k < WS - 1; ++k) stage_w(k);
-  for (int i = tid; i < n * KP; i += NT) {
-    const int t = i / KP;
-    const int k = i - t * KP;
-    et[i] = k < K ? round_as<TI>(p.fwd[t * K + (k & 1) * modes + (k >> 1)]) : 0.f;
-  }
-  for (int i = tid; i < K * NP; i += NT) {
-    const int k = i / NP;
-    const int t = i - k * NP;
-    cb[i] = t < n ? round_as<TI>(p.inv[((k & 1) * modes + (k >> 1)) * n + t]) : 0.f;
-  }
+  static_assert(WS == 2, "the mix loop starts the next weight chunk only");
+  stage_w(0, 0);
 
-  // 1. Forward product. Item (group, column chunk, c), c fastest.
-  for (int pass = 0, q = 0; pass < passes; ++pass) {
-    const int item = tid + pass * NT;
-    const bool active = item < items;
-    const int c = item % C;
-    const int kc = (item / C) % kch;
-    const int grp = item / (C * kch);
-    float acc[LG][KC];
-#pragma unroll
-    for (int l = 0; l < LG; ++l)
-#pragma unroll
-      for (int j = 0; j < KC; ++j) acc[l][j] = 0.f;
-    for (int tq = 0; tq < nq_t; ++tq, ++q) {
-      // x chunk q has landed once at most the groups committed after it
-      // are pending: before chunk XS - 1 those include the weight chunks.
-      if (q < XS - 1)
-        cp_async_wait<XS + WS - 3>();
-      else
-        cp_async_wait<XS - 2>();
-      __syncthreads();  // ... for every thread; stage (q - 1) % XS is free
-      stage_x(q + XS - 1);
-      if (!active) continue;
-      const int rows = min(TC, n - tq * TC);
-      const TI* xb = xr + (q % XS) * x_stage + grp * LG * TC * C + c;
-      const float* eb = et + tq * TC * KP + kc * KC;
-#pragma unroll
-      for (int tt = 0; tt < TC; ++tt) {
-        if (tt < rows) {
-          const float4 e0 = *reinterpret_cast<const float4*>(eb + tt * KP);
-          const float4 e1 = *reinterpret_cast<const float4*>(eb + tt * KP + 4);
-#pragma unroll
-          for (int l = 0; l < LG; ++l) {
-            const float xv = to_f(xb[(l * TC + tt) * C]);
-            acc[l][0] = fmaf(xv, e0.x, acc[l][0]);
-            acc[l][1] = fmaf(xv, e0.y, acc[l][1]);
-            acc[l][2] = fmaf(xv, e0.z, acc[l][2]);
-            acc[l][3] = fmaf(xv, e0.w, acc[l][3]);
-            acc[l][4] = fmaf(xv, e1.x, acc[l][4]);
-            acc[l][5] = fmaf(xv, e1.y, acc[l][5]);
-            acc[l][6] = fmaf(xv, e1.z, acc[l][6]);
-            acc[l][7] = fmaf(xv, e1.w, acc[l][7]);
-          }
-        }
-      }
+  int q = 0;  // x chunk
+  for (int ch = 0; ch < nch; ++ch) {
+    const int m0 = ch * MC, mc = min(MC, M - m0);
+    const int kc2 = 2 * mc;  // spectrum columns of this chunk
+    if (ch > 0) __syncthreads();  // the last chunk's inverse is done with cb and s
+    // This chunk's bases: the forward one's columns, the inverse one's rows.
+    for (int i = tid; i < n * KP; i += NT) {
+      const int t = i / KP;
+      const int k = i - t * KP;
+      et[i] = k < kc2 ? round_as<TI>(p.fwd[t * 2 * M + (k & 1) * M + m0 + (k >> 1)]) : 0.f;
     }
-    if (active) {
-#pragma unroll
-      for (int l = 0; l < LG; ++l) {
-        float* sl = s + ((grp * LG + l) * C + c) * KS + kc * KC;
-#pragma unroll
-        for (int j = 0; j < KC; j += 2)
-          if (kc * KC + j < K)
-            *reinterpret_cast<float2*>(sl + j) =
-                make_float2(round_as<TI>(acc[l][j]), round_as<TI>(acc[l][j + 1]));
-      }
+    for (int i = tid; i < K * NP; i += NT) {
+      const int k = i / NP;
+      const int t = i - k * NP;
+      cb[i] = t < n && k < kc2 ? round_as<TI>(p.inv[((k & 1) * M + m0 + (k >> 1)) * n + t]) : 0.f;
     }
-  }
 
-  // 2. Per-mode complex mix, weights streamed through the ring.
-  {
-    const int G = NT / modes;
-    const int m = tid % modes;
-    const int og = tid / modes;
-    const bool mixer = og < G;
-    float yr[P][LB], yi[P][LB];
-#pragma unroll
-    for (int j = 0; j < P; ++j)
-#pragma unroll
-      for (int l = 0; l < LB; ++l) yr[j][l] = yi[j][l] = 0.f;
-    for (int k = 0; k < nk; ++k) {
-      // Weight chunk k: all but the WS - 2 newest groups done.
-      if (k == 0)
-        cp_async_wait<0>();
-      else
-        cp_async_wait<WS - 2>();
-      __syncthreads();  // ... for every thread; s complete; stage (k - 1) % WS free
-      stage_w(k + WS - 1);
-      if (!mixer) continue;
-      const TW* wst = ws + (k % WS) * w_stage;
-      const int ni = min(IC, C - k * IC);
-#pragma unroll
-      for (int ii = 0; ii < IC; ++ii) {
-        if (ii >= ni) break;
-        const int i = k * IC + ii;
-        float a[P], b[P];
-#pragma unroll
-        for (int j = 0; j < P; ++j) {
-          const int o = og + j * G;
-          a[j] = b[j] = 0.f;
-          if (o < C) load_pair<TI>(wst + ((ii * C + o) * modes + m) * 2, a[j], b[j]);
-          b[j] *= p.wi_sign;
-        }
-        const float* sp = s + i * KS + 2 * m;
-#pragma unroll
-        for (int l = 0; l < LB; ++l) {
-          const float2 sv = *reinterpret_cast<const float2*>(sp + l * C * KS);
-#pragma unroll
-          for (int j = 0; j < P; ++j) {
-            yr[j][l] = fmaf(sv.x, a[j], fmaf(-sv.y, b[j], yr[j][l]));
-            yi[j][l] = fmaf(sv.x, b[j], fmaf(sv.y, a[j], yi[j][l]));
-          }
-        }
-      }
-    }
-    __syncthreads();  // every spectrum read: the mixed spectra go over them
-    if (mixer) {
-#pragma unroll
-      for (int j = 0; j < P; ++j) {
-        const int o = og + j * G;
-        if (o >= C) continue;
-#pragma unroll
-        for (int l = 0; l < LB; ++l)
-          *reinterpret_cast<float2*>(s + (l * C + o) * KS + 2 * m) =
-              make_float2(round_as<TI>(yr[j][l]), round_as<TI>(yi[j][l]));
-      }
-    }
-    __syncthreads();
-  }
-
-  // 3. Inverse and store. Item (group, sample chunk, o), o fastest.
-  const int tch = NP / SC;
-  for (int item = tid; item < (LB / LG) * tch * C; item += NT) {
-    const int o = item % C;
-    const int tc = (item / C) % tch;
-    const int grp = item / (C * tch);
-    float acc[LG][SC];
-#pragma unroll
-    for (int l = 0; l < LG; ++l)
-#pragma unroll
-      for (int j = 0; j < SC; ++j) acc[l][j] = 0.f;
-    const float* yb = s + (grp * LG * C + o) * KS;
-    const float* cbt = cb + tc * SC;
-    for (int m = 0; m < modes; ++m) {
-      float2 yv[LG];
-#pragma unroll
-      for (int l = 0; l < LG; ++l) yv[l] = *reinterpret_cast<const float2*>(yb + l * C * KS + 2 * m);
-#pragma unroll
-      for (int h = 0; h < SC; h += 4) {
-        const float4 er = *reinterpret_cast<const float4*>(cbt + 2 * m * NP + h);
-        const float4 ei = *reinterpret_cast<const float4*>(cbt + (2 * m + 1) * NP + h);
-#pragma unroll
-        for (int l = 0; l < LG; ++l) {
-          acc[l][h + 0] = fmaf(yv[l].y, ei.x, fmaf(yv[l].x, er.x, acc[l][h + 0]));
-          acc[l][h + 1] = fmaf(yv[l].y, ei.y, fmaf(yv[l].x, er.y, acc[l][h + 1]));
-          acc[l][h + 2] = fmaf(yv[l].y, ei.z, fmaf(yv[l].x, er.z, acc[l][h + 2]));
-          acc[l][h + 3] = fmaf(yv[l].y, ei.w, fmaf(yv[l].x, er.w, acc[l][h + 3]));
-        }
-      }
-    }
-    int64_t base[LG];  // of each line's sample 0, channel o; -1 past n_lines
-#pragma unroll
-    for (int l = 0; l < LG; ++l) {
-      const int64_t b = lbase[grp * LG + l];
-      base[l] = b >= 0 ? b + o : -1;
-    }
-    // All of prev is loaded before any store (out may alias it for all the
-    // compiler knows, which would put each load behind the previous store).
-    if (p.prev != nullptr) {
+    // 1. Forward product. Item (group, column chunk, c), c fastest.
+    for (int pass = 0; pass < passes; ++pass) {
+      const int item = tid + pass * NT;
+      const bool active = item < items;
+      const int c = item % C;
+      const int kc = (item / C) % kch;
+      const int grp = item / (C * kch);
+      float acc[LG][KC];
 #pragma unroll
       for (int l = 0; l < LG; ++l)
 #pragma unroll
-        for (int j = 0; j < SC; ++j)
-          if (base[l] >= 0 && tc * SC + j < n)
-            acc[l][j] += p.prev[base[l] + (tc * SC + j) * p.elem_stride];
+        for (int j = 0; j < KC; ++j) acc[l][j] = 0.f;
+      for (int tq = 0; tq < nq_t; ++tq, ++q) {
+        // x chunk q has landed once at most the groups committed after it
+        // are pending: before a mode chunk's first those include the weight
+        // chunks.
+        if (pass == 0 && tq < XS - 1)
+          cp_async_wait<XS + WS - 3>();
+        else
+          cp_async_wait<XS - 2>();
+        __syncthreads();  // ... for every thread; stage (q - 1) % XS is free
+        stage_x(q + XS - 1);
+        if (!active) continue;
+        const int rows = min(TC, n - tq * TC);
+        const TI* xb = xr + (q % XS) * x_stage + grp * LG * TC * C + c;
+        const float* eb = et + tq * TC * KP + kc * KC;
+#pragma unroll
+        for (int tt = 0; tt < TC; ++tt) {
+          if (tt < rows) {
+            const float4 e0 = *reinterpret_cast<const float4*>(eb + tt * KP);
+            const float4 e1 = *reinterpret_cast<const float4*>(eb + tt * KP + 4);
+#pragma unroll
+            for (int l = 0; l < LG; ++l) {
+              const float xv = to_f(xb[(l * TC + tt) * C]);
+              acc[l][0] = fmaf(xv, e0.x, acc[l][0]);
+              acc[l][1] = fmaf(xv, e0.y, acc[l][1]);
+              acc[l][2] = fmaf(xv, e0.z, acc[l][2]);
+              acc[l][3] = fmaf(xv, e0.w, acc[l][3]);
+              acc[l][4] = fmaf(xv, e1.x, acc[l][4]);
+              acc[l][5] = fmaf(xv, e1.y, acc[l][5]);
+              acc[l][6] = fmaf(xv, e1.z, acc[l][6]);
+              acc[l][7] = fmaf(xv, e1.w, acc[l][7]);
+            }
+          }
+        }
+      }
+      if (active) {
+#pragma unroll
+        for (int l = 0; l < LG; ++l) {
+          float* sl = s + ((grp * LG + l) * C + c) * KS + kc * KC;
+#pragma unroll
+          for (int j = 0; j < KC; j += 2)
+            if (kc * KC + j < K)
+              *reinterpret_cast<float2*>(sl + j) =
+                  make_float2(round_as<TI>(acc[l][j]), round_as<TI>(acc[l][j + 1]));
+        }
+      }
     }
+
+    // 2. Per-mode complex mix, weights streamed through the ring.
+    {
+      const int G = NT / MC;
+      const int m = tid % MC;
+      const int og = tid / MC;
+      const bool mixer = og < G && m < mc;
+      float yr[P][LB], yi[P][LB];
 #pragma unroll
-    for (int l = 0; l < LG; ++l)
+      for (int j = 0; j < P; ++j)
 #pragma unroll
-      for (int j = 0; j < SC; ++j)
-        if (base[l] >= 0 && tc * SC + j < n)
-          p.out[base[l] + (tc * SC + j) * p.elem_stride] = from_f<TO>(acc[l][j]);
+        for (int l = 0; l < LB; ++l) yr[j][l] = yi[j][l] = 0.f;
+      for (int k = 0; k < nk; ++k) {
+        // Weight chunk k: all but the WS - 2 newest groups done.
+        if (k == 0)
+          cp_async_wait<0>();
+        else
+          cp_async_wait<WS - 2>();
+        __syncthreads();  // ... for every thread; s complete; the other stage is free
+        if (k + 1 < nk)
+          stage_w(ch, k + 1);
+        else
+          stage_w(ch + 1, 0);
+        if (!mixer) continue;
+        const TW* wst = ws + ((ch * nk + k) % WS) * w_stage;
+        const int ni = min(IC, C - k * IC);
+#pragma unroll
+        for (int ii = 0; ii < IC; ++ii) {
+          if (ii >= ni) break;
+          const int i = k * IC + ii;
+          float a[P], b[P];
+#pragma unroll
+          for (int j = 0; j < P; ++j) {
+            const int o = og + j * G;
+            a[j] = b[j] = 0.f;
+            if (o < C) load_pair<TI>(wst + ((ii * C + o) * MC + m) * 2, a[j], b[j]);
+            b[j] *= p.wi_sign;
+          }
+          const float* sp = s + i * KS + 2 * m;
+#pragma unroll
+          for (int l = 0; l < LB; ++l) {
+            const float2 sv = *reinterpret_cast<const float2*>(sp + l * C * KS);
+#pragma unroll
+            for (int j = 0; j < P; ++j) {
+              yr[j][l] = fmaf(sv.x, a[j], fmaf(-sv.y, b[j], yr[j][l]));
+              yi[j][l] = fmaf(sv.x, b[j], fmaf(sv.y, a[j], yi[j][l]));
+            }
+          }
+        }
+      }
+      __syncthreads();  // every spectrum read: the mixed spectra go over them
+      if (mixer) {
+#pragma unroll
+        for (int j = 0; j < P; ++j) {
+          const int o = og + j * G;
+          if (o >= C) continue;
+#pragma unroll
+          for (int l = 0; l < LB; ++l)
+            *reinterpret_cast<float2*>(s + (l * C + o) * KS + 2 * m) =
+                make_float2(round_as<TI>(yr[j][l]), round_as<TI>(yi[j][l]));
+        }
+      }
+      __syncthreads();
+    }
+
+    // 3. Inverse and store. Item (group, sample chunk, o), o fastest; each
+    // output element has one owner in every mode chunk, which carries its
+    // partial sum from chunk to chunk in acc.
+    const bool first = ch == 0, last = ch == nch - 1;
+    const float* base_in = first ? p.prev : p.acc;  // may be null on the first chunk
+    const int tch = NP / SC;
+    for (int item = tid; item < (LB / LG) * tch * C; item += NT) {
+      const int o = item % C;
+      const int tc = (item / C) % tch;
+      const int grp = item / (C * tch);
+      float acc[LG][SC];
+#pragma unroll
+      for (int l = 0; l < LG; ++l)
+#pragma unroll
+        for (int j = 0; j < SC; ++j) acc[l][j] = 0.f;
+      const float* yb = s + (grp * LG * C + o) * KS;
+      const float* cbt = cb + tc * SC;
+      for (int m = 0; m < mc; ++m) {
+        float2 yv[LG];
+#pragma unroll
+        for (int l = 0; l < LG; ++l)
+          yv[l] = *reinterpret_cast<const float2*>(yb + l * C * KS + 2 * m);
+#pragma unroll
+        for (int h = 0; h < SC; h += 4) {
+          const float4 er = *reinterpret_cast<const float4*>(cbt + 2 * m * NP + h);
+          const float4 ei = *reinterpret_cast<const float4*>(cbt + (2 * m + 1) * NP + h);
+#pragma unroll
+          for (int l = 0; l < LG; ++l) {
+            acc[l][h + 0] = fmaf(yv[l].y, ei.x, fmaf(yv[l].x, er.x, acc[l][h + 0]));
+            acc[l][h + 1] = fmaf(yv[l].y, ei.y, fmaf(yv[l].x, er.y, acc[l][h + 1]));
+            acc[l][h + 2] = fmaf(yv[l].y, ei.z, fmaf(yv[l].x, er.z, acc[l][h + 2]));
+            acc[l][h + 3] = fmaf(yv[l].y, ei.w, fmaf(yv[l].x, er.w, acc[l][h + 3]));
+          }
+        }
+      }
+      int64_t base[LG];  // of each line's sample 0, channel o; -1 past n_lines
+#pragma unroll
+      for (int l = 0; l < LG; ++l) {
+        const int64_t b = lbase[grp * LG + l];
+        base[l] = b >= 0 ? b + o : -1;
+      }
+      // All of prev (or acc) is loaded before any store (out and acc may
+      // alias it, for all the compiler knows, which would put each load
+      // behind the previous store).
+      if (base_in != nullptr) {
+#pragma unroll
+        for (int l = 0; l < LG; ++l)
+#pragma unroll
+          for (int j = 0; j < SC; ++j)
+            if (base[l] >= 0 && tc * SC + j < n)
+              acc[l][j] += base_in[base[l] + (tc * SC + j) * p.elem_stride];
+      }
+      if (last) {
+#pragma unroll
+        for (int l = 0; l < LG; ++l)
+#pragma unroll
+          for (int j = 0; j < SC; ++j)
+            if (base[l] >= 0 && tc * SC + j < n)
+              p.out[base[l] + (tc * SC + j) * p.elem_stride] = from_f<TO>(acc[l][j]);
+      } else {
+#pragma unroll
+        for (int l = 0; l < LG; ++l)
+#pragma unroll
+          for (int j = 0; j < SC; ++j)
+            if (base[l] >= 0 && tc * SC + j < n)
+              p.acc[base[l] + (tc * SC + j) * p.elem_stride] = acc[l][j];
+      }
+    }
   }
 }
 
@@ -491,28 +576,24 @@ cudaError_t launch_p(const Params<TI, TW, TO>& p, size_t smem, cudaStream_t stre
   return cudaGetLastError();
 }
 
-// Output channels per thread and mode in the mix (0 if C is too wide).
-__host__ __device__ __forceinline__ int mix_pairs(int modes, int c) {
-  const int g = NT / modes;
-  const int pr = g > 0 ? (c + g - 1) / g : PMAX + 1;
-  return pr <= PMAX ? pr : 0;
-}
-
 bool aligned(const void* ptr, int bytes) { return reinterpret_cast<uintptr_t>(ptr) % bytes == 0; }
 
 template <typename TI, typename TW, typename TO>
 cudaError_t launch(const void* x, const void* fwd, const void* inv, const void* w,
                    int64_t w_si, int64_t w_so, int64_t w_sm, int64_t w_sp, bool conj,
-                   const void* prev, void* out, int n_lines, int lines_per_batch, int64_t batch_stride,
-                   int64_t line_stride, int64_t elem_stride, int n, int modes, int c,
-                   cudaStream_t stream) {
-  const size_t smem = smem_layout(n, modes, c, sizeof(TI), sizeof(TW)).total;
-  const int pairs = mix_pairs(modes, c);
-  // Every (i, o) run of 2M weights must be contiguous and (re, im)-aligned.
+                   const void* prev, void* acc, void* out, int n_lines, int lines_per_batch,
+                   int64_t batch_stride, int64_t line_stride, int64_t elem_stride, int n,
+                   int modes, int c, cudaStream_t stream) {
+  const int chunk = mode_chunk(n, modes, c, sizeof(TI), sizeof(TW));
+  if (chunk == 0) return cudaErrorInvalidValue;
+  const size_t smem = smem_layout(n, chunk, c, sizeof(TI), sizeof(TW)).total;
+  const int pairs = mix_pairs(chunk, c);
+  // Every (i, o) run of 2M weights must be contiguous and (re, im)-aligned;
+  // more than one mode chunk needs the partial-sum array.
   const int wpair = 2 * sizeof(TW);
-  if (smem > (size_t)kMaxSmem || pairs == 0 || w_sp != 1 || w_sm != 2 ||
-      (w_si * (int64_t)sizeof(TW)) % wpair || (w_so * (int64_t)sizeof(TW)) % wpair ||
-      !aligned(w, wpair))
+  if (w_sp != 1 || w_sm != 2 || (w_si * (int64_t)sizeof(TW)) % wpair ||
+      (w_so * (int64_t)sizeof(TW)) % wpair || !aligned(w, wpair) ||
+      (chunk < modes && acc == nullptr))
     return cudaErrorInvalidValue;
   Params<TI, TW, TO> p;
   p.x = static_cast<const TI*>(x);
@@ -524,13 +605,16 @@ cudaError_t launch(const void* x, const void* fwd, const void* inv, const void* 
   const int64_t ex = 16 / sizeof(TI), ew = 16 / sizeof(TW);
   p.x_vec = c % ex == 0 && c / ex <= NT && batch_stride % ex == 0 && line_stride % ex == 0 &&
             elem_stride % ex == 0 && aligned(x, 16);
-  p.w_vec = (2 * modes) % ew == 0 && 2 * modes / ew <= NT && w_si % ew == 0 && w_so % ew == 0 &&
+  // Chunk offsets 2 m0 are then whole pieces too; a last, shorter chunk
+  // whose runs are not is staged a pair a copy.
+  p.w_vec = (2 * chunk) % ew == 0 && 2 * chunk / ew <= NT && w_si % ew == 0 && w_so % ew == 0 &&
             aligned(w, 16);
   p.prev = static_cast<const float*>(prev);
+  p.acc = static_cast<float*>(acc);
   p.out = static_cast<TO*>(out);
   p.n_lines = n_lines, p.lines_per_batch = lines_per_batch;
   p.batch_stride = batch_stride, p.line_stride = line_stride, p.elem_stride = elem_stride;
-  p.n = n, p.modes = modes, p.c = c;
+  p.n = n, p.modes = modes, p.chunk = chunk, p.c = c;
   switch (pairs) {
     case 1: return launch_p<TI, TW, TO, 1>(p, smem, stream);
     case 2: return launch_p<TI, TW, TO, 2>(p, smem, stream);
@@ -546,10 +630,16 @@ extern "C" const char* cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Shared memory bytes one block needs (dtype codes as below), for the
+// Modes of one chunk (mode_chunk; 0 if none fits) and the shared memory
+// bytes one block needs at that chunk (dtype codes as below), for the
 // wrapper's checks.
+extern "C" int spectral_axis_mode_chunk(int in_dtype, int w_dtype, int n, int modes, int c) {
+  return mode_chunk(n, modes, c, dtype_size(in_dtype), dtype_size(w_dtype));
+}
 extern "C" long long spectral_axis_smem_bytes(int in_dtype, int w_dtype, int n, int modes, int c) {
-  return (long long)smem_layout(n, modes, c, dtype_size(in_dtype), dtype_size(w_dtype)).total;
+  const int chunk = mode_chunk(n, modes, c, dtype_size(in_dtype), dtype_size(w_dtype));
+  return (long long)smem_layout(n, chunk > 0 ? chunk : modes, c, dtype_size(in_dtype),
+                                dtype_size(w_dtype)).total;
 }
 
 // Dtype codes: 0 = float32, 1 = bfloat16. x is float32 or bfloat16; w is
@@ -557,22 +647,26 @@ extern "C" long long spectral_axis_smem_bytes(int in_dtype, int w_dtype, int n, 
 // is at w[i * w_si + o * w_so + m * w_sm + part * w_sp], part 0 real, 1
 // imaginary; the kernel takes w_sm = 2, w_sp = 1 (each (i, o) run of 2M
 // values contiguous) with w_si, w_so even and w aligned to a (re, im) pair.
-// With conj != 0 the imaginary part is negated. prev may be null. Takes
-// C <= 3 (512 / M) and what fits in 232,448 bytes of shared memory.
+// With conj != 0 the imaginary part is negated. prev may be null. acc is a
+// float32 array of out's layout that holds the partial sums between mode
+// chunks; it may be prev or out (when out is float32) and may be null when
+// all modes fit in one chunk (spectral_axis_mode_chunk == modes). Takes
+// what fits in 232,448 bytes of shared memory with at least one mode a
+// chunk and C <= 3 (512 / chunk).
 // Returns a cudaError_t (0 on success; cudaErrorInvalidValue for anything
 // it does not take).
 extern "C" int spectral_axis(int in_dtype, int w_dtype, int out_dtype, const void* x,
                              const void* fwd, const void* inv, const void* w, long long w_si,
                              long long w_so, long long w_sm, long long w_sp, int conj,
-                             const void* prev, void* out, int n_lines, int lines_per_batch,
-                             long long batch_stride, long long line_stride,
+                             const void* prev, void* acc, void* out, int n_lines,
+                             int lines_per_batch, long long batch_stride, long long line_stride,
                              long long elem_stride, int n, int modes, int c, void* stream) {
   if (n_lines <= 0 || n <= 0 || modes <= 0 || c <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using bf16 = __nv_bfloat16;
-#define SPECTRAL_LAUNCH(TI, TW, TO)                                                         \
-  return (int)launch<TI, TW, TO>(x, fwd, inv, w, w_si, w_so, w_sm, w_sp, conj != 0, prev, out, \
-                                 n_lines, lines_per_batch, batch_stride, line_stride,          \
+#define SPECTRAL_LAUNCH(TI, TW, TO)                                                             \
+  return (int)launch<TI, TW, TO>(x, fwd, inv, w, w_si, w_so, w_sm, w_sp, conj != 0, prev, acc, \
+                                 out, n_lines, lines_per_batch, batch_stride, line_stride,      \
                                  elem_stride, n, modes, c, s)
   const int code = in_dtype * 4 + w_dtype * 2 + out_dtype;
   switch (code) {

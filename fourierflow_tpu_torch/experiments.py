@@ -1,16 +1,20 @@
-"""Experiment registry, the torus part: the JAX package's config-as-code
-experiments of the torus families, by the same path-like names
-(counterpart of ``fourierflow_tpu/experiments.py``, its ``torus_li`` and
-``torus_vis*`` families)::
+"""Experiment registry: the JAX package's config-as-code experiments of the
+torus families, by the same path-like names (counterpart of
+``fourierflow_tpu/experiments.py``: its ``torus_li``, ``torus_vis*`` and
+``torus_kochkov/ffno`` families, and its pseudo-spectral Kolmogorov data
+configs ``data/kolmogorov/**``)::
 
     python -m fourierflow_tpu_torch.commands train torus_vis/01_baseline
+    python -m fourierflow_tpu_torch.commands generate kolmogorov \
+        data/kolmogorov/re_1000/initial_conditions/train
 
 ``get_experiment(name)`` returns a config dict in the reference schema
 (wandb / builder / routine / trainer / callbacks) that
 ``config.load_config`` reads when ``name`` is not a file;
 ``experiment_names()`` lists them (``commands configs list``). Targets name
 this package. The other families join the registry with the slices that
-port their targets.
+port their targets: ``torus_kochkov/fcno`` (CNO), the learned
+interpolation and the projection-method data configs are not here yet.
 
 Hyperparameters mirror the reference configs (file citations inline).
 """
@@ -233,6 +237,383 @@ def _torus_vis(project, variant) -> dict:
     }
 
 
+# --- torus_kochkov ----------------------------------------------------------
+
+KOCH_STEP = 0.0002191401125550916  # stable_time_step for re_1000 sim
+
+
+def _kochkov_builder(size, k=20, train_paths=None, test_size=None, end=None,
+                     cadence=4, valid_size=None):
+    """reference:experiments/torus_kochkov/ffno/grid_sizes/{size}/config.yaml
+    ``cadence`` picks the file suffix: _4 = 64*dt recording cadence, _1 =
+    16*dt (the sub-snapshot step_sizes configs, step_sizes/64/0.{25,5}).
+    ``valid_size`` defaults to ``test_size``; the superresolution configs
+    keep validation at the training grid while testing at the eval grid
+    (superresolution/*/config.yaml), and ``end`` applies to the TEST split
+    only (ditto)."""
+    test_size = test_size or size
+    valid_size = valid_size or test_size
+    train_paths = train_paths or [
+        f"{DATA}/kolmogorov/re_1000/trajectories/train_{size}_{cadence}.nc"]
+    if len(train_paths) == 1:
+        train_ds = {
+            "_target_": "fourierflow_tpu_torch.builders.KolmogorovMarkovDataset",
+            "path": train_paths[0], "k": k,
+        }
+    else:
+        train_ds = {
+            "_target_": "fourierflow_tpu_torch.builders.KolmogorovMultiDataset",
+            "paths": train_paths, "k": k, "batch_size": 32,
+        }
+    def traj(split, sz, with_end):
+        d = {
+            "_target_": "fourierflow_tpu_torch.builders.KolmogorovTrajectoryDataset",
+            "init_path": f"{DATA}/kolmogorov/re_1000/initial_conditions/{split}_{sz}.nc",
+            "path": f"{DATA}/kolmogorov/re_1000/trajectories/{split}_{sz}_{cadence}.nc",
+            "corr_path": f"{DATA}/kolmogorov/re_1000/trajectories/{split}_32_{cadence}.nc",
+            "k": k,
+        }
+        if end and with_end:
+            d["end"] = end
+        return d
+    return {
+        "_target_": "fourierflow_tpu_torch.builders.KolmogorovBuilder",
+        "train_dataset": train_ds,
+        "valid_dataset": traj("valid", valid_size, False),
+        "test_dataset": traj("test", test_size, True),
+        "batch_size": 32,
+    }
+
+
+# Per-grid reference specs (grid_sizes/{size}/config.yaml): batch size,
+# spectral modes, accumulation batches (= batches/epoch), epochs. The
+# cosine schedule always decays over exactly the 10 training epochs
+# (num_training_steps = 10 x max_accumulations in every config).
+KOCH_GRID_SPEC = {
+    64: dict(batch=32, modes=16, acc=2421, epochs=11),
+    128: dict(batch=8, modes=32, acc=9684, epochs=11),
+    256: dict(batch=2, modes=64, acc=38736, epochs=21),
+}
+
+
+def _kochkov_ffno(size=64, k=20, n_layers=24, batch=None, modes=None,
+                  acc=None, epochs=None, **routine_over):
+    spec = KOCH_GRID_SPEC[size]
+    batch = batch or spec["batch"]
+    modes = modes or spec["modes"]
+    acc = acc or spec["acc"]
+    epochs = epochs or spec["epochs"]
+    conv = {
+        "_target_": "fourierflow_tpu_torch.models.FNOFactorized2DBlock",
+        "modes": modes, "width": 64, "n_layers": n_layers, "input_dim": 5,
+        "share_weight": True, "factor": 4, "ff_weight_norm": True,
+        "gain": 0.1, "dropout": 0.0, "in_dropout": 0.0,
+    }
+    routine = {
+        "_target_": "fourierflow_tpu_torch.routines.Grid2DMarkovRoutine",
+        "conv": conv,
+        # Simulation time per model step; grid-independent
+        # (reference grid_sizes/*/config.yaml:45 uses 64 * k for all sizes).
+        "step_size": KOCH_STEP * 64 * k,
+        "max_accumulations": acc,
+        "noise_std": 0.01,
+        "use_velocity": True,
+        "domain": [[0, "${eval:2 * ${import:numpy.pi}}"],
+                   [0, "${eval:2 * ${import:numpy.pi}}"]],
+        "optimizer": _adamw(lr=0.0025),
+        "scheduler": _cosine(acc * (epochs - 1 if epochs else 10)),
+    }
+    routine.update(routine_over)
+    builder = _kochkov_builder(size, k)
+    builder["batch_size"] = batch
+    if builder["train_dataset"].get("batch_size"):
+        builder["train_dataset"]["batch_size"] = batch
+    return {
+        "wandb": _wandb("torus_kochkov", ""),
+        "builder": builder,
+        "routine": routine,
+        "trainer": {"max_epochs": epochs, "log_every_n_steps": 100},
+        "callbacks": _ckpt("valid_time_until"),
+    }
+
+
+def _kochkov_family() -> Dict[str, dict]:
+    out = {}
+    for size in (64, 128, 256):
+        out[f"torus_kochkov/ffno/grid_sizes/{size}"] = _kochkov_ffno(size)
+    # predictions/* reuse grid-trained checkpoints for rollout dumps; the
+    # reference runs 128/256 eval with the modes-32 checkpoint and its
+    # OWN batch/accumulation counts (predictions/{size}/config.yaml).
+    out["torus_kochkov/ffno/predictions/64"] = _kochkov_ffno(64)
+    out["torus_kochkov/ffno/predictions/128"] = _kochkov_ffno(
+        128, batch=32, modes=32, acc=2421)
+    out["torus_kochkov/ffno/predictions/256"] = _kochkov_ffno(
+        256, batch=12, modes=32, acc=6456, epochs=11)
+    for n in LAYERS:
+        out[f"torus_kochkov/ffno/layers/64/{n}_layers"] = _kochkov_ffno(n_layers=n)
+    # step_sizes/64/{k}: sub-snapshot sizes (0.25, 0.5) switch to the
+    # fine-cadence _1 files (16*dt recording) at dataset k=1/2; the
+    # accumulation counts are the reference's literal values
+    # (step_sizes/64/{k}/config.yaml — incl. its k=40 quirk of 2421).
+    STEP_SIZE_SPEC = {0.25: (1, 1, 2440), 0.5: (2, 1, 2440),
+                      1: (1, 4, 2440), 2: (2, 4, 2439), 5: (5, 4, 2436),
+                      10: (10, 4, 2431), 20: (20, 4, 2421),
+                      40: (40, 4, 2421), 80: (80, 4, 2361)}
+    for k, (dataset_k, cadence, acc) in STEP_SIZE_SPEC.items():
+        cfg = _kochkov_ffno(64, k=dataset_k, acc=acc)
+        cfg["builder"] = _kochkov_builder(64, k=dataset_k, cadence=cadence)
+        cfg["routine"]["step_size"] = KOCH_STEP * 64 * k
+        if k == 40:
+            # The reference's k=40 config keeps max_accumulations at 2421
+            # but pins the cosine to 24010 steps ("2401 per epoch" quirk,
+            # step_sizes/64/40/config.yaml:64) instead of acc*(epochs-1).
+            cfg["routine"]["scheduler"] = _cosine(24010)
+        out[f"torus_kochkov/ffno/step_sizes/64/{k}"] = cfg
+    # Superresolution evaluation: train grids -> eval grid.
+    for train_key, train_sizes in {
+        "train_with_x64": [64],
+        "train_with_x32_x64": [32, 64],
+        "train_with_x32_x128": [32, 128],
+        "train_with_x64_x128": [64, 128],
+    }.items():
+        for eval_size in (32, 64, 128, 256):
+            paths = [f"{DATA}/kolmogorov/re_1000/trajectories/train_{s}_4.nc"
+                     for s in train_sizes]
+            cfg = _kochkov_ffno(64)
+            cfg["builder"] = _kochkov_builder(
+                64, train_paths=paths, test_size=eval_size, valid_size=64,
+                end=800)
+            out[f"torus_kochkov/ffno/superresolution/{train_key}/{eval_size}"] = cfg
+    for sizes in ([32, 64], [32, 128], [64, 128]):
+        key = "_".join(f"x{s}" for s in sizes)
+        paths = [f"{DATA}/kolmogorov/re_1000/trajectories/train_{s}_4.nc"
+                 for s in sizes]
+        # reference multi_resolution/*/config.yaml: modes 16 and acc 2421
+        # at every pair; pairs containing 128 drop to batch 8 and
+        # stretch the cosine to 96,840 steps.
+        has128 = 128 in sizes
+        cfg = _kochkov_ffno(max(sizes), batch=8 if has128 else 32,
+                            modes=16, acc=2421, epochs=11)
+        cfg["routine"]["scheduler"] = _cosine(96840 if has128 else 24210)
+        # Eval grid per reference literals: x32_x64 and x64_x128 evaluate
+        # at 64^2, but x32_x128 evaluates at 128^2 (its config.yaml reads
+        # valid_128_4.nc/test_128_4.nc with init valid_128).
+        eval_size = 128 if sizes == [32, 128] else 64
+        cfg["builder"] = _kochkov_builder(eval_size, train_paths=paths)
+        cfg["builder"]["batch_size"] = 8 if has128 else 32
+        cfg["builder"]["train_dataset"]["batch_size"] = 8 if has128 else 32
+        out[f"torus_kochkov/ffno/multi_resolution/{key}"] = cfg
+    # Ablations.
+    out["torus_kochkov/ffno/ablation/no_positional"] = _kochkov_ffno(
+        use_position=False)
+    out["torus_kochkov/ffno/ablation/no_positional"]["routine"]["conv"]["input_dim"] = 3
+    sin = _kochkov_ffno(use_fourier_position=True)
+    sin["routine"]["conv"]["input_dim"] = 37
+    out["torus_kochkov/ffno/ablation/sinusoidal"] = sin
+    sf = _kochkov_ffno()
+    sf["routine"]["conv"]["share_fork"] = True
+    out["torus_kochkov/ffno/ablation/shared_feedforward"] = sf
+    vc = _kochkov_ffno(n_layers=16, learn_difference=True, use_velocity=False)
+    vc["routine"]["conv"]["input_dim"] = 3
+    out["torus_kochkov/ffno/ablation/vorticity_change"] = vc
+    nv = _kochkov_ffno(use_velocity=False)
+    nv["routine"]["conv"]["input_dim"] = 3
+    out["torus_kochkov/ffno/ablation/no_velocity"] = nv
+    nvp = _kochkov_ffno(use_velocity=False, use_position=False)
+    nvp["routine"]["conv"]["input_dim"] = 2
+    out["torus_kochkov/ffno/ablation/no_velocity_positional"] = nvp
+    for size in (64, 128, 256):
+        nw = _kochkov_ffno(size)
+        nw["routine"]["conv"]["share_weight"] = False
+        out[f"torus_kochkov/ffno/ablation/ffno-nw/{size}"] = nw
+        # fno++ halves the batch (the unfactorized block is heavier):
+        # reference ablation/fno++/{128,256}/config.yaml.
+        pp_spec = {64: {}, 128: dict(batch=4, acc=19368),
+                   256: dict(batch=1, acc=77472)}[size]
+        pp = _kochkov_ffno(size, **pp_spec)
+        pp["routine"]["conv"]["_target_"] = "fourierflow_tpu_torch.models.FNOPlus2DBlock"
+        pp["routine"]["conv"]["share_weight"] = False
+        out[f"torus_kochkov/ffno/ablation/fno++/{size}"] = pp
+    return out
+
+
+# --- data-generation configs (reference:data/kolmogorov/**) -----------------
+
+KOL_DOMAIN = [[0, "${eval:2 * ${import:numpy.pi}}"],
+              [0, "${eval:2 * ${import:numpy.pi}}"]]
+
+
+def _kol_data(sim_size, n_traj, seed, inner, outer, warmup, out_sizes,
+              time_step=None, init_path=None):
+    """One Kolmogorov generation config (reference:data/kolmogorov/re_1000/
+    trajectories/train.yaml etc.). ``time_step=None`` uses the CFL-stable
+    step for the sim grid."""
+    cfg = {
+        "domain": KOL_DOMAIN,
+        "sim_grid": {"_target_": "fourierflow_tpu_torch.utils.Grid",
+                     "shape": [sim_size, sim_size], "domain": "${domain}"},
+        "time_step": time_step if time_step is not None else {
+            "_target_": "jax_cfd.base.equations.stable_time_step",
+            "max_velocity": 7.0, "max_courant_number": 0.5,
+            "viscosity": 1e-3, "grid": "${sim_grid}",
+        },
+        "method": "pseudo_spectral",
+        "step_fn": {
+            "_target_": "jax_cfd.spectral.time_stepping.crank_nicolson_rk4",
+            "equation": {
+                "_target_": "fourierflow.utils.equations.NavierStokes2D",
+                "grid": "${sim_grid}", "viscosity": 1e-3, "drag": 0.1,
+                "smooth": True,
+                "forcing_fn": {
+                    "_target_": "functools.partial",
+                    "_args_": ["${get_method:jax_cfd.base.forcings.simple_turbulence_forcing}"],
+                    "constant_magnitude": 1, "constant_wavenumber": 4,
+                    "linear_coefficient": 0,
+                },
+            },
+            "time_step": "${time_step}",
+        },
+        "downsample_fn": "${get_method:fourierflow.builders.kolmogorov.downsample_vorticity}",
+        "out_sizes": out_sizes,
+        "n_trajectories": n_traj, "density": 1, "max_velocity": 7.0,
+        "peak_wavenumber": 4.0, "seed": seed,
+        "inner_steps": inner, "outer_steps": outer, "warmup_steps": warmup,
+    }
+    if init_path:
+        cfg["init_path"] = init_path
+    return cfg
+
+
+def _kolmogorov_data_configs():
+    """reference:data/kolmogorov/re_1000/** — initial conditions (2048^2,
+    40 warmup time units), ML training trajectories, short trajectories,
+    per-resolution DNS baselines, time-step sweeps, learned-interpolation
+    data."""
+    out = {}
+    ic_sizes = [{"size": s, "k": 1} for s in (32, 64, 128, 256, 512, 1024, 2048)]
+    traj_sizes = ([{"size": s, "k": 1} for s in (32, 64, 128)]
+                  + [{"size": s, "k": 4} for s in (32, 64, 128, 256)])
+    seeds = {"train": 73714, "valid": 819242, "test": 19422}
+    for split, seed in seeds.items():
+        out[f"data/kolmogorov/re_1000/initial_conditions/{split}"] = _kol_data(
+            2048, 32, seed, inner=64, outer=0, warmup=2852, out_sizes=ic_sizes)
+        init = f"{DATA}/kolmogorov/re_1000/initial_conditions/{split}_2048.nc"
+        out[f"data/kolmogorov/re_1000/trajectories/{split}"] = _kol_data(
+            2048, 32, seed, inner=16, outer=9764, warmup=0,
+            out_sizes=traj_sizes, init_path=init)
+        out[f"data/kolmogorov/re_1000/short_trajectories/{split}"] = _kol_data(
+            2048, 32, seed, inner=8, outer=7000, warmup=0,
+            out_sizes=traj_sizes, init_path=init)
+    # DNS baselines: simulate directly at each resolution with its own
+    # stable step (the reference's accuracy-vs-cost reference points).
+    for size in (32, 64, 128, 256, 512, 1024):
+        out[f"data/kolmogorov/re_1000/baselines/{size}"] = _kol_data(
+            size, 4, 83816, inner=1, outer=2441, warmup=0,
+            out_sizes=[{"size": min(size, 32), "k": 1}],
+            init_path=f"{DATA}/kolmogorov/re_1000/initial_conditions/test_{size}.nc")
+    # Time-step sensitivity sweep at 64^2: dt = x * stable(2048).
+    base_dt = 0.0002191401125550916
+    for mult in (1, 2, 4, 8, 16, 32, 64, 128):
+        out[f"data/kolmogorov/re_1000/time_steps/x{mult}"] = _kol_data(
+            64, 4, 83816, inner=max(1, 32 // mult), outer=2441, warmup=0,
+            out_sizes=[{"size": 32, "k": 1}], time_step=base_dt * mult,
+            init_path=f"{DATA}/kolmogorov/re_1000/initial_conditions/test_64.nc")
+    # Learned-interpolation training data (fine snapshots at the model grid).
+    for size in (64, 128):
+        out[f"data/kolmogorov/re_1000/learned_interpolation/{size}"] = _kol_data(
+            size, 4, 83816, inner=2, outer=2441, warmup=0,
+            out_sizes=[{"size": size, "k": 1}, {"size": 32, "k": 1}],
+            init_path=f"{DATA}/kolmogorov/re_1000/initial_conditions/test_{size}.nc")
+    # Method-comparison configs, the spectral side (the projection side
+    # needs the projection method, ROADMAP A item 8).
+    out["data/kolmogorov/compare_methods/drag/spectral"] = _kol_data(
+        256, 2, 111, inner=8, outer=200, warmup=50,
+        out_sizes=[{"size": 64, "k": 1}])
+    # reference:data/kolmogorov/compare_methods/kolmogorov/*.yaml — three
+    # forcing formulations of the same Re=1000 flow at 1024^2 from the
+    # shared test IC (the projection-method one is not ported): spectral with the drag inside the forcing term (spectral_coeff),
+    # and spectral with the separate implicit drag term (spectral_drag).
+    cmp_ic = f"{DATA}/kolmogorov/re_1000/initial_conditions/test_1024.nc"
+    cmp_kw = dict(inner=128, outer=100, warmup=0,
+                  out_sizes=[{"size": 512, "k": 1}], init_path=cmp_ic)
+    coeff = _kol_data(1024, 1, 2308, **cmp_kw)
+    coeff["step_fn"]["equation"]["drag"] = 0.0
+    coeff["step_fn"]["equation"]["forcing_fn"]["linear_coefficient"] = -0.1
+    out["data/kolmogorov/compare_methods/kolmogorov/spectral_coeff"] = coeff
+    out["data/kolmogorov/compare_methods/kolmogorov/spectral_drag"] = _kol_data(
+        1024, 1, 2308, **cmp_kw)
+    # reference:data/kolmogorov/compare_methods/decaying/*.yaml — unforced
+    # decay from the same IC, the spectral side.
+    dec_s = _kol_data(1024, 1, 2308, **cmp_kw)
+    dec_s["step_fn"]["equation"]["drag"] = 0.0
+    dec_s["step_fn"]["equation"]["forcing_fn"] = None
+    out["data/kolmogorov/compare_methods/decaying/spectral"] = dec_s
+    # reference:data/kolmogorov/compare_methods/downsampling/** — the same
+    # trajectory simulated at several resolutions and downsampled to 64^2,
+    # with the spectral CN-RK4 (the projection-method ones are not ported).
+    for size in (128, 512, 2048):
+        ds_ic = f"{DATA}/kolmogorov/re_1000/initial_conditions/test_{size}.nc"
+        out[f"data/kolmogorov/compare_methods/downsampling/spectral/{size}"] = \
+            _kol_data(size, 1, 2308, inner=8, outer=200, warmup=0,
+                      out_sizes=[{"size": 64, "k": 1}], init_path=ds_ic)
+    # Re=4000 variant: 4096^2 sims, half viscosity, drag 0.05, forcing
+    # wavenumber 2 (reference data/kolmogorov/re_4000/**).
+    for split, seed in (("train", 42001), ("valid", 42002), ("test", 42003)):
+        for kind, outer, inner, warmup in (
+            ("initial_conditions", 0, 64, 2852), ("trajectories", 9764, 16, 0),
+        ):
+            cfg = _kol_data(
+                4096, 4, seed, inner=inner, outer=outer, warmup=warmup,
+                out_sizes=([{"size": s_, "k": 1} for s_ in (32, 64, 128, 256)]
+                           if outer else
+                           [{"size": s_, "k": 1} for s_ in (32, 64, 128, 256, 4096)]),
+                init_path=(f"{DATA}/kolmogorov/re_4000/initial_conditions/{split}_4096.nc"
+                           if outer else None))
+            eq = cfg["step_fn"]["equation"]
+            eq["viscosity"] = 5e-4
+            eq["drag"] = 0.05
+            eq["forcing_fn"]["constant_wavenumber"] = 2
+            cfg["time_step"]["viscosity"] = 5e-4
+            out[f"data/kolmogorov/re_4000/{kind}/{split}"] = cfg
+    # Decaying turbulence (no forcing, no drag): spectral baselines at
+    # several resolutions (the projection-method counterparts are not ported)
+    # (reference data/kolmogorov/decaying/**).
+    for size, inner in ((64, 2), (256, 8), (2048, 64)):
+        cfg = _kol_data(size, 4, 2308, inner=inner, outer=1426, warmup=0,
+                        out_sizes=[{"size": min(size, 64), "k": 1}],
+                        init_path=(f"{DATA}/kolmogorov/decaying/initial_conditions/test_{size}.nc"
+                                   if size == 2048 else None))
+        eq = cfg["step_fn"]["equation"]
+        eq["drag"] = 0.0
+        eq["forcing_fn"] = None
+        out[f"data/kolmogorov/decaying/baselines/{size}"] = cfg
+    out["data/kolmogorov/decaying/initial_conditions/test"] = _kol_data(
+        2048, 4, 2308, inner=64, outer=0, warmup=1426,
+        out_sizes=[{"size": s_, "k": 1} for s_ in (64, 256, 2048)])
+    # reference:data/kolmogorov/decaying/trajectories/test.yaml — full
+    # unforced 2048^2 decay trajectories from the warmed ICs.
+    dec_t = _kol_data(
+        2048, 4, 2308, inner=64, outer=1426, warmup=0,
+        out_sizes=[{"size": s_, "k": 1} for s_ in (32, 64, 128, 256)],
+        init_path=f"{DATA}/kolmogorov/decaying/initial_conditions/test_2048.nc")
+    dec_t["step_fn"]["equation"]["drag"] = 0.0
+    dec_t["step_fn"]["equation"]["forcing_fn"] = None
+    out["data/kolmogorov/decaying/trajectories/test"] = dec_t
+    # Large-domain variant: 4x domain length at the same resolution
+    # density (reference data/kolmogorov/large_domain/**).
+    big = "${eval:8 * ${import:numpy.pi}}"
+    for kind, outer, warmup in (("initial_conditions", 0, 2852),
+                                ("trajectories", 9764, 0)):
+        cfg = _kol_data(8192, 4, 55101, inner=16 if outer else 64,
+                        outer=outer, warmup=warmup,
+                        out_sizes=[{"size": s_, "k": 1} for s_ in (128, 256)],
+                        init_path=(f"{DATA}/kolmogorov/large_domain/initial_conditions/test_8192.nc"
+                                   if outer else None))
+        cfg["domain"] = [[0, big], [0, big]]
+        out[f"data/kolmogorov/large_domain/{kind}/test"] = cfg
+    return out
+
+
 # --- registry ---------------------------------------------------------------
 
 def _build_registry() -> Dict[str, dict]:
@@ -245,6 +626,8 @@ def _build_registry() -> Dict[str, dict]:
         reg[f"torus_vis/{v}"] = _torus_vis("torus_vis", v)
     for v in ("01_baseline", "02_no_mu", "03_no_mu_force", "06_shared_all_no_fork"):
         reg[f"torus_vis_force/{v}"] = _torus_vis("torus_vis_force", v)
+    reg.update(_kochkov_family())
+    reg.update(_kolmogorov_data_configs())
     return reg
 
 

@@ -42,11 +42,17 @@ an axis launch). Its layout (see the kernel source): 10 lines a block of
 weights streamed through a double-buffered shared-memory ring by
 ``cp.async`` in chunks of 4 input channels, each chunk read from L2 once a
 block (64 MB an axis launch in f32), x streamed the same way in chunks of
-8 samples. :func:`_smem_bytes` mirrors the kernel's shared-memory size; a
-shape that does not fit, or a C wider than ``3 * (512 // M)``, raises a
-``ValueError``. Weights whose (i, o) runs of 2M values are not contiguous
-(``[..., M, 2]`` strides other than ``(2, 1)``) are copied to a contiguous
-tensor first.
+8 samples. A block walks the modes in chunks (:func:`_mode_chunk`: all
+M where they fit, as at the flagship; 16 of 32 at n 128, 12 of 64 at n
+256), so its shared memory does not grow with M: each chunk stages its
+bases, takes its spectra from x (read again for every chunk), mixes them
+with its weights and adds its inverse into the output lines, whose partial
+sums between chunks live in a float32 array of the output's layout (the
+Y launch's output or the float32 scratch). :func:`_smem_bytes` mirrors the
+kernel's shared-memory size at that chunk; a shape where not even one mode
+fits, or a C wider than ``3 * 512``, raises a ``ValueError``. Weights whose
+(i, o) runs of 2M values are not contiguous (``[..., M, 2]`` strides other
+than ``(2, 1)``) are copied to a contiguous tensor first.
 """
 
 import ctypes
@@ -88,11 +94,13 @@ def fused_mix_2d_adjoint_plain(g: torch.Tensor, wy: torch.Tensor, wx: torch.Tens
 def _lib():
     lib = _cuda.load("fused_spectral")
     vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.spectral_axis.argtypes = [i, i, i, vp, vp, vp, vp, ll, ll, ll, ll, i, vp, vp, i, i, ll, ll,
-                                  ll, i, i, i, vp]
+    lib.spectral_axis.argtypes = [i, i, i, vp, vp, vp, vp, ll, ll, ll, ll, i, vp, vp, vp, i, i, ll,
+                                  ll, ll, i, i, i, vp]
     lib.spectral_axis.restype = i
     lib.spectral_axis_smem_bytes.argtypes = [i, i, i, i, i]
     lib.spectral_axis_smem_bytes.restype = ll
+    lib.spectral_axis_mode_chunk.argtypes = [i, i, i, i, i]
+    lib.spectral_axis_mode_chunk.restype = i
     return lib
 
 
@@ -104,18 +112,44 @@ def _adjoint_bases(n: int, modes: int, device: torch.device):
     return inv.t().contiguous(), fwd.t().contiguous()
 
 
-def _smem_bytes(n: int, modes: int, c: int, x_dtype: torch.dtype, w_dtype: torch.dtype) -> int:
-    """Shared memory of one block (``smem_layout`` in the source): the
-    weight ring (WS stages of IC input channels, [C, 2M] each, in the
-    weights' type), the x ring (XS stages of LB lines x TC samples x C, in
-    x's type), the forward basis [n, 2M padded to KC], the inverse basis
-    [2M, n padded to SC] and the spectra [LB, C, 2 (M | 1)], in float32,
-    and an int64 offset for each of the LB lines."""
+def _layout_bytes(n: int, chunk: int, c: int, xs: int, wsz: int) -> int:
+    """Shared memory of one block for a chunk of ``chunk`` modes
+    (``smem_layout`` in the source): the weight ring (WS stages of IC input
+    channels, [C, 2 chunk] each, in the weights' type), the x ring (XS
+    stages of LB lines x TC samples x C, in x's type), the forward basis
+    [n, 2 chunk padded to KC], the inverse basis [2 chunk, n padded to SC]
+    and the spectra [LB, C, 2 (chunk | 1)], in float32, and an int64 offset
+    for each of the LB lines."""
     up = lambda a, b: -(-a // b) * b
-    xs, wsz = (torch.finfo(t).bits // 8 for t in (x_dtype, w_dtype))
-    k = 2 * modes
+    k = 2 * chunk
     return (_WS * _IC * c * k * wsz + _XS * _LB * _TC * c * xs + 4 * n * up(k, _KC)
-            + 4 * k * up(n, _SC) + 4 * _LB * c * 2 * (modes | 1) + 8 * _LB)
+            + 4 * k * up(n, _SC) + 4 * _LB * c * 2 * (chunk | 1) + 8 * _LB)
+
+
+def _mode_chunk(n: int, modes: int, c: int, x_dtype: torch.dtype, w_dtype: torch.dtype) -> int:
+    """Modes a block takes at once (``mode_chunk`` in the source): all of
+    them where the block's shared memory and the mix's C <= PMAX * (NT //
+    chunk) allow, else the largest multiple of 4 that fits (or 3, 2, 1),
+    evened out over the chunks it needs; 0 if not even one mode fits."""
+    xs, wsz = (torch.finfo(t).bits // 8 for t in (x_dtype, w_dtype))
+    fits = lambda mc: (_layout_bytes(n, mc, c, xs, wsz) <= _cuda.MAX_SMEM
+                       and c <= _PMAX * (_NT // mc))
+    if fits(modes):
+        return modes
+    best = max((mc for mc in range(4, modes, 4) if fits(mc)), default=0)
+    best = best or next((mc for mc in range(min(3, modes - 1), 0, -1) if fits(mc)), 0)
+    if not best:
+        return 0
+    chunks = -(-modes // best)
+    even = -(-modes // chunks)
+    return min(best, -(-even // 4) * 4)
+
+
+def _smem_bytes(n: int, modes: int, c: int, x_dtype: torch.dtype, w_dtype: torch.dtype) -> int:
+    """Shared memory of one block at the kernel's mode chunk for this shape
+    (the whole of M where it fits)."""
+    xs, wsz = (torch.finfo(t).bits // 8 for t in (x_dtype, w_dtype))
+    return _layout_bytes(n, _mode_chunk(n, modes, c, x_dtype, w_dtype) or modes, c, xs, wsz)
 
 
 def _check_args(x, wy, wx):
@@ -136,14 +170,14 @@ def _check_args(x, wy, wx):
         modes = w.shape[2]
         if not 1 <= modes <= n // 2 + 1:
             raise ValueError(f"{name} has {modes} modes; axis length {n} allows {n // 2 + 1}")
-        # The mix gives each thread one mode and up to PMAX output channels.
-        if c > _PMAX * (_NT // modes):
-            raise ValueError(f"fused_mix_2d kernel takes C <= {_PMAX} * (512 // M) = "
-                             f"{_PMAX * (_NT // modes)} at M {modes}, got C {c}")
-        need = _smem_bytes(n, modes, c, x.dtype, w.dtype)
-        if need > _cuda.MAX_SMEM:
-            raise ValueError(f"fused_mix_2d: {name} at n={n}, M={modes}, C={c} needs {need} B of "
-                             f"shared memory in {x.dtype}, more than {_cuda.MAX_SMEM}")
+        # A block walks the modes in chunks; one mode must fit its shared
+        # memory, and the mix gives each thread one mode of a chunk and up to
+        # PMAX output channels.
+        if not _mode_chunk(n, modes, c, x.dtype, w.dtype):
+            need = _layout_bytes(n, 1, c, *(torch.finfo(t).bits // 8 for t in (x.dtype, w.dtype)))
+            raise ValueError(f"fused_mix_2d: {name} at n={n}, C={c} needs {need} B of shared "
+                             f"memory in {x.dtype} for one mode, more than {_cuda.MAX_SMEM}, or "
+                             f"C above {_PMAX} * 512 = {_PMAX * _NT}")
 
 
 def _stageable(w: torch.Tensor) -> torch.Tensor:
@@ -180,8 +214,8 @@ def _launch(x: torch.Tensor, wy: torch.Tensor, wx: torch.Tensor, adjoint: bool) 
             err = lib.spectral_axis(
                 code, _DTYPE_CODE[w.dtype], out_code, x.data_ptr(), fwd.data_ptr(),
                 inv.data_ptr(), w.data_ptr(), s_i, s_o, s_m, s_p, int(adjoint),
-                None if prev is None else prev.data_ptr(), dst.data_ptr(), b * lines, lines,
-                sx * sy * c, line_stride, elem_stride, n, modes, c, stream)
+                None if prev is None else prev.data_ptr(), first.data_ptr(), dst.data_ptr(),
+                b * lines, lines, sx * sy * c, line_stride, elem_stride, n, modes, c, stream)
             _cuda.check(lib, err, "fused_mix_2d adjoint" if adjoint else "fused_mix_2d")
     return out
 

@@ -8,11 +8,17 @@ pass, the one-step training step (normalizer accumulating up to its cap,
 Gaussian input noise, the shuffled-grid ablation, relative-L2 loss), the
 autoregressive rollout as a Python loop with a static or a time-varying
 force, and the rollout metrics (N-MSE, vorticity correlation rho(t), time
-until rho < 0.95). ``pred_path``/``save_predictions``, the ``corr_data``
-branch and the super-resolution evaluation are not ported yet.
+until rho < 0.95). A batch with ``corr_data`` (the Kolmogorov protocol's
+independently made reference at a reduced resolution, 32^2) adds the
+reduced metrics: the predictions are downsampled spectrally to its grid and
+correlated with it. ``save_predictions`` writes a rollout's vorticity and
+velocities (downsampled to 64^2 when larger) to an HDF5 file. The rollout
+runs at the grid of the data it is given, so a model trained at one
+resolution is evaluated at another (super-resolution) as it is.
 """
 
 import logging
+import os
 from dataclasses import replace
 from typing import Optional
 
@@ -28,7 +34,11 @@ from ..layers import (
     normalizer_init,
     normalizer_inverse,
 )
-from ..utils.grids import TORUS, velocity_from_vorticity
+from ..ops.fourier import irfft2
+from ..utils.grids import TORUS, Grid, velocity_from_vorticity
+from ..utils.hdf5 import H5Writer
+from ..utils.spectral import (downsample_vorticity, downsample_vorticity_hat,
+                              vorticity_to_velocity_solve)
 from .base import Routine, State, nan_to_9999, rho_time_until
 
 logger = logging.getLogger(__name__)
@@ -48,9 +58,7 @@ class Grid2DMarkovRoutine(Routine):
                  grid_size=(64,), pred_path=None, conv=None, optimizer=None,
                  track_grad_norm: bool = False):
         super().__init__(optimizer, track_grad_norm)
-        if pred_path is not None:
-            raise NotImplementedError("Grid2DMarkovRoutine pred_path (save_predictions) is not "
-                                      "ported yet")
+        self.pred_path = pred_path
         # `conv` is the reference's name for the model argument.
         self.model = model if model is not None else conv
         self.n_steps = n_steps
@@ -182,6 +190,11 @@ class Grid2DMarkovRoutine(Routine):
         if self.shuffle_grid:
             x_idx, y_idx, x_inv, y_inv = self._permutations(dev)
             x = x[:, x_idx][:, :, y_idx]
+        if self.learn_difference and "dy" not in batch:
+            # The JAX routine reads batch["dy"] too, and raises KeyError: 'dy'.
+            raise ValueError("learn_difference trains on the batch's 'dy' (the change over each "
+                             "pair), which this builder does not give (it gives "
+                             f"{sorted(batch)})")
         targets = torch.as_tensor(batch["dy" if self.learn_difference else "y"], device=dev)
         b = x.shape[0]
         im = state.model(x)["forecast"]
@@ -260,14 +273,18 @@ class Grid2DMarkovRoutine(Routine):
             preds.append(im[..., 0])
         return torch.stack(preds, dim=-1), torch.stack(step_losses), yy
 
-    def compute_losses(self, preds, step_losses, yy):
+    def compute_losses(self, preds, step_losses, yy, corr_yy=None):
         """Mean step loss, full-field N-MSE (NaN reads 9999.9), rho(t) and
-        the time until rho < 0.95."""
+        the time until rho < 0.95. With ``corr_yy [b, cX, cY, n]``, a
+        reference at a reduced resolution, the predictions are downsampled
+        spectrally to its grid (``utils.spectral.downsample_vorticity``)
+        and give ``reduced_correlations``, their mean ``reduced_corr`` and
+        ``reduced_time_until``."""
         b = preds.shape[0]
         loss = step_losses.mean()
         loss_full = lp_loss_rel(preds.reshape(b, -1), yy.reshape(b, -1))
         p, time_until = rho_time_until(preds, yy, self.step_size)
-        return {
+        metrics = {
             "loss_avg": nan_to_9999(loss),
             "loss": nan_to_9999(loss_full),
             "time_until": time_until,
@@ -275,9 +292,55 @@ class Grid2DMarkovRoutine(Routine):
             "correlations": p,
             "step_losses": step_losses,
         }
+        if corr_yy is not None:
+            corr_yy = torch.as_tensor(corr_yy, device=preds.device)
+            size = corr_yy.shape[1]
+            preds_2 = (downsample_vorticity(preds, size, self.domain) if preds.shape[1] != size
+                       else preds)
+            p_2, reduced_time_until = rho_time_until(preds_2, corr_yy, self.step_size)
+            metrics.update(reduced_time_until=reduced_time_until, reduced_corr=p_2.mean(),
+                           reduced_correlations=p_2)
+        return metrics
 
     def valid_step(self, state: State, batch):
-        if "corr_data" in batch:
-            raise NotImplementedError("Grid2DMarkovRoutine's corr_data metrics are not ported yet")
         preds, step_losses, yy = self.rollout(state, batch)
-        return self.compute_losses(preds, step_losses, yy)
+        corr_yy = None
+        if "corr_data" in batch:  # the same trailing horizon as the rollout's targets
+            corr_yy = batch["corr_data"][..., -preds.shape[-1]:]
+        return self.compute_losses(preds, step_losses, yy, corr_yy)
+
+    @torch.no_grad()
+    def save_predictions(self, preds, times=None, path=None) -> str:
+        """Write rollout predictions ``preds [b, X, Y, T]`` to the HDF5 file
+        ``path`` (``pred_path`` by default): ``vorticity``, ``vx`` and ``vy``
+        ``[sample, x, y, time]`` (the velocities recovered spectrally; all
+        three downsampled to 64^2 through the velocity when the grid is
+        larger), ``time`` where given, and the cell centres ``x`` and ``y``
+        of the written grid. Returns the path."""
+        path = path or self.pred_path
+        preds = torch.as_tensor(preds, dtype=torch.float32)
+        b, sx, sy, t = preds.shape
+        sim_grid = Grid((sx, sy), domain=self.domain)
+        out_size = min(sx, 64)
+        out_grid = Grid((out_size, out_size), domain=self.domain)
+        solve = vorticity_to_velocity_solve(sim_grid)
+        w_hat = torch.fft.rfft2(preds.movedim(-1, 1))  # [b, T, X, Y//2+1]
+        if sx > 64:
+            out = downsample_vorticity_hat(w_hat, solve, sim_grid, out_grid)
+            vx, vy, w = out["vx"], out["vy"], out["vorticity"]
+        else:
+            vx, vy = irfft2(torch.stack(solve(w_hat)), (sx, sy))
+            w = preds.movedim(-1, 1)
+        fields = {name: a.movedim(1, -1).cpu().numpy()
+                  for name, a in (("vorticity", w), ("vx", vx), ("vy", vy))}
+        xs, ys = out_grid.axes()
+        extra = {"x": xs, "y": ys}
+        if times is not None:
+            extra["time"] = np.asarray(times)
+        layout = {name: (a.shape, a.dtype) for name, a in {**fields, **extra}.items()}
+        if os.path.dirname(path):
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+        with H5Writer(path, layout, atomic=True) as f:
+            for name, a in {**fields, **extra}.items():
+                f.write(name, 0, a)
+        return path

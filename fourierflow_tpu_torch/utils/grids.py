@@ -1,5 +1,5 @@
-"""Spectral grid helpers on the 2D torus (counterpart of the mesh and
-velocity part of ``fourierflow_tpu/utils/grids.py``).
+"""Uniform periodic grids and spectral helpers on the 2D torus
+(counterpart of ``fourierflow_tpu/utils/grids.py``).
 
 Wavenumbers are in cycles per unit length, as jax-cfd's ``Grid.rfft_mesh``
 gives them: for a domain of length L the integer mode k has wavenumber
@@ -16,10 +16,53 @@ import torch
 
 from ..ops.fourier import irfft2
 
-__all__ = ["rfft_mesh", "laplacian_hat", "velocity_from_vorticity"]
+__all__ = ["Grid", "rfft_mesh", "fft_mesh", "laplacian_hat", "velocity_from_vorticity"]
 
 TWO_PI = 2.0 * np.pi
 TORUS = ((0, TWO_PI), (0, TWO_PI))
+
+
+class Grid:
+    """A uniform periodic grid (the config targets ``fourierflow.utils.Grid``
+    and ``jax_cfd.base.grids.Grid``): ``shape`` cells over ``domain`` (one
+    ``(lo, hi)`` an axis), or over ``(0, step * n)`` an axis. The cell size
+    is ``step = L / n``; ``axes(offset)`` and ``mesh(offset)`` give the
+    points at ``offset`` cells into each cell (0.5, the centres, by
+    default), as numpy arrays."""
+
+    def __init__(self, shape, step=None, domain=None):
+        self.shape = tuple(int(s) for s in shape)
+        if domain is not None:
+            self.domain = tuple((float(a), float(b)) for a, b in domain)
+        else:
+            step = step if step is not None else 1.0
+            steps = (step,) * len(self.shape) if np.ndim(step) == 0 else step
+            self.domain = tuple((0.0, float(s) * n) for s, n in zip(steps, self.shape))
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    @property
+    def step(self):
+        return tuple((d[1] - d[0]) / n for d, n in zip(self.domain, self.shape))
+
+    def axes(self, offset=0.5):
+        return tuple(d[0] + (np.arange(n) + offset) * ((d[1] - d[0]) / n)
+                     for d, n in zip(self.domain, self.shape))
+
+    def mesh(self, offset=None):
+        """float32 ``meshgrid`` (``ij``) of the points at ``offset`` (one an axis)."""
+        offs = offset if offset is not None else (0.5,) * self.ndim
+        axes = [d[0] + (np.arange(n) + o) * ((d[1] - d[0]) / n)
+                for d, n, o in zip(self.domain, self.shape, offs)]
+        return tuple(m.astype(np.float32) for m in np.meshgrid(*axes, indexing="ij"))
+
+    def rfft_mesh(self):
+        return rfft_mesh(self.shape, self.domain)
+
+    def fft_mesh(self):
+        return fft_mesh(self.shape, self.domain)
 
 
 def _domain_lengths(domain) -> Tuple[float, float]:
@@ -34,6 +77,17 @@ def rfft_mesh(shape: Sequence[int], domain=TORUS):
     lx, ly = _domain_lengths(domain)
     kx = np.fft.fftfreq(nx, d=lx / nx)
     ky = np.fft.rfftfreq(ny, d=ly / ny)
+    kxm, kym = np.meshgrid(kx, ky, indexing="ij")
+    return kxm.astype(np.float32), kym.astype(np.float32)
+
+
+def fft_mesh(shape: Sequence[int], domain=TORUS):
+    """``(kx, ky)`` wavenumber meshes of the full ``fft2`` layout ``[nx, ny]``,
+    float32."""
+    nx, ny = shape
+    lx, ly = _domain_lengths(domain)
+    kx = np.fft.fftfreq(nx, d=lx / nx)
+    ky = np.fft.fftfreq(ny, d=ly / ny)
     kxm, kym = np.meshgrid(kx, ky, indexing="ij")
     return kxm.astype(np.float32), kym.astype(np.float32)
 

@@ -1,8 +1,9 @@
 """A small HDF5 writer and reader in numpy, for hosts without ``h5py``.
 
-It covers what the dataset generator writes and the builders read: a file
-of groups holding contiguous, little-endian datasets (float32 and float64
-written; integers read too). The files are
+It covers what the dataset generators write and the builders read: a file
+of groups holding contiguous, little-endian datasets (float32, float64,
+int32 and int64), and scalar attributes of the root group (``dt`` and
+``inner_steps`` of the Kolmogorov files). The files are
 in the format HDF5's own library writes by default (superblock version 0,
 version-1 object headers, groups as symbol tables), so ``h5py`` and every
 HDF5 tool read them, and ``read_dataset`` reads such files written by
@@ -12,12 +13,14 @@ zeros). Chunked, compressed, string and compound datasets are refused.
 ``H5Writer`` lays the whole file out up front (every dataset's shape is
 known) and then writes rows of a dataset in place, so a dataset larger
 than memory is filled a batch at a time; space never written reads as 0,
-HDF5's default fill value.
+HDF5's default fill value. With ``atomic`` it writes ``path + ".tmp"`` and
+renames it to ``path`` when it is closed without an error, so that an
+unfinished file never stands under the final name.
 """
 
 import os
 import struct
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -29,7 +32,8 @@ _LEAF_K, _INTERNAL_K = 4, 16  # the library's defaults: 2K symbols a node, 2K ch
 _HEAP_FREE_NULL = 1  # the on-disk end of a local heap's free list
 
 # Object header message types.
-_DATASPACE, _DATATYPE, _FILL, _LAYOUT, _CONTINUATION, _SYMBOL_TABLE = 1, 3, 5, 8, 16, 17
+_DATASPACE, _DATATYPE, _FILL, _LAYOUT, _ATTRIBUTE, _CONTINUATION, _SYMBOL_TABLE = (
+    1, 3, 5, 8, 12, 16, 17)
 
 
 def _pad8(n: int) -> int:
@@ -48,6 +52,10 @@ def _object_header(messages: Sequence[bytes]) -> bytes:
 
 def _datatype(dtype: np.dtype) -> bytes:
     dtype = np.dtype(dtype)
+    if dtype.kind in "iu" and dtype.itemsize in (4, 8):
+        # class 0 (fixed point), version 1; little-endian, signed or not.
+        return (struct.pack("<B3BI", 0x10, 0x08 if dtype.kind == "i" else 0, 0, 0, dtype.itemsize)
+                + struct.pack("<HH", 0, dtype.itemsize * 8))
     if dtype.kind != "f" or dtype.itemsize not in (4, 8):
         raise TypeError(f"HDF5 writer: unsupported dtype {dtype}")
     bits = dtype.itemsize * 8
@@ -57,15 +65,40 @@ def _datatype(dtype: np.dtype) -> bytes:
             + struct.pack("<HHBBBBI", 0, bits, mant, exp, 0, mant, bias))
 
 
+def _attribute(name: str, value) -> bytes:
+    """A version-1 attribute message body: a scalar of ``value``'s type
+    (a Python float is float64, an int int64)."""
+    value = np.asarray(value)
+    if value.ndim != 0:
+        raise ValueError(f"HDF5 writer: attribute {name!r} must be a scalar")
+    if value.dtype.kind == "i":
+        value = value.astype(np.int64)
+    raw_name = name.encode() + b"\0"
+    dtype, space = _datatype(value.dtype), struct.pack("<BBBx4x", 1, 0, 0)  # scalar dataspace
+    pad = lambda b: b.ljust(_pad8(len(b)), b"\0")
+    return (struct.pack("<BxHHH", 1, len(raw_name), len(dtype), len(space)) + pad(raw_name)
+            + pad(dtype) + pad(space) + value.astype(value.dtype.newbyteorder("<")).tobytes())
+
+
 class H5Writer:
     """Create ``path`` (which must not exist) with one contiguous dataset
-    for each entry of ``datasets`` (``"group/name" -> (shape, dtype)``),
-    then fill rows with ``write``. Use as a context manager."""
+    for each entry of ``datasets`` (``"group/name" -> (shape, dtype)``) and
+    the scalar root attributes ``attrs``, then fill rows with ``write``. Use
+    as a context manager. With ``atomic`` the file is written as ``path +
+    ".tmp"`` (replaced if it is there) and renamed to ``path`` (replacing
+    it) by ``close``; leaving the context with an error deletes it."""
 
-    def __init__(self, path: str, datasets: Dict[str, Tuple[Tuple[int, ...], np.dtype]]):
-        if os.path.exists(path):
+    def __init__(self, path: str, datasets: Dict[str, Tuple[Tuple[int, ...], np.dtype]],
+                 attrs: Optional[Dict[str, object]] = None, atomic: bool = False):
+        self.final_path = path
+        if atomic:
+            path = path + ".tmp"
+            if os.path.exists(path):
+                os.remove(path)
+        elif os.path.exists(path):
             raise FileExistsError(f"{path} exists; the HDF5 writer makes new files only")
         self.path = path
+        self._attrs = [_attribute(k, v) for k, v in (attrs or {}).items()]
         self._layout: Dict[str, Tuple[int, Tuple[int, ...], np.dtype]] = {}
         # The tree of groups: a dict per group, a (shape, dtype) tuple per dataset.
         root: dict = {}
@@ -77,7 +110,7 @@ class H5Writer:
             node[leaf] = (tuple(int(s) for s in shape), np.dtype(dtype), name)
         self._blocks: list = []  # (address, bytes) of the metadata
         self._end = 96  # after the superblock
-        root_header, root_cache = self._group(root)
+        root_header, root_cache = self._group(root, self._attrs)
         superblock = (_SIGNATURE + struct.pack("<8BHHI", 0, 0, 0, 0, 0, 8, 8, 0, _LEAF_K,
                                                 _INTERNAL_K, 0)
                       + struct.pack("<QQQQ", 0, _UNDEF, self._end, _UNDEF)
@@ -108,9 +141,10 @@ class H5Writer:
             return struct.pack("<QQII16x", name_offset, header, 0, 0)
         return struct.pack("<QQIIQQ", name_offset, header, 1, 0, *group_cache)
 
-    def _group(self, members: dict):
-        """Write a group and everything in it; returns the address of its
-        object header and the (B-tree, heap) addresses."""
+    def _group(self, members: dict, attrs=()):
+        """Write a group and everything in it, with the attribute messages
+        ``attrs``; returns the address of its object header and the
+        (B-tree, heap) addresses."""
         names = sorted(members)
         if len(names) > 2 * _LEAF_K:
             raise ValueError(f"HDF5 writer: at most {2 * _LEAF_K} members a group")
@@ -141,7 +175,8 @@ class H5Writer:
                  + keys.ljust((2 * _INTERNAL_K + 1) * 8 + 2 * _INTERNAL_K * 8, b"\0"))
         btree_address = self._put(btree)
         header = self._put(_object_header(
-            [_message(_SYMBOL_TABLE, struct.pack("<QQ", btree_address, heap_header))]))
+            [_message(_SYMBOL_TABLE, struct.pack("<QQ", btree_address, heap_header))]
+            + [_message(_ATTRIBUTE, a) for a in attrs]))
         return header, (btree_address, heap_header)
 
     def _dataset(self, shape, dtype, name) -> int:
@@ -167,13 +202,20 @@ class H5Writer:
         self._file.write(rows.astype(dtype.newbyteorder("<"), copy=False).tobytes())
 
     def close(self) -> None:
+        """Close the file; an atomic writer renames it to its final path."""
         self._file.close()
+        if self.path != self.final_path:
+            os.replace(self.path, self.final_path)
 
     def __enter__(self):
         return self
 
-    def __exit__(self, *exc):
-        self.close()
+    def __exit__(self, exc_type, *exc):
+        if exc_type is not None and self.path != self.final_path:
+            self._file.close()
+            os.remove(self.path)
+        else:
+            self.close()
 
 
 # --- reading ------------------------------------------------------------------------

@@ -7,14 +7,15 @@ writes a float32 scratch, then the X launch, which adds it, as
 ``fused_mix_2d`` launches them) at the flagship shapes (x [19, 64, 64, 64],
 16 modes, float32 mode weights) in f32 and bf16, and variants of the same
 source with one part switched off, to see where the time goes. With
-``--parent-source`` it does the same for another version of the source
-with the same C interface (an earlier design, e.g. from a ``git archive``
-of an older commit), with that design's own parts. Each variant is its
+``--parent-source`` it also times another version of the source whole
+(an earlier design, e.g. from a ``git archive`` of an older commit); the C
+interface before and after the mode chunks' partial-sum
+argument is told apart by the source. Each variant is its
 source with textual changes, built by ``nvcc`` with the flags of
 ``ops/_cuda.py`` (all builds at once) and loaded with ctypes; the variants
 are timed in turns in one process, by CUDA events around 30 back-to-back
 calls after a warm-up, three rounds, median reported. Only the variants
-``kernel`` and the two ring variants compute the mix: the others are wrong
+``kernel`` and the ring variant compute the mix: the others are wrong
 on purpose.
 """
 
@@ -39,37 +40,28 @@ from fourierflow_tpu_torch.ops.spectral import stacked_bases  # noqa: E402
 SOURCE = os.path.join(ROOT, "fourierflow_tpu_torch/csrc/fused_spectral.cu")
 
 # name -> [(text in the source, replacement)]; each text must occur once.
-# This design: x and the weights streamed through shared-memory rings.
+# This design: x and the weights streamed through shared-memory rings, the
+# modes walked in chunks (one chunk at the flagship).
 VARIANTS = {
     "kernel": [],
     "no x staging": [("if (q < nq) {", "if (false) {")],
     "no forward product": [("if (tt < rows) {", "if (tt < 0) {")],
-    "no weight staging": [("if (k < nk) {", "if (false) {")],
+    "no weight staging": [("if (ch < nch) {", "if (false) {")],
     "no mix": [("if (ii >= ni) break;", "break;")],
     "no weight staging, no mix": [
-        ("if (k < nk) {", "if (false) {"),
+        ("if (ch < nch) {", "if (false) {"),
         ("if (ii >= ni) break;", "break;")],
-    "no inverse product": [("for (int m = 0; m < modes; ++m) {", "for (int m = 0; m < 0; ++m) {")],
+    "no inverse product": [("for (int m = 0; m < mc; ++m) {", "for (int m = 0; m < 0; ++m) {")],
     "no inverse, no store": [
         ("p.out[base[l] + (tc * SC + j) * p.elem_stride] = from_f<TO>(acc[l][j]);", ";")],
-    # Deeper rings in the same shared memory: more, smaller steps.
+    # A deeper x ring in the same shared memory: more, smaller steps. (The
+    # weight ring has two stages by design: the mix loop starts the next
+    # chunk only.)
     "x ring of 4 stages of 4 samples": [("constexpr int TC = 8;", "constexpr int TC = 4;"),
                                         ("constexpr int XS = 2;", "constexpr int XS = 4;")],
-    "weight ring of 4 stages of 2 channels": [("constexpr int IC = 4;", "constexpr int IC = 2;"),
-                                              ("constexpr int WS = 2;", "constexpr int WS = 4;")],
 }
-# The first design (4 lines a block, x staged whole, weights read from L2
-# in the mix loop).
-PARENT_VARIANTS = {
-    "kernel": [],
-    "no x staging": [("    xs[i] = v;\n", "")],
-    "no forward product": [("for (int t = 0; t < n; ++t) {", "for (int t = 0; t < 0; ++t) {")],
-    "no weight loads": [("load_weight<TI>(wp, w_sp, pair, a, b);", "a = 0.5f, b = 0.25f;")],
-    "no mix (nor weight loads)": [("for (int i = 0; i < C; ++i, wp += w_si) {",
-                                   "for (int i = 0; i < 0; ++i, wp += w_si) {")],
-    "no inverse product": [("for (int k = 0; k < K; ++k) {", "for (int k = 0; k < 0; ++k) {")],
-    "no inverse, no store": [("out[idx] = from_f<TO>(v);", ";")],
-}
+# An earlier version of the source (e.g. the parent commit's), timed whole.
+PARENT_VARIANTS = {"kernel": []}
 
 
 def variant_sources(src, variants, tag):
@@ -93,9 +85,9 @@ def build(sources, tmp):
             f.write(text)
         cmd = [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o", so, cu]
         procs[key] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                       text=True), so)
+                                       text=True), so, text)
     libs = {}
-    for key, (proc, so) in procs.items():
+    for key, (proc, so, text) in procs.items():
         out, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"variant {key} failed to build:\n{out}")
@@ -104,14 +96,17 @@ def build(sources, tmp):
         log(f"build {key[0]} / {key[1]}: {', '.join(regs)}")
         lib = ctypes.CDLL(so)
         vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.spectral_axis.argtypes = [i, i, i, vp, vp, vp, vp, ll, ll, ll, ll, i, vp, vp, i, i,
-                                      ll, ll, ll, i, i, i, vp]
+        # Sources since the mode chunks take a partial-sum array after prev.
+        takes_acc = "void* acc" in text
+        lib.spectral_axis.argtypes = [i, i, i, vp, vp, vp, vp, ll, ll, ll, ll, i, vp,
+                                      *([vp] if takes_acc else []), vp, i, i, ll, ll, ll, i, i,
+                                      i, vp]
         lib.spectral_axis.restype = i
-        libs[key] = lib
+        libs[key] = (lib, takes_acc)
     return libs
 
 
-def launcher(lib, dtype, dev):
+def launcher(lib, takes_acc, dtype, dev):
     """One forward call: the Y launch writes an f32 scratch, the X launch adds it."""
     x, wy, wx = mix_inputs(B, N, N, M, dtype, dev, seed=0)
     b, sx, sy, c = x.shape
@@ -125,7 +120,7 @@ def launcher(lib, dtype, dev):
             (wy, sx, sy * c, c, None, first, 0), (wx, sy, c, sy * c, first, out, code)):
         launches.append((code, 0, out_code, x.data_ptr(), fwd.data_ptr(), inv.data_ptr(),
                          w.data_ptr(), *w.stride(), 0, None if prev is None else prev.data_ptr(),
-                         dst.data_ptr(), b * lines, lines, sx * sy * c, line_stride, elem_stride,
+                         *([first.data_ptr()] if takes_acc else []), dst.data_ptr(), b * lines, lines, sx * sy * c, line_stride, elem_stride,
                          N, M, c, stream))
 
     def run():
@@ -165,7 +160,7 @@ def main():
         libs = build(sources, tmp)
         for dtype in (torch.float32, torch.bfloat16):
             tag = str(dtype).replace("torch.", "")
-            runs = {key: launcher(lib, dtype, dev) for key, lib in libs.items()}
+            runs = {key: launcher(*lib, dtype, dev) for key, lib in libs.items()}
             times = {key: [] for key in runs}
             for _ in range(3):
                 for key, fn in runs.items():

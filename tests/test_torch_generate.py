@@ -242,7 +242,8 @@ def test_h5_writer_files_read_by_h5py(tmp_path):
     arrays = {"train/a": rng.randn(5, 4, 4).astype(np.float32),
               "train/u": rng.randn(5, 4, 4, 3).astype(np.float32),
               "valid/mu": rng.rand(2).astype(np.float32),
-              "x": rng.randn(3).astype(np.float64)}
+              "x": rng.randn(3).astype(np.float64),
+              "t": np.arange(-3, 3, dtype=np.int64), "n": np.arange(4, dtype=np.int32)}
     layout = {k: (v.shape, v.dtype) for k, v in arrays.items()}
     layout["valid/f"] = ((2, 4, 4), np.float32)  # never written
     path = str(tmp_path / "w.h5")
@@ -261,8 +262,8 @@ def test_h5_writer_files_read_by_h5py(tmp_path):
         np.testing.assert_array_equal(read_dataset(path, k), v)
     with pytest.raises(FileExistsError):
         H5Writer(path, layout)
-    with pytest.raises(TypeError, match="int64"):
-        H5Writer(str(tmp_path / "i.h5"), {"i": ((3,), np.int64)})
+    with pytest.raises(TypeError, match="complex64"):
+        H5Writer(str(tmp_path / "c.h5"), {"c": ((3,), np.complex64)})
     with pytest.raises(KeyError, match="no 'test'"):
         read_dataset(path, "test/u")
 

@@ -339,9 +339,10 @@ def test_fused_mix_kernel_argument_checks():
     with pytest.raises(ValueError, match="has 0 modes"):
         _check_args(x.detach(), torch.zeros(8, 8, 0, 2), wx)
 
-    # The kernel's own limits: each thread mixes one mode for at most three
-    # output channels, C <= 3 * (512 // M), and a block's rings, bases and
-    # spectra fit in 232,448 bytes of shared memory.
+    # The kernel's own limits: a block walks the modes in chunks, each thread
+    # mixes one mode of a chunk for at most three output channels, C <= 3 *
+    # (512 // chunk), and a block's rings, bases and spectra fit in 232,448
+    # bytes of shared memory. Shapes beyond one chunk take several.
     def mix(b=1, sx=64, sy=64, c=64, m=16, dtype=torch.float32, w_dtype=torch.float32):
         _check_args(torch.zeros(b, sx, sy, c, dtype=dtype),
                     *(torch.zeros(c, c, m, 2, dtype=w_dtype) for _ in range(2)))
@@ -352,13 +353,16 @@ def test_fused_mix_kernel_argument_checks():
     mix(sx=32, sy=32, m=17)
     mix(sx=128, sy=128)
     mix(c=48, m=32, dtype=torch.bfloat16, w_dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match=r"C <= 3 \* \(512 // M\) = 48 at M 32, got C 49"):
-        mix(c=49, m=32, dtype=torch.bfloat16, w_dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="shared memory"):
-        mix(c=72)
+    mix(c=49, m=32, dtype=torch.bfloat16, w_dtype=torch.bfloat16)  # two chunks of 16
+    mix(c=72)
     mix(c=72, dtype=torch.bfloat16, w_dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="wx at n=160, M=16, C=64 needs 234576 B of shared memory"):
-        mix(sx=160)
+    mix(sx=160)
+    mix(b=2, sx=256, sy=256, m=64)  # the torus_kochkov grids
+    mix(b=8, sx=128, sy=128, m=32)
+    with pytest.raises(ValueError, match=r"C above 3 \* 512 = 1536"):
+        mix(c=1537, m=1, sx=4, sy=4)
+    with pytest.raises(ValueError, match="wx at n=5000, C=64 needs 250256 B of shared memory"):
+        mix(sx=5000, sy=8, m=2)
 
 
 def test_fused_mix_kernel_smem_formula():
@@ -380,3 +384,27 @@ def test_fused_mix_kernel_smem_formula():
     assert _smem_bytes(65, 16, 64, f32, f32) == 65_536 + 40_960 + 8_320 + 9_216 + 87_040 + 80
     assert _smem_bytes(32, 17, 64, f32, f32) == 69_632 + 40_960 + 5_120 + 4_352 + 87_040 + 80
     assert _smem_bytes(7, 4, 64, f32, f32) == 16_384 + 40_960 + 224 + 256 + 25_600 + 80
+
+
+@pytest.mark.parametrize("n,modes,dtype,chunk", [
+    (32, 16, torch.float32, 16), (64, 16, torch.float32, 16), (128, 16, torch.float32, 16),
+    (128, 32, torch.float32, 16), (128, 32, torch.bfloat16, 16), (256, 16, torch.float32, 8),
+    (256, 32, torch.float32, 12), (256, 64, torch.float32, 12), (256, 64, torch.bfloat16, 12),
+    (64, 33, torch.float32, 12), (32, 17, torch.float32, 17)])
+def test_fused_mix_kernel_mode_chunks(n, modes, dtype, chunk):
+    """The modes a block takes at once (``mode_chunk`` in the source): all
+    of them where they fit (the flagship), else the largest multiple of 4
+    that fits, evened out over the chunks (64 modes at n 256: 12 x 5 + 4;
+    16 modes: 8 + 8). ``_smem_bytes`` is the layout at that chunk, within a
+    block's shared memory. ``chip_smoke.py`` holds both to the kernel's."""
+    from fourierflow_tpu_torch.ops import _cuda
+    from fourierflow_tpu_torch.ops.fused_spectral import _layout_bytes, _mode_chunk, _smem_bytes
+
+    assert _mode_chunk(n, modes, 64, dtype, torch.float32) == chunk
+    size = torch.finfo(dtype).bits // 8
+    assert _smem_bytes(n, modes, 64, dtype, torch.float32) == _layout_bytes(n, chunk, 64, size, 4)
+    assert _smem_bytes(n, modes, 64, dtype, torch.float32) <= _cuda.MAX_SMEM
+    if chunk < modes:  # as few chunks as the largest multiple of 4 that fits needs
+        best = max(mc for mc in range(4, modes, 4)
+                   if _layout_bytes(n, mc, 64, size, 4) <= _cuda.MAX_SMEM)
+        assert -(-modes // chunk) == -(-modes // best)

@@ -1,12 +1,17 @@
-"""The port's experiment registry (the torus families) against the JAX
-package's, on the CPU.
+"""The port's experiment registry (the torus families and the Kolmogorov
+data configs) against the JAX package's, on the CPU.
 
 - Names: the port's ``experiment_names()`` equals the ``torus_li``,
-  ``torus_vis`` and ``torus_vis_force`` names of the JAX registry.
+  ``torus_vis``, ``torus_vis_force`` and ``torus_kochkov`` names and the
+  ``data/`` names of the JAX registry, less those of modules not ported
+  yet (``torus_kochkov/fcno``, the learned interpolation, the projection
+  method's data configs).
 - Nodes: every such config equals JAX's, with the JAX package's target
   prefix mapped onto the port's.
 - Instantiation: every routine builds in the port at 2 layers, initialises
-  on a batch of its builder's layout and runs its model forward.
+  on a batch of its builder's layout (on a grid that holds its modes) and
+  runs its model forward; every data config's stepper, at a 32^2 grid,
+  takes a step.
 - ``load_config`` reads a registry name, ``configs list|export`` on the
   command line, and each name is its own run directory.
 """
@@ -22,12 +27,15 @@ from fourierflow_tpu.experiments import experiment_names as jax_experiment_names
 from fourierflow_tpu.experiments import get_experiment as jax_get_experiment
 from fourierflow_tpu_torch.commands.__main__ import main as cli
 from fourierflow_tpu_torch.commands.train import build_routine, experiment_dir
-from fourierflow_tpu_torch.config import load_config
+from fourierflow_tpu_torch.config import instantiate, load_config
 from fourierflow_tpu_torch.experiments import experiment_names, get_experiment
 from fourierflow_tpu_torch.routines import Grid2DMarkovRoutine
 
-FAMILIES = ("torus_li", "torus_vis", "torus_vis_force")
+FAMILIES = ("torus_li", "torus_vis", "torus_vis_force", "torus_kochkov", "data")
+NOT_PORTED = ("torus_kochkov/fcno/", "torus_kochkov/learned_interpolation/")
 NAMES = experiment_names()
+EXPERIMENTS = [n for n in NAMES if not n.startswith("data/")]
+DATA_CONFIGS = [n for n in NAMES if n.startswith("data/")]
 GRID = 32  # the smallest grid that holds 16 (F-FNO) and 12 (FNO-4) modes
 
 
@@ -42,10 +50,16 @@ def _port_targets(node):
     return node
 
 
+def _ported(name):
+    if name.split("/")[0] not in FAMILIES or name.startswith(NOT_PORTED):
+        return False
+    return not name.startswith("data/") or jax_get_experiment(name)["method"] != "projection"
+
+
 def test_names_equal_the_jax_torus_names():
-    want = [n for n in jax_experiment_names() if n.split("/")[0] in FAMILIES]
+    want = [n for n in jax_experiment_names() if _ported(n)]
     assert NAMES == want
-    assert len(NAMES) == 99
+    assert len(NAMES) == 196 and len(DATA_CONFIGS) == 45
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -53,31 +67,49 @@ def test_config_equals_jax(name):
     assert get_experiment(name) == _port_targets(jax_get_experiment(name))
 
 
-def _sample_batch(cfg):
-    """A batch of the builder's layout on a GRID x GRID grid."""
+def _sample_batch(cfg, grid):
+    """A batch of the builder's layout on a ``grid`` x ``grid`` grid."""
     rng = np.random.RandomState(0)
-    field = lambda c: rng.randn(2, GRID, GRID, c).astype(np.float32)
+    field = lambda c: rng.randn(2, grid, grid, c).astype(np.float32)
     target = cfg["builder"]["_target_"].rsplit(".", 1)[1]
     if target == "NSZongyiBuilder":  # 10 input frames and 2 position channels
         return {"x": field(12), "y": field(10)}
     batch = {"x": field(1), "y": field(1)}
     if target == "NSContextualBuilder":
         batch.update(f=field(1)[..., 0], mu=np.array([1e-5, 1e-4], np.float32))
+    if target == "KolmogorovBuilder":
+        batch.update(vx=field(1), vy=field(1))
     return batch
 
 
-@pytest.mark.parametrize("name", NAMES)
+@pytest.mark.parametrize("name", EXPERIMENTS)
 def test_routine_instantiates(name):
     cfg = load_config(name, ["routine.conv.n_layers=2"])
+    grid = max(GRID, 2 * cfg["routine"]["conv"].get("modes", 0))  # torus_kochkov: 32 or 64 modes
     routine = build_routine(cfg["routine"])
-    batch = _sample_batch(cfg)
+    batch = _sample_batch(cfg, grid)
     state = routine.init(0, batch, "cpu")
     x = torch.from_numpy(batch["x"])
     if isinstance(routine, Grid2DMarkovRoutine):
         x = routine.build_features(x, batch.get("f"), batch.get("mu"))
     with torch.no_grad():
         out = state.model(x)["forecast"]
-    assert out.shape == (2, GRID, GRID, 1) and torch.isfinite(out).all()
+    assert out.shape == (2, grid, grid, 1) and torch.isfinite(out).all()
+
+
+@pytest.mark.parametrize("name", DATA_CONFIGS)
+def test_data_config_steps(name):
+    """The config's grid, time step and CN-RK4 stepper, the grid cut to
+    32^2: one step of a smooth field stays finite and changes it."""
+    cfg = load_config(name, ["sim_grid.shape=[32,32]"])
+    grid = instantiate(cfg["sim_grid"])
+    dt = cfg["time_step"] if isinstance(cfg["time_step"], float) else instantiate(cfg["time_step"])
+    step = instantiate(cfg["step_fn"])
+    x = torch.linspace(0, 2 * np.pi * (1 - 1 / 32), 32)
+    w_hat = torch.fft.rfft2(torch.sin(4 * x)[None, :, None] * torch.cos(3 * x)[None, None, :])
+    out = step(w_hat)
+    assert grid.shape == (32, 32) and 0 < dt < 1 and step.time_step == dt
+    assert torch.isfinite(torch.view_as_real(out)).all() and not torch.equal(out, w_hat)
 
 
 def test_load_config_reads_the_registry_with_overrides():

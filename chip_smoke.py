@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--seed N]
 
-Phases, each reporting on its own lines; every run goes through all eleven:
+Phases, each reporting on its own lines; every run goes through all twelve:
 
 1. ``device``: the card's name and power limit (nvidia-smi), torch and CUDA versions.
 2. ``build``: compile every CUDA source in ``csrc/``, all at once.
@@ -15,7 +15,11 @@ Phases, each reporting on its own lines; every run goes through all eleven:
    bf16 mode weights, line counts that are not a multiple of the kernel's
    10 lines a block, above one round of blocks and below one block, and the
    torus_kochkov shapes (32^2 to 256^2, 16 to 64 modes, in mode chunks), for
-   the spectral mix and its adjoint; two runs of each kernel at the flagship
+   the spectral mix and its adjoint; in float32 the structured-mesh shapes
+   (the feed-forward at 135,110, 187,690 and 238,056 rows, and at width 32,
+   hidden 128; the mix and its adjoint at x [10, 229, 59, 64] with M 32 on X
+   and 16 on Y, at width 32 with M 24 / 12, and at [10, 137, 137, 64] M 16);
+   two runs of each kernel at the flagship
    bit-identical; and the whole
    backward of each autograd Function (dx, dW, db) against
    ``torch.autograd.grad`` through its plain forward.
@@ -64,7 +68,21 @@ Phases, each reporting on its own lines; every run goes through all eleven:
    epoch of 4 steps and the test pass; its time per train step; one train
    step's loss and every gradient on the card against a float32 CPU copy.
    No hand-written kernel lies on this path (torch.fft and matmuls).
-9. ``context``: the torus_vis slice. ``navier_stokes`` writes
+9. ``mesh``: the structured-mesh slice. The Geo-FNO datasets are written at
+   their shapes from the seed (airfoil X, Y [N, 221, 51] and Q [N, 5, 221,
+   51]; pipe [N, 129, 129]; plasticity's input [N, 101] and output [N, 101,
+   31, 20, 4] as a .mat), the splits cut as printed; ``train``, ``test`` and
+   ``predict`` on ``airfoil/ffno/24_layers`` by registry name at full width
+   (24 layers, width 64, M 32 / 16, batch 10), and 2 more of its steps;
+   2 steps each of ``pipe/ffno/24_layers``, ``airfoil/ffno-small/24_layers``,
+   ``plasticity/ffno/24_layers`` (batch 2), ``airfoil/geo-fno/4_layers`` and
+   ``plasticity/geo-fno/4_layers`` held to a float32 CPU copy (Geo-FNO's
+   parameters to a copy updated from the card's gradients: see
+   ``hold_steps``); the launches of every configuration's 2 steps (24 of
+   each kernel a step in the 2D F-FNO, of the feed-forward ones in the 3D
+   F-FNO, none in Geo-FNO), its ms per train step and its device time by
+   kernel group from a profiler trace.
+10. ``context``: the torus_vis slice. ``navier_stokes`` writes
    ``torus_vis.h5`` and ``torus_vis_force.h5`` on the card (the JAX study's
    recipe: 64x64, t 20, 200 records, random force of 2 cycles, static or
    varying, mu in [1e-5, 1e-4], seeds 48396 / 48397), cut to one batch a
@@ -81,7 +99,7 @@ Phases, each reporting on its own lines; every run goes through all eleven:
    and 20 steps: an artifact that takes a force, equal to the live serving
    module to the bit, launching A and B 24 x 20 times a call, timed beside
    the eager rollout. Every kernel must be launched on this path.
-10. ``kolmogorov``: the Kolmogorov-flow slice. ``generate kolmogorov`` by
+11. ``kolmogorov``: the Kolmogorov-flow slice. ``generate kolmogorov`` by
    registry name writes the protocol's initial conditions and trajectories
    of the three splits on the card, cut as printed (a 256^2 simulation at
    its own CFL step, the warm-up's 40 time units and the records' cadence
@@ -100,13 +118,15 @@ Phases, each reporting on its own lines; every run goes through all eleven:
    each held and timed the same way; ``test`` of the 64^2 checkpoint at 256^2
    (``superresolution/train_with_x64/256``); ``train`` of
    ``multi_resolution/x32_x64`` on 32^2 and 64^2 batches in turn.
-11. ``time`` (in a child process of this script, which starts with no CUDA
+12. ``time`` (in a child process of this script, which starts with no CUDA
    graph and no profiler session behind it): each kernel, its plain version
    and a PyTorch yardstick the port
    never calls, by their device time in a profiler trace (and the kernel's
    wall time back to back, between CUDA events); the least time the card
    could take and the kernel's time over it; the spectral mix and its
-   adjoint also at x [8, 128, 128, 64] M 32 and [2, 256, 256, 64] M 64. It
+   adjoint also at x [8, 128, 128, 64] M 32 and [2, 256, 256, 64] M 64, and
+   in float32 every kernel at the airfoil's shapes (135,110 rows; x [10,
+   229, 59, 64] M 32 / 16). It
    runs last, so that no profiler session precedes the timed rollout and
    train steps.
 
@@ -225,6 +245,16 @@ KOL_MIX_CASES = (((32, N, N, M), {}), ((32, 32, 32, M), {}), ((8, 128, 128, 32),
                  ((2, 256, 256, 64), {}), ((2, 256, 256, M), {}), ((12, 256, 256, 32), {}))
 KOL_TIME_CASES = ((8, 128, 128, 32), (2, 256, 256, 64))
 MIX_BF16_CASES = (((2, 40, 48, 12), dict(w_dtype=torch.bfloat16)),)
+# The structured-mesh shapes, each grid padded by 8 on the high side of every axis:
+# airfoil 221 x 51 -> 229 x 59 at batch 10 (ffno: M 32 on X, 16 on Y; ffno-small: width 32,
+# M 24 / 12), pipe 129^2 -> 137^2 at batch 10 (M 16), plasticity 101 x 31 x 20 -> 109 x 39 x
+# 28 at batch 2 (its three spectral branches are the plain version, as in JAX): the rows
+# of the feed-forward and the spectral mix's x. Checked in float32.
+AIRFOIL_ROWS, PIPE_ROWS, PLAS_ROWS = 10 * 229 * 59, 10 * 137 * 137, 2 * 109 * 39 * 28
+MESH_SMALL = dict(cin=32, hidden=128, cout=32)
+MESH_FF_CASES = ((AIRFOIL_ROWS, {}), (PIPE_ROWS, {}), (PLAS_ROWS, {}), (AIRFOIL_ROWS, MESH_SMALL))
+MESH_MIX_CASES = (((10, 229, 59, 32), dict(modes_y=16)),
+                  ((10, 229, 59, 24), dict(modes_y=12, c=32)), ((10, 137, 137, 16), {}))
 # The serve phase: the exported rollout's steps and batches, and its tolerance against
 # the live serving module and the eager rollout (max |err| / max |reference|, f32).
 SERVE_STEPS = 20
@@ -267,6 +297,19 @@ KOL_SUPERRES = "torus_kochkov/ffno/superresolution/train_with_x64/256"
 KOL_MULTI = "torus_kochkov/ffno/multi_resolution/x32_x64"
 KOL_STEPS = 3  # train steps after the normalizer pass, and steps held to a CPU copy
 KOL_GRID_STEPS = 2  # steps of grid_sizes/128 and /256 held to a CPU copy (the run's time)
+# The mesh phase: the Geo-FNO datasets at their shapes (NACA_Cylinder_{X,Y} [N, 221, 51] and
+# _Q [N, 5, 221, 51], of which the registry reads channel 4; Pipe_{X,Y} [N, 129, 129] and
+# _Q [N, 1, 129, 129], channel 0 read; plas_N987_T20.mat's input [N, 101] and output [N,
+# 101, 31, 20, 4]), made from the seed, with the splits cut from the registry's 1,000 / 200
+# / 200 (airfoil, pipe) and 827 / 80 / 80 (plasticity); the configuration trained and tested
+# by name at full width; the ones whose steps are held to a CPU copy and timed.
+MESH_SPLITS = {"airfoil": (40, 10, 10), "pipe": (20, 10, 10), "plasticity": (40, 2, 2)}
+MESH_REGISTRY_SPLITS = {"airfoil": (1000, 200, 200), "pipe": (1000, 200, 200),
+                        "plasticity": (827, 80, 80)}
+MESH_CONFIG = "airfoil/ffno/24_layers"
+MESH_HELD = ("pipe/ffno/24_layers", "airfoil/ffno-small/24_layers", "plasticity/ffno/24_layers",
+             "airfoil/geo-fno/4_layers", "plasticity/geo-fno/4_layers")
+MESH_STEPS = 2  # train steps of each configuration held to a CPU copy
 
 
 def log(*args):
@@ -286,17 +329,22 @@ def ff_inputs(rows, dtype, dev, seed, model_layout=True, cin=C, hidden=H, cout=C
     return x, r(cin, hidden, scale=cin ** -0.5), b1, r(hidden, cout, scale=hidden ** -0.5), b2
 
 
-def mix_inputs(b, sx, sy, modes, dtype, dev, seed, w_dtype=torch.float32, strided=False, c=C):
-    """x and two [C, C, M, 2] mode weights: float32 parameters as the model
-    holds them, or ``w_dtype``; ``strided`` makes them non-contiguous views."""
+def mix_inputs(b, sx, sy, modes, dtype, dev, seed, w_dtype=torch.float32, strided=False, c=C,
+               modes_y=None):
+    """x, wy and wx: [C, C, M, 2] mode weights, M ``modes`` (``modes_y`` for
+    wy where given), float32 parameters as the model holds them, or
+    ``w_dtype``; ``strided`` makes them non-contiguous views."""
     g = torch.Generator(device="cpu").manual_seed(seed)
     x = torch.randn(b, sx, sy, c, generator=g).to(dev, dtype)
-    scale = (2.0 / (2 * c * modes * 2)) ** 0.5
-    if strided:
-        w = lambda: (torch.randn(modes, 2, c, c, generator=g) * scale).to(dev, w_dtype).permute(2, 3, 0, 1)
-    else:
-        w = lambda: (torch.randn(c, c, modes, 2, generator=g) * scale).to(dev, w_dtype)
-    return x, w(), w()
+
+    def w(m):
+        scale = (2.0 / (2 * c * m * 2)) ** 0.5
+        if strided:
+            w = torch.randn(m, 2, c, c, generator=g) * scale
+            return w.to(dev, w_dtype).permute(2, 3, 0, 1)
+        return (torch.randn(c, c, m, 2, generator=g) * scale).to(dev, w_dtype)
+
+    return x, w(modes_y or modes), w(modes)
 
 
 def rel_err(got, want):
@@ -486,9 +534,9 @@ def phase_sass():
     wtypes = ((torch.float32, torch.float32), (torch.bfloat16, torch.float32),
               (torch.bfloat16, torch.bfloat16))
     chunks = {}
-    for (_, sx, sy, modes), opts in MIX_CASES + KOL_MIX_CASES + MIX_BF16_CASES:
+    for (_, sx, sy, modes), opts in MIX_CASES + KOL_MIX_CASES + MIX_BF16_CASES + MESH_MIX_CASES:
         c = opts.get("c", C)
-        for n in (sx, sy):
+        for n, modes in ((sx, modes), (sy, opts.get("modes_y") or modes)):
             for xt, wt in wtypes:
                 got = (_mix_smem_bytes(n, modes, c, xt, wt), _mix_mode_chunk(n, modes, c, xt, wt))
                 want = (_spectral_lib().spectral_axis_smem_bytes(
@@ -499,8 +547,8 @@ def phase_sass():
                     raise AssertionError(f"fused_mix_2d: the wrapper's (shared memory, mode chunk) "
                                          f"at n {n}, M {modes}, {xt}/{wt} is {got}, the kernel's "
                                          f"{want}")
-                if xt == wt == torch.float32 and c == C:
-                    chunks[f"n {n}, M {modes}"] = got[1]
+                if xt == wt == torch.float32:
+                    chunks[f"n {n}, M {modes}" + (f", C {c}" if c != C else "")] = got[1]
     log(f"sass fused_mix_2d: mode chunks (f32) {json.dumps(chunks)}")
     log(f"sass fused_mix_2d: shared memory at the flagship {_mix_smem_bytes(N, M, C, *wtypes[0])} "
         f"B (f32), {_mix_smem_bytes(N, M, C, *wtypes[1])} B (bf16 x); the wrapper's formula "
@@ -557,7 +605,15 @@ def phase_check(dev, seed):
                 raise AssertionError("fused_ff_bwd launched a kernel for 0 rows")
         check_function(f"fused_ff[{tag}, rows 1037, model weights]", fused_ff, fused_ff_plain,
                        ff_inputs(1000 + 37, dtype, dev, seed), dtype, seed)
-        cases = MIX_CASES + KOL_MIX_CASES + (MIX_BF16_CASES if dtype == torch.bfloat16 else ())
+        if dtype == torch.float32:
+            for rows, widths in MESH_FF_CASES:
+                what = f"[{tag}, mesh rows {rows}{', ' + str(widths) if widths else ''}]"
+                check(f"fused_ff{what}", fused_ff_cuda, fused_ff_plain,
+                      ff_inputs(rows, dtype, dev, seed, **widths), dtype)
+                check(f"fused_ff_bwd{what}", fused_ff_bwd_cuda, fused_ff_bwd_plain,
+                      ff_bwd_inputs(rows, dtype, dev, seed, **widths), dtype)
+        cases = MIX_CASES + KOL_MIX_CASES + (MIX_BF16_CASES if dtype == torch.bfloat16 else
+                                             MESH_MIX_CASES)
         for (b, sx, sy, modes), opts in cases:
             what = f"[{tag}, {b}x{sx}x{sy}x{opts.get('c', C)}, M {modes}, {opts or 'f32 weights'}]"
             args = mix_inputs(b, sx, sy, modes, dtype, dev, seed, **opts)
@@ -616,13 +672,14 @@ def _library_mix_adjoint(x, wy, wx):
     return lambda: torch.autograd.grad(y, xg, g, retain_graph=True)
 
 
-def mix_flops(b, sx, sy, modes, c):
-    """Operations of one spectral-mix call on x [b, sx, sy, c]: along each
-    axis, every line's forward and inverse truncated DFT (n x 2M x C
-    products each) and its per-mode complex C x C mix (4 M C^2 products),
-    two operations a product."""
-    return 2 * sum(b * lines * (2 * n * 2 * modes * c + 4 * modes * c * c)
-                   for n, lines in ((sy, sx), (sx, sy)))
+def mix_flops(b, sx, sy, modes, c, modes_y=None):
+    """Operations of one spectral-mix call on x [b, sx, sy, c] with ``modes``
+    along X (``modes_y`` along Y where given): along each axis, every line's
+    forward and inverse truncated DFT (n x 2M x C products each) and its
+    per-mode complex C x C mix (4 M C^2 products), two operations a
+    product."""
+    return 2 * sum(b * lines * (2 * n * 2 * m * c + 4 * m * c * c)
+                   for n, lines, m in ((sy, sx, modes_y or modes), (sx, sy, modes)))
 
 
 def timed(kernel, plain, library, flops, nbytes, dtype):
@@ -633,29 +690,40 @@ def timed(kernel, plain, library, flops, nbytes, dtype):
 
 
 def phase_time(dev, seed):
+    """Rows keyed ``(name, dtype)`` at the flagship's shapes, and ``(name,
+    dtype, label)`` at the other paths' shapes: the torus_kochkov grids (f32
+    and bf16) and the airfoil mesh (f32)."""
     rows = {}
     for dtype in DTYPES:
         isz = torch.tensor([], dtype=dtype).element_size()
-        args = ff_inputs(ROWS, dtype, dev, seed)
-        flops = 2 * ROWS * (C * H + H * C)
-        nbytes = (2 * ROWS * C + C * H + H + H * C + C) * isz
-        rows[("fused_ff", dtype)] = timed(
-            lambda: fused_ff_cuda(*args), lambda: fused_ff_plain(*args), _library_ff(*args),
-            flops, nbytes, dtype)
-        bargs = ff_bwd_inputs(ROWS, dtype, dev, seed)
-        flops = 10 * ROWS * C * H
-        nbytes = 3 * ROWS * C * isz + (2 * C * H + H) * isz + (2 * C * H + H + C) * 4
-        rows[("fused_ff_bwd", dtype)] = timed(
-            lambda: fused_ff_bwd_cuda(*bargs), lambda: fused_ff_bwd_plain(*bargs),
-            _library_ff_bwd(*bargs), flops, nbytes, dtype)
-        # The flagship's shape (keyed (name, dtype)), then the torus_kochkov ones (keyed
-        # (name, dtype, shape)). Operations and bytes as in mix_flops; the mode chunks
-        # do not enter the bound.
-        for shape in ((B, N, N, M),) + KOL_TIME_CASES:
-            x, wy, wx = mix_inputs(*shape, dtype, dev, seed)
-            flops = mix_flops(*shape, C)
+        f32 = dtype == torch.float32
+        for n_rows, tail in ((ROWS, ()),) + (
+                ((AIRFOIL_ROWS, (f"rows {AIRFOIL_ROWS} (airfoil)",)),) if f32 else ()):
+            args = ff_inputs(n_rows, dtype, dev, seed)
+            flops = 2 * n_rows * (C * H + H * C)
+            nbytes = (2 * n_rows * C + C * H + H + H * C + C) * isz
+            rows[("fused_ff", dtype) + tail] = timed(
+                lambda: fused_ff_cuda(*args), lambda: fused_ff_plain(*args), _library_ff(*args),
+                flops, nbytes, dtype)
+            bargs = ff_bwd_inputs(n_rows, dtype, dev, seed)
+            flops = 10 * n_rows * C * H
+            nbytes = 3 * n_rows * C * isz + (2 * C * H + H) * isz + (2 * C * H + H + C) * 4
+            rows[("fused_ff_bwd", dtype) + tail] = timed(
+                lambda: fused_ff_bwd_cuda(*bargs), lambda: fused_ff_bwd_plain(*bargs),
+                _library_ff_bwd(*bargs), flops, nbytes, dtype)
+        # Operations and bytes as in mix_flops; the mode chunks do not enter the bound.
+        label = lambda shape, opts, path: (
+            f"x [{', '.join(map(str, shape[:3]))}, {C}] M {shape[3]}"
+            + (f" / {opts['modes_y']}" if "modes_y" in opts else "") + f" ({path})")
+        airfoil_shape, airfoil_opts = MESH_MIX_CASES[0]
+        mix_cases = (((B, N, N, M), {}, ()),) + tuple(
+            (shape, {}, (label(shape, {}, "torus_kochkov"),)) for shape in KOL_TIME_CASES) + (
+            ((airfoil_shape, airfoil_opts, (label(airfoil_shape, airfoil_opts, "airfoil"),)),)
+            if f32 else ())
+        for shape, opts, tail in mix_cases:
+            x, wy, wx = mix_inputs(*shape, dtype, dev, seed, **opts)
+            flops = mix_flops(*shape, C, opts.get("modes_y"))
             nbytes = 2 * x.numel() * isz + (wy.numel() + wx.numel()) * wy.element_size()
-            tail = () if shape == (B, N, N, M) else (shape,)
             rows[("fused_mix_2d", dtype) + tail] = timed(
                 lambda: fused_mix_2d_cuda(x, wy, wx), lambda: fused_mix_2d_plain(x, wy, wx),
                 _library_mix(x, wy, wx), flops, nbytes, dtype)
@@ -663,8 +731,8 @@ def phase_time(dev, seed):
                 lambda: fused_mix_2d_adjoint_cuda(x, wy, wx),
                 lambda: fused_mix_2d_adjoint_plain(x, wy, wx), _library_mix_adjoint(x, wy, wx),
                 flops, nbytes, dtype)
-    for (name, dtype, *shape), r in rows.items():
-        at = f" at x [{', '.join(map(str, shape[0][:3]))}, {C}] M {shape[0][3]}" if shape else ""
+    for (name, dtype, *tail), r in rows.items():
+        at = f" at {tail[0]}" if tail else ""
         log(f"time {name}[{str(dtype).replace('torch.', '')}]{at}: kernel {r['ms']:.4f} ms "
             f"(back to back {r['wall_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
             f"library {r['library_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms ({r['bound'][1]}), "
@@ -1147,33 +1215,53 @@ def cpu_copy(routine, state):
     copy_ = routine.make_train_state(copy.deepcopy(state.model).cpu(), norm and dataclasses.replace(
         norm, sum=norm.sum.cpu(), sum_squared=norm.sum_squared.cpu(), count=norm.count.cpu(),
         n_accumulations=norm.n_accumulations.cpu()))
-    copy_.optimizer.load_state_dict(state.optimizer.state_dict())  # moves it to the CPU
+    # A deep copy: load_state_dict keeps the tensors of a state already on the CPU.
+    copy_.optimizer.load_state_dict(copy.deepcopy(state.optimizer.state_dict()))
     if state.scheduler is not None:
         copy_.scheduler.load_state_dict(state.scheduler.state_dict())
     return dataclasses.replace(copy_, step=state.step)
 
 
-def hold_steps(label, routine, state, batches, phase="context"):
+def hold_steps(label, routine, state, batches, phase="context", update_from_card=False):
     """Each of ``batches`` as one train step without noise on the card and
     on a CPU copy of the same state: the loss, the gradients the update used
     (``p.grad``) and the parameters after it, each tensor within TRAIN_TOL
-    (max |err| / max |CPU|). Returns the card's state after the steps."""
+    (max |err| / max |CPU|). Returns the card's state after the steps.
+
+    With ``update_from_card`` the parameters are held to a second CPU copy
+    updated from the card's gradients, and the first copy's parameters
+    after its update from its own gradients are printed beside them, not
+    held: AdamW divides each gradient by its own running RMS, so gradients
+    that are zero in exact arithmetic turn their rounding, some 1e-7 of the
+    largest gradient in any two float32 computations, into updates of up to
+    lr in either direction. Geo-FNO's spectral weights, drawn from U(0,
+    1/width^2), are the size of lr (1e-3), and its smooth inputs leave many
+    of their gradients at rounding level."""
     quiet = copy.copy(routine)
     quiet.noise_std = 0.0
     names = [n for n, _ in state.model.named_parameters()]
     for i, batch in enumerate(batches):
         plain = cpu_copy(routine, state)
+        fed = cpu_copy(routine, state) if update_from_card else plain
         state, metrics = quiet.train_step(state, batch)
         plain, want = quiet.train_step(plain, batch)
+        if update_from_card:
+            fed = quiet.apply_grads(fed, [p.grad.cpu() for p in state.model.parameters()])
         loss, want_loss = float(metrics["train_loss"]), float(want["train_loss"])
         loss_rel = abs(loss - want_loss) / abs(want_loss)
-        rels = {}
-        for n, a, b in zip(names, state.model.parameters(), plain.model.parameters(), strict=True):
-            rels[n] = max(rel_err(a.grad, b.grad)[1], rel_err(a, b)[1])
-        worst = max(rels, key=rels.get)
+        rels, own = {}, {}
+        for n, a, b, f in zip(names, state.model.parameters(), plain.model.parameters(),
+                              fed.model.parameters(), strict=True):
+            rels[n] = max(rel_err(a.grad, b.grad)[1], rel_err(a, f)[1])
+            own[n] = rel_err(a, b)[1]
+        worst, own_worst = max(rels, key=rels.get), max(own, key=own.get)
+        what = ("gradients, and parameters after the CPU's update from the card's gradients"
+                if update_from_card else "gradients and parameters after the step")
         log(f"{phase}: {label} step {i + 1} on the card vs a float32 CPU copy: loss {loss:.6f} "
-            f"vs {want_loss:.6f} (rel {loss_rel:.2e}); gradients and parameters after the step "
-            f"of {len(rels)} tensors, largest rel {rels[worst]:.2e} ({worst}), tol {TRAIN_TOL:.0e}")
+            f"vs {want_loss:.6f} (rel {loss_rel:.2e}); {what} of {len(rels)} tensors, largest "
+            f"rel {rels[worst]:.2e} ({worst}), tol {TRAIN_TOL:.0e}"
+            + (f"; parameters after the CPU's update from its own gradients (not held): largest "
+               f"rel {own[own_worst]:.2e} ({own_worst})" if update_from_card else ""))
         if not (loss_rel <= TRAIN_TOL and rels[worst] <= TRAIN_TOL):
             raise AssertionError(f"{phase}: {label} step {i + 1} disagrees with its CPU copy")
     return state
@@ -1181,7 +1269,8 @@ def hold_steps(label, routine, state, batches, phase="context"):
 
 def time_steps(label, routine, state, batch, dev, steps=5, phase="context"):
     """ms per train step (mean of ``steps`` after 2 warm-ups, with noise)
-    and the host CPU time per step."""
+    and the host CPU time per step. Returns the state after the steps and
+    the ms per step."""
     gen = torch.Generator(device=dev).manual_seed(0)
     for _ in range(2):
         state, _ = routine.train_step(state, batch, gen)
@@ -1196,7 +1285,7 @@ def time_steps(label, routine, state, batch, dev, steps=5, phase="context"):
         raise AssertionError(f"{phase}: {label}: non-finite loss in the timed steps")
     log(f"{phase}: {label}: {step_ms:.3f} ms per train step (batch {len(batch['x'])}, f32, mean "
         f"of {steps} after 2 warm-ups); host CPU time {cpu_ms:.3f} ms per step")
-    return state
+    return state, step_ms
 
 
 def generate_vis(dev, tmp):
@@ -1351,6 +1440,147 @@ def serve_context(dev, path):
         f"at batch 1: artifact {fmt(rollout_step_ms(lambda: artifact(w0, force)))}, eager "
         f"routine.rollout {fmt(rollout_step_ms(eager))} ({SERVE_STEPS} steps a call, median of "
         f"{SERVE_CALLS} calls after a warm-up)")
+
+
+# --- phase mesh ----------------------------------------------------------------------------
+def write_mesh_data(root, seed):
+    """The three Geo-FNO datasets at their shapes under ``root`` (the
+    registry's ``${DATA_ROOT}`` layout), made from ``seed``: smooth,
+    per-sample deformed coordinate fields X, Y and smooth target fields of
+    them; the plasticity input a smooth boundary profile and the output
+    smooth in space and time. Float64, as the published files."""
+    rng = np.random.default_rng(seed)
+
+    def coords(n, sx, sy):
+        u, v = np.linspace(0, 1, sx)[None, :, None], np.linspace(0, 1, sy)[None, None, :]
+        a, b = rng.uniform(0.8, 1.2, (2, n, 1, 1))
+        ph = rng.uniform(0, 2 * np.pi, (n, 1, 1))
+        return (a * (4 * u - 2) + 0.1 * np.sin(2 * np.pi * v + ph),
+                b * (2 * v - 1) * (1 + 0.5 * u) + 0.1 * np.cos(2 * np.pi * u + ph))
+
+    def targets(x, y, channels):
+        k = rng.uniform(0.5, 2.0, (x.shape[0], channels, 1, 1))
+        ph = rng.uniform(0, 2 * np.pi, (x.shape[0], channels, 1, 1))
+        return np.sin(k * x[:, None] + ph) * np.cos(k * y[:, None])
+
+    files = {}
+    for family, folder, prefix, (sx, sy), channels in (
+            ("airfoil", "geo-fno/airfoil/naca", "NACA_Cylinder_", (221, 51), 5),
+            ("pipe", "geo-fno/pipe", "Pipe_", (129, 129), 1)):
+        n = sum(MESH_SPLITS[family])
+        x, y = coords(n, sx, sy)
+        os.makedirs(os.path.join(root, folder), exist_ok=True)
+        for name, a in (("X", x), ("Y", y), ("Q", targets(x, y, channels))):
+            path = os.path.join(root, folder, f"{prefix}{name}.npy")
+            np.save(path, a)
+            files[path] = a.shape
+    import scipy.io
+
+    n = sum(MESH_SPLITS["plasticity"])
+    s1 = np.linspace(0, 1, 101)[None]
+    inp = 1 + rng.uniform(0.1, 0.5, (n, 1)) * np.sin(np.pi * rng.uniform(1, 3, (n, 1)) * s1)
+    grid = np.meshgrid(np.linspace(0, 1, 101), np.linspace(0, 1, 31), np.linspace(0, 1, 20),
+                       indexing="ij")
+    out = np.stack([np.sin((c + 1) * grid[0] * inp[:, :, None, None] + grid[2][None])
+                    * np.cos(np.pi * grid[1][None]) for c in range(4)], axis=-1)
+    path = os.path.join(root, "geo-fno/plasticity/plas_N987_T20.mat")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    scipy.io.savemat(path, {"input": inp, "output": out})
+    files[path] = {"input": inp.shape, "output": out.shape}
+    return files
+
+
+def _mesh_overrides(name):
+    train_size, valid_size, test_size = MESH_SPLITS[name.split("/")[0]]
+    return [f"builder.train_size={train_size}", f"builder.valid_size={valid_size}",
+            f"builder.test_size={test_size}"]
+
+
+def _mesh_launches(name, steps):
+    """Launches of each kernel in ``steps`` train steps of a mesh config:
+    every kernel once a layer in the 2D F-FNO, the feed-forward ones in the
+    3D F-FNO (its spectral branches are the plain version, as in JAX), none
+    in Geo-FNO."""
+    if "/geo-fno" in name:
+        return dict.fromkeys(KERNELS, 0)
+    ff_only = name.startswith("plasticity/")
+    return {k: 0 if ff_only and k.startswith("fused_mix") else N_LAYERS * steps for k in KERNELS}
+
+
+def phase_mesh(dev, tmp, seed):
+    """The structured-mesh slice: the datasets at their shapes, made from the
+    seed; ``airfoil/ffno/24_layers`` at full width through ``train``,
+    ``test`` and ``predict`` by registry name, and the launches of its next
+    steps counted; the steps of MESH_HELD held to a float32 CPU copy; each
+    configuration's steps timed and their device time traced."""
+    phase_start = time.perf_counter()
+    root = os.path.join(tmp, "mesh_data")
+    os.environ["DATA_ROOT"] = root  # the registry's data paths
+    t0 = time.perf_counter()
+    files = write_mesh_data(root, seed)
+    log(f"mesh: wrote {len(files)} files in {time.perf_counter() - t0:.1f} s: "
+        f"{ {os.path.relpath(k, root): v for k, v in files.items()} }")
+    for family, got in MESH_SPLITS.items():
+        log(f"mesh: cut: {family} splits (train, valid, test) {got} against the registry's "
+            f"{MESH_REGISTRY_SPLITS[family]}")
+    reset_launch_counts()
+
+    t0 = time.perf_counter()
+    over = _mesh_overrides(MESH_CONFIG)
+    with tempfile.TemporaryDirectory() as run:
+        trainer, state = train.main(MESH_CONFIG, over + ["trainer.max_epochs=1"], config_dir=run,
+                                    device="cuda")
+        logs = test_command.main(MESH_CONFIG, overrides=over, config_dir=run, device="cuda")
+        ckpt = os.path.join(next(os.scandir(os.path.join(run, "checkpoints"))).path, "last.ckpt")
+        seconds = predict.main(MESH_CONFIG, ckpt, overrides=over, device="cuda")
+    launched = launch_counts()
+    scalars = {k: float(v) for k, v in logs.items()}
+    log(f"mesh: {MESH_CONFIG}: train, test and predict took {time.perf_counter() - t0:.1f} s")
+    log(f"mesh: {MESH_CONFIG}: train ({trainer.global_step} steps, n_params "
+        f"{trainer.logs['n_params']:,}, train_loss {trainer.logs['train_loss']:.6f}, valid_loss "
+        f"{trainer.logs['valid_loss']:.6f}), test {json.dumps(scalars)}, predict {seconds:.6e} s "
+        f"a sample; launches {launched}")
+    if trainer.global_step != MESH_SPLITS["airfoil"][0] // 10 or not all(
+            math.isfinite(v) and v == trainer.logs[k] for k, v in scalars.items()):
+        raise AssertionError(f"mesh: {MESH_CONFIG}: {trainer.global_step} steps, test logs "
+                             f"{scalars} not finite or not train's")
+    if not all(n > 0 for n in launched.values()):
+        raise AssertionError(f"mesh: {MESH_CONFIG}: a kernel was never launched {launched}")
+
+    for name in (MESH_CONFIG,) + MESH_HELD:
+        t0 = time.perf_counter()
+        cfg = load_config(name, _mesh_overrides(name))
+        builder = instantiate(cfg["builder"])
+        routine = build_routine(cfg["routine"], builder)
+        batches = [b for _, b in zip(range(MESH_STEPS),
+                                     builder.train_batches(np.random.default_rng(0)))]
+        before = launch_counts()
+        if name == MESH_CONFIG:  # trained above: its steps are counted, not held
+            for batch in batches:
+                state, _ = routine.train_step(state, batch)
+            torch.cuda.synchronize()
+        else:
+            state = routine.init(7231, builder.sample_batch(), dev)  # the commands' seed
+            state = hold_steps(name, routine, state, batches, phase="mesh",
+                               update_from_card="/geo-fno" in name)
+        steps = {k: v - before[k] for k, v in launch_counts().items()}
+        model = cfg["routine"]["model"]
+        modes = [model[k] for k in ("modes_x", "modes_y", "modes_z", "modes1", "modes2", "modes3")
+                 if k in model]
+        log(f"mesh: {name}: n_params {routine.n_params(state):,}, x {batches[0]['x'].shape}, y "
+            f"{batches[0]['y'].shape}, width {model['width']}, modes {modes}; launches in "
+            f"{MESH_STEPS} steps {steps}")
+        if steps != _mesh_launches(name, MESH_STEPS):
+            raise AssertionError(f"mesh: {name}: launches {steps}, expected "
+                                 f"{_mesh_launches(name, MESH_STEPS)}")
+        state, step_ms = time_steps(name, routine, state, batches[0], dev, phase="mesh")
+        profile_train_step(routine, state, batches[0], None, step_ms, label=f"mesh: {name}",
+                           groups=BASELINE_GROUPS if "/geo-fno" in name else STEP_GROUPS)
+        log(f"mesh: {name}: {time.perf_counter() - t0:.1f} s")
+    counts = launch_counts()
+    log(f"mesh: launches over the mesh path {counts}; phase took "
+        f"{time.perf_counter() - phase_start:.1f} s")
+    return counts
 
 
 # --- phase kolmogorov ----------------------------------------------------------------------
@@ -1740,7 +1970,7 @@ def phase_time_apart(seed):
                         "--time-json", path], check=True, timeout=900)
         with open(path) as f:
             rows = json.load(f)
-    return {(r["name"], getattr(torch, r["dtype"])) + tuple(tuple(x) for x in r["shape"]):
+    return {(r["name"], getattr(torch, r["dtype"])) + tuple(r["at"]):
             dict(r["row"], bound=tuple(r["row"]["bound"])) for r in rows}
 
 
@@ -1763,8 +1993,8 @@ def main():
     if args.time_json:
         rows = phase_time(dev, args.seed)
         with open(args.time_json, "w") as f:
-            json.dump([{"name": name, "dtype": str(dtype).replace("torch.", ""), "shape": shape,
-                        "row": row} for (name, dtype, *shape), row in rows.items()], f)
+            json.dump([{"name": name, "dtype": str(dtype).replace("torch.", ""), "at": tail,
+                        "row": row} for (name, dtype, *tail), row in rows.items()], f)
         return
 
     card = phase_device()
@@ -1777,6 +2007,7 @@ def main():
                   "serve": phase_serve(dev, args.seed, data_path),
                   "train": phase_train(dev, args.seed, data_path)}
         phase_baseline(dev, data_path)
+        counts["mesh"] = phase_mesh(dev, tmp, args.seed)
         counts["context"] = phase_context(dev, tmp, data_path)
         counts["kolmogorov"] = phase_kolmogorov(dev, tmp)
     times = phase_time_apart(args.seed)
@@ -1790,13 +2021,13 @@ def main():
                  "max_abs_err": errs[(name, torch.float32)],
                  "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
                  "bound_by": t["bound"][1], "library_ms": t["library_ms"]}
-        shapes = [{"x": [*shape[:3], C], "modes": shape[3], "dtype": "float32", "ms": r["ms"],
-                   "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
-                   "bound_by": r["bound"][1], "library_ms": r["library_ms"]}
-                  for (n, dtype, *rest), r in times.items()
-                  if n == name and dtype == torch.float32 and rest for shape in rest]
+        shapes = [{"at": tail[0], "dtype": "float32", "ms": r["ms"], "plain_ms": r["plain_ms"],
+                   "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+                   "library_ms": r["library_ms"]}
+                  for (n, dtype, *tail), r in times.items()
+                  if n == name and dtype == torch.float32 and tail]
         if shapes:
-            entry["torus_kochkov_shapes"] = shapes
+            entry["shapes"] = shapes
         kernels.append(entry)
     log(card)
     log(json.dumps({"kernels": kernels}))

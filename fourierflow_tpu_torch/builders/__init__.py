@@ -4,7 +4,10 @@ from .kolmogorov import (KolmogorovBuilder, KolmogorovMarkovDataset, KolmogorovM
 from .ns_contextual import NSContextualBuilder
 from .ns_markov import NSMarkovBuilder
 from .ns_zongyi import NSZongyiBuilder
+from .plasticity import PlasticityBuilder
+from .structured_mesh_2d import StructuredMesh2DBuilder
 
 __all__ = ["Builder", "iterate_batches", "load_array", "KolmogorovBuilder",
            "KolmogorovMarkovDataset", "KolmogorovMultiDataset", "KolmogorovTrajectoryDataset",
-           "NSContextualBuilder", "NSMarkovBuilder", "NSZongyiBuilder"]
+           "NSContextualBuilder", "NSMarkovBuilder", "NSZongyiBuilder", "PlasticityBuilder",
+           "StructuredMesh2DBuilder"]

@@ -2,7 +2,9 @@
 ``fourierflow_tpu/commands/predict.py``), in seconds per sample per
 simulated second.
 
-With a config it rolls the model out over ``builder.inference_data()``;
+With a config it rolls the model out over ``builder.inference_data()``
+(a routine without a rollout, such as the structured-mesh one, predicts
+each sample once, and one prediction counts as one simulated second);
 without one it times the port's Crank-Nicolson solver on the same kind of
 fields, the numerical baseline the reference's inference speed-up is
 measured against. Each timed run follows a warm-up and ends with
@@ -71,14 +73,19 @@ def main(config_path: Optional[str] = None, checkpoint_path: Optional[str] = Non
     state = restore_state(routine, builder, dev, trial, checkpoint_path)
     batch = {k: torch.as_tensor(v, device=dev) for k, v in builder.inference_data().items()}
 
-    _finish(routine.rollout(state, batch)[0])  # warm-up: builds the kernels
+    if hasattr(routine, "rollout"):
+        run = lambda: routine.rollout(state, batch)[0]
+    else:
+        run = lambda: routine.predict(state, batch)
+    _finish(run())  # warm-up: builds the kernels
     t0 = time.perf_counter()
-    preds = routine.rollout(state, batch)[0]
+    preds = run()
     _finish(preds)
     elapsed = time.perf_counter() - t0
 
     n_samples = len(next(iter(batch.values())))
-    sim_seconds = preds.shape[-1] * getattr(routine, "step_size", 1.0)
+    steps = preds.shape[-1] if hasattr(routine, "rollout") else 1
+    sim_seconds = steps * getattr(routine, "step_size", 1.0)
     inference_time = elapsed / n_samples / sim_seconds
     logger.info("inference on %s: %.4g s total, %d samples, %.3g sim-s -> %.4g s/sample/sim-s",
                 dev, elapsed, n_samples, sim_seconds, inference_time)

@@ -1,10 +1,12 @@
 """Experiment registry: the JAX package's config-as-code experiments of the
-torus families, by the same path-like names (counterpart of
-``fourierflow_tpu/experiments.py``: its ``torus_li``, ``torus_vis*`` and
-``torus_kochkov/ffno`` families, and its pseudo-spectral Kolmogorov data
-configs ``data/kolmogorov/**``)::
+torus families and the structured-mesh families, by the same path-like
+names (counterpart of ``fourierflow_tpu/experiments.py``: its ``torus_li``,
+``torus_vis*`` and ``torus_kochkov/ffno`` families, its pseudo-spectral
+Kolmogorov data configs ``data/kolmogorov/**``, and its ``airfoil``,
+``pipe`` and ``plasticity`` F-FNO and Geo-FNO experiments)::
 
     python -m fourierflow_tpu_torch.commands train torus_vis/01_baseline
+    python -m fourierflow_tpu_torch.commands train airfoil/ffno/24_layers
     python -m fourierflow_tpu_torch.commands generate kolmogorov \
         data/kolmogorov/re_1000/initial_conditions/train
 
@@ -13,8 +15,10 @@ configs ``data/kolmogorov/**``)::
 ``config.load_config`` reads when ``name`` is not a file;
 ``experiment_names()`` lists them (``commands configs list``). Targets name
 this package. The other families join the registry with the slices that
-port their targets: ``torus_kochkov/fcno`` (CNO), the learned
-interpolation and the projection-method data configs are not here yet.
+port their targets: the CNO experiments (``torus_kochkov/fcno``,
+``airfoil/fcno``, ``plasticity/fcno``; asking for one raises), the point
+clouds (elasticity), the learned interpolation and the projection-method
+data configs are not here yet.
 
 Hyperparameters mirror the reference configs (file citations inline).
 """
@@ -34,6 +38,17 @@ def _adamw(lr=0.001, weight_decay=0.0001):
     return {
         "_target_": "functools.partial",
         "_args_": ["${get_method: torch.optim.AdamW}"],
+        "lr": lr,
+        "weight_decay": weight_decay,
+    }
+
+
+def _adam(lr=0.001, weight_decay=0.0001):
+    """The reference's Adam; ``commands/train.py`` builds it as AdamW with this
+    decoupled weight decay, as the JAX package does."""
+    return {
+        "_target_": "functools.partial",
+        "_args_": ["${get_method: torch.optim.Adam}"],
         "lr": lr,
         "weight_decay": weight_decay,
     }
@@ -614,6 +629,138 @@ def _kolmogorov_data_configs():
     return out
 
 
+# --- structured meshes (airfoil / pipe / plasticity) -----------------------
+
+def _structured_mesh(project, paths, output_dim, model, batch_size=10, optimizer=None,
+                     scheduler=None, max_epochs=200, loss_scale=None, group=""):
+    routine = {
+        "_target_": "fourierflow_tpu_torch.routines.StructuredMeshRoutine",
+        "model": model,
+        "optimizer": optimizer or _adamw(),
+        "scheduler": scheduler or _cosine(20000),
+    }
+    if loss_scale:
+        routine["loss_scale"] = loss_scale
+    return {
+        "wandb": _wandb(project, group),
+        "builder": {
+            "_target_": "fourierflow_tpu_torch.builders.StructuredMesh2DBuilder",
+            **paths, "output_dim": output_dim,
+            "train_size": 1000, "valid_size": 200, "test_size": 200,
+            "batch_size": batch_size,
+        },
+        "routine": routine,
+        "trainer": {"max_epochs": max_epochs},
+        "callbacks": _ckpt(),
+    }
+
+
+AIRFOIL_PATHS = {
+    "x1_path": f"{DATA}/geo-fno/airfoil/naca/NACA_Cylinder_X.npy",
+    "x2_path": f"{DATA}/geo-fno/airfoil/naca/NACA_Cylinder_Y.npy",
+    "sigma_path": f"{DATA}/geo-fno/airfoil/naca/NACA_Cylinder_Q.npy",
+}
+PIPE_PATHS = {
+    "x1_path": f"{DATA}/geo-fno/pipe/Pipe_X.npy",
+    "x2_path": f"{DATA}/geo-fno/pipe/Pipe_Y.npy",
+    "sigma_path": f"{DATA}/geo-fno/pipe/Pipe_Q.npy",
+}
+
+
+def _geo_mesh_family(project, paths, output_dim) -> Dict[str, dict]:
+    """airfoil/pipe experiment families (reference:experiments/airfoil/*,
+    experiments/pipe/*). Modes: airfoil ffno (32, 16), pipe ffno (16, 16);
+    geo-fno (24, 12) / -big (32, 16). Not here yet: airfoil/fcno (CNO)."""
+    out = {}
+    big_x, big_y = (32, 16) if project == "airfoil" else (16, 16)
+    for n in LAYERS:
+        def ffno_model(modes_x, modes_y, width, share):
+            return {
+                "_target_": "fourierflow_tpu_torch.models.FNOFactorizedMesh2D",
+                "modes_x": modes_x, "modes_y": modes_y, "width": width,
+                "input_dim": 4, "n_layers": n, "share_weight": share,
+                "factor": 4, "ff_weight_norm": True, "n_ff_layers": 2,
+                "layer_norm": False,
+            }
+
+        variants = {
+            "ffno": ffno_model(big_x, big_y, 64, False),
+            "ffno-shared": ffno_model(big_x, big_y, 64, True),
+        }
+        if project == "airfoil":
+            variants["ffno-small"] = ffno_model(24, 12, 32, False)
+        for name, model in variants.items():
+            out[f"{project}/{name}/{n}_layers"] = _structured_mesh(
+                project, paths, output_dim, model, group=f"{name}/{n}_layers")
+
+        # Geo-FNO baselines (Li et al. 2022 reproduction): Adam + StepLR.
+        # Reference modes: airfoil geo-fno (24, 12, 32) / -big (32, 16, 64)
+        # (airfoil/geo-fno*/*/config.yaml); pipe geo-fno (12, 12, 32)
+        # (pipe/geo-fno/*/config.yaml).
+        geo_variants = {"geo-fno": (24, 12, 32) if project == "airfoil" else (12, 12, 32)}
+        if project == "airfoil":
+            geo_variants["geo-fno-big"] = (32, 16, 64)
+        for name, (m1, m2, w) in geo_variants.items():
+            model = {
+                "_target_": "fourierflow_tpu_torch.models.FNOMesh2D",
+                "modes1": m1, "modes2": m2, "width": w, "n_layers": n,
+            }
+            out[f"{project}/{name}/{n}_layers"] = _structured_mesh(
+                project, paths, output_dim, model, batch_size=20,
+                optimizer=_adam(), scheduler=_step_lr(100), max_epochs=501,
+                loss_scale=20, group=f"{name}/{n}_layers")
+    return out
+
+
+def _plasticity_family() -> Dict[str, dict]:
+    """reference:experiments/plasticity/*. Not here yet: plasticity/fcno (CNO)."""
+    out = {}
+    builder = {
+        "_target_": "fourierflow_tpu_torch.builders.PlasticityBuilder",
+        "data_path": f"{DATA}/geo-fno/plasticity/plas_N987_T20.mat",
+        "s1": 101, "s2": 31, "t": 20,
+        "train_size": 827, "valid_size": 80, "test_size": 80, "batch_size": 2,
+    }
+    for n in LAYERS:
+        def ffno3d(mx, my, mz, w, share=False):
+            return {
+                "_target_": "fourierflow_tpu_torch.models.FNOFactorizedMesh3D",
+                "modes_x": mx, "modes_y": my, "modes_z": mz, "width": w,
+                "input_dim": 4, "output_dim": 4, "n_layers": n,
+                "share_weight": share, "factor": 4, "ff_weight_norm": True,
+                "n_ff_layers": 2, "layer_norm": False,
+            }
+
+        # Reference schedule: cosine num_training_steps 82800
+        # ("414 batches per epoch" x 200, plasticity/ffno/*/config.yaml).
+        variants = {
+            "ffno": (ffno3d(32, 12, 8, 64), _adamw(), _cosine(82800), 200, 2),
+            "ffno-small": (ffno3d(12, 12, 8, 32), _adamw(), _cosine(82800), 200, 2),
+            "ffno-shared": (ffno3d(32, 12, 8, 64, share=True), _adamw(), _cosine(82800), 200, 2),
+        }
+        for name, (m1, m2, m3, w) in {"geo-fno": (12, 12, 8, 32),
+                                      "geo-fno-big": (32, 12, 8, 64)}.items():
+            model = {
+                "_target_": "fourierflow_tpu_torch.models.FNOMesh3D",
+                "modes1": m1, "modes2": m2, "modes3": m3, "width": w,
+                "n_layers": n,
+            }
+            variants[name] = (model, _adam(), _step_lr(100), 501, 20)
+
+        for name, (model, opt, sch, epochs, bs) in variants.items():
+            out[f"plasticity/{name}/{n}_layers"] = {
+                "wandb": _wandb("plasticity", f"{name}/{n}_layers"),
+                "builder": dict(builder, batch_size=bs),
+                "routine": {
+                    "_target_": "fourierflow_tpu_torch.routines.StructuredMeshRoutine",
+                    "model": model, "optimizer": opt, "scheduler": sch,
+                },
+                "trainer": {"max_epochs": epochs},
+                "callbacks": _ckpt(),
+            }
+    return out
+
+
 # --- registry ---------------------------------------------------------------
 
 def _build_registry() -> Dict[str, dict]:
@@ -622,6 +769,9 @@ def _build_registry() -> Dict[str, dict]:
         reg[f"torus_li/markov/{n}_layers"] = _torus_li_markov(n)
         reg[f"torus_li/zongyi/{n}_layers"] = _torus_li_zongyi(n)
     reg.update(_torus_li_ablations())
+    reg.update(_geo_mesh_family("airfoil", AIRFOIL_PATHS, 4))
+    reg.update(_geo_mesh_family("pipe", PIPE_PATHS, 0))
+    reg.update(_plasticity_family())
     for v in ("01_baseline", "02_no_mu", "03_no_mu_force"):
         reg[f"torus_vis/{v}"] = _torus_vis("torus_vis", v)
     for v in ("01_baseline", "02_no_mu", "03_no_mu_force", "06_shared_all_no_fork"):
@@ -632,6 +782,11 @@ def _build_registry() -> Dict[str, dict]:
 
 
 _REGISTRY = None
+# Names of the JAX registry whose modules are not ported yet, by prefix.
+_NOT_PORTED = {
+    prefix: "CNO (ROADMAP A, item 7: CNO, cno_*.py and dct_mix_axis)"
+    for prefix in ("torus_kochkov/fcno/", "airfoil/fcno/", "plasticity/fcno/")
+}
 
 
 def _registry() -> Dict[str, dict]:
@@ -651,6 +806,9 @@ def get_experiment(name: str) -> dict:
     key = (name.strip("/").removesuffix("/config.yaml").removeprefix("experiments/")
            .removeprefix("configs/"))
     if key not in reg:
+        for prefix, what in _NOT_PORTED.items():
+            if key.startswith(prefix):
+                raise KeyError(f"experiment {name!r} needs {what}, which is not ported yet")
         import difflib
 
         close = difflib.get_close_matches(key, reg, n=3)

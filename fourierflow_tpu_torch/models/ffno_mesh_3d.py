@@ -1,0 +1,95 @@
+"""Factorized FNO on structured 3D meshes, plasticity (counterpart of
+``fourierflow_tpu/models/ffno_mesh_3d.py``).
+
+As the 2D mesh model, with three grid channels, padding on the high side
+of all three spatial axes, and three separable spectral branches (x, y,
+z) summed in each layer. The branches are the plain
+``ops.spectral.spectral_mix_axis`` (torch matmuls against truncated-DFT
+bases), as the JAX package computes them outside any Pallas kernel; the
+feed-forward runs ``ops.fused_ff`` (the CUDA kernel on a CUDA tensor). The
+head gives ``output_dim`` channels.
+
+Parameter names as the 2D mesh model's, with
+``spectral_layers.{i}.fourier_weight.{0,1,2}`` for X, Y and Z. ``remat``
+is not ported yet and raises.
+"""
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..layers import FeedForward, WNLinear, _linspace, xavier_normal_init
+from ..ops.spectral import spectral_mix_axis
+from .ffno_grid_2d import _SpectralLayer
+
+__all__ = ["FNOFactorizedMesh3D", "get_grid_3d"]
+
+
+def get_grid_3d(batch: int, sx: int, sy: int, sz: int, dtype=torch.float32,
+                device=None) -> torch.Tensor:
+    """Unit-cube coordinate channels ``[batch, sx, sy, sz, 3]``, the points of
+    the JAX package's ``linspace(0, 1)`` to the bit."""
+    axes = [_linspace(0.0, 1.0, n, dtype, device) for n in (sx, sy, sz)]
+    grids = torch.meshgrid(*axes, indexing="ij")
+    return torch.stack(grids, dim=-1)[None].expand(batch, sx, sy, sz, 3)
+
+
+class FNOFactorizedMesh3D(nn.Module):
+    """``forward`` takes ``[batch, sx, sy, sz, input_dim - 3]`` and returns
+    ``[batch, sx, sy, sz, output_dim]``."""
+
+    def __init__(self, modes_x: int, modes_y: int, modes_z: int, width: int, input_dim: int,
+                 output_dim: int, n_layers: int, share_weight: bool = False, factor: int = 4,
+                 ff_weight_norm: bool = True, n_ff_layers: int = 2, layer_norm: bool = False,
+                 padding: int = 8, remat: bool = False):
+        super().__init__()
+        if remat:
+            raise NotImplementedError("FNOFactorizedMesh3D remat is not ported yet "
+                                      "(ROADMAP A, item 8)")
+        self.share_weight, self.padding = share_weight, padding
+        self.in_proj = WNLinear(input_dim, width, wnorm=ff_weight_norm)
+        make_w = lambda: nn.ParameterList(
+            [nn.Parameter(torch.empty(width, width, m, 2)) for m in (modes_x, modes_y, modes_z)])
+        if share_weight:
+            self.fourier_weight = make_w()
+        self.spectral_layers = nn.ModuleList(
+            _SpectralLayer(self.fourier_weight if share_weight else make_w(),
+                           FeedForward(width, factor, ff_weight_norm, n_ff_layers, layer_norm),
+                           None)
+            for _ in range(n_layers))
+        self.out = nn.Sequential(WNLinear(width, 128, wnorm=ff_weight_norm),
+                                 WNLinear(128, output_dim, wnorm=ff_weight_norm))
+        self.reset_parameters(torch.Generator().manual_seed(0))
+
+    def reset_parameters(self, generator=None) -> None:
+        """Re-initialise every parameter from ``generator``, which must be on
+        the parameters' device: Fourier weights ``xavier_normal_``, linear
+        layers torch's default."""
+        self.in_proj.reset_parameters(generator)
+        weights = [self.fourier_weight] if self.share_weight else [
+            layer.fourier_weight for layer in self.spectral_layers]
+        for triple in weights:
+            for w in triple:
+                xavier_normal_init(w, 1.0, generator)
+        for layer in self.spectral_layers:
+            layer.backcast_ff.reset_parameters(generator)
+        for lin in self.out:
+            lin.reset_parameters(generator)
+
+    def forward(self, x: torch.Tensor, **kwargs) -> torch.Tensor:
+        b, sx, sy, sz, _ = x.shape
+        x = torch.cat([x, get_grid_3d(b, sx, sy, sz, x.dtype, x.device)], dim=-1)
+        x = self.in_proj(x)
+        p = self.padding
+        if p:
+            x = F.pad(x, (0, 0, 0, p, 0, p, 0, p))
+        h = x
+        for layer in self.spectral_layers:
+            wx, wy, wz = layer.fourier_weight
+            mixed = (spectral_mix_axis(x, wx, 1) + spectral_mix_axis(x, wy, 2)
+                     + spectral_mix_axis(x, wz, 3))
+            h = layer.backcast_ff(mixed)
+            x = x + h
+        if p:
+            h = h[:, :-p, :-p, :-p]
+        return self.out(h)

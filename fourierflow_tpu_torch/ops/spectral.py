@@ -1,7 +1,8 @@
 """Plain PyTorch spectral ops (counterpart of ``fourierflow_tpu/ops/spectral.py``).
 
-``spectral_conv_2d_full`` is the original FNO's 2D spectral convolution
-(``torch.fft`` and a complex product on two corners of the modes).
+``spectral_conv_2d_full`` and ``spectral_conv_3d_full`` are the original
+FNO's 2D and 3D spectral convolutions (``torch.fft`` and a complex product
+on two or four corners of the modes).
 ``spectral_mix_axis`` is one separable F-FNO branch: truncated orthonormal
 rDFT along one spatial axis, per-mode complex channel mixing, inverse rDFT.
 It is computed with the truncated-DFT basis matmuls of ``ops/dft.py`` in
@@ -16,10 +17,10 @@ import math
 import torch
 
 from .dft import irdft_basis, rdft_basis
-from .fourier import irfft2
+from .fourier import irfft2, irfftn
 
 __all__ = ["spectral_mix_axis", "mix_axis_f32", "mix_axis_wgrad", "dft_bases", "stacked_bases",
-           "spectral_conv_2d_full"]
+           "spectral_conv_2d_full", "spectral_conv_3d_full"]
 
 
 @functools.lru_cache(maxsize=64)
@@ -171,3 +172,32 @@ def spectral_conv_2d_full(x: torch.Tensor, weight1: torch.Tensor, weight2: torch
     out[:, :m1, :m2] = top
     out[:, -m1:, :m2] = bottom
     return irfft2(out, (sx, sy), dim=(1, 2))
+
+
+def spectral_conv_3d_full(x: torch.Tensor, weights, *, norm: str = "backward") -> torch.Tensor:
+    """The Geo-FNO plasticity baseline's full 3D spectral convolution:
+    ``rfftn`` over the three spatial axes, per-mode complex channel mixing
+    on the four corner blocks of the (x, y) frequencies with the first
+    ``m3`` z frequencies, the other modes zero, and the inverse
+    ``ops.fourier.irfftn``. The corners are set in the order +x+y, -x+y,
+    +x-y, -x-y; where blocks overlap the later one wins.
+
+    Args:
+      x: ``[batch, sx, sy, sz, in_channels]`` real.
+      weights: four ``[in, out, m1, m2, m3, 2]`` real/imaginary pairs, in
+        that corner order.
+      norm: accepted as the JAX package accepts it; the scales cancel.
+    Returns:
+      ``[batch, sx, sy, sz, out_channels]``.
+    """
+    del norm
+    b, sx, sy, sz, _ = x.shape
+    m1, m2, m3 = weights[0].shape[2:5]
+    xf = torch.fft.rfftn(x, dim=(1, 2, 3))  # [b, sx, sy, sz//2+1, in]
+    out = xf.new_zeros(b, sx, sy, sz // 2 + 1, weights[0].shape[1])
+    pos1, neg1, pos2, neg2 = slice(0, m1), slice(sx - m1, sx), slice(0, m2), slice(sy - m2, sy)
+    for w, (s1, s2) in zip(weights, ((pos1, pos2), (neg1, pos2), (pos1, neg2), (neg1, neg2)),
+                           strict=True):
+        out[:, s1, s2, :m3] = torch.einsum("bxyzi,ioxyz->bxyzo", xf[:, s1, s2, :m3],
+                                           torch.view_as_complex(w.contiguous()))
+    return irfftn(out, (sx, sy, sz), dim=(1, 2, 3))

@@ -1,8 +1,10 @@
 """Carry weights from the JAX package's flax parameter trees to this
 package's ``state_dict``s: F-FNO (the inverse of the JAX package's
 ``utils/torch_import.py::convert_ffno_state_dict``), FNO++ (the same tree
-with full spectral weights ``fourier_weight_{1,2}``) and the original FNO
-(of ``convert_zongyi_state_dict``).
+with full spectral weights ``fourier_weight_{1,2}``), the original FNO
+(of ``convert_zongyi_state_dict``), the F-FNO mesh models (the F-FNO tree
+with per-axis weights ``fourier_weight_{x,y,z}``) and the Geo-FNO mesh
+models (``fc0``, ``convs_{i}_weight_{k}``, ``ws_{i}``, ``fc1``, ``fc2``).
 
 Input: the flax params of an ``FNOFactorized2DBlock`` as a nested dict of
 numpy arrays (with or without the outer ``"params"`` level) and its number
@@ -25,13 +27,16 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-__all__ = ["state_dict_from_flax", "plus_state_dict_from_flax", "zongyi_state_dict_from_flax"]
+__all__ = ["state_dict_from_flax", "plus_state_dict_from_flax", "zongyi_state_dict_from_flax",
+           "mesh_state_dict_from_flax", "geo_state_dict_from_flax"]
 
 _LAYER_W = re.compile(r"layers_(\d+)_fourier_weight_([xy])$")
 _PLUS_LAYER_W = re.compile(r"layers_(\d+)_fourier_weight_([12])$")
+_MESH_LAYER_W = re.compile(r"layers_(\d+)_fourier_weight_([xyz])$")
 _LAYER_FF = re.compile(r"layers_(\d+)_(backcast_ff|forecast_ff)$")
 _FF_LIN = re.compile(r"WNLinear_(\d+)$")
 _BRANCH = {"y": 0, "x": 1, "1": 0, "2": 1}
+_MESH_BRANCH = {"x": 0, "y": 1, "z": 2}
 
 
 def _tensor(a) -> torch.Tensor:
@@ -96,6 +101,41 @@ def state_dict_from_flax(params: Mapping, n_layers: int) -> Dict[str, torch.Tens
                              _LAYER_W, "FNOFactorized2DBlock")
 
 
+def mesh_state_dict_from_flax(params: Mapping, n_layers: int) -> Dict[str, torch.Tensor]:
+    """Flax ``FNOFactorizedMesh2D`` / ``FNOFactorizedMesh3D`` params -> port
+    ``state_dict``: as F-FNO's, with ``fourier_weight_{x,y,z}`` becoming
+    ``fourier_weight.{0,1,2}`` (shared at block level and in every layer,
+    or ``layers_{i}_fourier_weight_*`` per layer)."""
+    return _block_state_dict(params, n_layers,
+                             ("fourier_weight_x", "fourier_weight_y", "fourier_weight_z"),
+                             _MESH_LAYER_W, "FNOFactorizedMesh", _MESH_BRANCH)
+
+
+_GEO_CONV = re.compile(r"convs_(\d+)_weight_(\d)$")
+_GEO_WS = re.compile(r"ws_(\d+)$")
+
+
+def geo_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax ``FNOMesh2D`` / ``FNOMesh3D`` params -> port ``state_dict``:
+    ``fc0``, ``ws_{i}``, ``fc1`` and ``fc2`` (Dense ``[in, out]`` kernels)
+    become ``fc0``, ``ws.{i}``, ``fc1`` and ``fc2``, and
+    ``convs_{i}_weight_{k}`` becomes ``convs.{i}.{k - 1}``."""
+    if "params" in params:
+        params = params["params"]
+    out: Dict[str, torch.Tensor] = {}
+    for name, value in params.items():
+        conv, ws = _GEO_CONV.match(name), _GEO_WS.match(name)
+        if name in ("fc0", "fc1", "fc2"):
+            _linear(value, name, out)
+        elif ws:
+            _linear(value, f"ws.{ws.group(1)}", out)
+        elif conv:
+            out[f"convs.{conv.group(1)}.{int(conv.group(2)) - 1}"] = _tensor(value)
+        else:
+            raise KeyError(f"unexpected Geo-FNO parameter {name!r}")
+    return out
+
+
 def plus_state_dict_from_flax(params: Mapping, n_layers: int) -> Dict[str, torch.Tensor]:
     """Flax ``FNOPlus2DBlock`` params -> port ``state_dict``: as F-FNO's,
     with ``fourier_weight_1``/``_2`` ``[in, out, m, m, 2]`` becoming
@@ -105,7 +145,7 @@ def plus_state_dict_from_flax(params: Mapping, n_layers: int) -> Dict[str, torch
 
 
 def _block_state_dict(params: Mapping, n_layers: int, shared_w, layer_w: re.Pattern,
-                      what: str) -> Dict[str, torch.Tensor]:
+                      what: str, branch: Mapping[str, int] = _BRANCH) -> Dict[str, torch.Tensor]:
     if "params" in params:
         params = params["params"]
     out: Dict[str, torch.Tensor] = {}
@@ -115,15 +155,15 @@ def _block_state_dict(params: Mapping, n_layers: int, shared_w, layer_w: re.Patt
         elif name in shared_w:
             w = _tensor(value)
             for base in ["", *(f"spectral_layers.{i}." for i in range(n_layers))]:
-                out[f"{base}fourier_weight.{_BRANCH[name[-1]]}"] = w
+                out[f"{base}fourier_weight.{branch[name[-1]]}"] = w
         elif name in ("backcast_ff", "forecast_ff"):
             for base in [name, *(f"spectral_layers.{i}.{name}" for i in range(n_layers))]:
                 _ff(value, base, out)
         elif _FF_LIN.match(name):
             _linear(value, f"out.{_FF_LIN.match(name).group(1)}", out)
         elif layer_w.match(name):
-            i, branch = layer_w.match(name).groups()
-            out[f"spectral_layers.{i}.fourier_weight.{_BRANCH[branch]}"] = _tensor(value)
+            i, axis = layer_w.match(name).groups()
+            out[f"spectral_layers.{i}.fourier_weight.{branch[axis]}"] = _tensor(value)
         elif _LAYER_FF.match(name):
             i, kind = _LAYER_FF.match(name).groups()
             _ff(value, f"spectral_layers.{i}.{kind}", out)

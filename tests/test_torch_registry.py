@@ -1,17 +1,18 @@
-"""The port's experiment registry (the torus families and the Kolmogorov
-data configs) against the JAX package's, on the CPU.
+"""The port's experiment registry (the torus families, the structured-mesh
+families and the Kolmogorov data configs) against the JAX package's, on
+the CPU.
 
 - Names: the port's ``experiment_names()`` equals the ``torus_li``,
-  ``torus_vis``, ``torus_vis_force`` and ``torus_kochkov`` names and the
-  ``data/`` names of the JAX registry, less those of modules not ported
-  yet (``torus_kochkov/fcno``, the learned interpolation, the projection
-  method's data configs).
+  ``torus_vis``, ``torus_vis_force``, ``torus_kochkov``, ``airfoil``,
+  ``pipe`` and ``plasticity`` names and the ``data/`` names of the JAX
+  registry, less those of modules not ported yet (the ``fcno`` names of
+  CNO, the learned interpolation, the projection method's data configs).
 - Nodes: every such config equals JAX's, with the JAX package's target
   prefix mapped onto the port's.
 - Instantiation: every routine builds in the port at 2 layers, initialises
-  on a batch of its builder's layout (on a grid that holds its modes) and
-  runs its model forward; every data config's stepper, at a 32^2 grid,
-  takes a step.
+  on a batch of its builder's layout (on a grid that holds its modes; the
+  mesh models' padding included) and runs its model forward; every data
+  config's stepper, at a 32^2 grid, takes a step.
 - ``load_config`` reads a registry name, ``configs list|export`` on the
   command line, and each name is its own run directory.
 """
@@ -31,12 +32,18 @@ from fourierflow_tpu_torch.config import instantiate, load_config
 from fourierflow_tpu_torch.experiments import experiment_names, get_experiment
 from fourierflow_tpu_torch.routines import Grid2DMarkovRoutine
 
-FAMILIES = ("torus_li", "torus_vis", "torus_vis_force", "torus_kochkov", "data")
-NOT_PORTED = ("torus_kochkov/fcno/", "torus_kochkov/learned_interpolation/")
+FAMILIES = ("torus_li", "torus_vis", "torus_vis_force", "torus_kochkov", "airfoil", "pipe",
+            "plasticity", "data")
+NOT_PORTED = ("torus_kochkov/fcno/", "torus_kochkov/learned_interpolation/", "airfoil/fcno/",
+              "plasticity/fcno/")
 NAMES = experiment_names()
 EXPERIMENTS = [n for n in NAMES if not n.startswith("data/")]
 DATA_CONFIGS = [n for n in NAMES if n.startswith("data/")]
 GRID = 32  # the smallest grid that holds 16 (F-FNO) and 12 (FNO-4) modes
+# Mesh grids whose padded sizes hold the mesh models' modes: 32 x modes need 62 points
+# (56 + 8), 16 y modes 30 (24 + 8); in 3D, 12 y modes 22 (16 + 8; Geo-FNO 16 + 5) and 8
+# z modes 14 (10 + 8; Geo-FNO's 10 + 5 points have 8 rfft bins).
+MESH_2D, MESH_3D = (56, 24), (56, 16, 10)
 
 
 def _port_targets(node):
@@ -59,7 +66,7 @@ def _ported(name):
 def test_names_equal_the_jax_torus_names():
     want = [n for n in jax_experiment_names() if _ported(n)]
     assert NAMES == want
-    assert len(NAMES) == 196 and len(DATA_CONFIGS) == 45
+    assert len(NAMES) == 274 and len(DATA_CONFIGS) == 45
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -82,8 +89,24 @@ def _sample_batch(cfg, grid):
     return batch
 
 
+def _mesh_instantiates(cfg):
+    rng = np.random.RandomState(0)
+    routine = build_routine(cfg["routine"])
+    if cfg["builder"]["_target_"].endswith("PlasticityBuilder"):
+        x, out_shape = rng.randn(2, *MESH_3D, 1), (2, *MESH_3D, 4)
+    else:
+        x, out_shape = rng.randn(2, *MESH_2D, 2), (2, *MESH_2D, 1)
+    x = x.astype(np.float32)
+    state = routine.init(0, {"x": x}, "cpu")
+    with torch.no_grad():
+        out = state.model(torch.from_numpy(x))
+    assert out.shape == out_shape and torch.isfinite(out).all()
+
+
 @pytest.mark.parametrize("name", EXPERIMENTS)
 def test_routine_instantiates(name):
+    if name.split("/")[0] in ("airfoil", "pipe", "plasticity"):
+        return _mesh_instantiates(load_config(name, ["routine.model.n_layers=2"]))
     cfg = load_config(name, ["routine.conv.n_layers=2"])
     grid = max(GRID, 2 * cfg["routine"]["conv"].get("modes", 0))  # torus_kochkov: 32 or 64 modes
     routine = build_routine(cfg["routine"])

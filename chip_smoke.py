@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--seed N]
 
-Phases, each reporting on its own lines; every run goes through all twelve:
+Phases, each reporting on its own lines; every run goes through all fourteen:
 
 1. ``device``: the card's name and power limit (nvidia-smi), torch and CUDA versions.
 2. ``build``: compile every CUDA source in ``csrc/``, all at once.
@@ -18,7 +18,10 @@ Phases, each reporting on its own lines; every run goes through all twelve:
    the spectral mix and its adjoint; in float32 the structured-mesh shapes
    (the feed-forward at 135,110, 187,690 and 238,056 rows, and at width 32,
    hidden 128; the mix and its adjoint at x [10, 229, 59, 64] with M 32 on X
-   and 16 on Y, at width 32 with M 24 / 12, and at [10, 137, 137, 64] M 16);
+   and 16 on Y, at width 32 with M 24 / 12, and at [10, 137, 137, 64] M 16)
+   and the point-cloud shapes (the feed-forward at 81,920 rows with hidden
+   128 and at 32,000 rows at width 32, hidden 64; the mix and its adjoint
+   at x [20, 64, 64, 64] M 16 and [20, 40, 40, 32] M 12);
    two runs of each kernel at the flagship
    bit-identical; and the whole
    backward of each autograd Function (dx, dW, db) against
@@ -118,7 +121,29 @@ Phases, each reporting on its own lines; every run goes through all twelve:
    each held and timed the same way; ``test`` of the 64^2 checkpoint at 256^2
    (``superresolution/train_with_x64/256``); ``train`` of
    ``multi_resolution/x32_x64`` on 32^2 and 64^2 batches in turn.
-12. ``time`` (in a child process of this script, which starts with no CUDA
+12. ``pointcloud``: the elasticity slice. The Geo-FNO elasticity files are
+   written at their layouts from the seed (``rr [42, N]``, ``sigma [972,
+   N]``, ``XY [972, 2, N]``: points scattered in the unit square, a stress
+   smooth in them and in the 42 geometry parameters), the splits cut as
+   printed; ``train``, ``test`` and ``predict`` on
+   ``elasticity/ffno/24_layers`` by registry name at full width (24 layers,
+   width 64, M 16, the 64^2 grid, batch 20, the IPhi deformation), and 2
+   more of its steps; 2 steps each of ``elasticity/ffno/4_layers``,
+   ``ffno-small/4_layers``, ``geo-fno/4_layers``, ``geo-fno-big/4_layers``
+   and the fully-factorized model at the ffno widths held to a float32 CPU
+   copy (Geo-FNO's parameters to a copy updated from the card's gradients:
+   see ``hold_steps``); each configuration's launches, ms per train step and
+   device time by kernel group.
+13. ``cno``: the CNO slice. 2 steps each of ``airfoil/fcno/4_layers`` and
+   ``plasticity/fcno/4_layers`` on phase mesh's files, held to a float32 CPU
+   copy; ``train`` on ``torus_kochkov/fcno/grid_sizes/64`` by registry name
+   at full width (24 layers, batch 32) on phase kolmogorov's files, and 2
+   of its steps at 4 layers held to a CPU copy; the launches (the
+   feed-forward kernels only: the DCT branches are plain torch, as in JAX),
+   each step's ms and device time, and the DCT branches' share of it (one
+   layer's branches forward and backward at the step's shape, traced alone,
+   times the layers).
+14. ``time`` (in a child process of this script, which starts with no CUDA
    graph and no profiler session behind it): each kernel, its plain version
    and a PyTorch yardstick the port
    never calls, by their device time in a profiler trace (and the kernel's
@@ -126,7 +151,8 @@ Phases, each reporting on its own lines; every run goes through all twelve:
    could take and the kernel's time over it; the spectral mix and its
    adjoint also at x [8, 128, 128, 64] M 32 and [2, 256, 256, 64] M 64, and
    in float32 every kernel at the airfoil's shapes (135,110 rows; x [10,
-   229, 59, 64] M 32 / 16). It
+   229, 59, 64] M 32 / 16) and at the elasticity F-FNO's (81,920 rows, hidden
+   128; x [20, 64, 64, 64] M 16). It
    runs last, so that no profiler session precedes the timed rollout and
    train steps.
 
@@ -175,6 +201,7 @@ from fourierflow_tpu_torch.ops.fused_spectral import (  # noqa: E402
     _lib as _spectral_lib, _mode_chunk as _mix_mode_chunk, _smem_bytes as _mix_smem_bytes,
     fused_mix_2d_adjoint_cuda,
     fused_mix_2d_adjoint_plain, fused_mix_2d_cuda, fused_mix_2d_plain)
+from fourierflow_tpu_torch.ops.spectral import dct_mix_axis  # noqa: E402
 from fourierflow_tpu_torch.utils.checkpoint import save_state  # noqa: E402
 from fourierflow_tpu_torch.utils.serving import load_exported, make_rollout_fn  # noqa: E402
 
@@ -255,6 +282,13 @@ MESH_SMALL = dict(cin=32, hidden=128, cout=32)
 MESH_FF_CASES = ((AIRFOIL_ROWS, {}), (PIPE_ROWS, {}), (PLAS_ROWS, {}), (AIRFOIL_ROWS, MESH_SMALL))
 MESH_MIX_CASES = (((10, 229, 59, 32), dict(modes_y=16)),
                   ((10, 229, 59, 24), dict(modes_y=12, c=32)), ((10, 137, 137, 16), {}))
+# The point-cloud shapes (elasticity): the F-FNO's middle layers at batch 20 on its 64^2 grid
+# (width 64, the feed-forward's factor 2: H 128; M 16 on both axes) and ffno-small's 40^2
+# (width 32, H 64, M 12): the rows of the feed-forward and the spectral mix's x. Float32.
+ELASTICITY_ROWS, ELASTICITY_SMALL_ROWS = 20 * 64 * 64, 20 * 40 * 40
+POINT_FF_CASES = ((ELASTICITY_ROWS, dict(hidden=128)),
+                  (ELASTICITY_SMALL_ROWS, dict(cin=32, hidden=64, cout=32)))
+POINT_MIX_CASES = (((20, 64, 64, 16), {}), ((20, 40, 40, 12), dict(c=32)))
 # The serve phase: the exported rollout's steps and batches, and its tolerance against
 # the live serving module and the eager rollout (max |err| / max |reference|, f32).
 SERVE_STEPS = 20
@@ -310,6 +344,23 @@ MESH_CONFIG = "airfoil/ffno/24_layers"
 MESH_HELD = ("pipe/ffno/24_layers", "airfoil/ffno-small/24_layers", "plasticity/ffno/24_layers",
              "airfoil/geo-fno/4_layers", "plasticity/geo-fno/4_layers")
 MESH_STEPS = 2  # train steps of each configuration held to a CPU copy
+# The pointcloud phase: the elasticity files (Random_UnitCell_rr_10.npy [42, N],
+# _sigma_10.npy [972, N], _XY_10.npy [972, 2, N]) made from the seed, the splits cut from the
+# registry's 1,000 / 200 / 200; the configuration trained, tested and predicted by name at
+# full width; the ones whose steps are held to a CPU copy and timed, the last the
+# fully-factorized model (no registry name) at elasticity/ffno/4_layers's widths.
+POINT_SPLITS, POINT_REGISTRY_SPLITS = (40, 10, 10), (1000, 200, 200)
+POINT_N, POINT_CODE = 972, 42
+POINT_CONFIG = "elasticity/ffno/24_layers"
+POINT_PLUS, POINT_PLUS_CONFIG = "FNOFullyFactorizedMesh2D", "elasticity/ffno/4_layers"
+POINT_HELD = ("elasticity/ffno/4_layers", "elasticity/ffno-small/4_layers",
+              "elasticity/geo-fno/4_layers", "elasticity/geo-fno-big/4_layers", POINT_PLUS)
+POINT_STEPS = 2  # train steps of each configuration held to a CPU copy
+# The cno phase: the mesh CNOs held on phase mesh's files; the Kolmogorov CNO trained by
+# name at full width on phase kolmogorov's files, its step held at 4 layers.
+CNO_HELD = ("airfoil/fcno/4_layers", "plasticity/fcno/4_layers")
+CNO_CONFIG = "torus_kochkov/fcno/grid_sizes/64"
+CNO_STEPS = 2
 
 
 def log(*args):
@@ -523,7 +574,8 @@ def phase_sass():
     if len(counts) != 4 or not all(c["HMMA"] > 0 for c in counts.values()):
         raise AssertionError(f"sass: an FF kernel lacks tensor-core instructions {counts}")
     for dtype, code in _DTYPE_CODE.items():
-        for hidden, cout in ((H, C), (FF_NARROW["hidden"], FF_NARROW["cout"])):
+        for hidden, cout in ((H, C), (FF_NARROW["hidden"], FF_NARROW["cout"]),
+                             *((w.get("hidden", H), w.get("cout", C)) for _, w in POINT_FF_CASES)):
             sizes = ((_fwd_smem_bytes(hidden, cout, dtype),
                       _lib().ff_fwd_smem_bytes(code, hidden, cout)),
                      (_bwd_smem_bytes(hidden, dtype), _lib().ff_bwd_smem_bytes(code, hidden)))
@@ -534,7 +586,8 @@ def phase_sass():
     wtypes = ((torch.float32, torch.float32), (torch.bfloat16, torch.float32),
               (torch.bfloat16, torch.bfloat16))
     chunks = {}
-    for (_, sx, sy, modes), opts in MIX_CASES + KOL_MIX_CASES + MIX_BF16_CASES + MESH_MIX_CASES:
+    for (_, sx, sy, modes), opts in (MIX_CASES + KOL_MIX_CASES + MIX_BF16_CASES + MESH_MIX_CASES
+                                     + POINT_MIX_CASES):
         c = opts.get("c", C)
         for n, modes in ((sx, modes), (sy, opts.get("modes_y") or modes)):
             for xt, wt in wtypes:
@@ -606,14 +659,14 @@ def phase_check(dev, seed):
         check_function(f"fused_ff[{tag}, rows 1037, model weights]", fused_ff, fused_ff_plain,
                        ff_inputs(1000 + 37, dtype, dev, seed), dtype, seed)
         if dtype == torch.float32:
-            for rows, widths in MESH_FF_CASES:
-                what = f"[{tag}, mesh rows {rows}{', ' + str(widths) if widths else ''}]"
+            for rows, widths in MESH_FF_CASES + POINT_FF_CASES:
+                what = f"[{tag}, rows {rows}{', ' + str(widths) if widths else ''}]"
                 check(f"fused_ff{what}", fused_ff_cuda, fused_ff_plain,
                       ff_inputs(rows, dtype, dev, seed, **widths), dtype)
                 check(f"fused_ff_bwd{what}", fused_ff_bwd_cuda, fused_ff_bwd_plain,
                       ff_bwd_inputs(rows, dtype, dev, seed, **widths), dtype)
         cases = MIX_CASES + KOL_MIX_CASES + (MIX_BF16_CASES if dtype == torch.bfloat16 else
-                                             MESH_MIX_CASES)
+                                             MESH_MIX_CASES + POINT_MIX_CASES)
         for (b, sx, sy, modes), opts in cases:
             what = f"[{tag}, {b}x{sx}x{sy}x{opts.get('c', C)}, M {modes}, {opts or 'f32 weights'}]"
             args = mix_inputs(b, sx, sy, modes, dtype, dev, seed, **opts)
@@ -692,22 +745,29 @@ def timed(kernel, plain, library, flops, nbytes, dtype):
 def phase_time(dev, seed):
     """Rows keyed ``(name, dtype)`` at the flagship's shapes, and ``(name,
     dtype, label)`` at the other paths' shapes: the torus_kochkov grids (f32
-    and bf16) and the airfoil mesh (f32)."""
+    and bf16), the airfoil mesh and the elasticity point cloud (f32)."""
     rows = {}
+    hid = 128  # the elasticity F-FNO's feed-forward (factor 2)
     for dtype in DTYPES:
         isz = torch.tensor([], dtype=dtype).element_size()
         f32 = dtype == torch.float32
-        for n_rows, tail in ((ROWS, ()),) + (
-                ((AIRFOIL_ROWS, (f"rows {AIRFOIL_ROWS} (airfoil)",)),) if f32 else ()):
-            args = ff_inputs(n_rows, dtype, dev, seed)
-            flops = 2 * n_rows * (C * H + H * C)
-            nbytes = (2 * n_rows * C + C * H + H + H * C + C) * isz
+        for n_rows, widths, tail in ((ROWS, {}, ()),) + ((
+                (AIRFOIL_ROWS, {}, (f"rows {AIRFOIL_ROWS} (airfoil)",)),
+                (ELASTICITY_ROWS, dict(hidden=hid),
+                 (f"rows {ELASTICITY_ROWS}, H {hid} (elasticity)",))) if f32 else ()):
+            cin, hidden, cout = (widths.get(k, d) for k, d in (("cin", C), ("hidden", H),
+                                                                ("cout", C)))
+            args = ff_inputs(n_rows, dtype, dev, seed, **widths)
+            flops = 2 * n_rows * (cin * hidden + hidden * cout)
+            nbytes = (n_rows * (cin + cout) + cin * hidden + hidden + hidden * cout + cout) * isz
             rows[("fused_ff", dtype) + tail] = timed(
                 lambda: fused_ff_cuda(*args), lambda: fused_ff_plain(*args), _library_ff(*args),
                 flops, nbytes, dtype)
-            bargs = ff_bwd_inputs(n_rows, dtype, dev, seed)
-            flops = 10 * n_rows * C * H
-            nbytes = 3 * n_rows * C * isz + (2 * C * H + H) * isz + (2 * C * H + H + C) * 4
+            bargs = ff_bwd_inputs(n_rows, dtype, dev, seed, **widths)
+            # Five products: pre, dh, dx, dW1 and dW2.
+            flops = 2 * n_rows * hidden * (3 * cin + 2 * cout)
+            weights = cin * hidden + hidden * cout + hidden
+            nbytes = n_rows * (2 * cin + cout) * isz + weights * isz + (weights + cout) * 4
             rows[("fused_ff_bwd", dtype) + tail] = timed(
                 lambda: fused_ff_bwd_cuda(*bargs), lambda: fused_ff_bwd_plain(*bargs),
                 _library_ff_bwd(*bargs), flops, nbytes, dtype)
@@ -716,10 +776,11 @@ def phase_time(dev, seed):
             f"x [{', '.join(map(str, shape[:3]))}, {C}] M {shape[3]}"
             + (f" / {opts['modes_y']}" if "modes_y" in opts else "") + f" ({path})")
         airfoil_shape, airfoil_opts = MESH_MIX_CASES[0]
+        elasticity_shape = POINT_MIX_CASES[0][0]
         mix_cases = (((B, N, N, M), {}, ()),) + tuple(
-            (shape, {}, (label(shape, {}, "torus_kochkov"),)) for shape in KOL_TIME_CASES) + (
-            ((airfoil_shape, airfoil_opts, (label(airfoil_shape, airfoil_opts, "airfoil"),)),)
-            if f32 else ())
+            (shape, {}, (label(shape, {}, "torus_kochkov"),)) for shape in KOL_TIME_CASES) + ((
+            (airfoil_shape, airfoil_opts, (label(airfoil_shape, airfoil_opts, "airfoil"),)),
+            (elasticity_shape, {}, (label(elasticity_shape, {}, "elasticity"),))) if f32 else ())
         for shape, opts, tail in mix_cases:
             x, wy, wx = mix_inputs(*shape, dtype, dev, seed, **opts)
             flops = mix_flops(*shape, C, opts.get("modes_y"))
@@ -1283,7 +1344,8 @@ def time_steps(label, routine, state, batch, dev, steps=5, phase="context"):
     cpu_ms = (time.process_time() - cpu0) / steps * 1e3
     if not math.isfinite(float(metrics["train_loss"])):
         raise AssertionError(f"{phase}: {label}: non-finite loss in the timed steps")
-    log(f"{phase}: {label}: {step_ms:.3f} ms per train step (batch {len(batch['x'])}, f32, mean "
+    log(f"{phase}: {label}: {step_ms:.3f} ms per train step (batch "
+        f"{len(next(iter(batch.values())))}, f32, mean "
         f"of {steps} after 2 warm-ups); host CPU time {cpu_ms:.3f} ms per step")
     return state, step_ms
 
@@ -1496,15 +1558,21 @@ def _mesh_overrides(name):
             f"builder.test_size={test_size}"]
 
 
+def _layers(name):
+    return int(name.rsplit("/", 1)[1].split("_")[0])
+
+
 def _mesh_launches(name, steps):
     """Launches of each kernel in ``steps`` train steps of a mesh config:
     every kernel once a layer in the 2D F-FNO, the feed-forward ones in the
-    3D F-FNO (its spectral branches are the plain version, as in JAX), none
-    in Geo-FNO."""
+    3D F-FNO (its spectral branches are the plain version, as in JAX) and in
+    the CNOs (their DCT branches are plain torch, as in JAX), none in
+    Geo-FNO."""
     if "/geo-fno" in name:
         return dict.fromkeys(KERNELS, 0)
-    ff_only = name.startswith("plasticity/")
-    return {k: 0 if ff_only and k.startswith("fused_mix") else N_LAYERS * steps for k in KERNELS}
+    ff_only = name.startswith("plasticity/") or "/fcno/" in name
+    return {k: 0 if ff_only and k.startswith("fused_mix") else _layers(name) * steps
+            for k in KERNELS}
 
 
 def phase_mesh(dev, tmp, seed):
@@ -1909,6 +1977,256 @@ def phase_kolmogorov(dev, tmp):
     return counts
 
 
+# --- phase pointcloud ----------------------------------------------------------------------
+def write_elasticity_data(root, seed):
+    """The elasticity files at their layouts under ``root`` (the registry's
+    ``${DATA_ROOT}`` layout), made from ``seed``: 972 points a sample
+    scattered in the unit square, 42 geometry parameters, and a stress smooth
+    in the points and the parameters. Float64, as the published files."""
+    rng = np.random.default_rng(seed)
+    n = sum(POINT_SPLITS)
+    xy = rng.uniform(0.0, 1.0, (n, POINT_N, 2))
+    rr = rng.uniform(0.2, 0.4, (n, POINT_CODE))
+    k, ph = rng.uniform(1.0, 3.0, (n, 1)), rng.uniform(0.0, 2 * np.pi, (n, 1))
+    sigma = (1 + rr.mean(axis=1, keepdims=True)) * (
+        1 + 0.5 * np.sin(2 * np.pi * k * xy[..., 0] + ph) * np.cos(np.pi * k * xy[..., 1]))
+    folder = os.path.join(root, "geo-fno/elasticity/Meshes")
+    os.makedirs(folder, exist_ok=True)
+    files = {}
+    for name, a in (("rr", rr.T), ("sigma", sigma.T), ("XY", xy.transpose(1, 2, 0))):
+        path = os.path.join(folder, f"Random_UnitCell_{name}_10.npy")
+        np.save(path, a)
+        files[path] = a.shape
+    return files
+
+
+def _point_overrides(name):
+    over = [f"builder.{k}_size={v}" for k, v in zip(("train", "valid", "test"), POINT_SPLITS)]
+    if name == POINT_PLUS:  # no registry name: POINT_PLUS_CONFIG with this model
+        over.append(f"routine.model._target_=fourierflow_tpu_torch.models.{POINT_PLUS}")
+    return over
+
+
+def _point_launches(name, steps):
+    """Launches of each kernel in ``steps`` train steps: in the point-cloud
+    F-FNO every kernel once a middle layer (``n_layers - 1``); in the
+    fully-factorized model the feed-forwards of every layer but the last and
+    the mixes of the middle layers; none in Geo-FNO."""
+    if "/geo-fno" in name:
+        return dict.fromkeys(KERNELS, 0)
+    n = 4 if name == POINT_PLUS else _layers(name)
+    ff = n if name == POINT_PLUS else n - 1
+    return {k: (n - 1 if k.startswith("fused_mix") else ff) * steps for k in KERNELS}
+
+
+def phase_pointcloud(dev, tmp, seed):
+    """The point-cloud slice: the elasticity files at their layouts, made from
+    the seed; ``elasticity/ffno/24_layers`` at full width through ``train``,
+    ``test`` and ``predict`` by registry name, and the launches of its next
+    steps counted; the steps of POINT_HELD held to a float32 CPU copy; each
+    configuration's steps timed and their device time traced."""
+    phase_start = time.perf_counter()
+    root = os.path.join(tmp, "elasticity_data")
+    os.environ["DATA_ROOT"] = root  # the registry's data paths
+    files = write_elasticity_data(root, seed)
+    log(f"pointcloud: wrote {len(files)} files: "
+        f"{ {os.path.relpath(k, root): v for k, v in files.items()} }")
+    log(f"pointcloud: cut: elasticity splits (train, valid, test) {POINT_SPLITS} against the "
+        f"registry's {POINT_REGISTRY_SPLITS}")
+    reset_launch_counts()
+
+    t0 = time.perf_counter()
+    over = _point_overrides(POINT_CONFIG)
+    with tempfile.TemporaryDirectory() as run:
+        trainer, state = train.main(POINT_CONFIG, over + ["trainer.max_epochs=1"],
+                                    config_dir=run, device="cuda")
+        logs = test_command.main(POINT_CONFIG, overrides=over, config_dir=run, device="cuda")
+        ckpt = os.path.join(next(os.scandir(os.path.join(run, "checkpoints"))).path, "last.ckpt")
+        seconds = predict.main(POINT_CONFIG, ckpt, overrides=over, device="cuda")
+    launched = launch_counts()
+    scalars = {k: float(v) for k, v in logs.items()}
+    log(f"pointcloud: {POINT_CONFIG}: train, test and predict took "
+        f"{time.perf_counter() - t0:.1f} s")
+    log(f"pointcloud: {POINT_CONFIG}: train ({trainer.global_step} steps, n_params "
+        f"{trainer.logs['n_params']:,}, train_loss {trainer.logs['train_loss']:.6f}, "
+        f"train_loss_reg {trainer.logs['train_loss_reg']:.6f}, valid_loss "
+        f"{trainer.logs['valid_loss']:.6f}), test {json.dumps(scalars)}, predict {seconds:.6e} s "
+        f"a sample; launches {launched}")
+    if trainer.global_step != POINT_SPLITS[0] // 20 or not all(
+            math.isfinite(v) and v == trainer.logs[k] for k, v in scalars.items()):
+        raise AssertionError(f"pointcloud: {POINT_CONFIG}: {trainer.global_step} steps, test "
+                             f"logs {scalars} not finite or not train's")
+    if not all(n > 0 for n in launched.values()):
+        raise AssertionError(f"pointcloud: {POINT_CONFIG}: a kernel was never launched {launched}")
+
+    for name in (POINT_CONFIG,) + POINT_HELD:
+        t0 = time.perf_counter()
+        cfg = load_config(POINT_PLUS_CONFIG if name == POINT_PLUS else name,
+                          _point_overrides(name))
+        builder = instantiate(cfg["builder"])
+        routine = build_routine(cfg["routine"], builder)
+        batches = [b for _, b in zip(range(POINT_STEPS),
+                                     builder.train_batches(np.random.default_rng(0)))]
+        before = launch_counts()
+        if name == POINT_CONFIG:  # trained above: its steps are counted, not held
+            for batch in batches:
+                state, _ = routine.train_step(state, batch)
+            torch.cuda.synchronize()
+        else:
+            state = routine.init(7231, builder.sample_batch(), dev)  # the commands' seed
+            state = hold_steps(name, routine, state, batches, phase="pointcloud",
+                               update_from_card="/geo-fno" in name)
+        steps = {k: v - before[k] for k, v in launch_counts().items()}
+        model = cfg["routine"]["model"]
+        log(f"pointcloud: {name}: n_params {routine.n_params(state):,}, xy "
+            f"{batches[0]['xy'].shape}, rr {batches[0]['rr'].shape}, grid {model['s1']}^2, width "
+            f"{model['width']}, modes {model['modes1']}; launches in {POINT_STEPS} steps {steps}")
+        if steps != _point_launches(name, POINT_STEPS):
+            raise AssertionError(f"pointcloud: {name}: launches {steps}, expected "
+                                 f"{_point_launches(name, POINT_STEPS)}")
+        gen = torch.Generator(device=dev).manual_seed(0)  # the IPhi term's samples
+        state, step_ms = time_steps(name, routine, state, batches[0], dev, phase="pointcloud")
+        profile_train_step(routine, state, batches[0], gen, step_ms, label=f"pointcloud: {name}",
+                           groups=BASELINE_GROUPS if "/geo-fno" in name else STEP_GROUPS)
+        log(f"pointcloud: {name}: {time.perf_counter() - t0:.1f} s")
+    counts = launch_counts()
+    log(f"pointcloud: launches over the pointcloud path {counts}; phase took "
+        f"{time.perf_counter() - phase_start:.1f} s")
+    return counts
+
+
+# --- phase cno -----------------------------------------------------------------------------
+def dct_branches_ms(x_shape, modes, n_layers, dev):
+    """Device ms of the DCT branches of ``n_layers`` layers of a train step:
+    one layer's branches (a ``dct_mix_axis`` on each spatial axis, summed)
+    forward and backward (x and the weights) at the step's shape, alone,
+    times ``n_layers``. Traced as ``profile_train_step`` traces the step
+    (the sum of the device events over the calls), so that an event the
+    profiler loses in this process, after the solvers' CUDA graphs, counts
+    alike in both; CUDA events would time the host, which launches these
+    small kernels slower than the card runs them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator(device="cpu").manual_seed(0)
+    r = lambda *shape: torch.randn(*shape, generator=g).to(dev).requires_grad_()
+    width = x_shape[-1]
+    x, ws = r(*x_shape), [r(width, width, m) for m in modes]
+    go = torch.randn(x_shape, generator=g).to(dev)
+
+    def run():
+        out = dct_mix_axis(x, ws[0], 1)
+        for axis, w in enumerate(ws[1:], 2):
+            out = out + dct_mix_axis(x, w, axis)
+        torch.autograd.grad(out, [x, *ws], go)
+
+    iters = 20
+    for _ in range(3):
+        run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            run()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
+    return us / iters / 1e3 * n_layers
+
+
+def _cno_step(label, routine, state, batch, dev, x_shape, modes, n_layers):
+    """A CNO configuration's train step: its ms, its traced device time, and
+    the DCT branches' share of that device time."""
+    state, step_ms = time_steps(label, routine, state, batch, dev, phase="cno")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    dev_ms = profile_train_step(routine, state, batch, gen, step_ms, label=f"cno: {label}")
+    dct_ms = dct_branches_ms(x_shape, modes, n_layers, dev)
+    log(f"cno: {label}: DCT branches (forward and backward, {n_layers} layers of x {x_shape}, "
+        f"traced alone) {dct_ms:.3f} ms of the step's {dev_ms:.3f} ms of traced device time "
+        f"({dct_ms / dev_ms:.1%})")
+    return state
+
+
+def phase_cno(dev, tmp):
+    """The CNO slice: ``airfoil/fcno/4_layers`` and ``plasticity/fcno/4_layers``
+    held to a float32 CPU copy on phase mesh's files; ``torus_kochkov/fcno/
+    grid_sizes/64`` at full width through ``train`` by registry name on phase
+    kolmogorov's files, its step at 4 layers held to a CPU copy; each step
+    timed and traced, with the share of its device time in the DCT
+    branches."""
+    phase_start = time.perf_counter()
+    reset_launch_counts()
+    os.environ["DATA_ROOT"] = os.path.join(tmp, "mesh_data")  # phase mesh's files
+    for name in CNO_HELD:
+        t0 = time.perf_counter()
+        cfg = load_config(name, _mesh_overrides(name))
+        builder = instantiate(cfg["builder"])
+        routine = build_routine(cfg["routine"], builder)
+        batches = [b for _, b in zip(range(CNO_STEPS),
+                                     builder.train_batches(np.random.default_rng(0)))]
+        state = routine.init(7231, builder.sample_batch(), dev)
+        before = launch_counts()
+        state = hold_steps(name, routine, state, batches, phase="cno")
+        steps = {k: v - before[k] for k, v in launch_counts().items()}
+        model = cfg["routine"]["model"]
+        modes = [model[k] for k in ("modes_x", "modes_y", "modes_z") if k in model]
+        log(f"cno: {name}: n_params {routine.n_params(state):,}, x {batches[0]['x'].shape}, "
+            f"width {model['width']}, modes {modes}; launches in {CNO_STEPS} steps {steps}")
+        if steps != _mesh_launches(name, CNO_STEPS):
+            raise AssertionError(f"cno: {name}: launches {steps}, expected "
+                                 f"{_mesh_launches(name, CNO_STEPS)}")
+        b, *spatial, _ = batches[0]["x"].shape  # the padding is 8 on the high side
+        _cno_step(name, routine, state, batches[0], dev,
+                  (b, *(n + 8 for n in spatial), model["width"]), modes, _layers(name))
+        log(f"cno: {name}: {time.perf_counter() - t0:.1f} s")
+
+    os.environ["DATA_ROOT"] = os.path.join(tmp, "data")  # phase kolmogorov's files
+    t0 = time.perf_counter()
+    overrides = ["trainer.max_epochs=2", f"trainer.limit_train_batches={KOL_STEPS}"]
+    before = launch_counts()
+    with tempfile.TemporaryDirectory() as run:
+        trainer, state = train.main(CNO_CONFIG, overrides, config_dir=run, device="cuda")
+    launched = {k: v - before[k] for k, v in launch_counts().items()}
+    logs = trainer.logs
+    log(f"cno: {CNO_CONFIG}: train ({trainer.global_step} steps after the normalizer pass, "
+        f"n_params {logs['n_params']:,}): valid_time_until {logs['valid_time_until']:g}, "
+        f"valid_loss {logs['valid_loss']:.6f}, test_loss {logs['test_loss']:.6f}; "
+        f"launches {launched}; {time.perf_counter() - t0:.1f} s")
+    if (trainer.global_step != KOL_STEPS or not np.isfinite(logs["test_loss"])
+            or not launched["fused_ff"] or not launched["fused_ff_bwd"]):
+        raise AssertionError(f"cno: {CNO_CONFIG}: {trainer.global_step} steps, launches "
+                             f"{launched}, test_loss {logs['test_loss']}")
+    cfg = load_config(CNO_CONFIG, overrides)
+    builder = instantiate(cfg["builder"])
+    routine = build_routine(cfg["routine"], builder)
+    batch = next(builder.train_batches(np.random.default_rng(0)))
+    conv = cfg["routine"]["conv"]
+    _cno_step(CNO_CONFIG, routine, state, batch, dev,
+              (*batch["x"].shape[:-1], conv["width"]), [conv["modes"]] * 2, conv["n_layers"])
+
+    name = f"{CNO_CONFIG} at 4 layers"
+    cfg = load_config(CNO_CONFIG, ["routine.conv.n_layers=4"])
+    builder = instantiate(cfg["builder"])
+    routine = build_routine(cfg["routine"], builder)
+    state = routine.init(7231, builder.sample_batch(), dev)
+    batches = [b for _, b in zip(range(2 * CNO_STEPS),
+                                 builder.train_batches(np.random.default_rng(0)))]
+    for batch in batches[:CNO_STEPS]:
+        state = routine.accumulate_step(state, batch)
+    before = launch_counts()
+    hold_steps(name, routine, state, batches[CNO_STEPS:], phase="cno")
+    steps = {k: v - before[k] for k, v in launch_counts().items()}
+    log(f"cno: {name}: launches in {CNO_STEPS} steps {steps}")
+    if steps != {k: 0 if k.startswith("fused_mix") else 4 * CNO_STEPS for k in KERNELS}:
+        raise AssertionError(f"cno: {name}: launches {steps}")
+    counts = launch_counts()
+    log(f"cno: launches over the cno path {counts}; phase took "
+        f"{time.perf_counter() - phase_start:.1f} s")
+    for k in ("fused_ff", "fused_ff_bwd"):
+        if counts[k] < 1:
+            raise AssertionError(f"cno: {k} was never launched on the cno path")
+    return counts
+
+
 # Device-time groups of a train step, by kernel name.
 STEP_GROUPS = (("spectral kernel (forward + adjoint)", ("spectral_axis_kernel",)),
                ("FF backward kernel", ("ff_bwd",)), ("FF forward kernel", ("ff_fwd_kernel",)),
@@ -1925,7 +2243,7 @@ def profile_train_step(routine, state, batch, gen, step_ms, steps=2, label="trai
     """Device time of a train step by kernel group, from a torch.profiler
     trace of ``steps`` steps; the idle share is taken against the untraced
     step time. ``host_top`` > 0 also lists the operators with the most
-    host (self CPU) time."""
+    host (self CPU) time. Returns the device ms per step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1956,6 +2274,7 @@ def profile_train_step(routine, state, batch, gen, step_ms, steps=2, label="trai
         for a in ops:
             log(f"{label}:   host {a.self_cpu_time_total / steps / 1e3:8.3f} ms  "
                 f"{a.count // steps:5d}x  {a.key[:80]}")
+    return device_ms
 
 
 def phase_time_apart(seed):
@@ -2010,6 +2329,8 @@ def main():
         counts["mesh"] = phase_mesh(dev, tmp, args.seed)
         counts["context"] = phase_context(dev, tmp, data_path)
         counts["kolmogorov"] = phase_kolmogorov(dev, tmp)
+        counts["pointcloud"] = phase_pointcloud(dev, tmp, args.seed)
+        counts["cno"] = phase_cno(dev, tmp)
     times = phase_time_apart(args.seed)
 
     kernels = []

@@ -1,4 +1,5 @@
 from .base import Builder, iterate_batches, load_array
+from .elasticity import ElasticityBuilder
 from .kolmogorov import (KolmogorovBuilder, KolmogorovMarkovDataset, KolmogorovMultiDataset,
                          KolmogorovTrajectoryDataset)
 from .ns_contextual import NSContextualBuilder
@@ -7,7 +8,7 @@ from .ns_zongyi import NSZongyiBuilder
 from .plasticity import PlasticityBuilder
 from .structured_mesh_2d import StructuredMesh2DBuilder
 
-__all__ = ["Builder", "iterate_batches", "load_array", "KolmogorovBuilder",
+__all__ = ["Builder", "iterate_batches", "load_array", "ElasticityBuilder", "KolmogorovBuilder",
            "KolmogorovMarkovDataset", "KolmogorovMultiDataset", "KolmogorovTrajectoryDataset",
            "NSContextualBuilder", "NSMarkovBuilder", "NSZongyiBuilder", "PlasticityBuilder",
            "StructuredMesh2DBuilder"]

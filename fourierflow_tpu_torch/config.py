@@ -61,15 +61,21 @@ TARGET_TRANSLATION = {
     "fourierflow.builders.StructuredMesh2DBuilder":
         "fourierflow_tpu_torch.builders.StructuredMesh2DBuilder",
     "fourierflow.builders.PlasticityBuilder": "fourierflow_tpu_torch.builders.PlasticityBuilder",
+    "fourierflow.builders.ElasticityBuilder": "fourierflow_tpu_torch.builders.ElasticityBuilder",
     "fourierflow.modules.FNOFactorized2DBlock": "fourierflow_tpu_torch.models.FNOFactorized2DBlock",
     "fourierflow.modules.FNOZongyi2DBlock": "fourierflow_tpu_torch.models.FNOZongyi2DBlock",
     "fourierflow.modules.FNOPlus2DBlock": "fourierflow_tpu_torch.models.FNOPlus2DBlock",
     "fourierflow.modules.FNOFactorizedMesh2D": "fourierflow_tpu_torch.models.FNOFactorizedMesh2D",
     "fourierflow.modules.FNOFactorizedMesh3D": "fourierflow_tpu_torch.models.FNOFactorizedMesh3D",
+    "fourierflow.modules.FNOFactorizedPointCloud2D":
+        "fourierflow_tpu_torch.models.FNOFactorizedPointCloud2D",
+    "fourierflow.modules.CNOFactorized2DBlock": "fourierflow_tpu_torch.models.CNOFactorized2DBlock",
+    "fourierflow.modules.IPhi": "fourierflow_tpu_torch.models.IPhi",
     "fourierflow.routines.Grid2DMarkovExperiment": "fourierflow_tpu_torch.routines.Grid2DMarkovRoutine",
     "fourierflow.routines.Grid2DRolloutExperiment": "fourierflow_tpu_torch.routines.Grid2DRolloutRoutine",
     "fourierflow.routines.StructuredMeshExperiment":
         "fourierflow_tpu_torch.routines.StructuredMeshRoutine",
+    "fourierflow.routines.PointCloudExperiment": "fourierflow_tpu_torch.routines.PointCloudRoutine",
     "fourierflow.schedulers.CosineWithWarmupScheduler": "fourierflow_tpu_torch.schedulers.cosine_with_warmup",
     "fourierflow.schedulers.LinearWithWarmupScheduler": "fourierflow_tpu_torch.schedulers.linear_with_warmup",
     "fourierflow.schedulers.ExponentialWithWarmupScheduler":

@@ -1,9 +1,10 @@
 """Experiment registry: the JAX package's config-as-code experiments of the
-torus families and the structured-mesh families, by the same path-like
-names (counterpart of ``fourierflow_tpu/experiments.py``: its ``torus_li``,
-``torus_vis*`` and ``torus_kochkov/ffno`` families, its pseudo-spectral
-Kolmogorov data configs ``data/kolmogorov/**``, and its ``airfoil``,
-``pipe`` and ``plasticity`` F-FNO and Geo-FNO experiments)::
+torus families, the structured meshes and the point clouds, by the same
+path-like names (counterpart of ``fourierflow_tpu/experiments.py``: its
+``torus_li``, ``torus_vis*`` and ``torus_kochkov`` F-FNO and CNO families,
+its pseudo-spectral Kolmogorov data configs ``data/kolmogorov/**``, its
+``airfoil``, ``pipe`` and ``plasticity`` F-FNO, Geo-FNO and CNO experiments
+and its ``elasticity`` point-cloud ones)::
 
     python -m fourierflow_tpu_torch.commands train torus_vis/01_baseline
     python -m fourierflow_tpu_torch.commands train airfoil/ffno/24_layers
@@ -14,11 +15,10 @@ Kolmogorov data configs ``data/kolmogorov/**``, and its ``airfoil``,
 (wandb / builder / routine / trainer / callbacks) that
 ``config.load_config`` reads when ``name`` is not a file;
 ``experiment_names()`` lists them (``commands configs list``). Targets name
-this package. The other families join the registry with the slices that
-port their targets: the CNO experiments (``torus_kochkov/fcno``,
-``airfoil/fcno``, ``plasticity/fcno``; asking for one raises), the point
-clouds (elasticity), the learned interpolation and the projection-method
-data configs are not here yet.
+this package. Not here yet, and asking for one raises: the learned
+interpolation (``torus_kochkov/learned_interpolation``), the projection
+method's and the 3D Kolmogorov data configs, and MeshGraphNet
+(``cylinder_flow``).
 
 Hyperparameters mirror the reference configs (file citations inline).
 """
@@ -449,6 +449,11 @@ def _kochkov_family() -> Dict[str, dict]:
         pp["routine"]["conv"]["_target_"] = "fourierflow_tpu_torch.models.FNOPlus2DBlock"
         pp["routine"]["conv"]["share_weight"] = False
         out[f"torus_kochkov/ffno/ablation/fno++/{size}"] = pp
+    # FCNO on the Kolmogorov task.
+    for size in (64, 128):
+        fc = _kochkov_ffno(size)
+        fc["routine"]["conv"]["_target_"] = "fourierflow_tpu_torch.models.CNOFactorized2DBlock"
+        out[f"torus_kochkov/fcno/grid_sizes/{size}"] = fc
     return out
 
 
@@ -670,7 +675,7 @@ PIPE_PATHS = {
 def _geo_mesh_family(project, paths, output_dim) -> Dict[str, dict]:
     """airfoil/pipe experiment families (reference:experiments/airfoil/*,
     experiments/pipe/*). Modes: airfoil ffno (32, 16), pipe ffno (16, 16);
-    geo-fno (24, 12) / -big (32, 16). Not here yet: airfoil/fcno (CNO)."""
+    geo-fno (24, 12) / -big (32, 16); airfoil fcno (CNO) at ffno's."""
     out = {}
     big_x, big_y = (32, 16) if project == "airfoil" else (16, 16)
     for n in LAYERS:
@@ -689,6 +694,9 @@ def _geo_mesh_family(project, paths, output_dim) -> Dict[str, dict]:
         }
         if project == "airfoil":
             variants["ffno-small"] = ffno_model(24, 12, 32, False)
+            fcno = dict(ffno_model(big_x, big_y, 64, False))
+            fcno["_target_"] = "fourierflow_tpu_torch.models.CNOFactorizedMesh2D"
+            variants["fcno"] = fcno
         for name, model in variants.items():
             out[f"{project}/{name}/{n}_layers"] = _structured_mesh(
                 project, paths, output_dim, model, group=f"{name}/{n}_layers")
@@ -713,7 +721,7 @@ def _geo_mesh_family(project, paths, output_dim) -> Dict[str, dict]:
 
 
 def _plasticity_family() -> Dict[str, dict]:
-    """reference:experiments/plasticity/*. Not here yet: plasticity/fcno (CNO)."""
+    """reference:experiments/plasticity/*"""
     out = {}
     builder = {
         "_target_": "fourierflow_tpu_torch.builders.PlasticityBuilder",
@@ -722,9 +730,9 @@ def _plasticity_family() -> Dict[str, dict]:
         "train_size": 827, "valid_size": 80, "test_size": 80, "batch_size": 2,
     }
     for n in LAYERS:
-        def ffno3d(mx, my, mz, w, share=False):
+        def ffno3d(mx, my, mz, w, share=False, target="FNOFactorizedMesh3D"):
             return {
-                "_target_": "fourierflow_tpu_torch.models.FNOFactorizedMesh3D",
+                "_target_": f"fourierflow_tpu_torch.models.{target}",
                 "modes_x": mx, "modes_y": my, "modes_z": mz, "width": w,
                 "input_dim": 4, "output_dim": 4, "n_layers": n,
                 "share_weight": share, "factor": 4, "ff_weight_norm": True,
@@ -737,6 +745,8 @@ def _plasticity_family() -> Dict[str, dict]:
             "ffno": (ffno3d(32, 12, 8, 64), _adamw(), _cosine(82800), 200, 2),
             "ffno-small": (ffno3d(12, 12, 8, 32), _adamw(), _cosine(82800), 200, 2),
             "ffno-shared": (ffno3d(32, 12, 8, 64, share=True), _adamw(), _cosine(82800), 200, 2),
+            "fcno": (ffno3d(32, 12, 8, 64, target="CNOFactorizedMesh3D"), _adamw(),
+                     _cosine(82800), 200, 2),
         }
         for name, (m1, m2, m3, w) in {"geo-fno": (12, 12, 8, 32),
                                       "geo-fno-big": (32, 12, 8, 64)}.items():
@@ -761,6 +771,61 @@ def _plasticity_family() -> Dict[str, dict]:
     return out
 
 
+# --- point clouds (elasticity) ----------------------------------------------
+
+ELASTICITY_PATHS = {
+    "sigma_path": f"{DATA}/geo-fno/elasticity/Meshes/Random_UnitCell_sigma_10.npy",
+    "xy_path": f"{DATA}/geo-fno/elasticity/Meshes/Random_UnitCell_XY_10.npy",
+    "rr_path": f"{DATA}/geo-fno/elasticity/Meshes/Random_UnitCell_rr_10.npy",
+}
+
+
+def _elasticity_family() -> Dict[str, dict]:
+    """reference:experiments/elasticity/*"""
+    out = {}
+    for n in LAYERS:
+        def point_cloud(target, m, s, w, optimizer, scheduler, max_epochs, name):
+            return {
+                "wandb": _wandb("elasticity", f"{name}/{n}_layers"),
+                "builder": {
+                    "_target_": "fourierflow_tpu_torch.builders.ElasticityBuilder",
+                    **ELASTICITY_PATHS, "train_size": 1000, "valid_size": 200,
+                    "test_size": 200, "batch_size": 20,
+                },
+                "routine": {
+                    "_target_": "fourierflow_tpu_torch.routines.PointCloudRoutine",
+                    "model": {
+                        "_target_": f"fourierflow_tpu_torch.models.{target}",
+                        "modes1": m, "modes2": m, "s1": s, "s2": s,
+                        "width": w, "in_channels": 2, "out_channels": 1,
+                        "n_layers": n,
+                    },
+                    "iphi": {"_target_": "fourierflow_tpu_torch.models.IPhi", "width": w},
+                    "N": 1000,
+                    "optimizer": optimizer,
+                    "scheduler": scheduler,
+                },
+                "trainer": {"max_epochs": max_epochs},
+                "callbacks": _ckpt(),
+            }
+
+        ffno, geo = "FNOFactorizedPointCloud2D", "FNOPointCloud2D"
+        # Reference schedules: cosine num_training_steps 10000
+        # ("50 batches per epoch" x 200, elasticity/ffno/*/config.yaml).
+        for name, args in {
+            "ffno": (ffno, 16, 64, 64, _adamw(), _cosine(10000), 200),
+            "ffno-small": (ffno, 12, 40, 32, _adamw(), _cosine(10000), 200),
+            "geo-fno": (geo, 12, 40, 32, _adam(), _step_lr(50), 501),
+            "geo-fno-big": (geo, 16, 64, 64, _adam(), _step_lr(50), 501),
+            "ffno-shared": (ffno, 16, 64, 64, _adamw(), _cosine(10000), 200),
+        }.items():
+            cfg = point_cloud(*args, name)
+            if name == "ffno-shared":
+                cfg["routine"]["model"]["share_weight"] = True
+            out[f"elasticity/{name}/{n}_layers"] = cfg
+    return out
+
+
 # --- registry ---------------------------------------------------------------
 
 def _build_registry() -> Dict[str, dict]:
@@ -772,6 +837,7 @@ def _build_registry() -> Dict[str, dict]:
     reg.update(_geo_mesh_family("airfoil", AIRFOIL_PATHS, 4))
     reg.update(_geo_mesh_family("pipe", PIPE_PATHS, 0))
     reg.update(_plasticity_family())
+    reg.update(_elasticity_family())
     for v in ("01_baseline", "02_no_mu", "03_no_mu_force"):
         reg[f"torus_vis/{v}"] = _torus_vis("torus_vis", v)
     for v in ("01_baseline", "02_no_mu", "03_no_mu_force", "06_shared_all_no_fork"):
@@ -783,10 +849,15 @@ def _build_registry() -> Dict[str, dict]:
 
 _REGISTRY = None
 # Names of the JAX registry whose modules are not ported yet, by prefix.
-_NOT_PORTED = {
-    prefix: "CNO (ROADMAP A, item 7: CNO, cno_*.py and dct_mix_axis)"
-    for prefix in ("torus_kochkov/fcno/", "airfoil/fcno/", "plasticity/fcno/")
-}
+_NOT_PORTED = dict.fromkeys(
+    ("torus_kochkov/learned_interpolation/", "data/kolmogorov/re_1000/learned_interpolation/",
+     "data/kolmogorov/three_dimensions/", "data/kolmogorov/compare_methods/decaying/projection",
+     "data/kolmogorov/compare_methods/downsampling/projection_",
+     "data/kolmogorov/compare_methods/drag/projection",
+     "data/kolmogorov/compare_methods/kolmogorov/projection",
+     "data/kolmogorov/decaying/projection/", "cylinder_flow/"),
+    "learned interpolation, the projection method, 3D Kolmogorov flows or MeshGraphNet "
+    "(ROADMAP A8)")
 
 
 def _registry() -> Dict[str, dict]:

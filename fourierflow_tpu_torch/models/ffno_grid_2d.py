@@ -39,6 +39,11 @@ class _SpectralLayer(nn.Module):
 
 
 class FNOFactorized2DBlock(nn.Module):
+    # The per-mode weight's trailing dims (real, imaginary) and the separable
+    # mix of both axes, ``mix(x, wy, wx)``; the CNO block replaces both.
+    _pair = (2,)
+    _mix = staticmethod(fused_mix_2d)
+
     """Stack of factorized spectral layers with residuals. ``forward`` takes
     ``[batch, X, Y, input_dim]`` and returns ``{"forecast": [batch, X, Y, 1],
     "forecast_list": [...]}``; with a compute ``dtype`` the parameters stay
@@ -62,7 +67,7 @@ class FNOFactorized2DBlock(nn.Module):
         self.dtype = _DTYPES[dtype] if dtype is None or isinstance(dtype, str) else dtype
 
         self.in_proj = WNLinear(input_dim, width, wnorm=ff_weight_norm, dtype=self.dtype)
-        wshape = (width, width, modes, 2)
+        wshape = (width, width, modes, *self._pair)
         make_w = lambda: nn.ParameterList([nn.Parameter(torch.empty(wshape)) for _ in range(2)])
         make_ff = lambda: FeedForward(width, factor, ff_weight_norm, n_ff_layers, layer_norm,
                                       dropout, dtype=self.dtype)
@@ -124,7 +129,7 @@ class FNOFactorized2DBlock(nn.Module):
                 h = x
             else:
                 wy, wx = layer.fourier_weight
-                h = fused_mix_2d(x, wy, wx)
+                h = self._mix(x, wy, wx)
             b = layer.backcast_ff(h)
             if self.use_fork:
                 f = layer.forecast_ff(h)

@@ -44,6 +44,8 @@ class FNOFactorizedMesh2D(nn.Module):
     """``forward`` takes ``[batch, sx, sy, input_dim - 2]`` and returns
     ``[batch, sx, sy, 1]``."""
 
+    _pair = (2,)  # the per-mode weight's trailing dims (real, imaginary)
+
     def __init__(self, modes_x: int, modes_y: int, width: int, input_dim: int, n_layers: int,
                  share_weight: bool = False, factor: int = 4, ff_weight_norm: bool = True,
                  n_ff_layers: int = 2, layer_norm: bool = False, padding: int = 8):
@@ -51,7 +53,7 @@ class FNOFactorizedMesh2D(nn.Module):
         self.share_weight, self.padding = share_weight, padding
         self.in_proj = WNLinear(input_dim, width, wnorm=ff_weight_norm)
         make_w = lambda: nn.ParameterList(
-            [nn.Parameter(torch.empty(width, width, m, 2)) for m in (modes_x, modes_y)])
+            [nn.Parameter(torch.empty(width, width, m, *self._pair)) for m in (modes_x, modes_y)])
         if share_weight:
             self.fourier_weight = make_w()
         self.spectral_layers = nn.ModuleList(
@@ -78,6 +80,11 @@ class FNOFactorizedMesh2D(nn.Module):
         for lin in self.out:
             lin.reset_parameters(generator)
 
+    @staticmethod
+    def _mix(x: torch.Tensor, wx: torch.Tensor, wy: torch.Tensor) -> torch.Tensor:
+        """The separable mix of both axes."""
+        return fused_mix_2d(x, wy, wx)
+
     def forward(self, x: torch.Tensor, **kwargs) -> torch.Tensor:
         b, sx, sy, _ = x.shape
         x = torch.cat([x, get_grid_2d(b, sx, sy, x.dtype, x.device)], dim=-1)
@@ -87,8 +94,7 @@ class FNOFactorizedMesh2D(nn.Module):
             x = F.pad(x, (0, 0, 0, p, 0, p))
         h = x
         for layer in self.spectral_layers:
-            wx, wy = layer.fourier_weight
-            h = layer.backcast_ff(fused_mix_2d(x, wy, wx))
+            h = layer.backcast_ff(self._mix(x, *layer.fourier_weight))
             x = x + h
         if p:
             h = h[:, :-p, :-p]

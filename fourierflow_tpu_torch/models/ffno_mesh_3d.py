@@ -38,6 +38,11 @@ class FNOFactorizedMesh3D(nn.Module):
     """``forward`` takes ``[batch, sx, sy, sz, input_dim - 3]`` and returns
     ``[batch, sx, sy, sz, output_dim]``."""
 
+    # The per-mode weight's trailing dims (real, imaginary) and one separable
+    # branch, ``mix_axis(x, w, axis)``; the CNO model replaces both.
+    _pair = (2,)
+    _mix_axis = staticmethod(spectral_mix_axis)
+
     def __init__(self, modes_x: int, modes_y: int, modes_z: int, width: int, input_dim: int,
                  output_dim: int, n_layers: int, share_weight: bool = False, factor: int = 4,
                  ff_weight_norm: bool = True, n_ff_layers: int = 2, layer_norm: bool = False,
@@ -49,7 +54,8 @@ class FNOFactorizedMesh3D(nn.Module):
         self.share_weight, self.padding = share_weight, padding
         self.in_proj = WNLinear(input_dim, width, wnorm=ff_weight_norm)
         make_w = lambda: nn.ParameterList(
-            [nn.Parameter(torch.empty(width, width, m, 2)) for m in (modes_x, modes_y, modes_z)])
+            [nn.Parameter(torch.empty(width, width, m, *self._pair))
+             for m in (modes_x, modes_y, modes_z)])
         if share_weight:
             self.fourier_weight = make_w()
         self.spectral_layers = nn.ModuleList(
@@ -86,8 +92,7 @@ class FNOFactorizedMesh3D(nn.Module):
         h = x
         for layer in self.spectral_layers:
             wx, wy, wz = layer.fourier_weight
-            mixed = (spectral_mix_axis(x, wx, 1) + spectral_mix_axis(x, wy, 2)
-                     + spectral_mix_axis(x, wz, 3))
+            mixed = self._mix_axis(x, wx, 1) + self._mix_axis(x, wy, 2) + self._mix_axis(x, wz, 3)
             h = layer.backcast_ff(mixed)
             x = x + h
         if p:

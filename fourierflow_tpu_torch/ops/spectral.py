@@ -3,6 +3,9 @@
 ``spectral_conv_2d_full`` and ``spectral_conv_3d_full`` are the original
 FNO's 2D and 3D spectral convolutions (``torch.fft`` and a complex product
 on two or four corners of the modes).
+``dct_mix_axis`` is one separable CNO branch: truncated orthonormal DCT-II
+along one spatial axis, a real per-mode channel mix, the inverse DCT (plain
+torch, as the JAX package computes it in XLA outside any Pallas kernel).
 ``spectral_mix_axis`` is one separable F-FNO branch: truncated orthonormal
 rDFT along one spatial axis, per-mode complex channel mixing, inverse rDFT.
 It is computed with the truncated-DFT basis matmuls of ``ops/dft.py`` in
@@ -16,10 +19,11 @@ import math
 
 import torch
 
-from .dft import irdft_basis, rdft_basis
+from .dft import dct2_basis, idct2_basis, irdft_basis, rdft_basis
 from .fourier import irfft2, irfftn
 
-__all__ = ["spectral_mix_axis", "mix_axis_f32", "mix_axis_wgrad", "dft_bases", "stacked_bases",
+__all__ = ["dct_mix_axis", "dct_bases", "spectral_mix_axis", "mix_axis_f32", "mix_axis_wgrad",
+           "dft_bases", "stacked_bases",
            "spectral_conv_2d_full", "spectral_conv_3d_full"]
 
 
@@ -39,6 +43,31 @@ def stacked_bases(n: int, modes: int, device: torch.device):
     on ``device`` (cached; do not modify): the CUDA kernel's layout."""
     er, ei, cr, ci = dft_bases(n, modes, device)
     return torch.cat([er, ei], dim=1).contiguous(), torch.cat([cr, ci], dim=0).contiguous()
+
+
+@functools.lru_cache(maxsize=64)
+def dct_bases(n: int, modes: int, device: torch.device):
+    """``(d [n, modes], di [modes, n])``, the truncated DCT-II and its
+    inverse, as float32 tensors on ``device`` (cached; do not modify)."""
+    return tuple(torch.tensor(a, device=device) for a in (dct2_basis(n, modes),
+                                                         idct2_basis(n, modes)))
+
+
+def dct_mix_axis(x: torch.Tensor, weight: torch.Tensor, axis: int) -> torch.Tensor:
+    """DCT-II along ``axis``, per-mode real channel mixing, inverse DCT.
+
+    Args:
+      x: ``[batch, *spatial, in_channels]`` real.
+      weight: ``[in, out, modes]`` real.
+      axis: the spatial axis to transform.
+    Returns:
+      ``[batch, *spatial, out_channels]`` in x's type.
+    """
+    axis = _spatial_axis(x, axis)
+    d, di = (t.to(x.dtype) for t in dct_bases(x.shape[axis], weight.shape[2], x.device))
+    xs = torch.einsum("...ni,nm->...mi", x.movedim(axis, -2), d)
+    ys = torch.einsum("...mi,iom->...mo", xs, weight.to(x.dtype))
+    return torch.einsum("...mo,mn->...no", ys, di).movedim(-2, axis)
 
 
 def spectral_mix_axis(x: torch.Tensor, weight: torch.Tensor, axis: int) -> torch.Tensor:

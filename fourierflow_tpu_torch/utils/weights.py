@@ -4,7 +4,10 @@ package's ``state_dict``s: F-FNO (the inverse of the JAX package's
 with full spectral weights ``fourier_weight_{1,2}``), the original FNO
 (of ``convert_zongyi_state_dict``), the F-FNO mesh models (the F-FNO tree
 with per-axis weights ``fourier_weight_{x,y,z}``) and the Geo-FNO mesh
-models (``fc0``, ``convs_{i}_weight_{k}``, ``ws_{i}``, ``fc1``, ``fc2``).
+models (``fc0``, ``convs_{i}_weight_{k}``, ``ws_{i}``, ``fc1``, ``fc2``), the
+point-cloud models (the F-FNO, the fully-factorized one and the Geo-FNO,
+each with its ``iphi`` subtree) and the CNO models (the F-FNO trees with
+real ``[in, out, modes]`` Fourier weights).
 
 Input: the flax params of an ``FNOFactorized2DBlock`` as a nested dict of
 numpy arrays (with or without the outer ``"params"`` level) and its number
@@ -28,7 +31,8 @@ import numpy as np
 import torch
 
 __all__ = ["state_dict_from_flax", "plus_state_dict_from_flax", "zongyi_state_dict_from_flax",
-           "mesh_state_dict_from_flax", "geo_state_dict_from_flax"]
+           "mesh_state_dict_from_flax", "geo_state_dict_from_flax", "cno_state_dict_from_flax",
+           "point_cloud_state_dict_from_flax", "geo_point_cloud_state_dict_from_flax"]
 
 _LAYER_W = re.compile(r"layers_(\d+)_fourier_weight_([xy])$")
 _PLUS_LAYER_W = re.compile(r"layers_(\d+)_fourier_weight_([12])$")
@@ -133,6 +137,85 @@ def geo_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
             out[f"convs.{conv.group(1)}.{int(conv.group(2)) - 1}"] = _tensor(value)
         else:
             raise KeyError(f"unexpected Geo-FNO parameter {name!r}")
+    return out
+
+
+def cno_state_dict_from_flax(params: Mapping, n_layers: int,
+                             grid: bool = False) -> Dict[str, torch.Tensor]:
+    """Flax CNO params -> port ``state_dict``. The trees are the F-FNO ones
+    with real ``[in, out, modes]`` Fourier weights: ``CNOFactorized2DBlock``'s
+    (``grid``, Y then X as in ``state_dict_from_flax``) and
+    ``CNOFactorizedMesh2D`` / ``CNOFactorizedMesh3D``'s (X, Y, Z as in
+    ``mesh_state_dict_from_flax``)."""
+    if grid:
+        return state_dict_from_flax(params, n_layers)
+    return mesh_state_dict_from_flax(params, n_layers)
+
+
+_CLOUD_W = re.compile(r"(layers|convs)_(\d+)_fourier_weight_([xy])$")
+_CLOUD_FF = re.compile(r"(layers|convs)_(\d+)_backcast_ff$")
+_CLOUD_LINEAR = ("fc0", "bs_grid", "bs_points", "fc1", "fc2")
+
+
+def _iphi(p: Mapping, out: Dict[str, torch.Tensor]) -> None:
+    for name, lin in p.items():
+        _linear(lin, f"iphi.{name}", out)
+
+
+def point_cloud_state_dict_from_flax(params: Mapping, n_layers: int) -> Dict[str, torch.Tensor]:
+    """Flax ``FNOFactorizedPointCloud2D`` / ``FNOFullyFactorizedMesh2D``
+    params -> port ``state_dict``. The F-FNO's middle layer ``layers_{i}``
+    (i from 1) becomes ``spectral_layers.{i - 1}``, with the shared
+    ``fourier_weight_{y,x}`` at block level and in each of its ``n_layers -
+    1`` layers; the fully-factorized model's ``convs_{i}`` becomes
+    ``spectral_layers.{i}``. Fourier weights Y -> ``.0``, X -> ``.1``;
+    ``last_weight_{1,2}`` -> ``last_weight.{0,1}``; ``iphi`` -> ``iphi.*``."""
+    if "params" in params:
+        params = params["params"]
+    out: Dict[str, torch.Tensor] = {}
+    for name, value in params.items():
+        w, ff = _CLOUD_W.match(name), _CLOUD_FF.match(name)
+        if name in _CLOUD_LINEAR:
+            _linear(value, name, out)
+        elif name == "iphi":
+            _iphi(value, out)
+        elif name in ("fourier_weight_y", "fourier_weight_x"):
+            for base in ["", *(f"spectral_layers.{i}." for i in range(n_layers - 1))]:
+                out[f"{base}fourier_weight.{_BRANCH[name[-1]]}"] = _tensor(value)
+        elif name in ("last_weight_1", "last_weight_2"):
+            out[f"last_weight.{int(name[-1]) - 1}"] = _tensor(value)
+        elif w:
+            kind, i, axis = w.groups()
+            j = int(i) - (kind == "layers")
+            out[f"spectral_layers.{j}.fourier_weight.{_BRANCH[axis]}"] = _tensor(value)
+        elif ff:
+            kind, i = ff.groups()
+            _ff(value, f"spectral_layers.{int(i) - (kind == 'layers')}.backcast_ff", out)
+        else:
+            raise KeyError(f"unexpected point-cloud model parameter {name!r}")
+    return out
+
+
+_GEO_BS = re.compile(r"bs_(\d+)$")
+
+
+def geo_point_cloud_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax ``FNOPointCloud2D`` params -> port ``state_dict``: as
+    ``geo_state_dict_from_flax``, with ``bs_{i}`` -> ``bs.{i}`` and ``iphi`` ->
+    ``iphi.*``."""
+    if "params" in params:
+        params = params["params"]
+    out: Dict[str, torch.Tensor] = {}
+    rest = {}
+    for name, value in params.items():
+        bs = _GEO_BS.match(name)
+        if bs:
+            _linear(value, f"bs.{bs.group(1)}", out)
+        elif name == "iphi":
+            _iphi(value, out)
+        else:
+            rest[name] = value
+    out.update(geo_state_dict_from_flax(rest))
     return out
 
 

@@ -1,17 +1,19 @@
 """The port's experiment registry (the torus families, the structured-mesh
-families and the Kolmogorov data configs) against the JAX package's, on
-the CPU.
+and point-cloud families and the Kolmogorov data configs) against the JAX
+package's, on the CPU.
 
 - Names: the port's ``experiment_names()`` equals the ``torus_li``,
   ``torus_vis``, ``torus_vis_force``, ``torus_kochkov``, ``airfoil``,
-  ``pipe`` and ``plasticity`` names and the ``data/`` names of the JAX
-  registry, less those of modules not ported yet (the ``fcno`` names of
-  CNO, the learned interpolation, the projection method's data configs).
+  ``pipe``, ``plasticity`` and ``elasticity`` names and the ``data/`` names
+  of the JAX registry, less those of modules not ported yet (the learned
+  interpolation, the projection method's data configs); each of the 24
+  names left out raises a ``KeyError`` that names ROADMAP A8.
 - Nodes: every such config equals JAX's, with the JAX package's target
   prefix mapped onto the port's.
 - Instantiation: every routine builds in the port at 2 layers, initialises
   on a batch of its builder's layout (on a grid that holds its modes; the
-  mesh models' padding included) and runs its model forward; every data
+  mesh models' padding included; the elasticity routines on a batch of
+  scattered points and codes) and runs its model forward; every data
   config's stepper, at a 32^2 grid, takes a step.
 - ``load_config`` reads a registry name, ``configs list|export`` on the
   command line, and each name is its own run directory.
@@ -33,9 +35,8 @@ from fourierflow_tpu_torch.experiments import experiment_names, get_experiment
 from fourierflow_tpu_torch.routines import Grid2DMarkovRoutine
 
 FAMILIES = ("torus_li", "torus_vis", "torus_vis_force", "torus_kochkov", "airfoil", "pipe",
-            "plasticity", "data")
-NOT_PORTED = ("torus_kochkov/fcno/", "torus_kochkov/learned_interpolation/", "airfoil/fcno/",
-              "plasticity/fcno/")
+            "plasticity", "elasticity", "data")
+NOT_PORTED = ("torus_kochkov/learned_interpolation/",)
 NAMES = experiment_names()
 EXPERIMENTS = [n for n in NAMES if not n.startswith("data/")]
 DATA_CONFIGS = [n for n in NAMES if n.startswith("data/")]
@@ -66,7 +67,13 @@ def _ported(name):
 def test_names_equal_the_jax_torus_names():
     want = [n for n in jax_experiment_names() if _ported(n)]
     assert NAMES == want
-    assert len(NAMES) == 274 and len(DATA_CONFIGS) == 45
+    assert len(NAMES) == 318 and len(DATA_CONFIGS) == 45
+
+
+@pytest.mark.parametrize("name", [n for n in jax_experiment_names() if n not in NAMES])
+def test_not_ported_names_raise(name):
+    with pytest.raises(KeyError, match="ROADMAP A8"):
+        get_experiment(name)
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -103,10 +110,23 @@ def _mesh_instantiates(cfg):
     assert out.shape == out_shape and torch.isfinite(out).all()
 
 
+def _point_cloud_instantiates(cfg):
+    """A batch of 30 points scattered in the unit square and 42-value codes."""
+    rng = np.random.RandomState(0)
+    routine = build_routine(cfg["routine"])
+    xy, rr = rng.rand(2, 30, 2).astype(np.float32), rng.randn(2, 42).astype(np.float32)
+    state = routine.init(0, {"xy": xy, "rr": rr}, "cpu")
+    with torch.no_grad():
+        out = state.model(torch.from_numpy(xy), code=torch.from_numpy(rr))
+    assert out.shape == (2, 30, 1) and torch.isfinite(out).all()
+
+
 @pytest.mark.parametrize("name", EXPERIMENTS)
 def test_routine_instantiates(name):
     if name.split("/")[0] in ("airfoil", "pipe", "plasticity"):
         return _mesh_instantiates(load_config(name, ["routine.model.n_layers=2"]))
+    if name.startswith("elasticity/"):
+        return _point_cloud_instantiates(load_config(name, ["routine.model.n_layers=2"]))
     cfg = load_config(name, ["routine.conv.n_layers=2"])
     grid = max(GRID, 2 * cfg["routine"]["conv"].get("modes", 0))  # torus_kochkov: 32 or 64 modes
     routine = build_routine(cfg["routine"])

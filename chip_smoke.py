@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--seed N]
 
-Phases, each reporting on its own lines; every run goes through all fourteen:
+Phases, each reporting on its own lines; every run goes through all seventeen:
 
 1. ``device``: the card's name and power limit (nvidia-smi), torch and CUDA versions.
 2. ``build``: compile every CUDA source in ``csrc/``, all at once.
@@ -143,7 +143,41 @@ Phases, each reporting on its own lines; every run goes through all fourteen:
    each step's ms and device time, and the DCT branches' share of it (one
    layer's branches forward and backward at the step's shape, traced alone,
    times the layers).
-14. ``time`` (in a child process of this script, which starts with no CUDA
+14. ``projection``: the finite-volume (projection-method) solver. ``generate
+   kolmogorov`` by registry name writes the 2D initial conditions
+   (pseudo-spectral, simulated at 128^2 at its own CFL step, the warm-up's
+   40 time units kept, 4 / 2 / 4 trajectories), then
+   ``re_1000/learned_interpolation/control`` (64^2, Euler and van Leer;
+   400 of its 2,441 records) and ``compare_methods/downsampling/
+   projection_rk4/128`` (RK4 and linear advection, as configured) from them,
+   and the 3D ``three_dimensions/{initial_conditions,trajectories}/test`` at
+   64^3 (2 trajectories, 20 of 1,000 warm-up steps, 10 of 200 records); every
+   stored field finite and the stored velocities' divergence at the
+   simulated size at most 1e-4 of the largest speed; the card's solve held
+   to the CPU's over 20 steps (1e-5) and the CUDA-graph run to the eager one
+   (to the bit), in 2D and 3D; ms per solver step at 64^2, 128^2 (Euler and
+   RK4) and 64^3 from a CUDA graph, its device time by group, and at the
+   protocol's 512^3 eagerly from a random initial velocity (peak memory),
+   with the protocol's projected generation time.
+15. ``learned_interpolation``: the files ``torus_kochkov/learned_interpolation/
+   rollout/x64`` reads, made by the pseudo-spectral generator from phase
+   projection's initial conditions (128^2 at its own CFL step, 400 records,
+   outputs at 32 and 64); ``train`` (2 steps) and ``test`` by name at full
+   width (6 layers of 64 features, unroll 32, batch 4; 12 validation
+   snapshots); 2 steps held to a float32 CPU copy; the step timed (at a
+   learning rate of 1e-6: the registry's 1e-3 makes the loss grow) and
+   traced, with the pressure solve traced alone, the validation's ms per
+   model step; one x256 step (256^2, batch 4, unroll 32) held to the same
+   step with cuDNN off, and its peak memory.
+16. ``meshgraphnet``: synthetic cylinder_flow TFRecords from the seed (meshes
+   of 1,800-1,920 nodes and 3,432-3,666 triangles, 52 of 600 steps, 4 / 2 /
+   2 trajectories), ``convert cylinder-flow``, then ``cylinder_flow/baseline``
+   through ``train`` (2 steps) and ``test`` (the 50-step rollout) by name at
+   full width (15 layers, latent 128, batch 4); 2 steps held to a float32
+   CPU copy, timed and traced; the rollout's ms per step. Phases 14-16 run
+   no hand-written kernel (their torch work is what JAX computes in XLA):
+   their launch counts must stay 0.
+17. ``time`` (in a child process of this script, which starts with no CUDA
    graph and no profiler session behind it): each kernel, its plain version
    and a PyTorch yardstick the port
    never calls, by their device time in a profiler trace (and the kernel's
@@ -171,6 +205,7 @@ import os
 import pickle
 import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -202,6 +237,8 @@ from fourierflow_tpu_torch.ops.fused_spectral import (  # noqa: E402
     fused_mix_2d_adjoint_cuda,
     fused_mix_2d_adjoint_plain, fused_mix_2d_cuda, fused_mix_2d_plain)
 from fourierflow_tpu_torch.ops.spectral import dct_mix_axis  # noqa: E402
+from fourierflow_tpu_torch.trainers.trainer import batch_count  # noqa: E402
+from fourierflow_tpu_torch.utils.equations import graph_repeated  # noqa: E402
 from fourierflow_tpu_torch.utils.checkpoint import save_state  # noqa: E402
 from fourierflow_tpu_torch.utils.serving import load_exported, make_rollout_fn  # noqa: E402
 
@@ -361,6 +398,49 @@ POINT_STEPS = 2  # train steps of each configuration held to a CPU copy
 CNO_HELD = ("airfoil/fcno/4_layers", "plasticity/fcno/4_layers")
 CNO_CONFIG = "torus_kochkov/fcno/grid_sizes/64"
 CNO_STEPS = 2
+# The projection phase (the finite-volume solver): the initial conditions of
+# data/kolmogorov/re_1000/initial_conditions/{split} (the protocol's 2048^2, 32 a split)
+# simulated at 128^2 at its own CFL step (16x the 2048^2 one: inner 4 of 64 keeps the
+# warm-up's 40 time units), 4 / 2 / 4 trajectories, outputs at 64 and 128; the control (64^2,
+# Euler and van Leer) and projection_rk4/128 (RK4, linear advection) through generate by name;
+# the 3D initial conditions at the protocol's 512^3 for a few timed steps of one trajectory,
+# then the 3D configs through generate at 64^3.
+FV_IC_SIM, FV_IC_INNER = 128, 4
+FV_SPLITS = {"train": 4, "valid": 2, "test": 4}
+FV_CONTROL = "data/kolmogorov/re_1000/learned_interpolation/control"
+FV_RK4 = "data/kolmogorov/compare_methods/downsampling/projection_rk4/128"
+FV_CONTROL_OUTER = 400  # of the control's 2,441 records
+FV_3D_IC = "data/kolmogorov/three_dimensions/initial_conditions/test"
+FV_3D_TRAJ = "data/kolmogorov/three_dimensions/trajectories/test"
+FV_3D_PROTOCOL = dict(sim=512, n=4, inner=64, warmup=1000, outer=200)
+FV_3D_SIM, FV_3D_N, FV_3D_WARMUP, FV_3D_OUTER = 64, 2, 20, 10
+FV_3D_TIMED_STEPS = (2, 6)  # 512^3 steps: the time per step is the difference of these runs
+FV_TIMED_STEPS = (8, 24)
+FV_CHECK_STEPS = 20  # the card's solve against the CPU's
+FV_SOLVER_TOL = 1e-5  # card vs CPU solve: max |err| / max |CPU|
+FV_DIV_TOL = 1e-4  # max |h div v| / max |v| of the stored velocities at the simulated size
+# The learned_interpolation phase: the files torus_kochkov/learned_interpolation/rollout/x64
+# reads (re_1000/trajectories/{split}_{64,32}_1 from the projection phase's initial
+# conditions: the protocol's 2048^2 simulation at 128^2, inner 1 of 16 at its own CFL step;
+# 400 records of 9,764), trained and tested by name at full width; 2 steps held to a CPU
+# copy; one x256 step (256^2, batch 4, unroll 32, a batch made from the seed) held to the
+# same step with cuDNN off (PyTorch's own im2col-and-GEMM convolutions).
+LI_CONFIG = "torus_kochkov/learned_interpolation/rollout/x64"
+LI_X256 = "torus_kochkov/learned_interpolation/rollout/x256"
+LI_OUTER, LI_SPLITS = 400, {"train": 4, "valid": 2, "test": 4}
+LI_STEPS = 2  # train steps of the train command, and steps held to a CPU copy
+# The registry's x64 (AdamW at 1e-3, no clipping) moves every weight by the learning rate in
+# its first step, the zero-initialised out layer included, and its loss grows from there: the
+# timed steps, 7 in a row, run at a learning rate of 1e-6, the same work.
+LI_TIMED_LR = 1e-6
+# The meshgraphnet phase: synthetic cylinder_flow TFRecords made from the seed (meshes of
+# 45-48 x 40 points over [0, 1.6] x [0, 0.41]: 1,800-1,920 nodes, 3,432-3,666 triangles; 52
+# steps of the dataset's 600, the 50-step rollout's), converted, then cylinder_flow/baseline
+# trained and tested by name at full width (15 layers, latent 128, batch 4).
+MGN_CONFIG = "cylinder_flow/baseline"
+MGN_SPLITS, MGN_REGISTRY_SPLITS = {"train": 4, "valid": 2, "test": 2}, (1000, 100, 100)
+MGN_NX, MGN_NY, MGN_T, MGN_REGISTRY_T = (48, 47, 46, 45), 40, 52, 600
+MGN_STEPS = 2  # train steps of the train command, and steps held to a CPU copy
 
 
 def log(*args):
@@ -1345,7 +1425,7 @@ def time_steps(label, routine, state, batch, dev, steps=5, phase="context"):
     if not math.isfinite(float(metrics["train_loss"])):
         raise AssertionError(f"{phase}: {label}: non-finite loss in the timed steps")
     log(f"{phase}: {label}: {step_ms:.3f} ms per train step (batch "
-        f"{len(next(iter(batch.values())))}, f32, mean "
+        f"{batch_count(batch)}, f32, mean "
         f"of {steps} after 2 warm-ups); host CPU time {cpu_ms:.3f} ms per step")
     return state, step_ms
 
@@ -1780,7 +1860,7 @@ def kolmogorov_solver_checks(dev, root):
     """The card's solve against the CPU's and against one float64 step, the
     CUDA-graph run against the eager one, and the solver's time per step."""
     from fourierflow_tpu_torch.ops.fourier import irfft2
-    from fourierflow_tpu_torch.utils.equations import graph_repeated, repeated
+    from fourierflow_tpu_torch.utils.equations import repeated
 
     name = "data/kolmogorov/re_1000/trajectories/test"
     grid = (KOL_SIM, KOL_SIM)
@@ -1825,22 +1905,13 @@ def kolmogorov_solver_checks(dev, root):
         w = torch.sin(4 * x)[None, :, None] * torch.cos(3 * x)[None, None, :] + 0.1 * torch.randn(
             batch, n, n, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
         s = torch.fft.rfft2(w)
-        run = graph_repeated(step, s, graph_steps)
-        run(s, KOL_TIMED_STEPS[0])
-        wall = []
-        for k in KOL_TIMED_STEPS:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            run(s, k)
-            torch.cuda.synchronize()
-            wall.append(time.perf_counter() - t0)
-        ms = (wall[1] - wall[0]) / (KOL_TIMED_STEPS[1] - KOL_TIMED_STEPS[0]) * 1e3
+        ms = timed_step_ms(step, s, graph_steps, KOL_TIMED_STEPS)
         step_ms[(n, batch, graph_steps)] = ms
         state_bytes = 2 * batch * n * (n // 2 + 1) * 8  # complex64 state, read and written
         log(f"kolmogorov: solver step at {n}^2, batch {batch} "
             f"({f'graph of {graph_steps}' if graph_steps else 'eager'}): {ms:.4f} ms; bound "
             f"{state_bytes / MEM_RATE * 1e3:.5f} ms (the state read and written once, bytes)")
-        del step, run, s, w
+        del step, s, w
         torch.cuda.empty_cache()
     p = KOL_PROTOCOL
     ms = step_ms[(p["sim"], p["n"], 0)]
@@ -2227,6 +2298,541 @@ def phase_cno(dev, tmp):
     return counts
 
 
+# --- phase projection ----------------------------------------------------------------------
+# Device-time groups of a projection solver step.
+FV_GROUPS = (("cuFFT (the pressure solve)", ("fft",)), ("roll (periodic shifts)", ("roll",)))
+
+
+def max_divergence(vel):
+    """max |sum_i (v_i - v_i shifted one cell back along axis i)| over the
+    last ``len(vel)`` axes: the cell size times the staggered grid's
+    finite-difference divergence."""
+    ndim = len(vel)
+    div = sum(v.astype(np.float64) - np.roll(v, 1, axis=v.ndim - ndim + i)
+              for i, v in enumerate(vel))
+    return float(np.abs(div).max())
+
+
+def check_velocity_file(path, ndim, own_size):
+    """A projection file's invariants: every field finite, the velocities
+    not all zero, and at the simulated size their divergence at most
+    FV_DIV_TOL of the largest speed component."""
+    names = ("vx", "vy", "vz")[:ndim]
+    vel = [load_array(path, n) for n in names]
+    fields = vel + ([load_array(path, "vorticity")] if ndim == 2 else [])
+    vmax = max(float(np.abs(v).max()) for v in vel)
+    div = max_divergence(vel) / vmax
+    finite = all(np.isfinite(a).all() for a in fields)
+    log(f"projection: {os.path.basename(path)}: {vel[0].shape}, finite {finite}, max |v| "
+        f"{vmax:.4f}, max |h div v| / max |v| {div:.2e}"
+        + (f" (tol {FV_DIV_TOL:g}, simulated size)" if own_size else " (downsampled)"))
+    if not finite or vmax == 0 or (own_size and div > FV_DIV_TOL):
+        raise AssertionError(f"projection: an invariant of {path} does not hold")
+
+
+def timed_step_ms(step, state, graph_steps, timed):
+    """ms per solver step: the difference of two timed runs of ``timed``
+    steps (from a CUDA graph of ``graph_steps`` steps, or eagerly with 0),
+    after a warm-up run."""
+    run = graph_repeated(step, state, graph_steps)
+    run(state, timed[0])
+    wall = []
+    for k in timed:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(state, k)
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t0)
+    return (wall[1] - wall[0]) / (timed[1] - timed[0]) * 1e3
+
+
+def _fv_state(path, ndim, dev):
+    return tuple(torch.from_numpy(load_array(path, n)).to(dev) for n in ("vx", "vy", "vz")[:ndim])
+
+
+def generate_fv_data(dev, root):
+    """The 2D initial conditions (pseudo-spectral, cut as printed), the
+    control and projection_rk4/128 and the 3D configs at 64^3 through
+    ``generate kolmogorov`` by registry name, and the files' invariants."""
+    from fourierflow_tpu_torch.commands.generate import kolmogorov as generate
+
+    base = os.path.join(root, "kolmogorov")
+    log(f"projection: cut: initial conditions simulated at {FV_IC_SIM}^2 instead of 2048^2, at "
+        f"its own CFL step (inner {FV_IC_INNER} of 64 keeps the warm-up's 40 time units), "
+        f"{' / '.join(map(str, FV_SPLITS.values()))} trajectories instead of 32, outputs at 64 "
+        f"and {FV_IC_SIM}")
+    log(f"projection: cut: {FV_CONTROL}: {FV_CONTROL_OUTER} records of 2,441; {FV_RK4}: as "
+        f"configured (200 records of 8 steps); both from the cut initial conditions")
+    p = FV_3D_PROTOCOL
+    log(f"projection: cut: {FV_3D_IC} / {FV_3D_TRAJ} through generate at {FV_3D_SIM}^3 "
+        f"instead of {p['sim']}^3, {FV_3D_N} trajectories of {p['n']}, warm-up {FV_3D_WARMUP} "
+        f"of {p['warmup']} outer steps, {FV_3D_OUTER} records of {p['outer']}")
+    runs = [(f"data/kolmogorov/re_1000/initial_conditions/{split}",
+             [f"sim_grid.shape=[{FV_IC_SIM},{FV_IC_SIM}]", f"n_trajectories={n}",
+              f"generation_batch={n}", f"inner_steps={FV_IC_INNER}",
+              "out_sizes=" + json.dumps([{"size": s, "k": 1} for s in sorted({64, FV_IC_SIM})])],
+             os.path.join(base, "re_1000", "initial_conditions")) for split, n in FV_SPLITS.items()]
+    sizes_3d = "out_sizes=" + json.dumps([{"size": s, "k": 1} for s in sorted({32, FV_3D_SIM})])
+    runs += [
+        (FV_CONTROL, ["generation_batch=4", f"outer_steps={FV_CONTROL_OUTER}"],
+         os.path.join(base, "re_1000", "learned_interpolation")),
+        (FV_RK4, [], os.path.join(base, "compare_methods", "downsampling", "projection_rk4")),
+        (FV_3D_IC, [f"sim_grid.shape={[FV_3D_SIM] * 3}", f"n_trajectories={FV_3D_N}",
+                    f"generation_batch={FV_3D_N}", f"warmup_steps={FV_3D_WARMUP}", sizes_3d],
+         os.path.join(base, "three_dimensions", "initial_conditions")),
+        (FV_3D_TRAJ, [f"sim_grid.shape={[FV_3D_SIM] * 3}", f"n_trajectories={FV_3D_N}",
+                      f"generation_batch={FV_3D_N}", f"outer_steps={FV_3D_OUTER}", sizes_3d,
+                      "init_path=${oc.env:DATA_ROOT}/kolmogorov/three_dimensions/"
+                      f"initial_conditions/test_{FV_3D_SIM}.nc"],
+         os.path.join(base, "three_dimensions", "trajectories"))]
+    for name, over, out_dir in runs:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        paths = generate(name, over, device=dev, out_dir=out_dir)
+        log(f"projection: generate {name}: {time.perf_counter() - t0:.2f} s, "
+            f"{sum(os.path.getsize(q) for q in paths):,} B in {len(paths)} files")
+    for rel, ndim, own in (("re_1000/learned_interpolation/control_64_1.h5", 2, True),
+                           ("re_1000/learned_interpolation/control_32_1.h5", 2, False),
+                           ("compare_methods/downsampling/projection_rk4/128_64_1.h5", 2, False),
+                           (f"three_dimensions/initial_conditions/test_{FV_3D_SIM}.h5", 3, True),
+                           (f"three_dimensions/trajectories/test_{FV_3D_SIM}_1.h5", 3, True),
+                           ("three_dimensions/trajectories/test_32_1.h5", 3, FV_3D_SIM == 32)):
+        check_velocity_file(os.path.join(base, rel), ndim, own)
+
+
+def fv_solver_checks(dev, root):
+    """The card's solve against the CPU's (FV_CHECK_STEPS steps) and the
+    CUDA-graph run against the eager one, in 2D (the control at 64^2) and
+    3D (64^3), from the generated initial velocities."""
+    from fourierflow_tpu_torch.utils.equations import repeated
+
+    base = os.path.join(root, "kolmogorov")
+    for label, name, n, path in (
+            ("2D", FV_CONTROL, 64, os.path.join(base, "re_1000/initial_conditions/test_64.h5")),
+            ("3D", FV_3D_IC, FV_3D_SIM,
+             os.path.join(base, f"three_dimensions/initial_conditions/test_{FV_3D_SIM}.h5"))):
+        ndim = 2 if label == "2D" else 3
+        step = instantiate(load_config(name, [f"sim_grid.shape={[n] * ndim}"])["step_fn"])
+        state = _fv_state(path, ndim, "cpu")
+        card = repeated(step, FV_CHECK_STEPS)(tuple(v.to(dev) for v in state))
+        cpu = repeated(step, FV_CHECK_STEPS)(state)
+        errs = [rel_err(a, b) for a, b in zip(card, cpu)]
+        rel = max(r for _, r in errs)
+        log(f"projection: card vs CPU solve ({label}, {n}^{ndim}, {len(state[0])} fields, "
+            f"{FV_CHECK_STEPS} steps of {name}'s step): max_abs_err {max(e for e, _ in errs):.3e} "
+            f"rel {rel:.3e} tol {FV_SOLVER_TOL:g}")
+        if not rel <= FV_SOLVER_TOL:
+            raise AssertionError(f"projection: the card's {label} solve disagrees with the CPU's")
+        s = tuple(v.to(dev) for v in state)
+        eager = repeated(step, 21)(s)
+        graph = graph_repeated(step, s, 8)(s, 21)
+        if not all(torch.equal(a, b) for a, b in zip(eager, graph)):
+            raise AssertionError(f"projection: the {label} CUDA-graph solve differs from the eager")
+        log(f"projection: {label} CUDA-graph solve equals the eager solve to the bit (21 steps: "
+            f"2 replays of an 8-step graph and 5 eager steps)")
+
+
+def fv_timings(dev, root, seed):
+    """ms per solver step at 64^2, 128^2 (Euler and RK4) and 64^3 from a
+    CUDA graph, and at the protocol's 512^3 eagerly (one trajectory from a
+    random initial velocity, its peak memory), and the protocol's
+    projected generation time."""
+    from fourierflow_tpu_torch.utils.finite_volume import filtered_velocity_field_3d
+
+    base = os.path.join(root, "kolmogorov")
+    ic = f"re_1000/initial_conditions/test_{FV_IC_SIM}.h5"
+    cases = (("64^2 Euler, van Leer", FV_CONTROL, 64, 2, "re_1000/initial_conditions/test_64.h5"),
+             (f"{FV_IC_SIM}^2 Euler, van Leer", FV_CONTROL, FV_IC_SIM, 2, ic),
+             (f"{FV_IC_SIM}^2 RK4, linear", FV_RK4, FV_IC_SIM, 2, ic),
+             (f"{FV_3D_SIM}^3 Euler, van Leer", FV_3D_IC, FV_3D_SIM, 3,
+              f"three_dimensions/initial_conditions/test_{FV_3D_SIM}.h5"))
+    for label, name, n, ndim, rel in cases:
+        step = instantiate(load_config(name, [f"sim_grid.shape={[n] * ndim}"])["step_fn"])
+        state = _fv_state(os.path.join(base, rel), ndim, dev)
+        ms = timed_step_ms(step, state, 8, FV_TIMED_STEPS)
+        nbytes = 2 * sum(v.numel() for v in state) * 4
+        log(f"projection: solver step at {label}, batch {len(state[0])} (graph of 8): {ms:.4f} ms; "
+            f"bound {nbytes / MEM_RATE * 1e3:.5f} ms (the state read and written once, bytes)")
+        profile_calls(lambda: step(state), ms, label=f"projection: {label}", groups=FV_GROUPS)
+        del step, state
+
+    p = FV_3D_PROTOCOL
+    cfg = load_config(FV_3D_IC)
+    grid = instantiate(cfg["sim_grid"])
+    step = instantiate(cfg["step_fn"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = filtered_velocity_field_3d(grid, cfg["max_velocity"], cfg["peak_wavenumber"], 1,
+                                       generator=torch.Generator(device=dev).manual_seed(seed),
+                                       device=dev)
+    torch.cuda.synchronize()
+    ic_s = time.perf_counter() - t0
+    ms = timed_step_ms(step, state, 0, FV_3D_TIMED_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    finite = all(torch.isfinite(v).all() for v in state)
+    nbytes = 2 * sum(v.numel() for v in state) * 4
+    log(f"projection: {FV_3D_IC} at the protocol's {p['sim']}^3 (dt "
+        f"{instantiate(cfg['time_step']):.6g}), one trajectory: initial velocity "
+        f"{ic_s:.2f} s; solver step (eager) {ms:.2f} ms, bound {nbytes / MEM_RATE * 1e3:.3f} ms "
+        f"(bytes); peak memory {peak:.2f} GiB; finite {finite}")
+    if not finite:
+        raise AssertionError("projection: the 512^3 steps are not finite")
+    ic_steps, traj_steps = p["warmup"] * p["inner"], p["outer"] * p["inner"]
+    log(f"projection: projected protocol at {p['sim']}^3 ({p['n']} trajectories one at a time): "
+        f"initial conditions {p['n']} x {ic_steps:,} steps = {p['n'] * ic_steps * ms / 3.6e6:.2f} "
+        f"h, trajectories {p['n']} x {traj_steps:,} steps = "
+        f"{p['n'] * traj_steps * ms / 3.6e6:.2f} h of solver steps a split")
+    del state, step
+    torch.cuda.empty_cache()
+
+
+def phase_projection(dev, tmp, seed):
+    """The projection method: its data on the card through ``generate
+    kolmogorov`` by registry name (2D Euler and RK4, 3D), the files'
+    invariants, the solver held to the CPU and to its eager self, and its
+    time per step up to the protocol's 512^3. No hand-written kernel lies on
+    this path (torch.fft, rolls and elementwise work, as JAX computes it in
+    XLA)."""
+    phase_start = time.perf_counter()
+    root = os.path.join(tmp, "fv_data")
+    os.environ["DATA_ROOT"] = root
+    reset_launch_counts()
+    generate_fv_data(dev, root)
+    fv_solver_checks(dev, root)
+    fv_timings(dev, root, seed)
+    return _no_launches("projection", phase_start)
+
+
+def _no_launches(phase, phase_start):
+    """The launch counts of a phase whose path runs no hand-written kernel:
+    all must be 0."""
+    counts = launch_counts()
+    log(f"{phase}: launches over the {phase} path {counts}; phase took "
+        f"{time.perf_counter() - phase_start:.1f} s")
+    if any(counts.values()):
+        raise AssertionError(f"{phase}: a hand-written kernel was launched: {counts}")
+    return counts
+
+
+# --- phase learned_interpolation -----------------------------------------------------------
+# Device-time groups of a learned-interpolation train step.
+# cuDNN's FFT-based convolutions run DSE::* transforms, region_transform and a complex GEMM;
+# cuFFT's own kernels (the pressure solve) are vector_fft and regular_fft without DSE::.
+LI_GROUPS = (("cuDNN convolutions (implicit GEMM and FFT-based; forward, data and weight "
+              "gradients)", ("conv", "cudnn", "fprop", "dgrad", "wgrad", "implicit", "nhwc",
+                             "Nhwc", "winograd", "DSE::", "region_transform", "cf32")),
+             ("cuFFT (the pressure solve)", ("fft",)),
+             ("cuBLAS GEMM", ("gemm", "gemv", "xmma")),
+             ("gather / scatter / index", ("index", "gather", "scatter")),
+             ("roll (periodic shifts)", ("roll",)))
+
+
+def pressure_solve_ms(batch, n, dev):
+    """Device ms of ``n`` pressure projections of the batch's velocities,
+    forward and backward, traced alone (the learned interpolation's FFT
+    work in a train step)."""
+    from fourierflow_tpu_torch.models.learned_interpolation import pressure_projection
+
+    u0, v0 = (torch.as_tensor(batch[0][k], device=dev).requires_grad_() for k in ("vx", "vy"))
+
+    def run():
+        u, v = u0, v0
+        for _ in range(n):
+            u, v = pressure_projection(u, v, 2 * math.pi / u0.shape[-1])
+        torch.autograd.grad((u * u).sum() + (v * v).sum(), (u0, v0))
+
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    return profile_calls(run, (time.perf_counter() - t0) * 1e3,
+                         label="learned_interpolation: the pressure solve alone", groups=LI_GROUPS)
+
+
+def li_x256_step(dev, seed):
+    """One x256 train step at full width (256^2, batch 4, unroll 32) on a
+    batch made from the seed: its loss and gradients held to the same step
+    with cuDNN off, and its peak memory."""
+    from fourierflow_tpu_torch.builders.kolmogorov import filtered_velocity_field
+    from fourierflow_tpu_torch.utils.grids import TORUS, Grid
+
+    cfg = load_config(LI_X256)
+    routine = build_routine(cfg["routine"])
+    state = routine.init(7231, None, dev)
+    size, unroll = cfg["routine"]["size"], cfg["routine"]["unroll_length"]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    vx, vy = filtered_velocity_field(Grid((size, size), domain=TORUS), 7.0, 4.0, 4,
+                                     generator=gen, device=dev)
+    drift = lambda v: v[..., None] + 0.01 * torch.randn(*v.shape, unroll, generator=gen,
+                                                         device=dev)
+    batch = ({"vx": vx, "vy": vy}, {"vx": drift(vx), "vy": drift(vy)})
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, grads = routine.loss_and_grads(state, batch)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.backends.cudnn.enabled = False
+    try:
+        want_loss, want = routine.loss_and_grads(state, batch)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.enabled = True
+    loss_rel = abs(float(loss) - float(want_loss)) / abs(float(want_loss))
+    rels = {n: rel_err(a, b)[1] for (n, _), a, b in zip(state.model.named_parameters(), grads,
+                                                         want, strict=True)}
+    worst = max(rels, key=rels.get)
+    log(f"learned_interpolation: {LI_X256}: one train step at full width ({size}^2, batch 4, "
+        f"unroll {unroll}, {routine.n_params(state):,} parameters) vs the same step with cuDNN "
+        f"off: loss {float(loss):.6f} vs {float(want_loss):.6f} (rel {loss_rel:.2e}); gradients "
+        f"of {len(rels)} tensors, largest rel {rels[worst]:.2e} ({worst}), tol {TRAIN_TOL:.0e}; "
+        f"{step_s * 1e3:.1f} ms (first call); peak memory {peak:.2f} GiB")
+    if not (loss_rel <= TRAIN_TOL and rels[worst] <= TRAIN_TOL):
+        raise AssertionError(f"learned_interpolation: {LI_X256}: the step disagrees with cuDNN off")
+
+
+def phase_learned_interpolation(dev, tmp, seed):
+    """The learned interpolation: the files of ``rollout/x64`` made by the
+    pseudo-spectral generator from the projection phase's initial
+    conditions, ``train`` (2 steps) and ``test`` by registry name at full
+    width, 2 steps held to a CPU copy, the step timed and traced (and the
+    pressure solve alone), the validation timed, and an x256 step held with
+    cuDNN off."""
+    from fourierflow_tpu_torch.commands.generate import kolmogorov as generate
+
+    phase_start = time.perf_counter()
+    root = os.path.join(tmp, "fv_data")  # the projection phase's initial conditions
+    os.environ["DATA_ROOT"] = root
+    reset_launch_counts()
+    log(f"learned_interpolation: cut: re_1000/trajectories/{{split}} simulated at "
+        f"{FV_IC_SIM}^2 instead of 2048^2 at its own CFL step (inner 1 of 16), "
+        f"{' / '.join(map(str, LI_SPLITS.values()))} trajectories instead of 32, {LI_OUTER} "
+        f"records of 9,764, outputs at 32 and 64 (k 1)")
+    for split, n in LI_SPLITS.items():
+        name = f"data/kolmogorov/re_1000/trajectories/{split}"
+        over = [f"sim_grid.shape=[{FV_IC_SIM},{FV_IC_SIM}]", f"n_trajectories={n}",
+                f"generation_batch={n}", "inner_steps=1", f"outer_steps={LI_OUTER}",
+                "out_sizes=" + json.dumps([{"size": s, "k": 1} for s in (32, 64)]),
+                "init_path=${oc.env:DATA_ROOT}/kolmogorov/re_1000/initial_conditions/"
+                f"{split}_{FV_IC_SIM}.nc"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        generate(name, over, device=dev,
+                 out_dir=os.path.join(root, "kolmogorov", "re_1000", "trajectories"))
+        log(f"learned_interpolation: generate {name}: {time.perf_counter() - t0:.2f} s")
+
+    cfg = load_config(LI_CONFIG)
+    builder = instantiate(cfg["builder"])
+    routine = build_routine(cfg["routine"], builder)
+    n_snap = builder.valid_dataset.targets.shape[-1]
+    log(f"learned_interpolation: cut: {LI_CONFIG}'s validation and test take {n_snap} snapshots "
+        f"of {cfg['routine']['inner_steps']} model steps, of the configured "
+        f"{cfg['routine']['outer_steps']}: all that {LI_OUTER} records hold")
+    t0 = time.perf_counter()
+    overrides = ["trainer.max_epochs=1", f"trainer.limit_train_batches={LI_STEPS}"]
+    with tempfile.TemporaryDirectory() as run:
+        trainer, state = train.main(LI_CONFIG, overrides, config_dir=run, device="cuda")
+        test_logs = test_command.main(LI_CONFIG, overrides=overrides, config_dir=run,
+                                      device="cuda")
+    logs = trainer.logs
+    scalars = {k: round(float(v), 6) for k, v in test_logs.items() if np.ndim(v) == 0}
+    log(f"learned_interpolation: {LI_CONFIG}: train ({trainer.global_step} steps, n_params "
+        f"{logs['n_params']:,}, train_loss {logs['train_loss']:.6f}): valid_rho "
+        f"{logs['valid_rho']:.6f}, valid_reduced_time_until {logs['valid_reduced_time_until']:g}; "
+        f"test {json.dumps(scalars)}; {time.perf_counter() - t0:.1f} s")
+    if (trainer.global_step != LI_STEPS or test_logs["test_correlations"].shape != (n_snap,)
+            or not all(np.isfinite(np.asarray(v, np.float64)).all() for v in test_logs.values())
+            or not math.isfinite(logs["train_loss"])):
+        raise AssertionError(f"learned_interpolation: {LI_CONFIG}: {trainer.global_step} "
+                             f"steps, test logs {scalars}")
+
+    batches = [b for _, b in zip(range(LI_STEPS), builder.train_batches(np.random.default_rng(0)))]
+    # The out layer starts at zero, so the other layers' gradients are 0 in the
+    # first step and AdamW's first update of them, in the second, is +-lr for
+    # every element, rounding-level gradients included: the parameters are held
+    # after the CPU's update from the card's gradients (as Geo-FNO's).
+    hold_steps(LI_CONFIG, routine, routine.init(7231, builder.sample_batch(), dev), batches,
+               phase="learned_interpolation", update_from_card=True)
+    solve_ms = pressure_solve_ms(batches[0], cfg["routine"]["unroll_length"], dev)
+    log(f"learned_interpolation: {LI_CONFIG}: the pressure solve alone "
+        f"({cfg['routine']['unroll_length']} projections of [4, 64, 64], forward and "
+        f"backward), traced: {solve_ms:.3f} ms")
+    cfg = load_config(LI_CONFIG, [f"routine.optimizer.lr={LI_TIMED_LR}"])
+    routine = build_routine(cfg["routine"], builder)
+    state, step_ms = time_steps(f"{LI_CONFIG} at lr {LI_TIMED_LR:g}", routine,
+                                routine.init(7231, None, dev), batches[0], dev,
+                                phase="learned_interpolation")
+    profile_train_step(routine, state, batches[0], None, step_ms,
+                       label=f"learned_interpolation: {LI_CONFIG}", groups=LI_GROUPS)
+    vbatch = next(builder.val_batches())
+    routine.valid_step(state, vbatch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    routine.valid_step(state, vbatch)
+    torch.cuda.synchronize()
+    n_model = n_snap * routine.inner_steps
+    log(f"learned_interpolation: {LI_CONFIG}: validation rollout of {n_model} model steps at "
+        f"batch {batch_count(vbatch)}: {(time.perf_counter() - t0) / n_model * 1e3:.4f} ms per "
+        f"model step")
+    li_x256_step(dev, seed)
+    return _no_launches("learned_interpolation", phase_start)
+
+
+# --- phase meshgraphnet --------------------------------------------------------------------
+# Device-time groups of a MeshGraphNet train step.
+MGN_GROUPS = (("cuBLAS GEMM (the MLPs)", ("gemm", "gemv", "xmma", "cutlass")),
+              ("gather / scatter (index_select, index_add_)",
+               ("index", "gather", "scatter")),
+              ("LayerNorm", ("layer_norm", "LayerNorm")),
+              ("sort / unique (triangles_to_edges)", ("sort", "unique", "radix", "Radix", "cub")))
+
+
+def _tf_varint(n):
+    out = b""
+    while True:
+        b = n & 0x7F
+        n >>= 7
+        if not n:
+            return out + bytes([b])
+        out += bytes([b | 0x80])
+
+
+def _tf_field(num, payload):
+    return _tf_varint((num << 3) | 2) + _tf_varint(len(payload)) + payload
+
+
+def _tf_example(features):
+    """``{name: bytes}`` as a ``tf.train.Example`` of BytesList features."""
+    entries = b"".join(
+        _tf_field(1, _tf_field(1, name.encode()) + _tf_field(2, _tf_field(1, _tf_field(1, v))))
+        for name, v in features.items())
+    return _tf_field(1, entries)
+
+
+def _mgn_mesh(nx, ny):
+    """A triangulated nx x ny grid over [0, 1.6] x [0, 0.41]: positions, cells
+    and node types (inflow on the left, outflow on the right, walls above
+    and below)."""
+    x, y = np.linspace(0.0, 1.6, nx), np.linspace(0.0, 0.41, ny)
+    pos = np.stack(np.meshgrid(x, y, indexing="ij"), -1).reshape(-1, 2).astype(np.float32)
+    idx = np.arange(nx * ny).reshape(nx, ny)
+    a, b, c, d = idx[:-1, :-1], idx[1:, :-1], idx[:-1, 1:], idx[1:, 1:]
+    cells = np.concatenate([np.stack([a, b, d], -1).reshape(-1, 3),
+                            np.stack([a, d, c], -1).reshape(-1, 3)]).astype(np.int32)
+    node_type = np.zeros((nx, ny), np.int32)
+    node_type[:, 0] = node_type[:, -1] = 6  # WALL_BOUNDARY
+    node_type[0, :], node_type[-1, :] = 4, 5  # INFLOW, OUTFLOW
+    return pos, cells, node_type.reshape(-1)
+
+
+def write_cylinder_flow(root, seed):
+    """meta.json and {train,valid,test}.tfrecord at the cylinder_flow layout,
+    made from ``seed``: the meshes of MGN_NX x MGN_NY points in turn, a
+    parabolic inflow profile that oscillates in time, and noise."""
+    rng = np.random.default_rng(seed)
+    meta = {"trajectory_length": MGN_T,
+            "field_names": ["cells", "mesh_pos", "node_type", "velocity", "pressure"],
+            "features": {
+                "cells": {"type": "static", "shape": [1, -1, 3], "dtype": "int32"},
+                "mesh_pos": {"type": "static", "shape": [1, -1, 2], "dtype": "float32"},
+                "node_type": {"type": "static", "shape": [1, -1, 1], "dtype": "int32"},
+                "velocity": {"type": "dynamic", "shape": [MGN_T, -1, 2], "dtype": "float32"},
+                "pressure": {"type": "dynamic", "shape": [MGN_T, -1, 1], "dtype": "float32"}}}
+    os.makedirs(root, exist_ok=True)
+    with open(os.path.join(root, "meta.json"), "w") as f:
+        json.dump(meta, f)
+    t = np.arange(MGN_T)[:, None] / MGN_T
+    i = 0
+    for split, n in MGN_SPLITS.items():
+        with open(os.path.join(root, f"{split}.tfrecord"), "wb") as f:
+            for _ in range(n):
+                pos, cells, node_type = _mgn_mesh(MGN_NX[i % len(MGN_NX)], MGN_NY)
+                i += 1
+                k, ph = rng.uniform(1.0, 4.0), rng.uniform(0.0, 2 * np.pi)
+                profile = 4 * pos[:, 1] * (0.41 - pos[:, 1]) / 0.41 ** 2
+                u = profile * (1 + 0.1 * np.sin(2 * np.pi * t + k * pos[:, 0] + ph))
+                v = 0.1 * np.sin(np.pi * pos[:, 0] / 1.6) * np.sin(2 * np.pi * t + ph)
+                vel = np.stack([u, v], -1) + 0.01 * rng.standard_normal((MGN_T, len(pos), 2))
+                pressure = rng.standard_normal((MGN_T, len(pos), 1))
+                p = _tf_example({
+                    "cells": cells[None].tobytes(), "mesh_pos": pos[None].tobytes(),
+                    "node_type": node_type[None, :, None].tobytes(),
+                    "velocity": vel.astype(np.float32).tobytes(),
+                    "pressure": pressure.astype(np.float32).tobytes()})
+                f.write(struct.pack("<Q", len(p)) + b"\0" * 4 + p + b"\0" * 4)
+
+
+def phase_meshgraphnet(dev, tmp, seed):
+    """MeshGraphNet: synthetic cylinder_flow TFRecords from the seed through
+    ``convert cylinder-flow``, ``cylinder_flow/baseline`` through ``train``
+    and ``test`` (the 50-step rollout) by registry name at full width, 2
+    steps held to a CPU copy, timed and traced, and the rollout timed."""
+    from fourierflow_tpu_torch.commands.convert import cylinder_flow as convert
+
+    phase_start = time.perf_counter()
+    root = os.path.join(tmp, "mgn_data")
+    os.environ["DATA_ROOT"] = root
+    reset_launch_counts()
+    records = os.path.join(root, "meshgraphnets", "cylinder_flow")
+    write_cylinder_flow(records, seed)
+    nodes = [nx * MGN_NY for nx in MGN_NX]
+    log(f"meshgraphnet: cut: {' / '.join(map(str, MGN_SPLITS.values()))} trajectories "
+        f"(train / valid / test) of the dataset's {' / '.join(map(str, MGN_REGISTRY_SPLITS))}, "
+        f"{MGN_T} steps of {MGN_REGISTRY_T}; meshes of {min(nodes):,}-{max(nodes):,} nodes and "
+        f"{2 * (min(MGN_NX) - 1) * (MGN_NY - 1):,}-{2 * (max(MGN_NX) - 1) * (MGN_NY - 1):,} "
+        f"triangles, made from the seed")
+    t0 = time.perf_counter()
+    path = convert(records, os.path.join(records, "cylinder_flow.h5"))
+    log(f"meshgraphnet: convert cylinder-flow: {time.perf_counter() - t0:.2f} s, "
+        f"{os.path.getsize(path):,} B; train velocity {load_array(path, 'train/velocity').shape}")
+
+    t0 = time.perf_counter()
+    overrides = ["trainer.max_epochs=1", f"trainer.limit_train_batches={MGN_STEPS}"]
+    with tempfile.TemporaryDirectory() as run:
+        trainer, state = train.main(MGN_CONFIG, overrides, config_dir=run, device="cuda")
+        test_logs = test_command.main(MGN_CONFIG, overrides=overrides, config_dir=run,
+                                      device="cuda")
+    logs = trainer.logs
+    log(f"meshgraphnet: {MGN_CONFIG}: train ({trainer.global_step} steps, n_params "
+        f"{logs['n_params']:,}, train_loss {logs['train_loss']:.6f}): valid_loss "
+        f"{logs['valid_loss']:.6f} (50-step rollout); test_loss {test_logs['test_loss']:.6f}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if (trainer.global_step != MGN_STEPS or not math.isfinite(test_logs["test_loss"])
+            or test_logs["test_loss"] != logs["test_loss"]):
+        raise AssertionError(f"meshgraphnet: {MGN_CONFIG}: {trainer.global_step} steps, test "
+                             f"{test_logs}, train's test {logs['test_loss']}")
+
+    cfg = load_config(MGN_CONFIG)
+    builder = instantiate(cfg["builder"])
+    routine = build_routine(cfg["routine"], builder)
+    state = routine.init(7231, builder.sample_batch(), dev)
+    batches = [b for _, b in zip(range(MGN_STEPS),
+                                 builder.train_batches(np.random.default_rng(0)))]
+    # AdamW's second update turns the rounding of near-zero gradients into
+    # steps of up to lr (as Geo-FNO's in phase mesh): the parameters are held
+    # after the CPU's update from the card's gradients.
+    state = hold_steps(MGN_CONFIG, routine, state, batches, phase="meshgraphnet",
+                       update_from_card=True)
+    state, step_ms = time_steps(MGN_CONFIG, routine, state, batches[0], dev, phase="meshgraphnet")
+    profile_train_step(routine, state, batches[0], None, step_ms,
+                       label=f"meshgraphnet: {MGN_CONFIG}", groups=MGN_GROUPS)
+    vbatch = next(builder.val_batches())
+    routine.valid_step(state, vbatch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    routine.valid_step(state, vbatch)
+    torch.cuda.synchronize()
+    log(f"meshgraphnet: {MGN_CONFIG}: rollout of {routine.rollout_steps} steps at batch "
+        f"{batch_count(vbatch)}: {(time.perf_counter() - t0) / routine.rollout_steps * 1e3:.3f} "
+        f"ms per step")
+    return _no_launches("meshgraphnet", phase_start)
+
+
 # Device-time groups of a train step, by kernel name.
 STEP_GROUPS = (("spectral kernel (forward + adjoint)", ("spectral_axis_kernel",)),
                ("FF backward kernel", ("ff_bwd",)), ("FF forward kernel", ("ff_fwd_kernel",)),
@@ -2244,12 +2850,23 @@ def profile_train_step(routine, state, batch, gen, step_ms, steps=2, label="trai
     trace of ``steps`` steps; the idle share is taken against the untraced
     step time. ``host_top`` > 0 also lists the operators with the most
     host (self CPU) time. Returns the device ms per step."""
+    def run():
+        nonlocal state
+        state, _ = routine.train_step(state, batch, gen)
+
+    return profile_calls(run, step_ms, steps, label, groups, host_top)
+
+
+def profile_calls(fn, step_ms, steps=2, label="train", groups=STEP_GROUPS, host_top=0):
+    """Device time of a call of ``fn`` by kernel group, from a
+    torch.profiler trace of ``steps`` calls, against the untraced
+    ``step_ms``. Returns the device ms per call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
-            state, _ = routine.train_step(state, batch, gen)
+            fn()
         torch.cuda.synchronize()
     totals = {name: 0.0 for name, _ in groups}
     other, by_name = "other (elementwise, reductions, copies, AdamW)", {}
@@ -2331,6 +2948,9 @@ def main():
         counts["kolmogorov"] = phase_kolmogorov(dev, tmp)
         counts["pointcloud"] = phase_pointcloud(dev, tmp, args.seed)
         counts["cno"] = phase_cno(dev, tmp)
+        counts["projection"] = phase_projection(dev, tmp, args.seed)
+        counts["learned_interpolation"] = phase_learned_interpolation(dev, tmp, args.seed)
+        counts["meshgraphnet"] = phase_meshgraphnet(dev, tmp, args.seed)
     times = phase_time_apart(args.seed)
 
     kernels = []

@@ -1,22 +1,33 @@
-"""Kolmogorov flow: the pseudo-spectral generator and the dataset builders
-(counterpart of ``fourierflow_tpu/builders/kolmogorov.py``).
+"""Kolmogorov flow: the generator and the dataset builders (counterpart of
+``fourierflow_tpu/builders/kolmogorov.py``).
 
 Generation (``generate_kolmogorov``) simulates a batch of trajectories at
-once on the tensor's device with ``utils.equations``' CN-RK4 stepper: a
-random divergence-free initial velocity (``filtered_velocity_field``) or
-given initial vorticities, ``warmup_steps`` outer steps of ``inner_steps``
-solver steps without recording, then ``outer_steps`` recorded ones, each
-record downsampled to every requested grid (``downsample_vorticity_snapshot``).
-On a CUDA device the solver steps are replayed from a CUDA graph
-(``utils.equations.graph_repeated``), to the bit the eager loop's result.
-Only the pseudo-spectral method is ported; the projection method and 3D
-flows need ``utils/finite_volume.py`` (ROADMAP A item 8) and raise.
+once on the tensor's device, by one of two methods:
+
+- ``pseudo_spectral`` (2D): ``utils.equations``' CN-RK4 stepper on the
+  vorticity's half-spectrum, from a random divergence-free initial velocity
+  (``filtered_velocity_field``, its curl) or given initial vorticities;
+  records downsampled by ``downsample_vorticity_snapshot``.
+- ``projection`` (2D and 3D): ``utils.finite_volume``'s stepper on the
+  staggered velocities, from ``filtered_velocity_field`` (2D) or
+  ``finite_volume.filtered_velocity_field_3d`` (3D), or given initial
+  velocities; records downsampled by ``downsample_velocity_snapshot``.
+
+``warmup_steps`` outer steps of ``inner_steps`` solver steps run first
+without recording, then ``outer_steps`` recorded ones, each record
+downsampled to every requested grid. On a CUDA device the solver steps are
+replayed from a CUDA graph (``utils.equations.graph_repeated``), to the bit
+the eager loop's result.
 
 The files are HDF5 in the JAX package's layout (``commands/generate.py``
-writes them): ``vorticity``, ``vx`` and ``vy`` ``[sample, time, x, y]`` with
-a ``time`` vector (or ``[sample, x, y]`` initial conditions), ``elapsed``
-and the attributes ``dt`` and ``inner_steps``. The datasets read them as
-memory maps (``utils.hdf5.read_dataset``), so a batch reads what it takes.
+writes them): ``vx``, ``vy`` (and ``vz`` in 3D; ``vorticity`` in 2D)
+``[sample, time, x, y(, z)]`` with a ``time`` vector (or ``[sample, x, y(,
+z)]`` initial conditions), ``elapsed`` and the attributes ``dt`` and
+``inner_steps``. The datasets read them as memory maps
+(``utils.hdf5.read_dataset``), so a batch reads what it takes: one-step
+pairs and whole trajectories of the vorticity (the F-FNO routines), and the
+learned-interpolation model's unrolled velocities and initial velocities
+with 32^2 vorticity targets.
 """
 
 import os
@@ -28,10 +39,12 @@ import torch
 
 from ..ops.fourier import irfft2
 from ..utils.equations import graph_repeated
+from ..utils.finite_volume import filtered_velocity_field_3d
 from ..utils.grids import Grid, fft_mesh, rfft_mesh
 from ..utils.hdf5 import read_dataset
-from ..utils.spectral import (downsample_vorticity, downsample_vorticity_hat,
-                              velocity_to_vorticity_fd, vorticity_to_velocity_solve)
+from ..utils.spectral import (downsample_staggered_velocity, downsample_vorticity,
+                              downsample_vorticity_hat, velocity_to_vorticity_fd,
+                              vorticity_to_velocity_solve)
 from .base import Builder, load_array
 
 __all__ = [
@@ -39,23 +52,32 @@ __all__ = [
     "filtered_velocity_field",
     "generate_kolmogorov",
     "downsample_vorticity_snapshot",
+    "downsample_velocity_snapshot",
     "KolmogorovMarkovDataset",
     "KolmogorovTrajectoryDataset",
     "KolmogorovMultiDataset",
+    "KolmogorovVelocityDataset",
+    "KolmogorovVelocityTrajectoryDataset",
     "KolmogorovBuilder",
 ]
 
 _GRAPH_STEPS = 64  # solver steps of a CUDA graph, at most
 _FLUSH_RECORDS = 64  # records kept on the device before they move to the host
-_NOT_PORTED = ("the projection method and 3D Kolmogorov flows need utils/finite_volume.py, "
-               "which is not ported yet (ROADMAP A item 8)")
+VELOCITY_NAMES = ("vx", "vy", "vz")
 
 
 def check_method(method: str, sim_grid: Grid) -> None:
-    """Raise for what is not ported: the projection method and 3D flows."""
-    if method == "projection" or sim_grid.ndim != 2:
-        raise NotImplementedError(f"{method} on a {sim_grid.ndim}-D grid: {_NOT_PORTED}")
-    if method != "pseudo_spectral":
+    """Raise for a method and grid the generator does not take: the
+    pseudo-spectral method is 2D, the projection method 2D or 3D."""
+    if method == "pseudo_spectral":
+        if sim_grid.ndim != 2:
+            raise NotImplementedError(
+                f"the pseudo-spectral method is 2D; a {sim_grid.ndim}-D grid takes the "
+                "projection method")
+    elif method == "projection":
+        if sim_grid.ndim not in (2, 3):
+            raise NotImplementedError(f"the projection method on a {sim_grid.ndim}-D grid")
+    else:
         raise NotImplementedError(f"unknown method {method!r}")
 
 
@@ -114,10 +136,54 @@ def downsample_vorticity_snapshot(sim_grid: Grid, out_grids: Dict, velocity_solv
     return outs
 
 
+def downsample_velocity_snapshot(sim_grid: Grid, out_grids: Dict, velocity_solve,
+                                 out_vorticity: bool, u):
+    """The downsampling of one recorded state of the projection method, the
+    staggered velocities ``(vx, vy[, vz])``, to each grid of ``out_grids``
+    (keyed ``(size, k)``): ``{key: {"vx", "vy"[, "vz"][, "vorticity"]}}``; the
+    state itself at the simulation's own size, else
+    ``downsample_staggered_velocity``; the finite-difference vorticity in 2D
+    only (``velocity_solve`` is unused)."""
+    outs = {}
+    for key, out_grid in out_grids.items():
+        if key[0] == sim_grid.shape[0]:  # copies: the state may be a CUDA graph's own tensors
+            comps, grid = tuple(c.clone() for c in u), sim_grid
+        else:
+            comps, grid = downsample_staggered_velocity(sim_grid, out_grid, u), out_grid
+        out = dict(zip(VELOCITY_NAMES, comps))
+        if out_vorticity and len(u) == 2:
+            out["vorticity"] = velocity_to_vorticity_fd(comps[0], comps[1], grid)
+        outs[key] = out
+    return outs
+
+
 def _graph_steps(inner_steps: int, graph_steps: int) -> int:
     """The largest divisor of ``inner_steps`` up to ``graph_steps`` (0: none)."""
     return max((d for d in range(1, min(graph_steps, inner_steps) + 1) if inner_steps % d == 0),
                default=0)
+
+
+def _initial_state(method: str, sim_grid: Grid, batch: int, generator, initial_field, dev,
+                   peak_wavenumber: float, max_velocity: float):
+    """The solver's state: the vorticity's half-spectrum (pseudo-spectral)
+    or the velocity tuple (projection), from ``initial_field`` where given,
+    else drawn from ``generator``."""
+    if method == "projection":
+        if initial_field is not None:
+            return tuple(torch.as_tensor(np.asarray(initial_field[n]), device=dev).float()
+                         for n in VELOCITY_NAMES[:sim_grid.ndim])
+        if sim_grid.ndim == 3:
+            return filtered_velocity_field_3d(sim_grid, max_velocity, peak_wavenumber, batch,
+                                              generator=generator, device=dev)
+        return filtered_velocity_field(sim_grid, max_velocity, peak_wavenumber, batch,
+                                       generator=generator, device=dev)
+    if initial_field is None:
+        vx, vy = filtered_velocity_field(sim_grid, max_velocity, peak_wavenumber, batch,
+                                         generator=generator, device=dev)
+        w0 = velocity_to_vorticity_fd(vx, vy, sim_grid)
+    else:
+        w0 = torch.as_tensor(np.asarray(initial_field["vorticity"]), device=dev)
+    return torch.fft.rfft2(w0.float())
 
 
 @torch.no_grad()
@@ -128,35 +194,32 @@ def generate_kolmogorov(sim_grid: Grid, out_sizes: List[Dict[str, int]], method:
                         peak_wavenumber: float = 4.0, max_velocity: float = 7.0,
                         inner_steps: int = 25, outer_steps: int = 200, warmup_steps: int = 40,
                         out_vorticity: bool = True, device=None):
-    """Simulate ``batch`` trajectories on ``device`` and downsample their
-    records to every ``{"size", "k"}`` of ``out_sizes``.
+    """Simulate ``batch`` trajectories on ``device`` by ``method`` and
+    downsample their records to every ``{"size", "k"}`` of ``out_sizes``.
 
-    The initial state is ``initial_field["vorticity"] [batch, X, Y]`` where
-    given, else the curl of ``filtered_velocity_field`` drawn from
-    ``generator``. ``warmup_steps`` outer steps
-    of ``inner_steps`` solver steps run first; then with ``outer_steps`` > 0
-    each of ``outer_steps`` outer steps ends in a record, of which a key
-    ``(size, k)`` keeps every k-th (the k-th, 2k-th, ...: the JAX package
-    records all and its writer keeps these), else the warmed state is the
-    one record. Returns ``(outs, elapsed)``: ``outs[(size, k)][field]``,
-    numpy ``[batch, outer_steps // k, size, size]`` (``[batch, size, size]``
-    when warming up only), and the seconds it took. On CUDA, runs of
-    solver steps are replayed from a CUDA graph of at most 64 steps (the
-    largest divisor of ``inner_steps`` up to that). Records move to the host
-    64 at a time."""
+    The initial state comes from ``initial_field`` where given
+    (``"vorticity" [batch, X, Y]`` for the pseudo-spectral method, ``"vx"``,
+    ``"vy"`` (, ``"vz"``) ``[batch, X, Y(, Z)]`` for the projection method),
+    else from a random divergence-free velocity drawn from ``generator``.
+    ``warmup_steps`` outer steps of ``inner_steps`` solver steps run first;
+    then with ``outer_steps`` > 0 each of ``outer_steps`` outer steps ends in
+    a record, of which a key ``(size, k)`` keeps every k-th (the k-th, 2k-th,
+    ...: the JAX package records all and its writer keeps these), else the
+    warmed state is the one record. Returns ``(outs, elapsed)``:
+    ``outs[(size, k)][field]``, numpy ``[batch, outer_steps // k, size, ...]``
+    (``[batch, size, ...]`` when warming up only), and the seconds it took.
+    On CUDA, runs of solver steps are replayed from a CUDA graph of at most
+    64 steps (the largest divisor of ``inner_steps`` up to that). Records
+    move to the host 64 at a time."""
     check_method(method, sim_grid)
     dev = torch.device(device) if device is not None else torch.device("cpu")
-    velocity_solve = vorticity_to_velocity_solve(sim_grid)
-    out_grids = {(o["size"], o["k"]): Grid(shape=(o["size"],) * 2, domain=sim_grid.domain)
+    velocity_solve = vorticity_to_velocity_solve(sim_grid) if sim_grid.ndim == 2 else None
+    out_grids = {(o["size"], o["k"]): Grid(shape=(o["size"],) * sim_grid.ndim,
+                                           domain=sim_grid.domain)
                  for o in out_sizes}
     start = time.time()
-    if initial_field is None:
-        vx, vy = filtered_velocity_field(sim_grid, max_velocity, peak_wavenumber, batch,
-                                         generator=generator, device=dev)
-        w0 = velocity_to_vorticity_fd(vx, vy, sim_grid)
-    else:
-        w0 = torch.as_tensor(np.asarray(initial_field["vorticity"]), device=dev)
-    state = torch.fft.rfft2(w0.float())
+    state = _initial_state(method, sim_grid, batch, generator, initial_field, dev,
+                           peak_wavenumber, max_velocity)
     g = _graph_steps(inner_steps, _GRAPH_STEPS) if dev.type == "cuda" else 0
     run = graph_repeated(step_fn, state, g)
     if warmup_steps > 0:
@@ -318,10 +381,75 @@ class KolmogorovMultiDataset:
                     yield ds.sample(chunks[i])
 
 
+class KolmogorovVelocityDataset:
+    """The learned-interpolation model's training items: the staggered
+    velocity at a frame t and the ``unroll_length`` frames t + k, t + 2k, ...
+    after it, time last: ``(inputs, outputs)`` with ``inputs = {"vx", "vy"}``
+    ``[b, X, Y]`` and ``outputs = {"vx", "vy"}`` ``[b, X, Y, unroll_length]``
+    (``inner_steps`` is accepted for the configs; the stride is ``k``)."""
+
+    def __init__(self, path: str, k: int = 2, unroll_length: int = 32,
+                 inner_steps: Optional[int] = None, in_memory: bool = True):
+        del inner_steps, in_memory  # the file is memory-mapped either way
+        self.k, self.L = k, unroll_length
+        path = _resolve_data_path(path)
+        self.vx, self.vy = _open(path, "vx"), _open(path, "vy")  # [S, T, X, Y]
+        self.B = self.vx.shape[0]
+        self.T = self.vx.shape[1] - self.k * self.L
+
+    def __len__(self):
+        return self.B * self.T
+
+    def sample(self, idx: np.ndarray):
+        b, t = idx // self.T, idx % self.T
+        t_out = t[:, None] + (np.arange(1, self.L + 1) * self.k)[None, :]  # [batch, L]
+        first = lambda a: np.asarray(a[b, t], np.float32)
+        unroll = lambda a: np.moveaxis(np.asarray(a[b[:, None], t_out], np.float32), 1, -1)
+        return ({"vx": first(self.vx), "vy": first(self.vy)},
+                {"vx": unroll(self.vx), "vy": unroll(self.vy)})
+
+
+class KolmogorovVelocityTrajectoryDataset:
+    """The learned-interpolation model's evaluation items: the initial
+    staggered velocities ``vx``, ``vy`` ``[S, X, Y]`` and the reference
+    vorticity at 32^2 on the validation's snapshots, ``targets [S, 32, 32,
+    n]``, with their ``times``.
+
+    The subsampling has two stages, as in the JAX package: the stride ``k``
+    turns the file's cadence into the model's, then a snapshot is taken
+    every ``inner_steps`` model steps; the initial condition lives in its
+    own file, so snapshot i is the file's frame ``i s k - 1``, ``s =
+    inner_steps``. At most ``outer_steps`` snapshots, up to ``end``
+    (``path`` is accepted for the configs)."""
+
+    def __init__(self, init_path: str, corr_path: str, path: Optional[str] = None, k: int = 1,
+                 end: Optional[int] = None, inner_steps: int = 1, outer_steps: int = 100,
+                 in_memory: bool = True):
+        del path, in_memory
+        init_path, corr_path = _resolve_data_path(init_path), _resolve_data_path(corr_path)
+        self.vx0, self.vy0 = _open(init_path, "vx"), _open(init_path, "vy")  # [S, X, Y]
+        s = inner_steps
+        frames = np.arange(_open(corr_path, "vorticity").shape[1])[slice(s * k - 1, end, s * k)]
+        frames = frames[:outer_steps]
+        cw = np.asarray(_open(corr_path, "vorticity")[:, frames], np.float32)
+        self.targets = np.moveaxis(cw, 1, -1)  # [S, 32, 32, n]
+        self.times = np.asarray(_open(corr_path, "time"))[frames].astype(np.float32)
+        self.B = self.vx0.shape[0]
+
+    def __len__(self):
+        return self.B
+
+    def sample(self, idx: np.ndarray) -> Dict[str, np.ndarray]:
+        return {"vx": np.asarray(self.vx0[idx], np.float32),
+                "vy": np.asarray(self.vy0[idx], np.float32), "targets": self.targets[idx],
+                "times": np.broadcast_to(self.times, (len(idx), len(self.times)))}
+
+
 class KolmogorovBuilder(Builder):
-    """Batches of the Kolmogorov datasets: shuffled one-step pairs to train
-    on (round robin over sizes for ``KolmogorovMultiDataset``), whole
-    trajectories to validate and test on."""
+    """Batches of the Kolmogorov datasets: shuffled training items (one-step
+    pairs, round robin over sizes for ``KolmogorovMultiDataset``, or the
+    velocity dataset's ``(inputs, outputs)`` tuples), whole trajectories to
+    validate and test on."""
 
     name = "kolmogorov"
 
@@ -355,10 +483,16 @@ class KolmogorovBuilder(Builder):
     def batches_per_epoch(self) -> int:
         return -(-len(self.train_dataset) // self.batch_size)
 
-    def sample_batch(self) -> Dict[str, np.ndarray]:
-        """The first training batch in file order."""
+    def sample_batch(self):
+        """The first training batch in file order (a dict, or an ``(inputs,
+        outputs)`` tuple)."""
         return next(iter(self._batches(self.train_dataset)))
 
     def inference_data(self) -> Dict[str, np.ndarray]:
+        """The test trajectories: the vorticity and velocities, or for the
+        learned-interpolation model the initial velocities and the 32^2
+        targets."""
         ds = self.test_dataset
+        if isinstance(ds, KolmogorovVelocityTrajectoryDataset):
+            return {"vx": ds.vx0, "vy": ds.vy0, "targets": ds.targets}
         return {"data": ds.data, "vx": ds.vx, "vy": ds.vy}

@@ -1,8 +1,8 @@
 """CLI entry point: ``python -m fourierflow_tpu_torch.commands <cmd> ...``.
 
 Commands ported so far: ``train``, ``test``, ``predict``, ``infer``,
-``export``, ``sample``, ``generate navier-stokes``, ``generate kolmogorov``
-and ``configs list|export``, with the JAX package's flags (``export``
+``export``, ``sample``, ``generate navier-stokes``, ``generate kolmogorov``,
+``convert cylinder-flow`` and ``configs list|export``, with the JAX package's flags (``export``
 without ``--platforms``). An experiment is a YAML file or a name of the registry
 (``configs list``). Each runs on CUDA unless ``--device cpu`` is given, and
 raises when no GPU is present and the CPU was not asked for.
@@ -110,6 +110,12 @@ def main(argv=None):
                             "registry name's parent as a directory)")
     _add_device(p_kol)
 
+    p_conv = sub.add_parser("convert", help="convert MeshGraphNets TFRecords to HDF5")
+    conv_sub = p_conv.add_subparsers(dest="converter", required=True)
+    p_cf = conv_sub.add_parser("cylinder-flow")
+    p_cf.add_argument("--data-dir", default="data/meshgraphnets/cylinder_flow")
+    p_cf.add_argument("--out", default="data/meshgraphnets/cylinder_flow/cylinder_flow.h5")
+
     p_cfg = sub.add_parser("configs", help="list or export registry experiments")
     p_cfg.add_argument("action", choices=["list", "export"])
     p_cfg.add_argument("name", nargs="?", default=None)
@@ -163,6 +169,10 @@ def main(argv=None):
         from .generate import kolmogorov
 
         kolmogorov(args.config_path, args.overrides, device=args.device, out_dir=args.out_dir)
+    elif args.command == "convert":
+        from .convert import cylinder_flow
+
+        cylinder_flow(args.data_dir, args.out)
     elif args.command == "configs":
         from ..experiments import experiment_names, materialize
 

@@ -13,16 +13,19 @@ draw from the same distribution as the JAX package's (which draws from
 ``np.random.RandomState(seed + 1234)``.
 
 ``kolmogorov`` runs a Kolmogorov data config (a YAML file or a registry name
-such as ``data/kolmogorov/re_1000/trajectories/train``) with the
-pseudo-spectral generator, ``generation_batch`` trajectories at a time on
-the device, and writes the JAX package's files beside the config (or in
-``out_dir``): ``{stem}_{size}_{k}.h5`` trajectories ``[S, T, X, Y]`` of
-``vx``, ``vy`` and ``vorticity`` with ``time`` and ``elapsed``, or
-``{stem}_{size}.h5`` warmed initial conditions ``[S, X, Y]``, each with the
-attributes ``dt`` and ``inner_steps``. A file is written under ``.tmp`` and
-renamed when the run is complete. An ``init_path`` (``.nc`` read as
-``.h5``) gives the initial vorticities. The trajectories' random fields come
-from a ``torch.Generator`` seeded with the config's ``seed``.
+such as ``data/kolmogorov/re_1000/trajectories/train``) with the config's
+method (pseudo-spectral in 2D, projection in 2D or 3D),
+``generation_batch`` trajectories at a time on the device, and writes the
+JAX package's files beside the config (or in ``out_dir``):
+``{stem}_{size}_{k}.h5`` trajectories ``[S, T, X, Y(, Z)]`` of ``vx``,
+``vy`` (``vz`` in 3D; ``vorticity`` in 2D unless ``out_vorticity`` is
+false) with ``time`` and ``elapsed``, or ``{stem}_{size}.h5`` warmed initial
+conditions ``[S, X, Y(, Z)]``, each with the attributes ``dt`` and
+``inner_steps``. A file is written under ``.tmp`` and renamed when the run
+is complete. An ``init_path`` (``.nc`` read as ``.h5``) gives the initial
+vorticities (pseudo-spectral) or velocities (projection). The
+trajectories' random fields come from a ``torch.Generator`` seeded with the
+config's ``seed``.
 """
 
 import contextlib
@@ -48,7 +51,8 @@ def kolmogorov(config_path: str, overrides: Optional[List[str]] = None, device=N
     """Generate the dataset of a Kolmogorov data config on ``device`` (CUDA
     unless the CPU is asked for). Returns the paths written."""
     from ..builders.base import load_array
-    from ..builders.kolmogorov import _resolve_data_path, check_method, generate_kolmogorov
+    from ..builders.kolmogorov import (VELOCITY_NAMES, _resolve_data_path, check_method,
+                                       generate_kolmogorov)
     from ..config import instantiate, load_config
 
     dev = resolve_device(device)
@@ -70,7 +74,9 @@ def kolmogorov(config_path: str, overrides: Optional[List[str]] = None, device=N
     init_path = cfg.get("init_path")
     if init_path:
         init_path = _resolve_data_path(os.path.splitext(init_path)[0] + ".h5")
-    fields = ["vx", "vy"] + (["vorticity"] if out_vorticity else [])
+    ndim = sim_grid.ndim
+    fields = list(VELOCITY_NAMES[:ndim]) + (["vorticity"] if out_vorticity and ndim == 2 else [])
+    initial_names = ["vorticity"] if method == "pseudo_spectral" else list(VELOCITY_NAMES[:ndim])
 
     layouts = {}
     for o in cfg["out_sizes"]:
@@ -79,12 +85,12 @@ def kolmogorov(config_path: str, overrides: Optional[List[str]] = None, device=N
         if outer_steps > 0:
             path = os.path.join(out_dir, f"{stem}_{size}_{k}.h5")
             t_len = outer_steps // k
-            layout.update({f: ((n_traj, t_len, size, size), np.float32) for f in fields})
+            layout.update({f: ((n_traj, t_len) + (size,) * ndim, np.float32) for f in fields})
             layout["time"] = ((t_len,), np.float32)
             times = (dt * inner_steps * k * np.arange(1, t_len + 1)).astype(np.float32)
         else:
             path = os.path.join(out_dir, f"{stem}_{size}.h5")
-            layout.update({f: ((n_traj, size, size), np.float32) for f in fields})
+            layout.update({f: ((n_traj,) + (size,) * ndim, np.float32) for f in fields})
             times = None
         layouts[(size, k)] = (path, layout, times)
 
@@ -103,7 +109,7 @@ def kolmogorov(config_path: str, overrides: Optional[List[str]] = None, device=N
             bsz = min(gen_batch, n_traj - start)
             rows = np.s_[start:start + bsz]
             initial = None if not init_path else {
-                "vorticity": load_array(init_path, "vorticity", rows)}
+                name: load_array(init_path, name, rows) for name in initial_names}
             outs, elapsed = generate_kolmogorov(
                 sim_grid=sim_grid, out_sizes=cfg["out_sizes"], method=method, step_fn=step_fn,
                 downsample_fn=downsample_fn, batch=bsz, generator=gen, initial_field=initial,

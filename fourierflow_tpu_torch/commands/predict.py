@@ -19,6 +19,7 @@ import torch
 
 from ..config import instantiate, load_config
 from ..device import resolve_device
+from ..trainers.trainer import batch_count
 from .train import build_routine, restore_state
 
 logger = logging.getLogger(__name__)
@@ -83,7 +84,7 @@ def main(config_path: Optional[str] = None, checkpoint_path: Optional[str] = Non
     _finish(preds)
     elapsed = time.perf_counter() - t0
 
-    n_samples = len(next(iter(batch.values())))
+    n_samples = batch_count(batch)
     steps = preds.shape[-1] if hasattr(routine, "rollout") else 1
     sim_seconds = steps * getattr(routine, "step_size", 1.0)
     inference_time = elapsed / n_samples / sim_seconds

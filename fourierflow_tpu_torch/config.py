@@ -82,10 +82,7 @@ TARGET_TRANSLATION = {
         "fourierflow_tpu_torch.schedulers.exponential_with_warmup",
     "torch.optim.lr_scheduler.StepLR": "fourierflow_tpu_torch.schedulers.step_lr",
     "fourierflow.callbacks.CustomModelCheckpoint": "fourierflow_tpu_torch.trainers.ModelCheckpoint",
-    # The Kolmogorov pipeline: jax-cfd's targets and the reference's. The
-    # projection method's (jax_cfd.base.equations.semi_implicit_navier_stokes,
-    # ...downsample_velocity) are not ported and stay as they are, so they
-    # raise with their names.
+    # The Kolmogorov pipeline: jax-cfd's targets and the reference's.
     "fourierflow.builders.KolmogorovBuilder": "fourierflow_tpu_torch.builders.KolmogorovBuilder",
     "fourierflow.builders.KolmogorovTorchDataset":
         "fourierflow_tpu_torch.builders.kolmogorov.KolmogorovMarkovDataset",
@@ -95,6 +92,8 @@ TARGET_TRANSLATION = {
         "fourierflow_tpu_torch.builders.kolmogorov.KolmogorovTrajectoryDataset",
     "fourierflow.builders.kolmogorov.downsample_vorticity":
         "fourierflow_tpu_torch.builders.kolmogorov.downsample_vorticity_snapshot",
+    "fourierflow.builders.kolmogorov.downsample_velocity":
+        "fourierflow_tpu_torch.builders.kolmogorov.downsample_velocity_snapshot",
     "fourierflow.utils.Grid": "fourierflow_tpu_torch.utils.Grid",
     "fourierflow.utils.equations.NavierStokes2D": "fourierflow_tpu_torch.utils.equations.NavierStokes2D",
     "fourierflow.utils.forcings.kolmogorov_forcing_fn":
@@ -105,6 +104,11 @@ TARGET_TRANSLATION = {
         "fourierflow_tpu_torch.utils.forcings.simple_turbulence_forcing",
     "jax_cfd.spectral.time_stepping.crank_nicolson_rk4":
         "fourierflow_tpu_torch.utils.equations.crank_nicolson_rk4",
+    "jax_cfd.base.equations.semi_implicit_navier_stokes":
+        "fourierflow_tpu_torch.utils.finite_volume.semi_implicit_navier_stokes",
+    "jax_cfd.base.time_stepping.classic_rk4": "fourierflow_tpu_torch.utils.finite_volume.classic_rk4",
+    "jax_cfd.base.time_stepping.forward_euler":
+        "fourierflow_tpu_torch.utils.finite_volume.forward_euler",
     "pytorch_lightning.callbacks.LearningRateMonitor": None,
     "pytorch_lightning.callbacks.ModelSummary": None,
 }

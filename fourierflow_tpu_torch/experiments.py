@@ -1,10 +1,10 @@
-"""Experiment registry: the JAX package's config-as-code experiments of the
-torus families, the structured meshes and the point clouds, by the same
-path-like names (counterpart of ``fourierflow_tpu/experiments.py``: its
-``torus_li``, ``torus_vis*`` and ``torus_kochkov`` F-FNO and CNO families,
-its pseudo-spectral Kolmogorov data configs ``data/kolmogorov/**``, its
-``airfoil``, ``pipe`` and ``plasticity`` F-FNO, Geo-FNO and CNO experiments
-and its ``elasticity`` point-cloud ones)::
+"""Experiment registry: the JAX package's config-as-code experiments, by
+the same path-like names (counterpart of ``fourierflow_tpu/experiments.py``,
+all 342 of its names: the ``torus_li``, ``torus_vis*`` and ``torus_kochkov``
+F-FNO, CNO and learned-interpolation families, the Kolmogorov data configs
+``data/kolmogorov/**`` of both methods, the ``airfoil``, ``pipe`` and
+``plasticity`` F-FNO, Geo-FNO and CNO experiments, the ``elasticity``
+point-cloud ones and MeshGraphNet's ``cylinder_flow/baseline``)::
 
     python -m fourierflow_tpu_torch.commands train torus_vis/01_baseline
     python -m fourierflow_tpu_torch.commands train airfoil/ffno/24_layers
@@ -15,10 +15,7 @@ and its ``elasticity`` point-cloud ones)::
 (wandb / builder / routine / trainer / callbacks) that
 ``config.load_config`` reads when ``name`` is not a file;
 ``experiment_names()`` lists them (``commands configs list``). Targets name
-this package. Not here yet, and asking for one raises: the learned
-interpolation (``torus_kochkov/learned_interpolation``), the projection
-method's and the 3D Kolmogorov data configs, and MeshGraphNet
-(``cylinder_flow``).
+this package; an unknown name raises a ``KeyError`` with close matches.
 
 Hyperparameters mirror the reference configs (file citations inline).
 """
@@ -454,6 +451,59 @@ def _kochkov_family() -> Dict[str, dict]:
         fc = _kochkov_ffno(size)
         fc["routine"]["conv"]["_target_"] = "fourierflow_tpu_torch.models.CNOFactorized2DBlock"
         out[f"torus_kochkov/fcno/grid_sizes/{size}"] = fc
+    # Learned interpolation rollouts (Kochkov et al. 2021 reproduction).
+    # Per-size reference params (learned_interpolation/rollout/x*/config
+    # .yaml): the model step dt halves per grid doubling (always ~32x the
+    # grid's DNS-stable step), the file stride k tracks it on the
+    # 16*dt-cadence _1 files, and inner_steps keeps the validation
+    # snapshot cadence.
+    # x256 reads the short_trajectories/ files (incl. the 32^2 corr files)
+    # and its ROUTINE steps 64 inner sub-steps per recorded snapshot while
+    # the dataset cadence stays 32 (rollout/x256/config.yaml:13-31,41).
+    LI_SPEC = {32: (0.014024967203525862, 4, 8, 8),
+               64: (0.007012483601762931, 2, 16, 16),
+               128: (0.0035062418008814655, 1, 32, 32),
+               256: (0.001753121, 1, 32, 64)}
+    for size, (li_dt, li_k, li_inner, li_routine_inner) in LI_SPEC.items():
+        traj_dir = "short_trajectories" if size == 256 else "trajectories"
+        out[f"torus_kochkov/learned_interpolation/rollout/x{size}"] = {
+            "wandb": _wandb("torus_kochkov", f"learned_interpolation/x{size}"),
+            "builder": {
+                "_target_": "fourierflow_tpu_torch.builders.KolmogorovBuilder",
+                "train_dataset": {
+                    "_target_": "fourierflow_tpu_torch.builders.KolmogorovVelocityDataset",
+                    "path": f"{DATA}/kolmogorov/re_1000/{traj_dir}/train_{size}_1.nc",
+                    "k": li_k, "unroll_length": 32,
+                },
+                "valid_dataset": {
+                    "_target_": "fourierflow_tpu_torch.builders.KolmogorovVelocityTrajectoryDataset",
+                    "init_path": f"{DATA}/kolmogorov/re_1000/initial_conditions/valid_{size}.nc",
+                    "corr_path": f"{DATA}/kolmogorov/re_1000/{traj_dir}/valid_32_1.nc",
+                    "k": li_k, "inner_steps": li_inner, "outer_steps": 100,
+                },
+                "test_dataset": {
+                    "_target_": "fourierflow_tpu_torch.builders.KolmogorovVelocityTrajectoryDataset",
+                    "init_path": f"{DATA}/kolmogorov/re_1000/initial_conditions/test_{size}.nc",
+                    "corr_path": f"{DATA}/kolmogorov/re_1000/{traj_dir}/test_32_1.nc",
+                    "k": li_k, "inner_steps": li_inner, "outer_steps": 100,
+                },
+                "batch_size": 4,
+            },
+            "routine": {
+                "_target_": "fourierflow_tpu_torch.routines.LearnedInterpolatorRoutine",
+                "size": size,
+                "dt": li_dt,
+                "inner_steps": li_routine_inner, "outer_steps": 100, "unroll_length": 32,
+                "optimizer": _adamw(lr=0.001),
+            },
+            "trainer": {"max_epochs": 10, "limit_train_batches": 4000},
+            "callbacks": [{
+                "_target_": "fourierflow_tpu_torch.trainers.ModelCheckpoint",
+                "save_last": True,
+                "monitor": "valid_reduced_time_until",
+                "mode": "max",
+            }],
+        }
     return out
 
 
@@ -544,18 +594,42 @@ def _kolmogorov_data_configs():
             size, 4, 83816, inner=2, outer=2441, warmup=0,
             out_sizes=[{"size": size, "k": 1}, {"size": 32, "k": 1}],
             init_path=f"{DATA}/kolmogorov/re_1000/initial_conditions/test_{size}.nc")
-    # Method-comparison configs, the spectral side (the projection side
-    # needs the projection method, ROADMAP A item 8).
+    # reference:data/kolmogorov/re_1000/learned_interpolation/control.yaml —
+    # the un-learned 64^2 projection DNS the interpolation model is
+    # compared against (same cadence/ICs as the 64^2 training data).
+    ctrl = _kol_projection_3d(
+        64, 4, 83816, inner=2, outer=2441, warmup=0, ndim=2,
+        init_path=f"{DATA}/kolmogorov/re_1000/initial_conditions/test_64.nc")
+    ctrl["out_sizes"] = [{"size": 32, "k": 1}, {"size": 64, "k": 1}]
+    out["data/kolmogorov/re_1000/learned_interpolation/control"] = ctrl
+    # 3D projection-method datasets (reference data/kolmogorov/
+    # three_dimensions/*: 512^3 finite-volume simulations).
+    for split, seed in (("train", 97820), ("valid", 97821), ("test", 97823)):
+        cfg = _kol_projection_3d(512, 4, seed, inner=64, outer=200,
+                                 warmup=0,
+                                 init_path=f"{DATA}/kolmogorov/three_dimensions/initial_conditions/{split}_512.nc")
+        out[f"data/kolmogorov/three_dimensions/trajectories/{split}"] = cfg
+        ic = _kol_projection_3d(512, 4, seed, inner=64, outer=0, warmup=1000)
+        out[f"data/kolmogorov/three_dimensions/initial_conditions/{split}"] = ic
+    # Method-comparison configs (spectral vs projection at the same IC).
     out["data/kolmogorov/compare_methods/drag/spectral"] = _kol_data(
         256, 2, 111, inner=8, outer=200, warmup=50,
         out_sizes=[{"size": 64, "k": 1}])
+    proj2d = _kol_projection_3d(256, 2, 111, inner=8, outer=200, warmup=50,
+                                ndim=2)
+    out["data/kolmogorov/compare_methods/drag/projection"] = proj2d
     # reference:data/kolmogorov/compare_methods/kolmogorov/*.yaml — three
     # forcing formulations of the same Re=1000 flow at 1024^2 from the
-    # shared test IC (the projection-method one is not ported): spectral with the drag inside the forcing term (spectral_coeff),
+    # shared test IC: projection-method linear drag (-0.1 coefficient),
+    # spectral with the drag inside the forcing term (spectral_coeff),
     # and spectral with the separate implicit drag term (spectral_drag).
     cmp_ic = f"{DATA}/kolmogorov/re_1000/initial_conditions/test_1024.nc"
     cmp_kw = dict(inner=128, outer=100, warmup=0,
                   out_sizes=[{"size": 512, "k": 1}], init_path=cmp_ic)
+    proj_k = _kol_projection_3d(1024, 1, 2308, inner=128, outer=100,
+                                warmup=0, ndim=2, init_path=cmp_ic)
+    proj_k["out_sizes"] = [{"size": 512, "k": 1}]
+    out["data/kolmogorov/compare_methods/kolmogorov/projection"] = proj_k
     coeff = _kol_data(1024, 1, 2308, **cmp_kw)
     coeff["step_fn"]["equation"]["drag"] = 0.0
     coeff["step_fn"]["equation"]["forcing_fn"]["linear_coefficient"] = -0.1
@@ -563,19 +637,34 @@ def _kolmogorov_data_configs():
     out["data/kolmogorov/compare_methods/kolmogorov/spectral_drag"] = _kol_data(
         1024, 1, 2308, **cmp_kw)
     # reference:data/kolmogorov/compare_methods/decaying/*.yaml — unforced
-    # decay from the same IC, the spectral side.
+    # decay from the same IC, spectral vs projection.
     dec_s = _kol_data(1024, 1, 2308, **cmp_kw)
     dec_s["step_fn"]["equation"]["drag"] = 0.0
     dec_s["step_fn"]["equation"]["forcing_fn"] = None
     out["data/kolmogorov/compare_methods/decaying/spectral"] = dec_s
+    dec_p = _kol_projection_3d(1024, 1, 2308, inner=128, outer=100,
+                               warmup=0, ndim=2, init_path=cmp_ic)
+    dec_p["out_sizes"] = [{"size": 512, "k": 1}]
+    dec_p["step_fn"]["forcing"] = None
+    out["data/kolmogorov/compare_methods/decaying/projection"] = dec_p
     # reference:data/kolmogorov/compare_methods/downsampling/** — the same
     # trajectory simulated at several resolutions and downsampled to 64^2,
-    # with the spectral CN-RK4 (the projection-method ones are not ported).
+    # once per method (spectral CN-RK4, projection forward-Euler,
+    # projection classic-RK4).
     for size in (128, 512, 2048):
         ds_ic = f"{DATA}/kolmogorov/re_1000/initial_conditions/test_{size}.nc"
         out[f"data/kolmogorov/compare_methods/downsampling/spectral/{size}"] = \
             _kol_data(size, 1, 2308, inner=8, outer=200, warmup=0,
                       out_sizes=[{"size": 64, "k": 1}], init_path=ds_ic)
+        for stepper, key in ((None, "projection_euler"),
+                             ("${get_method:jax_cfd.base.time_stepping.classic_rk4}",
+                              "projection_rk4")):
+            proj = _kol_projection_3d(size, 1, 2308, inner=8, outer=200,
+                                      warmup=0, ndim=2, init_path=ds_ic)
+            proj["out_sizes"] = [{"size": 64, "k": 1}]
+            if stepper is not None:
+                proj["step_fn"]["time_stepper"] = stepper
+            out[f"data/kolmogorov/compare_methods/downsampling/{key}/{size}"] = proj
     # Re=4000 variant: 4096^2 sims, half viscosity, drag 0.05, forcing
     # wavenumber 2 (reference data/kolmogorov/re_4000/**).
     for split, seed in (("train", 42001), ("valid", 42002), ("test", 42003)):
@@ -596,7 +685,7 @@ def _kolmogorov_data_configs():
             cfg["time_step"]["viscosity"] = 5e-4
             out[f"data/kolmogorov/re_4000/{kind}/{split}"] = cfg
     # Decaying turbulence (no forcing, no drag): spectral baselines at
-    # several resolutions (the projection-method counterparts are not ported)
+    # several resolutions + projection-method counterparts
     # (reference data/kolmogorov/decaying/**).
     for size, inner in ((64, 2), (256, 8), (2048, 64)):
         cfg = _kol_data(size, 4, 2308, inner=inner, outer=1426, warmup=0,
@@ -607,6 +696,11 @@ def _kolmogorov_data_configs():
         eq["drag"] = 0.0
         eq["forcing_fn"] = None
         out[f"data/kolmogorov/decaying/baselines/{size}"] = cfg
+        proj = _kol_projection_3d(size, 4, 2308, inner=inner, outer=1426,
+                                  warmup=0, ndim=2)
+        proj["step_fn"]["forcing"] = None
+        proj["out_sizes"] = [{"size": min(size, 64), "k": 1}]
+        out[f"data/kolmogorov/decaying/projection/{size}"] = proj
     out["data/kolmogorov/decaying/initial_conditions/test"] = _kol_data(
         2048, 4, 2308, inner=64, outer=0, warmup=1426,
         out_sizes=[{"size": s_, "k": 1} for s_ in (64, 256, 2048)])
@@ -632,6 +726,44 @@ def _kolmogorov_data_configs():
         cfg["domain"] = [[0, big], [0, big]]
         out[f"data/kolmogorov/large_domain/{kind}/test"] = cfg
     return out
+
+
+def _kol_projection_3d(sim_size, n_traj, seed, inner, outer, warmup,
+                       init_path=None, ndim=3):
+    """Finite-volume projection-method generation config (reference:data/
+    kolmogorov/three_dimensions/trajectories/*.yaml and
+    compare_methods/**/projection*.yaml)."""
+    domain = KOL_DOMAIN[:1] * ndim
+    cfg = {
+        "domain": domain,
+        "sim_grid": {"_target_": "fourierflow_tpu_torch.utils.Grid",
+                     "shape": [sim_size] * ndim, "domain": "${domain}"},
+        "time_step": {
+            "_target_": "jax_cfd.base.equations.stable_time_step",
+            "max_velocity": 7.0, "max_courant_number": 0.5,
+            "viscosity": 1e-3, "grid": "${sim_grid}",
+        },
+        "method": "projection",
+        "step_fn": {
+            "_target_": "jax_cfd.base.equations.semi_implicit_navier_stokes",
+            "density": 1, "viscosity": 1e-3, "dt": "${time_step}",
+            "grid": "${sim_grid}",
+            "forcing": {
+                "_target_": "jax_cfd.base.forcings.simple_turbulence_forcing",
+                "grid": "${sim_grid}",
+                "constant_magnitude": 1, "constant_wavenumber": 4,
+                "linear_coefficient": -0.1,
+            },
+        },
+        "downsample_fn": "${get_method:fourierflow.builders.kolmogorov.downsample_velocity}",
+        "out_sizes": [{"size": s, "k": 1} for s in (32, 64, 128) if s <= sim_size],
+        "n_trajectories": n_traj, "density": 1, "max_velocity": 7.0,
+        "peak_wavenumber": 4.0, "seed": seed,
+        "inner_steps": inner, "outer_steps": outer, "warmup_steps": warmup,
+    }
+    if init_path:
+        cfg["init_path"] = init_path
+    return cfg
 
 
 # --- structured meshes (airfoil / pipe / plasticity) -----------------------
@@ -844,22 +976,27 @@ def _build_registry() -> Dict[str, dict]:
         reg[f"torus_vis_force/{v}"] = _torus_vis("torus_vis_force", v)
     reg.update(_kochkov_family())
     reg.update(_kolmogorov_data_configs())
+    reg["cylinder_flow/baseline"] = {
+        "wandb": _wandb("cylinder_flow", "baseline"),
+        "builder": {
+            "_target_": "fourierflow_tpu_torch.builders.CylinderFlowBuilder",
+            "path": f"{DATA}/meshgraphnets/cylinder_flow/cylinder_flow.h5",
+            "batch_size": 4,
+        },
+        "routine": {
+            "_target_": "fourierflow_tpu_torch.routines.MeshGraphNetRoutine",
+            "clip_val": 0.1,
+            "optimizer": _adamw(lr=0.001),
+            "scheduler": _cosine(150000),
+        },
+        "trainer": {"max_epochs": 10, "limit_train_batches": 150,
+                    "limit_val_batches": 20},
+        "callbacks": _ckpt(),
+    }
     return reg
 
 
 _REGISTRY = None
-# Names of the JAX registry whose modules are not ported yet, by prefix.
-_NOT_PORTED = dict.fromkeys(
-    ("torus_kochkov/learned_interpolation/", "data/kolmogorov/re_1000/learned_interpolation/",
-     "data/kolmogorov/three_dimensions/", "data/kolmogorov/compare_methods/decaying/projection",
-     "data/kolmogorov/compare_methods/downsampling/projection_",
-     "data/kolmogorov/compare_methods/drag/projection",
-     "data/kolmogorov/compare_methods/kolmogorov/projection",
-     "data/kolmogorov/decaying/projection/", "cylinder_flow/"),
-    "learned interpolation, the projection method, 3D Kolmogorov flows or MeshGraphNet "
-    "(ROADMAP A8)")
-
-
 def _registry() -> Dict[str, dict]:
     global _REGISTRY
     if _REGISTRY is None:
@@ -877,9 +1014,6 @@ def get_experiment(name: str) -> dict:
     key = (name.strip("/").removesuffix("/config.yaml").removeprefix("experiments/")
            .removeprefix("configs/"))
     if key not in reg:
-        for prefix, what in _NOT_PORTED.items():
-            if key.startswith(prefix):
-                raise KeyError(f"experiment {name!r} needs {what}, which is not ported yet")
         import difflib
 
         close = difflib.get_close_matches(key, reg, n=3)

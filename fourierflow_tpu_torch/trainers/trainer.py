@@ -29,8 +29,14 @@ logger = logging.getLogger(__name__)
 __all__ = ["Trainer"]
 
 
-def _batch_count(batch) -> int:
-    return len(next(iter(batch.values())))
+def batch_count(batch) -> int:
+    """The number of samples of a batch: a dict of arrays, an ``(inputs,
+    outputs)`` tuple (the learned-interpolation model's) or an array."""
+    if isinstance(batch, dict):
+        return batch_count(next(iter(batch.values())))
+    if isinstance(batch, (tuple, list)):
+        return batch_count(batch[0])
+    return len(batch)
 
 
 def _weighted_merge(metric_list):
@@ -97,7 +103,7 @@ class Trainer:
                 state, metrics = routine.train_step(state, batch,
                                                     self.step_generator(state.device))
                 self.global_step += 1
-                train_metrics.append((metrics, _batch_count(batch)))
+                train_metrics.append((metrics, batch_count(batch)))
                 if self.global_step == 1 or (i + 1) % self.log_every_n_steps == 0:
                     logger.info("epoch %d step %d (global %d): loss %.4f", epoch, i + 1,
                                 self.global_step, float(metrics["train_loss"]))
@@ -129,7 +135,7 @@ class Trainer:
         for i, batch in enumerate(batches):
             if self.limit_val_batches and i >= self.limit_val_batches:
                 break
-            metric_list.append((_numpy(routine.valid_step(state, batch)), _batch_count(batch)))
+            metric_list.append((_numpy(routine.valid_step(state, batch)), batch_count(batch)))
         return {f"{split}_{k}": float(v) if np.ndim(v) == 0 else v
                 for k, v in _weighted_merge(metric_list).items()}
 

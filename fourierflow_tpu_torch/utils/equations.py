@@ -13,7 +13,8 @@ configs:
 - ``repeated`` / ``trajectory``: step composition as plain loops;
   ``graph_repeated``: on a CUDA device, runs of steps replayed from a CUDA
   graph (the JAX package's ``lax.scan``), the same kernels in the same order
-  as the eager loop, so the same bits, without the host's time per launch.
+  as the eager loop, so the same bits, without the host's time per launch;
+  the state is a tensor or a tuple of tensors (the projection method's).
 
 The state is the ``rfft2`` half-spectrum of the vorticity, ``[..., nx,
 ny//2+1]`` complex64, with any leading batch axes. The linear term is real,
@@ -54,8 +55,9 @@ class NavierStokes2D:
     def __post_init__(self):
         if self.grid.ndim != 2:
             raise NotImplementedError(
-                f"NavierStokes2D takes a 2D grid; the {self.grid.ndim}-D Kolmogorov flows use the "
-                "projection method (utils/finite_volume.py), not ported yet (ROADMAP A item 8)")
+                f"NavierStokes2D takes a 2D grid (the spectral method is 2D only); a "
+                f"{self.grid.ndim}-D Kolmogorov flow takes the projection method "
+                "(utils/finite_volume.py::semi_implicit_navier_stokes)")
         kx, ky = rfft_mesh(self.grid.shape, self.grid.domain)
         # float64, rounded once where used.
         self.linear_term = self.viscosity * (-(TWO_PI ** 2) * (kx ** 2 + ky ** 2)) - self.drag
@@ -182,30 +184,44 @@ def trajectory(step_fn: Callable, steps: int, post_process: Callable = lambda x:
     return f
 
 
-def graph_repeated(step_fn: Callable, like: torch.Tensor, graph_steps: int) -> Callable:
+def _clone(state):
+    return tuple(s.clone() for s in state) if isinstance(state, tuple) else state.clone()
+
+
+def _copy_into(dst, src) -> None:
+    if isinstance(dst, tuple):
+        for d, s in zip(dst, src, strict=True):
+            d.copy_(s)
+    else:
+        dst.copy_(src)
+
+
+def graph_repeated(step_fn: Callable, like, graph_steps: int) -> Callable:
     """``run(state, k)``: ``step_fn`` applied ``k`` times to a state shaped
-    as ``like``. On a CUDA device with ``graph_steps`` > 0, ``graph_steps``
-    steps are captured once in a CUDA graph (after three eager steps on a
-    copy, which fill the constants' caches and cuFFT's plans) and each run
-    replays it ``k // graph_steps`` times, then takes the rest eagerly; the
-    result may be the graph's own state tensor, valid until the next run.
-    Otherwise every step runs eagerly."""
-    if like.device.type != "cuda" or graph_steps <= 0:
+    as ``like``, a tensor (the spectral state) or a tuple of tensors (the
+    projection method's velocities). On a CUDA device with ``graph_steps`` >
+    0, ``graph_steps`` steps are captured once in a CUDA graph (after three
+    eager steps on a copy, which fill the constants' caches and cuFFT's
+    plans) and each run replays it ``k // graph_steps`` times, then takes
+    the rest eagerly; the result may be the graph's own state tensors, valid
+    until the next run. Otherwise every step runs eagerly."""
+    first = like[0] if isinstance(like, tuple) else like
+    if first.device.type != "cuda" or graph_steps <= 0:
         return lambda state, k: repeated(step_fn, k)(state)
-    static = like.clone()
+    static = _clone(like)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        repeated(step_fn, 3)(static.clone())
+        repeated(step_fn, 3)(_clone(static))
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        static.copy_(repeated(step_fn, graph_steps)(static))
+        _copy_into(static, repeated(step_fn, graph_steps)(static))
 
-    def run(state: torch.Tensor, k: int) -> torch.Tensor:
+    def run(state, k: int):
         if k < graph_steps:
             return repeated(step_fn, k)(state)
-        static.copy_(state)
+        _copy_into(static, state)
         for _ in range(k // graph_steps):
             graph.replay()
         return repeated(step_fn, k % graph_steps)(static)

@@ -6,8 +6,9 @@ with full spectral weights ``fourier_weight_{1,2}``), the original FNO
 with per-axis weights ``fourier_weight_{x,y,z}``) and the Geo-FNO mesh
 models (``fc0``, ``convs_{i}_weight_{k}``, ``ws_{i}``, ``fc1``, ``fc2``), the
 point-cloud models (the F-FNO, the fully-factorized one and the Geo-FNO,
-each with its ``iphi`` subtree) and the CNO models (the F-FNO trees with
-real ``[in, out, modes]`` Fourier weights).
+each with its ``iphi`` subtree), the CNO models (the F-FNO trees with
+real ``[in, out, modes]`` Fourier weights), the learned-interpolation model
+(its CNN's convolutions) and MeshGraphNet (its MLPs and LayerNorms).
 
 Input: the flax params of an ``FNOFactorized2DBlock`` as a nested dict of
 numpy arrays (with or without the outer ``"params"`` level) and its number
@@ -32,7 +33,8 @@ import torch
 
 __all__ = ["state_dict_from_flax", "plus_state_dict_from_flax", "zongyi_state_dict_from_flax",
            "mesh_state_dict_from_flax", "geo_state_dict_from_flax", "cno_state_dict_from_flax",
-           "point_cloud_state_dict_from_flax", "geo_point_cloud_state_dict_from_flax"]
+           "point_cloud_state_dict_from_flax", "geo_point_cloud_state_dict_from_flax",
+           "learned_interpolation_state_dict_from_flax", "meshgraphnet_state_dict_from_flax"]
 
 _LAYER_W = re.compile(r"layers_(\d+)_fourier_weight_([xy])$")
 _PLUS_LAYER_W = re.compile(r"layers_(\d+)_fourier_weight_([12])$")
@@ -252,4 +254,66 @@ def _block_state_dict(params: Mapping, n_layers: int, shared_w, layer_w: re.Patt
             _ff(value, f"spectral_layers.{i}.{kind}", out)
         else:
             raise KeyError(f"unexpected {what} parameter {name!r}")
+    return out
+
+
+_LI_CONV = re.compile(r"conv_(\d+)$")
+
+
+def learned_interpolation_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax ``LearnedInterpolationStep`` params -> port ``state_dict``:
+    ``coeff_net/conv_{i}`` -> ``coeff_net.convs.{i}`` and ``coeff_net/out``
+    -> ``coeff_net.out``. A flax kernel ``[3, 3, in, out]`` becomes the
+    ``[out, in, 3, 3]`` weight, unflipped (both are cross-correlations, over
+    X then Y)."""
+    if "params" in params:
+        params = params["params"]
+    out: Dict[str, torch.Tensor] = {}
+    for name, conv in params["coeff_net"].items():
+        m = _LI_CONV.match(name)
+        if m is None and name != "out":
+            raise KeyError(f"unexpected PeriodicCNN parameter {name!r}")
+        base = f"coeff_net.convs.{m.group(1)}" if m else "coeff_net.out"
+        out[f"{base}.weight"] = _tensor(np.transpose(np.asarray(conv["kernel"]), (3, 2, 0, 1)))
+        out[f"{base}.bias"] = _tensor(conv["bias"])
+    return out
+
+
+_MGN_LINEAR = re.compile(r"linear_(\d+)$")
+_MGN_LAYER = re.compile(r"graph_layer_(\d+)$")
+_MGN_BLOCK = {"node_encoder": "node_encoder", "edge_encoder_0": "edge_encoder",
+              "decoder": "decoder", "edge_updater_0": "edge_updater",
+              "node_updater": "node_updater"}
+
+
+def _mlp_block(p: Mapping, base: str, out: Dict[str, torch.Tensor]) -> None:
+    for name, value in p.items():
+        if name == "norm":
+            out[f"{base}.norm.weight"] = _tensor(value["scale"])
+            out[f"{base}.norm.bias"] = _tensor(value["bias"])
+        elif _MGN_LINEAR.match(name):
+            _linear(value, f"{base}.linear.{_MGN_LINEAR.match(name).group(1)}", out)
+        else:
+            raise KeyError(f"unexpected MLPBlock parameter {base}.{name}")
+
+
+def meshgraphnet_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax ``GraphProcessor`` params -> port ``state_dict``: the blocks
+    ``node_encoder``, ``edge_encoder_0`` -> ``edge_encoder``, ``decoder`` and
+    ``graph_layer_{i}/{edge_updater_0,node_updater}`` ->
+    ``graph_layers.{i}.{edge_updater,node_updater}``; in each, ``linear_{k}``
+    -> ``linear.{k}`` (Dense kernels transposed) and the LayerNorm ``norm``'s
+    ``scale`` / ``bias`` -> ``norm.weight`` / ``norm.bias``."""
+    if "params" in params:
+        params = params["params"]
+    out: Dict[str, torch.Tensor] = {}
+    for name, value in params.items():
+        layer = _MGN_LAYER.match(name)
+        if layer:
+            for sub, block in value.items():
+                _mlp_block(block, f"graph_layers.{layer.group(1)}.{_MGN_BLOCK[sub]}", out)
+        elif name in _MGN_BLOCK:
+            _mlp_block(value, _MGN_BLOCK[name], out)
+        else:
+            raise KeyError(f"unexpected GraphProcessor parameter {name!r}")
     return out

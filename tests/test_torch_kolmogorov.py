@@ -135,8 +135,14 @@ def test_forcings_match_jax(name, kwargs):
 
 
 def test_3d_forcing_raises_naming_the_projection_method():
-    with pytest.raises(NotImplementedError, match="finite_volume.*item 8"):
-        forcings.simple_turbulence_forcing(grids.Grid((8, 8, 8), domain=DOMAIN + DOMAIN[:1]))
+    """The 2D-only forcing raises on a 3D grid, naming what a 3D flow takes;
+    simple_turbulence_forcing has an N-D branch (held to the JAX package in
+    tests/test_torch_projection.py)."""
+    grid = grids.Grid((8, 8, 8), domain=DOMAIN + DOMAIN[:1])
+    with pytest.raises(NotImplementedError, match="simple_turbulence_forcing.*projection method"):
+        forcings.kolmogorov_forcing_fn(grid)
+    fx, fy, fz = forcings.simple_turbulence_forcing(grid)(*torch.zeros(3, 1, 8, 8, 8))
+    assert fx.shape == (1, 8, 8, 8) and fx.abs().max() > 0 and not fy.any() and not fz.any()
 
 
 def test_stable_time_step_of_the_registry_is_exact():
@@ -249,23 +255,28 @@ def test_graph_repeated_off_the_card_is_the_loop(equation_pair):
 
 
 def test_projection_method_and_3d_raise():
-    """The projection method and 3D flows raise, naming what they need; the
-    projection method's jax-cfd targets stay untranslated."""
+    """What the generator does not take raises, naming what it needs: the
+    spectral method on a 3D grid (NavierStokes2D and check_method) and an
+    unknown method. The projection method's jax-cfd targets translate to
+    the port's finite-volume solver, and its configs pass check_method."""
     from fourierflow_tpu.experiments import get_experiment as jax_get_experiment
+    from fourierflow_tpu_torch.config import import_string, translate
+    from fourierflow_tpu_torch.utils import finite_volume
 
-    grid = grids.Grid((8, 8), domain=DOMAIN)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        kol.generate_kolmogorov(grid, [{"size": 8, "k": 1}], "projection", None)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        equations.NavierStokes2D(1e-3, grids.Grid((8, 8, 8), domain=DOMAIN + DOMAIN[:1]))
+    grid3 = grids.Grid((8, 8, 8), domain=DOMAIN + DOMAIN[:1])
+    with pytest.raises(NotImplementedError, match="spectral method is 2D only.*projection"):
+        equations.NavierStokes2D(1e-3, grid3)
+    with pytest.raises(NotImplementedError, match="pseudo-spectral method is 2D"):
+        kol.generate_kolmogorov(grid3, [{"size": 8, "k": 1}], "pseudo_spectral", None)
+    with pytest.raises(NotImplementedError, match="unknown method"):
+        kol.check_method("vortex_particles", grids.Grid((8, 8), domain=DOMAIN))
     for name in ("data/kolmogorov/three_dimensions/trajectories/train",
                  "data/kolmogorov/compare_methods/drag/projection"):
         cfg = jax_get_experiment(name)
-        with pytest.raises(NotImplementedError, match="item 8"):
-            kol.check_method(cfg["method"], instantiate(cfg["sim_grid"] | {
-                "domain": [[0, TWO_PI]] * len(cfg["sim_grid"]["shape"])}))
-        with pytest.raises(ModuleNotFoundError, match="jax_cfd"):
-            instantiate({"_target_": cfg["step_fn"]["_target_"]})
+        kol.check_method(cfg["method"], instantiate(cfg["sim_grid"] | {
+            "domain": [[0, TWO_PI]] * len(cfg["sim_grid"]["shape"])}))
+        assert (import_string(translate(cfg["step_fn"]["_target_"]))
+                is finite_volume.semi_implicit_navier_stokes)
 
 
 # --- generation -------------------------------------------------------------------------

@@ -18,7 +18,7 @@ JAX package's, on the CPU.
   JAX builders (the 2D builder's train / test / valid order).
 - The registry's 78 airfoil / pipe / plasticity names and their configs
   against the JAX registry (the 12 ``fcno`` names are held in
-  ``test_torch_cno.py``); a name of ROADMAP A8 raises; ``remat`` raises.
+  ``test_torch_cno.py``); a misspelt name raises; ``remat`` raises.
 - ``train``, ``test`` and ``predict`` on registry names, shrunk, on files
   written here under ``DATA_ROOT``.
 """
@@ -342,9 +342,11 @@ def test_targets_resolve_to_the_port(target, port):
 @pytest.mark.parametrize("name", ["cylinder_flow/baseline",
                                   "torus_kochkov/learned_interpolation/rollout/x64"])
 def test_not_ported_names_raise(name):
-    assert name in jax_experiment_names()
-    with pytest.raises(KeyError, match="ROADMAP A8"):
-        get_experiment(name)
+    """The names that once raised for want of their modules are in the
+    registry now; a misspelt one raises a KeyError naming them."""
+    assert name in jax_experiment_names() and get_experiment(name)["routine"]
+    with pytest.raises(KeyError, match="close matches.*" + name.split("/")[-1]):
+        get_experiment(name + "_")
 
 
 @pytest.mark.parametrize("name", ["airfoil/geo-fno/4_layers", "plasticity/ffno/4_layers"])

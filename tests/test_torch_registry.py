@@ -1,20 +1,21 @@
-"""The port's experiment registry (the torus families, the structured-mesh
-and point-cloud families and the Kolmogorov data configs) against the JAX
-package's, on the CPU.
+"""The port's experiment registry (every family of the JAX registry: the
+torus families, the structured-mesh and point-cloud families, the learned
+interpolation, MeshGraphNet and the Kolmogorov data configs of both
+methods) against the JAX package's, on the CPU.
 
-- Names: the port's ``experiment_names()`` equals the ``torus_li``,
-  ``torus_vis``, ``torus_vis_force``, ``torus_kochkov``, ``airfoil``,
-  ``pipe``, ``plasticity`` and ``elasticity`` names and the ``data/`` names
-  of the JAX registry, less those of modules not ported yet (the learned
-  interpolation, the projection method's data configs); each of the 24
-  names left out raises a ``KeyError`` that names ROADMAP A8.
-- Nodes: every such config equals JAX's, with the JAX package's target
-  prefix mapped onto the port's.
+- Names: the port's ``experiment_names()`` equals the JAX registry's 342
+  names (64 of them data configs); an unknown name raises a ``KeyError``
+  with close matches.
+- Nodes: every config equals JAX's, with the JAX package's target prefix
+  mapped onto the port's.
 - Instantiation: every routine builds in the port at 2 layers, initialises
   on a batch of its builder's layout (on a grid that holds its modes; the
   mesh models' padding included; the elasticity routines on a batch of
-  scattered points and codes) and runs its model forward; every data
-  config's stepper, at a 32^2 grid, takes a step.
+  scattered points and codes; the learned interpolation on an ``(inputs,
+  outputs)`` tuple at 32^2; MeshGraphNet on a small padded graph) and runs
+  its model forward; every data config's stepper, at a 32^2 grid (16^3 for
+  the 3D projection configs), takes a step: a vorticity spectrum for the
+  pseudo-spectral method, a velocity tuple for the projection method.
 - ``load_config`` reads a registry name, ``configs list|export`` on the
   command line, and each name is its own run directory.
 """
@@ -32,11 +33,11 @@ from fourierflow_tpu_torch.commands.__main__ import main as cli
 from fourierflow_tpu_torch.commands.train import build_routine, experiment_dir
 from fourierflow_tpu_torch.config import instantiate, load_config
 from fourierflow_tpu_torch.experiments import experiment_names, get_experiment
+from fourierflow_tpu_torch.models.meshgraphnet import build_cylinder_graph
 from fourierflow_tpu_torch.routines import Grid2DMarkovRoutine
 
 FAMILIES = ("torus_li", "torus_vis", "torus_vis_force", "torus_kochkov", "airfoil", "pipe",
-            "plasticity", "elasticity", "data")
-NOT_PORTED = ("torus_kochkov/learned_interpolation/",)
+            "plasticity", "elasticity", "cylinder_flow", "data")
 NAMES = experiment_names()
 EXPERIMENTS = [n for n in NAMES if not n.startswith("data/")]
 DATA_CONFIGS = [n for n in NAMES if n.startswith("data/")]
@@ -58,22 +59,15 @@ def _port_targets(node):
     return node
 
 
-def _ported(name):
-    if name.split("/")[0] not in FAMILIES or name.startswith(NOT_PORTED):
-        return False
-    return not name.startswith("data/") or jax_get_experiment(name)["method"] != "projection"
+def test_names_equal_the_jax_names():
+    want = [n for n in jax_experiment_names() if n.split("/")[0] in FAMILIES]
+    assert NAMES == want == sorted(jax_experiment_names())
+    assert len(NAMES) == 342 and len(DATA_CONFIGS) == 64
 
 
-def test_names_equal_the_jax_torus_names():
-    want = [n for n in jax_experiment_names() if _ported(n)]
-    assert NAMES == want
-    assert len(NAMES) == 318 and len(DATA_CONFIGS) == 45
-
-
-@pytest.mark.parametrize("name", [n for n in jax_experiment_names() if n not in NAMES])
-def test_not_ported_names_raise(name):
-    with pytest.raises(KeyError, match="ROADMAP A8"):
-        get_experiment(name)
+def test_unknown_name_raises_with_close_matches():
+    with pytest.raises(KeyError, match="close matches.*cylinder_flow/baseline"):
+        get_experiment("cylinder_flow/baselines")
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -121,8 +115,47 @@ def _point_cloud_instantiates(cfg):
     assert out.shape == (2, 30, 1) and torch.isfinite(out).all()
 
 
+def _learned_interpolation_instantiates(name):
+    """The routine at 32^2, 2 CNN layers, on an ``(inputs, outputs)`` tuple:
+    one model step of smooth velocities."""
+    cfg = load_config(name, ["routine.size=32", "routine.n_cnn_layers=2"])
+    routine = build_routine(cfg["routine"])
+    x = np.linspace(0, 2 * np.pi, 32, endpoint=False, dtype=np.float32)
+    vx = np.broadcast_to(np.sin(4 * x)[None, None, :], (2, 32, 32)).copy()
+    vy = np.broadcast_to(np.cos(3 * x)[None, :, None], (2, 32, 32)).copy()
+    batch = ({"vx": vx, "vy": vy}, {"vx": vx[..., None], "vy": vy[..., None]})
+    state = routine.init(0, batch, "cpu")
+    with torch.no_grad():
+        u, v = state.model(torch.from_numpy(vx), torch.from_numpy(vy))
+    assert u.shape == v.shape == (2, 32, 32) and torch.isfinite(u).all()
+    assert len(state.model.coeff_net.convs) == 1 and not torch.equal(u, torch.from_numpy(vx))
+
+
+def _meshgraphnet_instantiates(name):
+    """Two triangles of a 5-node mesh padded to 6 nodes and 3 cells."""
+    routine = build_routine(load_config(name, ["routine.n_layers=2"])["routine"])
+    cells = np.array([[[0, 1, 2], [1, 2, 3], [-1, -1, -1]]] * 2, np.int32)
+    pos = np.random.RandomState(0).rand(2, 6, 2).astype(np.float32)
+    pos[:, 5] = np.nan
+    node_type = np.array([[0, 0, 4, 5, 6, -1]] * 2, np.int32)
+    velocity = np.where(np.isnan(pos), np.nan, 0.5).astype(np.float32)
+    batch = {"cells": cells, "mesh_pos": pos, "node_type": node_type, "velocity": velocity,
+             "target_velocity": velocity}
+    state = routine.init(0, batch, "cpu")
+    graph = build_cylinder_graph(*(torch.from_numpy(batch[k]) for k in (
+        "velocity", "node_type", "mesh_pos", "cells")))
+    with torch.no_grad():
+        out = state.model(*graph)
+    assert out.shape == (2, 6, 2) and torch.isfinite(out).all()
+    assert len(state.model.graph_layers) == 2
+
+
 @pytest.mark.parametrize("name", EXPERIMENTS)
 def test_routine_instantiates(name):
+    if name.startswith("torus_kochkov/learned_interpolation/"):
+        return _learned_interpolation_instantiates(name)
+    if name.startswith("cylinder_flow/"):
+        return _meshgraphnet_instantiates(name)
     if name.split("/")[0] in ("airfoil", "pipe", "plasticity"):
         return _mesh_instantiates(load_config(name, ["routine.model.n_layers=2"]))
     if name.startswith("elasticity/"):
@@ -140,10 +173,36 @@ def test_routine_instantiates(name):
     assert out.shape == (2, grid, grid, 1) and torch.isfinite(out).all()
 
 
+def _projection_steps(name):
+    """A projection config's grid cut to 32^2 (16^3 in 3D), its CFL step and
+    its finite-volume stepper: one step of a smooth divergence-free velocity
+    tuple stays finite and changes it."""
+    ndim = len(get_experiment(name)["sim_grid"]["shape"])
+    n = 32 if ndim == 2 else 16
+    cfg = load_config(name, [f"sim_grid.shape={[n] * ndim}"])
+    grid = instantiate(cfg["sim_grid"])
+    dt = instantiate(cfg["time_step"])
+    x = torch.linspace(0, 2 * np.pi * (1 - 1 / n), n)
+    shape = (1,) + (n,) * ndim
+    # u = sin(y) along x and v = sin(x) along y (w = 0 in 3D): each component
+    # constant along its own axis, so divergence-free on the staggered grid.
+    vel = [torch.sin(x).reshape([1, 1, n] + [1] * (ndim - 2)).expand(shape),
+           torch.sin(x).reshape([1, n] + [1] * (ndim - 1)).expand(shape)]
+    vel = tuple(v.contiguous() for v in vel) + ((torch.zeros(shape),) if ndim == 3 else ())
+    out = instantiate(cfg["step_fn"])(vel)
+    assert grid.shape == (n,) * ndim and 0 < dt < 1
+    assert len(out) == ndim and all(torch.isfinite(o).all() for o in out)
+    assert not torch.equal(out[0], vel[0])
+
+
 @pytest.mark.parametrize("name", DATA_CONFIGS)
 def test_data_config_steps(name):
-    """The config's grid, time step and CN-RK4 stepper, the grid cut to
-    32^2: one step of a smooth field stays finite and changes it."""
+    """The config's grid, time step and stepper, the grid cut to 32^2: one
+    step of a smooth field (the vorticity spectrum of the pseudo-spectral
+    method's CN-RK4, the velocity tuple of the projection method's
+    finite-volume step) stays finite and changes it."""
+    if get_experiment(name)["method"] == "projection":
+        return _projection_steps(name)
     cfg = load_config(name, ["sim_grid.shape=[32,32]"])
     grid = instantiate(cfg["sim_grid"])
     dt = cfg["time_step"] if isinstance(cfg["time_step"], float) else instantiate(cfg["time_step"])

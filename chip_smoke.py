@@ -1,8 +1,12 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--phases PHASE ...]
 
-Phases, each reporting on its own lines; every run goes through all seventeen:
+Phases, each reporting on its own lines; a run goes through all eighteen, or
+with ``--phases`` through the named ones and those whose files they read
+(device and build always run; the kernels line then covers the paths that
+ran). A line ``{"phase_seconds": ...}`` before the card's line gives each
+phase's wall time:
 
 1. ``device``: the card's name and power limit (nvidia-smi), torch and CUDA versions.
 2. ``build``: compile every CUDA source in ``csrc/``, all at once.
@@ -81,7 +85,8 @@ Phases, each reporting on its own lines; every run goes through all seventeen:
    ``plasticity/ffno/24_layers`` (batch 2), ``airfoil/geo-fno/4_layers`` and
    ``plasticity/geo-fno/4_layers`` held to a float32 CPU copy (Geo-FNO's
    parameters to a copy updated from the card's gradients: see
-   ``hold_steps``); the launches of every configuration's 2 steps (24 of
+   ``hold_steps``; the pipe and plasticity F-FNO held at 4 layers, their
+   24-layer steps run unheld); the launches of every configuration's 2 steps (24 of
    each kernel a step in the 2D F-FNO, of the feed-forward ones in the 3D
    F-FNO, none in Geo-FNO), its ms per train step and its device time by
    kernel group from a profiler trace.
@@ -92,9 +97,9 @@ Phases, each reporting on its own lines; every run goes through all seventeen:
    split (19 / 4 / 4 trajectories), and their invariants are held.
    ``train`` on the registry names ``torus_vis/01_baseline`` and
    ``torus_vis_force/01_baseline`` at full width (24 layers, width 64, 5
-   input channels; the normalizer pass, 3 steps, the 10-step validation
+   input channels; the normalizer pass, 2 steps, the 10-step validation
    rollouts fed the force, the test pass), then ``test`` on the checkpoint
-   (the same logs); 3 more steps of each, and of the ablations
+   (the same logs); 2 more steps of each, and of the ablations
    ``with_velocity``, ``shuffle_xy_grid`` and ``no_factorization`` (FNO++) at
    24 layers on the torus_li file, each held to a float32 CPU copy of the
    same step (loss, gradients and parameters after it) and timed with the
@@ -116,9 +121,10 @@ Phases, each reporting on its own lines; every run goes through all seventeen:
    ``torus_kochkov/ffno/grid_sizes/64`` at full width (24 layers, width 64,
    5 channels, batch 32; the validation with the reduced 32^2 metrics), a
    rollout written by ``save_predictions`` and read back, 24 launches of
-   each kernel in one step, 3 steps held to a float32 CPU copy and timed;
+   each kernel in one step, 2 steps held to a float32 CPU copy and timed;
    ``grid_sizes/128`` (M 32, batch 8) and ``/256`` (M 64, batch 2): 2 steps
-   each held and timed the same way; ``test`` of the 64^2 checkpoint at 256^2
+   each held at 4 layers, and 2 at 24 layers counted and timed; ``test`` of
+   the 64^2 checkpoint at 256^2
    (``superresolution/train_with_x64/256``); ``train`` of
    ``multi_resolution/x32_x64`` on 32^2 and 64^2 batches in turn.
 12. ``pointcloud``: the elasticity slice. The Geo-FNO elasticity files are
@@ -177,7 +183,30 @@ Phases, each reporting on its own lines; every run goes through all seventeen:
    CPU copy, timed and traced; the rollout's ms per step. Phases 14-16 run
    no hand-written kernel (their torch work is what JAX computes in XLA):
    their launch counts must stay 0.
-17. ``time`` (in a child process of this script, which starts with no CUDA
+17. ``trainer``: the rest of ``train`` and the trainer at the flagship's full
+   width on phase generate's file. ``train`` with ``routine.conv.remat=True``
+   (the normalizer epoch and 18 steps), then ``train`` with ``resume``: the
+   resumed fit's starting weights, normalizer, AdamW moments, schedule and
+   step equal the ``last.ckpt`` it read to the bit, and its ``global_step``
+   restarts at 0 (as the reference's); ``checkpoint_path`` restores the same
+   whole state; ``pretrained_path`` from that file and from a Lightning
+   ``.ckpt`` (``save_lightning``) gives the file's weights, no optimizer
+   moments and step 0. One step from one state without noise, remat against
+   eager: the loss to the bit, every gradient within 1e-6, launches A 48, B
+   48, A' 24, B' 24 (eager 24 each); each mode's ms per step and peak
+   ``max_memory_allocated``, and the same on random batches of
+   ``torus_kochkov/ffno/grid_sizes/256`` (batch 2 and 8),
+   ``plasticity/ffno/24_layers`` and ``torus_li/zongyi/4_layers``: each peak in
+   layer inputs a layer, and each model family's coefficient of the remat
+   guard fitted to them. The low-pass mode: 2 steps held to a float32 CPU
+   copy, launching A and A' 24 times a step and B, B' never. SWA from step 0
+   over 2 epochs: the final weights equal the mean of the epoch-end weights.
+   ``train --profile-dir`` through the CLI in a child process: the trace's
+   events of ``ff_fwd_kernel``, ``ff_bwd_kernel`` and
+   ``spectral_axis_kernel``, each at least 2 steps x 24. The remat guard's
+   decision for the flagship and ``torus_kochkov/ffno/grid_sizes/256`` on
+   the card's memory.
+18. ``time`` (in a child process of this script, which starts with no CUDA
    graph and no profiler session behind it): each kernel, its plain version
    and a PyTorch yardstick the port
    never calls, by their device time in a profiler trace (and the kernel's
@@ -237,7 +266,11 @@ from fourierflow_tpu_torch.ops.fused_spectral import (  # noqa: E402
     fused_mix_2d_adjoint_cuda,
     fused_mix_2d_adjoint_plain, fused_mix_2d_cuda, fused_mix_2d_plain)
 from fourierflow_tpu_torch.ops.spectral import dct_mix_axis  # noqa: E402
-from fourierflow_tpu_torch.trainers.trainer import batch_count  # noqa: E402
+from fourierflow_tpu_torch.trainers import (  # noqa: E402
+    Callback, StochasticWeightAveraging, Trainer)
+from fourierflow_tpu_torch.trainers.trainer import (  # noqa: E402
+    REMAT_BUDGET, SAVED_INPUTS_PER_LAYER, _device_hbm_bytes, _estimate_activation_bytes,
+    batch_count)
 from fourierflow_tpu_torch.utils.equations import graph_repeated  # noqa: E402
 from fourierflow_tpu_torch.utils.checkpoint import save_state  # noqa: E402
 from fourierflow_tpu_torch.utils.serving import load_exported, make_rollout_fn  # noqa: E402
@@ -345,7 +378,7 @@ ABLATIONS = ("torus_li/ablation/with_velocity/24_layers",
              "torus_li/ablation/shuffle_xy_grid/24_layers",
              "torus_li/ablation/no_factorization/24_layers")
 SERVE_CONFIG = "torus_vis/02_no_mu"
-CONTEXT_STEPS = 3  # train steps of each configuration, each held to a CPU copy
+CONTEXT_STEPS = 2  # train steps of each configuration, each held to a CPU copy
 # The kolmogorov phase: the protocol's data configs
 # (data/kolmogorov/re_1000/{initial_conditions,trajectories}/{split}: a 2048^2 simulation, 32
 # trajectories a split, a warm-up of 2,852 x 64 steps (40 time units), then a record every 16
@@ -366,7 +399,7 @@ KOL_CONFIG = "torus_kochkov/ffno/grid_sizes/64"
 KOL_GRIDS = ("torus_kochkov/ffno/grid_sizes/128", "torus_kochkov/ffno/grid_sizes/256")
 KOL_SUPERRES = "torus_kochkov/ffno/superresolution/train_with_x64/256"
 KOL_MULTI = "torus_kochkov/ffno/multi_resolution/x32_x64"
-KOL_STEPS = 3  # train steps after the normalizer pass, and steps held to a CPU copy
+KOL_STEPS = 2  # train steps after the normalizer pass, and steps held to a CPU copy
 KOL_GRID_STEPS = 2  # steps of grid_sizes/128 and /256 held to a CPU copy (the run's time)
 # The mesh phase: the Geo-FNO datasets at their shapes (NACA_Cylinder_{X,Y} [N, 221, 51] and
 # _Q [N, 5, 221, 51], of which the registry reads channel 4; Pipe_{X,Y} [N, 129, 129] and
@@ -381,6 +414,12 @@ MESH_CONFIG = "airfoil/ffno/24_layers"
 MESH_HELD = ("pipe/ffno/24_layers", "airfoil/ffno-small/24_layers", "plasticity/ffno/24_layers",
              "airfoil/geo-fno/4_layers", "plasticity/geo-fno/4_layers")
 MESH_STEPS = 2  # train steps of each configuration held to a CPU copy
+# Held at HELD_LAYERS layers: the configurations whose 24-layer float32 CPU copy takes 20-47 s a
+# step on the card's host ("the CPU's step" in the log), which would take the run past its time
+# limit; their 24-layer steps still run on the card, their launches counted and timed. The
+# Kolmogorov grids 128^2 and 256^2 are held so too.
+HELD_LAYERS = 4
+MESH_HELD_CUT = ("pipe/ffno/24_layers", "plasticity/ffno/24_layers")
 # The pointcloud phase: the elasticity files (Random_UnitCell_rr_10.npy [42, N],
 # _sigma_10.npy [972, N], _XY_10.npy [972, 2, N]) made from the seed, the splits cut from the
 # registry's 1,000 / 200 / 200; the configuration trained, tested and predicted by name at
@@ -441,6 +480,24 @@ MGN_CONFIG = "cylinder_flow/baseline"
 MGN_SPLITS, MGN_REGISTRY_SPLITS = {"train": 4, "valid": 2, "test": 2}, (1000, 100, 100)
 MGN_NX, MGN_NY, MGN_T, MGN_REGISTRY_T = (48, 47, 46, 45), 40, 52, 600
 MGN_STEPS = 2  # train steps of the train command, and steps held to a CPU copy
+# ``test`` on the trained checkpoint against ``train``'s own test pass: relative difference of
+# the test losses. ``index_add_`` on the card sums in an order that varies from run to run, and
+# the test pass rolls the model out 50 steps, so the two differ in their last bits.
+MGN_TEST_RTOL = 1e-5
+# The trainer phase: the remat step's gradients against the eager step's (max |err| / max
+# |eager| per tensor); the train steps of the profiled CLI fit.
+REMAT_GRAD_TOL = 1e-6
+TRAINER_STEPS = 2
+# The remat guard's coefficients (trainers/trainer.py::SAVED_INPUTS_PER_LAYER), beside the
+# flagship's step: each model's step eager and with remat on random batches of its
+# configuration's shapes (batch first).
+_KOL_256 = lambda b: {k: (b, 256, 256, 1) for k in ("x", "y", "vx", "vy")}
+REMAT_MEMORY_CASES = (("torus_kochkov/ffno/grid_sizes/256", _KOL_256(2)),
+                      ("torus_kochkov/ffno/grid_sizes/256", _KOL_256(8)),
+                      ("plasticity/ffno/24_layers", {"x": (2, 101, 31, 20, 1),
+                                                     "y": (2, 101, 31, 20, 4)}),
+                      ("torus_li/zongyi/4_layers", {"x": (20, 64, 64, 12), "y": (20, 64, 64, 10),
+                                                    "times": (20, 10)}))
 
 
 def log(*args):
@@ -593,7 +650,9 @@ def phase_device():
                          capture_output=True, text=True, check=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0]
     log(card)
-    log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}"
+        f"; host: torch uses {torch.get_num_threads()} threads on {len(os.sched_getaffinity(0))} "
+        f"CPUs")
     return card
 
 
@@ -1385,7 +1444,9 @@ def hold_steps(label, routine, state, batches, phase="context", update_from_card
         plain = cpu_copy(routine, state)
         fed = cpu_copy(routine, state) if update_from_card else plain
         state, metrics = quiet.train_step(state, batch)
+        t0 = time.perf_counter()
         plain, want = quiet.train_step(plain, batch)
+        cpu_s = time.perf_counter() - t0
         if update_from_card:
             fed = quiet.apply_grads(fed, [p.grad.cpu() for p in state.model.parameters()])
         loss, want_loss = float(metrics["train_loss"]), float(want["train_loss"])
@@ -1400,11 +1461,33 @@ def hold_steps(label, routine, state, batches, phase="context", update_from_card
                 if update_from_card else "gradients and parameters after the step")
         log(f"{phase}: {label} step {i + 1} on the card vs a float32 CPU copy: loss {loss:.6f} "
             f"vs {want_loss:.6f} (rel {loss_rel:.2e}); {what} of {len(rels)} tensors, largest "
-            f"rel {rels[worst]:.2e} ({worst}), tol {TRAIN_TOL:.0e}"
+            f"rel {rels[worst]:.2e} ({worst}), tol {TRAIN_TOL:.0e}; the CPU's step {cpu_s:.1f} s"
             + (f"; parameters after the CPU's update from its own gradients (not held): largest "
                f"rel {own[own_worst]:.2e} ({own_worst})" if update_from_card else ""))
         if not (loss_rel <= TRAIN_TOL and rels[worst] <= TRAIN_TOL):
             raise AssertionError(f"{phase}: {label} step {i + 1} disagrees with its CPU copy")
+    return state
+
+
+def hold_at_cut_depth(name, cfg, builder, batches, dev, phase, accumulate=()):
+    """``hold_steps`` of ``batches`` on the configuration ``cfg`` cut to
+    HELD_LAYERS layers, from the commands' seed after the normalizer pass
+    over ``accumulate``."""
+    node = copy.deepcopy(cfg["routine"])
+    node["model" if "model" in node else "conv"]["n_layers"] = HELD_LAYERS
+    routine = build_routine(node, builder)
+    state = routine.init(7231, builder.sample_batch(), dev)
+    for batch in accumulate:
+        state = routine.accumulate_step(state, batch)
+    hold_steps(f"{name} at {HELD_LAYERS} layers", routine, state, batches, phase=phase)
+
+
+def train_steps(routine, state, batches, dev):
+    """``batches`` as train steps of ``state`` on the card, synchronized."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for batch in batches:
+        state, _ = routine.train_step(state, batch, gen)
+    torch.cuda.synchronize()
     return state
 
 
@@ -1469,10 +1552,10 @@ def generate_vis(dev, tmp):
 def phase_context(dev, tmp, li_path):
     """The torus_vis slice at full width: generate its two files, train
     ``torus_vis/01_baseline`` and ``torus_vis_force/01_baseline`` through
-    ``train`` (normalizer pass, 3 steps, the validation rollouts, the test
-    pass) and ``test``, hold 3 further steps of each and of 3 ablations to a
-    CPU copy, time them, and serve ``torus_vis/02_no_mu`` through an
-    artifact that takes a force."""
+    ``train`` (normalizer pass, CONTEXT_STEPS steps, the validation rollouts,
+    the test pass) and ``test``, hold CONTEXT_STEPS further steps of each and
+    of 3 ablations to a CPU copy, time them, and serve ``torus_vis/02_no_mu``
+    through an artifact that takes a force."""
     phase_start = time.perf_counter()
     vis = generate_vis(dev, tmp)
     reset_launch_counts()
@@ -1702,13 +1785,14 @@ def phase_mesh(dev, tmp, seed):
         routine = build_routine(cfg["routine"], builder)
         batches = [b for _, b in zip(range(MESH_STEPS),
                                      builder.train_batches(np.random.default_rng(0)))]
-        before = launch_counts()
-        if name == MESH_CONFIG:  # trained above: its steps are counted, not held
-            for batch in batches:
-                state, _ = routine.train_step(state, batch)
-            torch.cuda.synchronize()
-        else:
+        if name != MESH_CONFIG:  # MESH_CONFIG was trained above: its steps are counted, not held
             state = routine.init(7231, builder.sample_batch(), dev)  # the commands' seed
+        if name in MESH_HELD_CUT:
+            hold_at_cut_depth(name, cfg, builder, batches, dev, "mesh")
+        before = launch_counts()
+        if name == MESH_CONFIG or name in MESH_HELD_CUT:
+            state = train_steps(routine, state, batches, dev)
+        else:
             state = hold_steps(name, routine, state, batches, phase="mesh",
                                update_from_card="/geo-fno" in name)
         steps = {k: v - before[k] for k, v in launch_counts().items()}
@@ -2018,8 +2102,10 @@ def phase_kolmogorov(dev, tmp):
                                      builder.train_batches(np.random.default_rng(0)))]
         for batch in batches[:KOL_GRID_STEPS]:
             state = routine.accumulate_step(state, batch)
+        hold_at_cut_depth(name, cfg, builder, batches[KOL_GRID_STEPS:], dev, "kolmogorov",
+                          accumulate=batches[:KOL_GRID_STEPS])
         before = launch_counts()
-        state = hold_steps(name, routine, state, batches[KOL_GRID_STEPS:], phase="kolmogorov")
+        state = train_steps(routine, state, batches[KOL_GRID_STEPS:], dev)
         launched = {k: v - before[k] for k, v in launch_counts().items()}
         log(f"kolmogorov: {name}: batch {len(batches[0]['x'])} of "
             f"{batches[0]['x'].shape[1]}^2, modes {cfg['routine']['conv']['modes']}; launches in "
@@ -2798,12 +2884,14 @@ def phase_meshgraphnet(dev, tmp, seed):
         test_logs = test_command.main(MGN_CONFIG, overrides=overrides, config_dir=run,
                                       device="cuda")
     logs = trainer.logs
+    test_rel = abs(test_logs["test_loss"] - logs["test_loss"]) / abs(logs["test_loss"])
     log(f"meshgraphnet: {MGN_CONFIG}: train ({trainer.global_step} steps, n_params "
         f"{logs['n_params']:,}, train_loss {logs['train_loss']:.6f}): valid_loss "
-        f"{logs['valid_loss']:.6f} (50-step rollout); test_loss {test_logs['test_loss']:.6f}; "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{logs['valid_loss']:.6f} (50-step rollout); test_loss {test_logs['test_loss']:.7f}, "
+        f"train's test pass {logs['test_loss']:.7f} (rel {test_rel:.2e}, tol "
+        f"{MGN_TEST_RTOL:.0e}); {time.perf_counter() - t0:.1f} s")
     if (trainer.global_step != MGN_STEPS or not math.isfinite(test_logs["test_loss"])
-            or test_logs["test_loss"] != logs["test_loss"]):
+            or not test_rel <= MGN_TEST_RTOL):
         raise AssertionError(f"meshgraphnet: {MGN_CONFIG}: {trainer.global_step} steps, test "
                              f"{test_logs}, train's test {logs['test_loss']}")
 
@@ -2894,6 +2982,311 @@ def profile_calls(fn, step_ms, steps=2, label="train", groups=STEP_GROUPS, host_
     return device_ms
 
 
+# --- phase trainer ---------------------------------------------------------------------------
+def _snapshot(state):
+    """A copy of a train state's tensors and counters, on the CPU."""
+    norm = state.normalizer
+    return {"model": {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()},
+            "normalizer": {f: getattr(norm, f).detach().cpu().clone()
+                           for f in ("sum", "sum_squared", "count", "n_accumulations")},
+            "optimizer": copy.deepcopy(state.optimizer.state_dict()),
+            "scheduler": None if state.scheduler is None else state.scheduler.state_dict(),
+            "step": state.step}
+
+
+class _RecordFitStarts:
+    """While entered, ``Trainer.fit`` records a snapshot of the state each
+    fit starts from (None for a fresh one) in ``starts``."""
+
+    def __enter__(self):
+        self.starts, self._fit = [], Trainer.fit
+
+        def recording_fit(trainer, routine, builder, state=None):
+            self.starts.append(None if state is None else _snapshot(state))
+            return self._fit(trainer, routine, builder, state)
+
+        Trainer.fit = recording_fit
+        return self.starts
+
+    def __exit__(self, *exc):
+        Trainer.fit = self._fit
+
+
+def _hold_start(label, start, weights, blob=None):
+    """A fit's starting snapshot against a checkpoint: the weights (``weights``,
+    by name), and, for the port's own file ``blob``, the normalizer, the
+    AdamW moments, the schedule and the step, each to the bit. Without
+    ``blob`` the optimizer must hold no moments and the step be 0."""
+    bad = [k for k, v in start["model"].items() if not torch.equal(v, weights[k])]
+    moments = start["optimizer"]["state"]
+    if blob is not None:
+        bad += [f for f, v in blob["normalizer"].items() if not torch.equal(start["normalizer"][f], v)]
+        want = blob["optimizer"]["state"]
+        if moments.keys() != want.keys():
+            bad.append("optimizer state keys")
+        bad += [f"moment {i}.{name}" for i, m in want.items() for name, v in m.items()
+                if not torch.equal(moments[i][name].cpu(), v)]
+        if start["scheduler"] != blob["scheduler"] or start["step"] != blob["step"]:
+            bad.append(f"schedule {start['scheduler']} / step {start['step']}")
+        what = (f"{len(weights)} weights, normalizer, {sum(len(m) for m in want.values())} "
+                f"AdamW moment tensors, schedule at step {blob['step']}")
+    else:
+        if moments or start["step"] != 0:
+            bad.append(f"{len(moments)} optimizer moments, step {start['step']}")
+        what = f"{len(weights)} weights; no optimizer moments, step 0"
+    log(f"trainer: {label}: the fit's starting state against the file: {what}: "
+        + ("equal to the bit" if not bad else f"differ in {bad[:6]}"))
+    if bad:
+        raise AssertionError(f"trainer: {label}: the starting state differs from the file")
+
+
+def remat_vs_eager_step(routine, state, batch):
+    """One step's loss and gradients from one state and batch without noise,
+    eager and with remat: the loss to the bit, every gradient within
+    REMAT_GRAD_TOL, and the launches of each. Leaves remat on."""
+    quiet = copy.copy(routine)
+    quiet.noise_std = 0.0
+    runs = {}
+    for remat in (False, True):
+        state.model.remat = remat
+        reset_launch_counts()
+        loss, grads, _ = quiet.loss_and_grads(state, batch)
+        torch.cuda.synchronize()
+        runs[remat] = (loss, grads, launch_counts())
+    (loss, grads, eager_counts), (rloss, rgrads, remat_counts) = runs[False], runs[True]
+    names = [n for n, _ in state.model.named_parameters()]
+    rels = {n: rel_err(a, b)[1] for n, a, b in zip(names, rgrads, grads, strict=True)}
+    worst = max(rels, key=rels.get)
+    log(f"trainer: one step from one state without noise, remat vs eager: loss {float(rloss):.9g} "
+        f"vs {float(loss):.9g} ({'equal to the bit' if torch.equal(rloss, loss) else 'differ'}); "
+        f"gradients of {len(rels)} parameters, largest rel {rels[worst]:.3e} ({worst}), "
+        f"tol {REMAT_GRAD_TOL:.0e}; launches remat {remat_counts}, eager {eager_counts}")
+    if not (torch.equal(rloss, loss) and rels[worst] <= REMAT_GRAD_TOL):
+        raise AssertionError("trainer: the remat step disagrees with the eager step")
+    want = {"fused_ff": 2 * N_LAYERS, "fused_mix_2d": 2 * N_LAYERS, "fused_ff_bwd": N_LAYERS,
+            "fused_mix_2d_adjoint": N_LAYERS}
+    if remat_counts != want or any(n != N_LAYERS for n in eager_counts.values()):
+        raise AssertionError(f"trainer: launches remat {remat_counts} (want {want}), eager "
+                             f"{eager_counts} (want {N_LAYERS} each)")
+
+
+def step_memory(label, routine, state, batch, dev, steps=10):
+    """ms per train step (``time_steps``) and one step's peak
+    ``max_memory_allocated`` above the memory held before it."""
+    state, ms = time_steps(label, routine, state, batch, dev, steps=steps, phase="trainer")
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    state, _ = routine.train_step(state, batch, torch.Generator(device=dev).manual_seed(1))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"trainer: {label}: peak max_memory_allocated {peak / 2**30:.4f} GiB, "
+        f"{(peak - held) / 2**30:.4f} GiB above the {held / 2**30:.4f} GiB held before the step")
+    return state, ms, peak - held
+
+
+def layer_inputs(model, batch):
+    """The bytes of one float32 layer input a layer: ``n_layers * batch *
+    cells * width * 4``, the cells those of the batch's ``x``."""
+    x = batch["x"]
+    return model.n_layers * x.shape[0] * math.prod(x.shape[1:-1]) * model.width * 4
+
+
+def remat_memory(dev, seed, flagship):
+    """Each of REMAT_MEMORY_CASES' train step, eager and with remat, on
+    random batches from ``seed`` (their values change no step's work or
+    memory): the normalizer pass where the routine has one, then
+    ``step_memory`` at 3 timed steps; each peak in layer inputs a layer.
+    ``flagship`` is the flagship's eager (unit bytes, peak above the held
+    memory). Prints each model family's coefficient: the least-squares fit
+    through the origin of its eager steps, beside the Trainer's."""
+    rng = np.random.default_rng(seed)
+    eager = {"FNOFactorized2DBlock": [flagship]}
+    for name, shapes in REMAT_MEMORY_CASES:
+        routine = build_routine(load_config(name)["routine"])
+        batch = {k: rng.standard_normal(shape, dtype=np.float32) for k, shape in shapes.items()}
+        state = routine.accumulate_step(routine.init(seed, batch, dev), batch)
+        model, unit = routine.model, layer_inputs(routine.model, batch)
+        family = type(model).__name__
+        peaks = {}
+        for remat in (False, True):
+            model.remat = remat
+            label = f"{name} batch {len(batch['x'])} remat={remat}"
+            state, ms, peaks[remat] = step_memory(label, routine, state, batch, dev, steps=3)
+        log(f"trainer: {name} batch {len(batch['x'])} ({family}): peak above the held memory "
+            f"eager {peaks[False] / unit:.3f}, remat {peaks[True] / unit:.3f} layer inputs a "
+            f"layer (one is {unit / 2**30:.4f} GiB); remat / eager {peaks[True] / peaks[False]:.3f}")
+        eager.setdefault(family, []).append((unit, peaks[False]))
+        del routine, model, state
+        torch.cuda.empty_cache()
+    fits = {family: sum(u * p for u, p in pairs) / sum(u * u for u, _ in pairs)
+            for family, pairs in eager.items()}
+    log(f"trainer: saved layer inputs a layer of the eager step, least squares through the "
+        f"origin: {', '.join(f'{f} {c:.4f}' for f, c in fits.items())}; the Trainer holds "
+        f"{SAVED_INPUTS_PER_LAYER}")
+
+
+def profiled_cli_fit(tmp, data_path):
+    """``train --profile-dir`` through the CLI in a child process (a trace in
+    this long process loses kernel events after CUDA graphs): the trace's
+    events of each hand-written kernel, each at least the steps x 24."""
+    trace_dir, run_dir = os.path.join(tmp, "trace"), os.path.join(tmp, "cli")
+    cmd = [sys.executable, "-m", "fourierflow_tpu_torch.commands", "train", CONFIG,
+           *data_overrides(data_path), "trainer.max_epochs=2",
+           f"trainer.limit_train_batches={TRAINER_STEPS}", "trainer.check_val_every_n_epoch=3",
+           "--profile-dir", trace_dir, "--no-test", "--config-dir", run_dir]
+    sys.stdout.flush()
+    t0 = time.perf_counter()
+    subprocess.run(cmd, check=True, timeout=600, stdout=subprocess.DEVNULL)
+    traces = [os.path.join(trace_dir, f) for f in os.listdir(trace_dir) if f.endswith(".json")]
+    if len(traces) != 1:
+        raise AssertionError(f"trainer: profiled CLI fit wrote {traces}")
+    with open(traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    counts = {k: sum(1 for name in kernels if f"{k}_kernel" in name)
+              for k in ("ff_fwd", "ff_bwd", "spectral_axis")}
+    want = TRAINER_STEPS * N_LAYERS
+    log(f"trainer: train --profile-dir in a child process: {time.perf_counter() - t0:.1f} s, "
+        f"trace {os.path.getsize(traces[0]) / 2**20:.1f} MiB with {len(kernels)} kernel "
+        f"events; ff_fwd_kernel {counts['ff_fwd']}, ff_bwd_kernel {counts['ff_bwd']}, "
+        f"spectral_axis_kernel {counts['spectral_axis']} (each at least {TRAINER_STEPS} steps "
+        f"x {N_LAYERS} = {want})")
+    if any(n < want for n in counts.values()):
+        raise AssertionError("trainer: the trace lacks the hand-written kernels' events")
+
+
+def guard_decisions(dev, data_path):
+    """The Trainer's remat guard on the card's real memory, for the flagship
+    and for torus_kochkov/ffno/grid_sizes/256 at its batch."""
+    budget = REMAT_BUDGET * _device_hbm_bytes(dev)
+    cfg = load_config(CONFIG, data_overrides(data_path))
+    kol = load_config(KOL_GRIDS[-1])
+    cases = ((CONFIG, cfg, instantiate(cfg["builder"]).sample_batch()),
+             (KOL_GRIDS[-1], kol, {"x": np.empty((kol["builder"]["batch_size"], 256, 256, 1),
+                                                 np.float32)}))
+    for name, c, sample in cases:
+        model = instantiate(c["routine"]["conv"])
+        est = _estimate_activation_bytes(model, sample)
+        log(f"trainer: remat guard at {name} (batch {len(sample['x'])}): estimate "
+            f"{est / 2**30:.3f} GiB ({SAVED_INPUTS_PER_LAYER[type(model).__name__]} layer "
+            f"inputs a layer) against "
+            f"{REMAT_BUDGET:.0%} of {_device_hbm_bytes(dev) / 2**30:.2f} GiB = "
+            f"{budget / 2**30:.2f} GiB: {'remat' if est > budget else 'eager'}")
+
+
+def phase_trainer(dev, seed, data_path):
+    """The rest of ``train`` and the trainer at the flagship's full width:
+    train with remat, resume, ``checkpoint_path``, ``pretrained_path`` (the
+    port's file and a Lightning one), a remat step against an eager step,
+    the low-pass mode, SWA, ``--profile-dir`` through the CLI and the remat
+    guard's decision. Returns the launch counts of train and resume."""
+    phase_start = time.perf_counter()
+    remat_overrides = data_overrides(data_path) + ["trainer.max_epochs=2",
+                                                   "routine.conv.remat=True"]
+    once = data_overrides(data_path) + ["trainer.max_epochs=1",
+                                        "trainer.check_val_every_n_epoch=2"]
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_launch_counts()
+        with _RecordFitStarts() as starts:
+            trainer, state = train.main(CONFIG, remat_overrides, config_dir=tmp, no_test=True,
+                                        device="cuda")
+            (last,) = [os.path.join(d.path, "last.ckpt")
+                       for d in os.scandir(os.path.join(tmp, "checkpoints"))]
+            resumed_trainer, resumed = train.main(CONFIG, remat_overrides, config_dir=tmp,
+                                                  no_test=True, resume=True, device="cuda")
+        counts = launch_counts()
+        blob = torch.load(last, map_location="cpu", weights_only=True)
+        log(f"trainer: train with remat, {trainer.global_step} steps, then resume from "
+            f"{os.path.relpath(last, tmp)}: {resumed_trainer.global_step} steps (global_step "
+            f"from 0, as the reference), state step {blob['step']} -> {resumed.step}; "
+            f"launches over both {counts}")
+        _hold_start("resume", starts[-1], blob["model"], blob)
+        steps = trainer.global_step
+        if not (state.model.remat is True and resumed_trainer.global_step == steps > 0
+                and resumed.step == 2 * steps):
+            raise AssertionError("trainer: train / resume counted other steps")
+        want = 2 * steps * N_LAYERS
+        if counts["fused_ff_bwd"] != want or counts["fused_mix_2d_adjoint"] != want or min(
+                counts["fused_ff"], counts["fused_mix_2d"]) < 2 * want:
+            raise AssertionError(f"trainer: remat launches {counts}: want {want} backward, at "
+                                 f"least {2 * want} forward")
+
+        with _RecordFitStarts() as starts:
+            train.main(CONFIG, once, config_dir=tmp, no_test=True, checkpoint_path=last,
+                       device="cuda")
+            _hold_start("checkpoint_path", starts[-1], blob["model"], blob)
+            lightning = os.path.join(tmp, "reference.ckpt")
+            save_lightning(lightning, resumed)
+            ref = {k[len("conv."):]: v for k, v in torch.load(
+                lightning, weights_only=True)["state_dict"].items() if k.startswith("conv.")}
+            for kind, path, weights in (("port checkpoint", last, blob["model"]),
+                                        ("Lightning .ckpt", lightning, ref)):
+                train.main(CONFIG, once + [f"pretrained_path={path}"],
+                           config_dir=os.path.join(tmp, kind.split()[0]), no_test=True,
+                           device="cuda")
+                _hold_start(f"pretrained_path ({kind})", starts[-1], weights)
+
+        cfg = load_config(CONFIG, data_overrides(data_path))
+        builder = instantiate(cfg["builder"])
+        routine = build_routine(cfg["routine"])
+        batches = builder.train_batches(np.random.default_rng(seed))
+        batch = next(batches)
+        remat_vs_eager_step(routine, resumed, batch)
+        timings = {}
+        for remat in (False, True):
+            resumed.model.remat = remat
+            resumed, ms, peak = step_memory(f"remat={remat}", routine, resumed, batch, dev)
+            timings[remat] = (ms, peak)
+        log(f"trainer: remat / eager: {timings[True][0] / timings[False][0]:.3f}x the time, "
+            f"{timings[True][1] / timings[False][1]:.3f}x the peak above the held memory")
+        remat_memory(dev, seed, (layer_inputs(resumed.model, batch), timings[False][1]))
+
+        lp_cfg = load_config(CONFIG, data_overrides(data_path) + ["routine.conv.mode=low-pass"])
+        lp_routine = build_routine(lp_cfg["routine"])
+        lp_state = lp_routine.init(7231, builder.sample_batch(), dev)
+        if any("fourier_weight" in k for k in lp_state.model.state_dict()):
+            raise AssertionError("trainer: the low-pass model has Fourier weights")
+        for b in builder.train_batches(np.random.default_rng(seed)):
+            lp_state = lp_routine.accumulate_step(lp_state, b)
+        reset_launch_counts()
+        lp_state = hold_steps("low-pass", lp_routine, lp_state, [batch, next(batches)],
+                              phase="trainer")
+        lp_counts = launch_counts()
+        lp_want = {"fused_ff": 2 * N_LAYERS, "fused_ff_bwd": 2 * N_LAYERS, "fused_mix_2d": 0,
+                   "fused_mix_2d_adjoint": 0}
+        log(f"trainer: low-pass, launches in 2 steps {lp_counts}")
+        if lp_counts != lp_want:
+            raise AssertionError(f"trainer: low-pass launches {lp_counts}, want {lp_want}")
+
+        class EpochEnds(Callback):
+            def __init__(self):
+                self.weights = []
+
+            def on_epoch_end(self, trainer, routine, state):
+                self.weights.append({k: p.detach().clone()
+                                     for k, p in state.model.named_parameters()})
+
+        ends = EpochEnds()
+        swa_routine = build_routine(cfg["routine"], builder)
+        swa_trainer = Trainer(max_epochs=2, limit_train_batches=3, check_val_every_n_epoch=3,
+                              callbacks=[ends, StochasticWeightAveraging(swa_step_start=0)],
+                              seed=7231, device=dev)
+        swa_state = swa_trainer.fit(swa_routine, builder)
+        bad = [k for k, p in swa_state.model.named_parameters()
+               if not torch.equal(p.detach(), (ends.weights[0][k] + ends.weights[1][k]) / 2)]
+        log(f"trainer: SWA from step 0 over {swa_trainer.global_step} steps in 2 epochs: the "
+            f"final weights {'equal' if not bad else 'differ from'} the mean of the "
+            f"{len(ends.weights)} epoch-end weights ({len(ends.weights[0])} tensors)")
+        if bad or len(ends.weights) != 2:
+            raise AssertionError(f"trainer: SWA's weights differ in {bad[:6]}")
+
+        profiled_cli_fit(tmp, data_path)
+    guard_decisions(dev, data_path)
+    log(f"trainer: phase took {time.perf_counter() - phase_start:.1f} s")
+    return counts
+
+
 def phase_time_apart(seed):
     """Phase ``time`` in a child process of this script, which starts with
     no CUDA graph and no earlier profiler session (in the parent, after the
@@ -2910,9 +3303,22 @@ def phase_time_apart(seed):
             dict(r["row"], bound=tuple(r["row"]["bound"])) for r in rows}
 
 
+# The phases in the order a run goes through them, and the phases whose files each reads.
+PHASES = ("sass", "check", "generate", "main", "serve", "train", "baseline", "mesh", "context",
+          "kolmogorov", "pointcloud", "cno", "projection", "learned_interpolation",
+          "meshgraphnet", "trainer", "time")
+PHASE_NEEDS = {"main": ("generate",), "serve": ("generate",), "train": ("generate",),
+               "baseline": ("generate",), "context": ("generate",), "trainer": ("generate",),
+               "cno": ("mesh", "kolmogorov"), "learned_interpolation": ("projection",)}
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--phases", nargs="+", choices=PHASES, default=PHASES, metavar="PHASE",
+                        help="run these phases only (and those whose files they read); device "
+                             f"and build always run. One or more of {', '.join(PHASES)}. "
+                             "Default: every phase")
     # Internal: run phase time alone and write its rows to this JSON file.
     parser.add_argument("--time-json", default=None, help=argparse.SUPPRESS)
     args = parser.parse_args()
@@ -2933,35 +3339,58 @@ def main():
                         "row": row} for (name, dtype, *tail), row in rows.items()], f)
         return
 
+    run = set(args.phases)
+    for name in args.phases:
+        run.update(PHASE_NEEDS.get(name, ()))
+    seconds = {}
+
+    def phase(name, fn, *fn_args):
+        t0 = time.perf_counter()
+        out = fn(*fn_args)
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        return out
+
     card = phase_device()
-    phase_build()
-    phase_sass()
-    errs = phase_check(dev, args.seed)
+    phase("build", phase_build)
+    if "sass" in run:
+        phase("sass", phase_sass)
+    errs = phase("check", phase_check, dev, args.seed) if "check" in run else {}
+    counts = {}
     with tempfile.TemporaryDirectory() as tmp:
-        data_path, _ = phase_generate(dev, tmp, args.seed)
-        counts = {"infer": phase_main(dev, args.seed, data_path),
-                  "serve": phase_serve(dev, args.seed, data_path),
-                  "train": phase_train(dev, args.seed, data_path)}
-        phase_baseline(dev, data_path)
-        counts["mesh"] = phase_mesh(dev, tmp, args.seed)
-        counts["context"] = phase_context(dev, tmp, data_path)
-        counts["kolmogorov"] = phase_kolmogorov(dev, tmp)
-        counts["pointcloud"] = phase_pointcloud(dev, tmp, args.seed)
-        counts["cno"] = phase_cno(dev, tmp)
-        counts["projection"] = phase_projection(dev, tmp, args.seed)
-        counts["learned_interpolation"] = phase_learned_interpolation(dev, tmp, args.seed)
-        counts["meshgraphnet"] = phase_meshgraphnet(dev, tmp, args.seed)
-    times = phase_time_apart(args.seed)
+        data_path = (phase("generate", phase_generate, dev, tmp, args.seed)[0]
+                     if "generate" in run else None)
+        # (phase, the path its launch counts stand for, the call)
+        paths = (("main", "infer", lambda: phase_main(dev, args.seed, data_path)),
+                 ("serve", "serve", lambda: phase_serve(dev, args.seed, data_path)),
+                 ("train", "train", lambda: phase_train(dev, args.seed, data_path)),
+                 ("baseline", None, lambda: phase_baseline(dev, data_path)),
+                 ("mesh", "mesh", lambda: phase_mesh(dev, tmp, args.seed)),
+                 ("context", "context", lambda: phase_context(dev, tmp, data_path)),
+                 ("kolmogorov", "kolmogorov", lambda: phase_kolmogorov(dev, tmp)),
+                 ("pointcloud", "pointcloud", lambda: phase_pointcloud(dev, tmp, args.seed)),
+                 ("cno", "cno", lambda: phase_cno(dev, tmp)),
+                 ("projection", "projection", lambda: phase_projection(dev, tmp, args.seed)),
+                 ("learned_interpolation", "learned_interpolation",
+                  lambda: phase_learned_interpolation(dev, tmp, args.seed)),
+                 ("meshgraphnet", "meshgraphnet", lambda: phase_meshgraphnet(dev, tmp, args.seed)),
+                 ("trainer", "trainer", lambda: phase_trainer(dev, args.seed, data_path)))
+        for name, path, call in paths:
+            if name in run:
+                out = phase(name, call)
+                if path is not None:
+                    counts[path] = out
+    times = phase("time", phase_time_apart, args.seed) if "time" in run else {}
 
     kernels = []
     for name, meta in KERNELS.items():
-        t = times[(name, torch.float32)]
+        t = times.get((name, torch.float32), {})
         entry = {"name": name, "route": "cuda", "source": meta["source"],
-                 "replaces": meta["replaces"], "launches": counts[meta["path"]][name],
+                 "replaces": meta["replaces"], "launches": counts.get(meta["path"], {}).get(name),
                  "launches_by_path": {p: c[name] for p, c in counts.items()},
-                 "max_abs_err": errs[(name, torch.float32)],
-                 "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
-                 "bound_by": t["bound"][1], "library_ms": t["library_ms"]}
+                 "max_abs_err": errs.get((name, torch.float32)),
+                 "ms": t.get("ms"), "plain_ms": t.get("plain_ms"),
+                 "bound_ms": t["bound"][0] if t else None,
+                 "bound_by": t["bound"][1] if t else None, "library_ms": t.get("library_ms")}
         shapes = [{"at": tail[0], "dtype": "float32", "ms": r["ms"], "plain_ms": r["plain_ms"],
                    "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
                    "library_ms": r["library_ms"]}
@@ -2970,11 +3399,11 @@ def main():
         if shapes:
             entry["shapes"] = shapes
         kernels.append(entry)
+    log(json.dumps({"phase_seconds": seconds}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))
-
 
 if __name__ == "__main__":
     main()

@@ -31,7 +31,14 @@ def main(argv=None):
 
     p_train = sub.add_parser("train", help="train (and test) one trial of an experiment")
     _add_common(p_train)
+    p_train.add_argument("--checkpoint-path", default=None,
+                         help="start from this checkpoint of the port: weights, normalizer, "
+                              "optimizer, schedule and step")
     p_train.add_argument("--force", action="store_true", help="train again over existing results")
+    p_train.add_argument("--resume", action="store_true",
+                         help="start from the trial's newest last.ckpt")
+    p_train.add_argument("--profile-dir", default=None,
+                         help="write a torch.profiler trace of the fit into this directory")
     p_train.add_argument("--no-test", action="store_true", help="skip the test pass")
     p_train.add_argument("--config-dir", default=None,
                          help="where checkpoints/ goes (default: the YAML's directory, or the "
@@ -125,8 +132,10 @@ def main(argv=None):
     if args.command == "train":
         from .train import main as train_main
 
-        train_main(args.config_path, args.overrides, trial=args.trial, no_test=args.no_test,
-                   force=args.force, config_dir=args.config_dir, device=args.device)
+        train_main(args.config_path, args.overrides, trial=args.trial,
+                   checkpoint_path=args.checkpoint_path, no_test=args.no_test, force=args.force,
+                   resume=args.resume, profile_dir=args.profile_dir,
+                   config_dir=args.config_dir, device=args.device)
     elif args.command == "test":
         from .test import main as test_main
 

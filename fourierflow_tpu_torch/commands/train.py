@@ -6,16 +6,27 @@ trainer / callbacks), seeds with 7231 + trial, trains with the per-batch
 Trainer on the chosen device (CUDA unless the CPU is asked for), writes
 ``last.ckpt`` and ``metrics.jsonl`` under
 ``<config_dir>/checkpoints/trial-<n>-<time>/`` (``config_dir`` defaults to
-``experiment_dir``), and
-tests with the best monitored checkpoint (or the final state). Resuming,
-``pretrained_path``, profiling and the JAX package's parallel trainer keys
-are not ported yet.
+``experiment_dir``), and tests with the best monitored checkpoint (or the
+final state).
+
+The fit may start from a checkpoint: ``checkpoint_path`` restores the whole
+state (weights, normalizer, optimizer moments, schedule, step), ``resume``
+takes the newest ``trial-<n>-*/last.ckpt``, and a config's
+``pretrained_path`` loads weights and normalizer only (the port's own
+checkpoint or a reference Lightning ``.ckpt``), with a fresh optimizer and
+schedule. As in the reference, a resumed fit is not the rest of an uncut
+one: it runs ``max_epochs`` epochs from epoch 0 with the trainer's
+``global_step`` from 0, and a normalizing routine's epoch 0 adds statistics
+to the restored ones. ``profile_dir`` writes a ``torch.profiler`` trace of
+the fit. The JAX package's tensor and spatial parallelism are not ported
+and raise.
 """
 
 import glob
 import logging
 import os
 import time
+from dataclasses import replace
 from functools import partial
 from typing import List, Optional
 
@@ -28,7 +39,8 @@ from ..routines.base import make_optimizer
 from ..schedulers import (cosine_with_warmup, exponential_with_warmup, linear_with_warmup,
                           step_lr, swa_lr)
 from ..trainers import JSONLogger, ModelCheckpoint, Trainer
-from ..utils.checkpoint import load_state
+from ..utils.checkpoint import checkpoint_kind, load_inference_state, load_state, read_checkpoint
+from ..utils.profiling import trace
 from ..utils.torch_import import import_reference_checkpoint
 
 logger = logging.getLogger(__name__)
@@ -76,7 +88,14 @@ def build_routine(routine_cfg: dict, builder=None):
 
 
 def build_trainer(trainer_cfg: Optional[dict], callbacks=(), device=None) -> Trainer:
+    """The Trainer a config's ``trainer`` node describes. ``data_parallel``
+    is accepted (one device has nothing to split); ``tensor_parallel`` or
+    ``spatial_parallel`` above 1 raise."""
     cfg = dict(trainer_cfg or {})
+    for key in ("tensor_parallel", "spatial_parallel"):
+        if cfg.get(key, 1) > 1:
+            raise NotImplementedError(f"trainer.{key}={cfg[key]} is not ported yet (ROADMAP A9: "
+                                      "parallel/mesh.py and the Trainer's mesh)")
     limit = cfg.get("limit_train_batches")
     if isinstance(limit, float):
         limit = None if limit >= 1.0 else max(1, int(limit))
@@ -134,12 +153,44 @@ class ExistingExperimentFound(RuntimeError):
     """Results for this trial exist and ``force`` was not given."""
 
 
+def _existing_trial_dirs(config_dir: str, trial: int) -> List[str]:
+    return sorted(glob.glob(os.path.join(config_dir, "checkpoints", f"trial-{trial}-*")))
+
+
+def _run_dir(config_dir: str, trial: int) -> str:
+    """``checkpoints/trial-<n>-<time>``, a second later where a run of the
+    same second has that directory (a resumed run keeps its own)."""
+    stamp = int(time.time())
+    while os.path.exists(os.path.join(config_dir, "checkpoints", f"trial-{trial}-{stamp}")):
+        stamp += 1
+    return os.path.join(config_dir, "checkpoints", f"trial-{trial}-{stamp}")
+
+
+def load_pretrained(path: str, state):
+    """Weights and normalizer from ``path`` (environment variables
+    expanded): the port's own checkpoint or a reference Lightning ``.ckpt``.
+    The optimizer and schedule stay fresh, and the step is the template's."""
+    path = os.path.expandvars(path)
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"pretrained_path: {path}")
+    blob = read_checkpoint(path)
+    if checkpoint_kind(blob, path) == "lightning":
+        loaded = import_reference_checkpoint(path, state, blob)
+    else:
+        loaded = load_inference_state(path, state, blob)
+    logger.info("loaded pretrained weights from %s", path)
+    return replace(loaded, step=state.step)
+
+
 def main(config_path: str, overrides: Optional[List[str]] = None, trial: int = 0,
-         no_test: bool = False, force: bool = False, config_dir: Optional[str] = None,
-         device: Optional[str] = None):
+         checkpoint_path: Optional[str] = None, no_test: bool = False, force: bool = False,
+         resume: bool = False, profile_dir: Optional[str] = None,
+         config_dir: Optional[str] = None, device: Optional[str] = None):
     """Train (and test) one trial. ``config_dir`` replaces
     ``experiment_dir(config_path)`` as the place of ``checkpoints/``.
-    Returns ``(trainer, state)``."""
+    Existing results of the trial raise ``ExistingExperimentFound`` unless
+    ``force``, ``resume`` or ``checkpoint_path`` is given. Returns
+    ``(trainer, state)``."""
     dev = resolve_device(device)
     cfg = load_config(config_path, overrides)
     seed = 7231 + trial
@@ -150,12 +201,21 @@ def main(config_path: str, overrides: Optional[List[str]] = None, trial: int = 0
         routine.track_grad_norm = True
 
     config_dir = config_dir or experiment_dir(config_path)
-    checkpoints = os.path.join(config_dir, "checkpoints")
-    if glob.glob(os.path.join(checkpoints, f"trial-{trial}-*")) and not force:
+    existing = _existing_trial_dirs(config_dir, trial)
+    if existing and not (force or resume or checkpoint_path):
         raise ExistingExperimentFound(
-            f"results for trial {trial} already exist under {checkpoints}; pass --force to "
-            "train again")
-    run_dir = os.path.join(checkpoints, f"trial-{trial}-{int(time.time())}")
+            f"results for trial {trial} already exist under "
+            f"{os.path.join(config_dir, 'checkpoints')}; pass --force to train again or "
+            "--resume to continue from the last checkpoint")
+    if resume and not checkpoint_path:
+        # The newest trial directory that holds a last.ckpt (epoch granularity,
+        # as the reference resumes).
+        found = [os.path.join(d, "last.ckpt") for d in existing
+                 if os.path.exists(os.path.join(d, "last.ckpt"))]
+        if found:
+            checkpoint_path = found[-1]
+            logger.info("resuming from %s", checkpoint_path)
+    run_dir = _run_dir(config_dir, trial)
 
     callbacks = instantiate(cfg.get("callbacks", [])) or []
     if not any(isinstance(cb, ModelCheckpoint) for cb in callbacks):
@@ -167,7 +227,15 @@ def main(config_path: str, overrides: Optional[List[str]] = None, trial: int = 0
 
     trainer = build_trainer(cfg.get("trainer"), callbacks, dev)
     trainer.seed = seed
-    state = trainer.fit(routine, builder)
+
+    state = None
+    if checkpoint_path:
+        state = load_state(checkpoint_path, routine.init(seed, builder.sample_batch(), dev))
+    elif cfg.get("pretrained_path"):
+        state = load_pretrained(cfg["pretrained_path"],
+                                routine.init(seed, builder.sample_batch(), dev))
+    with trace(profile_dir, enabled=bool(profile_dir), device=dev):
+        state = trainer.fit(routine, builder, state=state)
     if not no_test:
         logs = trainer.test(routine, builder, resolve_test_state(callbacks, state))
         logger.info("test logs: %s", {k: v for k, v in logs.items() if np.ndim(v) == 0})

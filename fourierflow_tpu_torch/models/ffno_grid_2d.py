@@ -5,7 +5,15 @@ Per layer: the separable spectral mix along both grid axes
 (``ops.fused_mix_2d``, the CUDA kernel on a CUDA tensor), a feed-forward
 "backcast" (``ops.fused_ff`` through ``layers.FeedForward``) and the
 residual ``x = x + backcast``. The output head reads the last backcast, or
-with ``use_fork`` sums per-layer forecasts.
+with ``use_fork`` sums per-layer forecasts. ``mode="low-pass"`` replaces the
+mix by each axis's truncated spectrum transformed back
+(``ops.spectral.spectral_lowpass_axis``) and has no Fourier weights;
+``mode="no-fourier"`` skips it.
+
+With ``remat`` each layer's mix and backcast feed-forward run under
+``torch.utils.checkpoint``: the backward pass keeps only the layer's input
+and recomputes the rest (on the card, kernels A and B launch twice a layer
+in a train step). The parameters are the same in both modes.
 
 Parameter names follow the reference's torch ``state_dict``:
 ``in_proj.*``, ``spectral_layers.{i}.fourier_weight.{0,1}`` (Y then X),
@@ -18,9 +26,11 @@ from typing import Optional
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from ..layers import FeedForward, WNLinear, xavier_normal_init
 from ..ops.fused_spectral import fused_mix_2d
+from ..ops.spectral import spectral_lowpass_axis
 
 __all__ = ["FNOFactorized2DBlock"]
 
@@ -47,9 +57,9 @@ class FNOFactorized2DBlock(nn.Module):
     """Stack of factorized spectral layers with residuals. ``forward`` takes
     ``[batch, X, Y, input_dim]`` and returns ``{"forecast": [batch, X, Y, 1],
     "forecast_list": [...]}``; with a compute ``dtype`` the parameters stay
-    float32 and the forecast is handed back in float32.
-
-    ``mode`` "low-pass" and ``remat`` are not ported yet and raise."""
+    float32 and the forecast is handed back in float32. ``remat`` is an
+    attribute that the forward reads, so a trainer may turn it on after
+    construction (``trainers/trainer.py``)."""
 
     def __init__(self, modes: int, width: int, input_dim: int = 12, dropout: float = 0.0,
                  in_dropout: float = 0.0, n_layers: int = 4, share_weight: bool = False,
@@ -57,10 +67,10 @@ class FNOFactorized2DBlock(nn.Module):
                  n_ff_layers: int = 2, gain: float = 1.0, layer_norm: bool = False,
                  use_fork: bool = False, mode: str = "full", dtype=None, remat: bool = False):
         super().__init__()
-        if mode not in ("full", "no-fourier"):
-            raise NotImplementedError(f"FNOFactorized2DBlock mode={mode!r} is not ported yet")
-        if remat:
-            raise NotImplementedError("FNOFactorized2DBlock remat is not ported yet")
+        if mode not in ("full", "low-pass", "no-fourier"):
+            raise ValueError(f"FNOFactorized2DBlock mode must be 'full', 'low-pass' or "
+                             f"'no-fourier', got {mode!r}")
+        self.remat = remat
         self.modes, self.width, self.n_layers = modes, width, n_layers
         self.share_weight, self.share_fork, self.use_fork = share_weight, share_fork, use_fork
         self.mode, self.gain, self.in_dropout = mode, gain, in_dropout
@@ -117,6 +127,17 @@ class FNOFactorized2DBlock(nn.Module):
         for lin in self.out:
             lin.reset_parameters(generator)
 
+    def _layer(self, layer: _SpectralLayer, x: torch.Tensor):
+        """One layer's mix and backcast: ``(h, b)``."""
+        if self.mode == "no-fourier":
+            h = x
+        elif self.mode == "low-pass":
+            h = spectral_lowpass_axis(x, self.modes, 2) + spectral_lowpass_axis(x, self.modes, 1)
+        else:
+            wy, wx = layer.fourier_weight
+            h = self._mix(x, wy, wx)
+        return h, layer.backcast_ff(h)
+
     def forward(self, x: torch.Tensor):
         x = self.in_proj(x)
         if self.in_dropout > 0.0:
@@ -125,12 +146,12 @@ class FNOFactorized2DBlock(nn.Module):
         forecast_list = []
         b = x
         for layer in self.spectral_layers:
-            if self.mode == "no-fourier":
-                h = x
+            if self.remat:
+                # Dropout in the backcast draws from the default generator, whose
+                # state the recompute restores (preserve_rng_state).
+                h, b = checkpoint(self._layer, layer, x, use_reentrant=False)
             else:
-                wy, wx = layer.fourier_weight
-                h = self._mix(x, wy, wx)
-            b = layer.backcast_ff(h)
+                h, b = self._layer(layer, x)
             if self.use_fork:
                 f = layer.forecast_ff(h)
                 f_out = self.out(f)

@@ -10,13 +10,16 @@ feed-forward runs ``ops.fused_ff`` (the CUDA kernel on a CUDA tensor). The
 head gives ``output_dim`` channels.
 
 Parameter names as the 2D mesh model's, with
-``spectral_layers.{i}.fourier_weight.{0,1,2}`` for X, Y and Z. ``remat``
-is not ported yet and raises.
+``spectral_layers.{i}.fourier_weight.{0,1,2}`` for X, Y and Z. With
+``remat`` each layer's three branches and feed-forward run under
+``torch.utils.checkpoint`` (the layer's input kept, the rest recomputed in
+the backward pass); the parameters are the same.
 """
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..layers import FeedForward, WNLinear, _linspace, xavier_normal_init
 from ..ops.spectral import spectral_mix_axis
@@ -48,10 +51,9 @@ class FNOFactorizedMesh3D(nn.Module):
                  ff_weight_norm: bool = True, n_ff_layers: int = 2, layer_norm: bool = False,
                  padding: int = 8, remat: bool = False):
         super().__init__()
-        if remat:
-            raise NotImplementedError("FNOFactorizedMesh3D remat is not ported yet "
-                                      "(ROADMAP A, item 8)")
+        self.remat = remat
         self.share_weight, self.padding = share_weight, padding
+        self.width, self.n_layers = width, n_layers
         self.in_proj = WNLinear(input_dim, width, wnorm=ff_weight_norm)
         make_w = lambda: nn.ParameterList(
             [nn.Parameter(torch.empty(width, width, m, *self._pair))
@@ -82,6 +84,12 @@ class FNOFactorizedMesh3D(nn.Module):
         for lin in self.out:
             lin.reset_parameters(generator)
 
+    def _layer(self, layer, x: torch.Tensor) -> torch.Tensor:
+        """One layer's three branches, summed, through its feed-forward."""
+        wx, wy, wz = layer.fourier_weight
+        mixed = self._mix_axis(x, wx, 1) + self._mix_axis(x, wy, 2) + self._mix_axis(x, wz, 3)
+        return layer.backcast_ff(mixed)
+
     def forward(self, x: torch.Tensor, **kwargs) -> torch.Tensor:
         b, sx, sy, sz, _ = x.shape
         x = torch.cat([x, get_grid_3d(b, sx, sy, sz, x.dtype, x.device)], dim=-1)
@@ -91,9 +99,8 @@ class FNOFactorizedMesh3D(nn.Module):
             x = F.pad(x, (0, 0, 0, p, 0, p, 0, p))
         h = x
         for layer in self.spectral_layers:
-            wx, wy, wz = layer.fourier_weight
-            mixed = self._mix_axis(x, wx, 1) + self._mix_axis(x, wy, 2) + self._mix_axis(x, wz, 3)
-            h = layer.backcast_ff(mixed)
+            h = checkpoint(self._layer, layer, x, use_reentrant=False) if self.remat else \
+                self._layer(layer, x)
             x = x + h
         if p:
             h = h[:, :-p, :-p, :-p]

@@ -14,6 +14,7 @@ package's ``utils/torch_import.py::convert_zongyi_state_dict``):
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from ..layers import WNLinear, xavier_normal_init
 from ..ops.spectral import spectral_conv_2d_full
@@ -52,16 +53,17 @@ class FNOZongyi2DBlock(nn.Module):
     input_dim]`` and returns ``{"forecast": [batch, X, Y, 1]}``.
 
     As in the reference, only ``modes1`` reaches the layers: ``modes2`` is
-    accepted and unused, and so is ``dropout``. ``remat`` is not ported yet
-    and raises."""
+    accepted and unused, and so is ``dropout``. With ``remat`` each layer
+    runs under ``torch.utils.checkpoint`` (its input kept, the rest
+    recomputed in the backward pass); the parameters are the same."""
 
     def __init__(self, modes1: int, modes2: int, width: int, input_dim: int = 12,
                  dropout: float = 0.1, n_layers: int = 4, residual: bool = False,
                  conv_residual: bool = True, remat: bool = False):
         super().__init__()
-        if remat:
-            raise NotImplementedError("FNOZongyi2DBlock remat is not ported yet")
+        self.remat = remat
         self.modes1, self.modes2, self.width, self.residual = modes1, modes2, width, residual
+        self.n_layers = n_layers
         self.in_proj = WNLinear(input_dim, width)
         self.spectral_layers = nn.ModuleList(
             ZongyiSpectralConv2d(width, width, modes1, conv_residual) for _ in range(n_layers))
@@ -80,5 +82,6 @@ class FNOZongyi2DBlock(nn.Module):
     def forward(self, x: torch.Tensor, **kwargs):
         x = self.in_proj(x)
         for layer in self.spectral_layers:
-            x = layer(x) + x if self.residual else layer(x)
+            h = checkpoint(layer, x, use_reentrant=False) if self.remat else layer(x)
+            x = h + x if self.residual else h
         return {"forecast": self.feedforward(x)}

@@ -11,7 +11,9 @@ rDFT along one spatial axis, per-mode complex channel mixing, inverse rDFT.
 It is computed with the truncated-DFT basis matmuls of ``ops/dft.py`` in
 float32 (inputs of another type are rounded to it first and the result is
 cast back), which makes it the oracle for the fused CUDA kernel in
-``ops/fused_spectral.py``. Layout is channels-last ``[batch, *spatial, C]``.
+``ops/fused_spectral.py``. ``spectral_lowpass_axis`` is the same branch
+without the mix (the low-pass ablation; ``torch.fft``, as the JAX package's
+XLA computes it). Layout is channels-last ``[batch, *spatial, C]``.
 """
 
 import functools
@@ -22,7 +24,8 @@ import torch
 from .dft import dct2_basis, idct2_basis, irdft_basis, rdft_basis
 from .fourier import irfft2, irfftn
 
-__all__ = ["dct_mix_axis", "dct_bases", "spectral_mix_axis", "mix_axis_f32", "mix_axis_wgrad",
+__all__ = ["dct_mix_axis", "dct_bases", "spectral_mix_axis", "spectral_lowpass_axis",
+           "mix_axis_f32", "mix_axis_wgrad",
            "dft_bases", "stacked_bases",
            "spectral_conv_2d_full", "spectral_conv_3d_full"]
 
@@ -82,6 +85,18 @@ def spectral_mix_axis(x: torch.Tensor, weight: torch.Tensor, axis: int) -> torch
       ``[batch, *spatial, out_channels]`` in x's type.
     """
     return mix_axis_f32(x, weight, axis).to(x.dtype)
+
+
+def spectral_lowpass_axis(x: torch.Tensor, modes: int, axis: int) -> torch.Tensor:
+    """The low-pass ablation's branch: the orthonormal rfft along ``axis``
+    truncated to its first ``modes`` bins and transformed back, with no
+    mixing. Computed in float32; returned in x's type."""
+    axis = _spatial_axis(x, axis)
+    n = x.shape[axis]
+    xf = torch.fft.rfft(x.movedim(axis, -2).float(), dim=-2, norm="ortho")
+    # irfft pads the truncated spectrum with zeros up to n // 2 + 1 bins.
+    out = torch.fft.irfft(xf[..., :modes, :], n=n, dim=-2, norm="ortho")
+    return out.movedim(-2, axis).to(x.dtype)
 
 
 def _spatial_axis(x: torch.Tensor, axis: int) -> int:

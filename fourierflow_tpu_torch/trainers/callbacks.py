@@ -1,6 +1,7 @@
-"""Trainer callbacks: checkpointing and metric logging (counterpart of
-``fourierflow_tpu/trainers/callbacks.py``). Checkpoints hold the whole
-train state (``utils/checkpoint.py``); metrics go to a JSONL file."""
+"""Trainer callbacks: checkpointing, metric logging and weight averaging
+(counterpart of ``fourierflow_tpu/trainers/callbacks.py``). Checkpoints hold
+the whole train state (``utils/checkpoint.py``); metrics go to a JSONL file,
+and to Weights & Biases where ``wandb`` is installed."""
 
 import json
 import logging
@@ -9,12 +10,14 @@ import time
 from typing import Optional
 
 import numpy as np
+import torch
 
 from ..utils.checkpoint import save_state
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["Callback", "ModelCheckpoint", "JSONLogger"]
+__all__ = ["Callback", "ModelCheckpoint", "JSONLogger", "StochasticWeightAveraging",
+           "WandbLogger"]
 
 
 class Callback:
@@ -103,3 +106,79 @@ class JSONLogger(Callback):
 
     def on_test_end(self, trainer, routine, state):
         self._write(trainer)
+
+
+class StochasticWeightAveraging(Callback):
+    """Step-based stochastic weight averaging: from ``swa_step_start`` (a
+    float up to 1 is a fraction of the total steps, ``total_steps`` or else
+    estimated from the steps per epoch so far; otherwise an absolute step)
+    on, a running mean of the parameters at each epoch's end, kept on the
+    state's device; at the end of the fit the mean replaces the trained
+    parameters. Anneal the learning rate with ``schedulers.swa_lr``."""
+
+    def __init__(self, swa_step_start=0.7, total_steps=None):
+        self.swa_step_start = swa_step_start
+        self.total_steps = total_steps
+        self.avg_params = None
+        self.n_averaged = 0
+
+    def _start_step(self, trainer) -> float:
+        if isinstance(self.swa_step_start, float) and self.swa_step_start <= 1.0:
+            total = self.total_steps
+            if total is None:
+                per_epoch = max(trainer.global_step, 1) / max(trainer.current_epoch + 1, 1)
+                total = per_epoch * trainer.max_epochs
+            return self.swa_step_start * total
+        return float(self.swa_step_start)
+
+    def on_epoch_end(self, trainer, routine, state):
+        if trainer.global_step < self._start_step(trainer):
+            return None
+        n = self.n_averaged
+        with torch.no_grad():
+            params = dict(state.model.named_parameters())
+            if self.avg_params is None:
+                self.avg_params = {k: p.detach().clone() for k, p in params.items()}
+            else:
+                self.avg_params = {k: (a * n + params[k]) / (n + 1)
+                                   for k, a in self.avg_params.items()}
+        self.n_averaged = n + 1
+        return None
+
+    def on_fit_end(self, trainer, routine, state):
+        if self.avg_params is None:
+            return None
+        with torch.no_grad():
+            for k, p in state.model.named_parameters():
+                p.copy_(self.avg_params[k])
+        return state
+
+
+class WandbLogger(Callback):
+    """The Trainer's scalar logs to Weights & Biases at each epoch's end and
+    after the test pass. Where ``wandb`` cannot be imported or its run not
+    started, it warns once and logs nothing; ``JSONLogger`` stays the run's
+    log."""
+
+    def __init__(self, project=None, group=None, name=None, config=None):
+        try:
+            import wandb
+
+            self._run = wandb.init(project=project, group=group, name=name, config=config)
+            self._wandb = wandb
+        except Exception as err:  # ImportError, or a run that cannot start offline
+            logger.warning("wandb unavailable: %s", err)
+            self._run = None
+            self._wandb = None
+
+    def _log(self, trainer):
+        if self._run is None:
+            return
+        scalars = {k: float(v) for k, v in trainer.logs.items() if isinstance(v, (int, float))}
+        self._wandb.log(scalars, step=trainer.global_step)
+
+    def on_epoch_end(self, trainer, routine, state):
+        self._log(trainer)
+
+    def on_test_end(self, trainer, routine, state):
+        self._log(trainer)

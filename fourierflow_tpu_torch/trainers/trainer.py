@@ -10,8 +10,12 @@ hooks run. The noise of each step comes from a generator on the state's
 device seeded from the trainer's seed and the global step. Loss values
 stay on the device until the epoch ends, so the loop does not wait for
 the card between steps (the first step's value is fetched for the log).
-The JAX package's meshes, remat guard and scanned-epoch fast path are not
-ported.
+
+With ``auto_remat`` (the default) ``fit`` first estimates the train step's
+saved activations from the model's layers and width and the sample batch's
+shape, and turns the model's per-layer remat on when they would take more
+than 60% of the device's memory (``_maybe_enable_remat``). The JAX
+package's meshes and scanned-epoch fast path are not ported.
 """
 
 import logging
@@ -27,6 +31,23 @@ from ..routines.base import Routine, State
 logger = logging.getLogger(__name__)
 
 __all__ = ["Trainer"]
+
+# Saved activations of an unremat train step, in layer-input-sized tensors a
+# layer (``n_layers * batch * cells * width``, the cells those of the batch's
+# ``x``), by model: the step's peak ``torch.cuda.max_memory_allocated()`` above
+# the memory held before it, measured by ``chip_smoke.py`` phase ``trainer`` on
+# an NVIDIA H100 80GB HBM3 at 700.00 W. FNOFactorized2DBlock: the least-squares
+# fit through the origin (2.226-2.228) of 2.35-2.44 at torus_li/markov/24_layers
+# batch 19 and 2.35 and 2.22 at torus_kochkov/ffno/grid_sizes/256 batch 2 and 8.
+# FNOFactorizedMesh3D: 5.73 at plasticity/ffno/24_layers batch 2 (the padded
+# grid has 1.90x the batch's cells). FNOZongyi2DBlock: 45.45-45.51 at
+# torus_li/zongyi/4_layers batch 20, whose step unrolls the model 10 times, so
+# it overstates a one-step routine's. The guard leaves a model not listed here
+# alone.
+SAVED_INPUTS_PER_LAYER = {"FNOFactorized2DBlock": 2.23, "FNOFactorizedMesh3D": 5.73,
+                          "FNOZongyi2DBlock": 45.5}
+# The share of the device's memory the estimate may take before remat turns on.
+REMAT_BUDGET = 0.6
 
 
 def batch_count(batch) -> int:
@@ -53,10 +74,41 @@ def _numpy(metrics) -> dict:
             for k, v in metrics.items()}
 
 
+def _estimate_activation_bytes(model, sample_batch) -> Optional[int]:
+    """The saved activations of an unremat train step of a model with
+    per-layer remat: ``n_layers * batch * cells * width * itemsize`` (2
+    bytes with a compute dtype, else 4) times the model's
+    ``SAVED_INPUTS_PER_LAYER``. None for a model not listed there or
+    without ``n_layers`` and ``width``, or a batch without an ``x`` of at
+    least three dims."""
+    coefficient = SAVED_INPUTS_PER_LAYER.get(type(model).__name__)
+    n_layers = getattr(model, "n_layers", None)
+    width = getattr(model, "width", None)
+    if not (coefficient and n_layers and width):
+        return None
+    x = sample_batch.get("x") if hasattr(sample_batch, "get") else None
+    if x is None or getattr(x, "ndim", 0) < 3:
+        return None
+    batch = int(x.shape[0])
+    cells = int(np.prod(x.shape[1:-1]))
+    itemsize = 2 if getattr(model, "dtype", None) is not None else 4
+    return int(int(n_layers) * batch * cells * int(width) * coefficient * itemsize)
+
+
+def _device_hbm_bytes(device) -> float:
+    """The memory of a CUDA device; unbounded on the CPU, where the guard
+    never fires."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return float(torch.cuda.get_device_properties(device).total_memory)
+    return float("inf")
+
+
 class Trainer:
     def __init__(self, max_epochs: int = 1, limit_train_batches: Optional[int] = None,
                  limit_val_batches: Optional[int] = None, callbacks: Sequence = (), seed: int = 0,
-                 log_every_n_steps: int = 100, check_val_every_n_epoch: int = 1, device=None):
+                 log_every_n_steps: int = 100, check_val_every_n_epoch: int = 1, device=None,
+                 auto_remat: bool = True):
         self.max_epochs = max_epochs
         self.limit_train_batches = limit_train_batches
         self.limit_val_batches = limit_val_batches
@@ -65,6 +117,7 @@ class Trainer:
         self.log_every_n_steps = log_every_n_steps
         self.check_val_every_n_epoch = check_val_every_n_epoch
         self.device = resolve_device(device)
+        self.auto_remat = auto_remat
         self.logs = {}
         self.current_epoch = 0
         self.global_step = 0
@@ -81,8 +134,34 @@ class Trainer:
         seed = np.random.SeedSequence([self.seed, self.global_step]).generate_state(1)[0]
         return torch.Generator(device=device).manual_seed(int(seed))
 
+    def _maybe_enable_remat(self, routine: Routine, builder) -> None:
+        """Turn the model's per-layer remat on (the same parameters) when the
+        estimated saved activations exceed ``REMAT_BUDGET`` of the device's
+        memory. A model whose ``remat`` is already on, or that has none, is
+        left alone."""
+        model = getattr(routine, "model", None)
+        if model is None or getattr(model, "remat", None) is not False:
+            return
+        est = _estimate_activation_bytes(model, builder.sample_batch())
+        if est is None:
+            return
+        budget = REMAT_BUDGET * _device_hbm_bytes(self.device)
+        if est > budget:
+            logger.warning(
+                "estimated saved activations ~%.1f GB exceed ~%.1f GB of the device's memory "
+                "budget: turning per-layer rematerialization on (the same parameters; set "
+                "Trainer(auto_remat=False) or the model's remat explicitly to override)",
+                est / 2**30, budget / 2**30)
+            model.remat = True
+
     def fit(self, routine: Routine, builder, state: Optional[State] = None) -> State:
+        """``max_epochs`` epochs from epoch 0 and global step 0, from
+        ``state`` where given (a resumed run too, as in the reference: a
+        normalizing routine's epoch 0 then adds statistics to the restored
+        ones)."""
         rng = np.random.default_rng(self.seed)
+        if self.auto_remat:
+            self._maybe_enable_remat(routine, builder)
         if state is None:
             state = routine.init(self.seed, builder.sample_batch(), self.device)
         self.logs["n_params"] = routine.n_params(state)

@@ -13,7 +13,6 @@ of ``utils/checkpoint.py``, read by ``load_state``).
 """
 
 import logging
-import pickle
 from dataclasses import replace
 from typing import Dict
 
@@ -21,6 +20,7 @@ import torch
 
 from ..models import FNOFactorized2DBlock, FNOZongyi2DBlock
 from ..routines.base import State
+from .checkpoint import read_checkpoint
 
 logger = logging.getLogger(__name__)
 
@@ -30,18 +30,12 @@ _PREFIX = "conv."
 _NORMALIZER = "normalizer."
 
 
-def load_reference_state_dict(path: str) -> Dict[str, torch.Tensor]:
+def load_reference_state_dict(path: str, blob=None) -> Dict[str, torch.Tensor]:
     """The tensors of a reference checkpoint: a Lightning ``.ckpt`` (the
     state dict under ``state_dict``) or a bare ``torch.save``d dict, on
-    the CPU."""
-    try:
-        blob = torch.load(path, map_location="cpu", weights_only=True)
-    except pickle.UnpicklingError as err:
-        # Lightning checkpoints may carry metadata (hyper-parameters, callback
-        # states) that the weights-only unpickler refuses.
-        logger.warning("%s: weights-only load refused (%s); unpickling it in full, which runs "
-                       "code from the file: load only checkpoints you trust", path, err)
-        blob = torch.load(path, map_location="cpu", weights_only=False)
+    the CPU. ``blob`` is the file's contents where the caller has read them
+    already (``utils.checkpoint.read_checkpoint``)."""
+    blob = read_checkpoint(path) if blob is None else blob
     if isinstance(blob, dict) and "state_dict" in blob:
         blob = blob["state_dict"]
     return {k: v.detach() for k, v in blob.items() if isinstance(v, torch.Tensor)}
@@ -72,12 +66,12 @@ def _check_match(got: Dict[str, torch.Tensor], want: Dict[str, torch.Tensor]) ->
                              f"{tuple(got[k].shape)} vs model {tuple(v.shape)}")
 
 
-def import_reference_checkpoint(path: str, state: State) -> State:
+def import_reference_checkpoint(path: str, state: State, blob=None) -> State:
     """Load a reference checkpoint's weights into ``state.model`` (in place,
     after a full check of names and shapes) and its normalizer statistics
     into the returned state's normalizer, with ``n_accumulations`` set to
     the count as in the JAX package. The optimizer is left as it is."""
-    sd = load_reference_state_dict(path)
+    sd = load_reference_state_dict(path, blob)
     weights = {k[len(_PREFIX):] if k.startswith(_PREFIX) else k: v for k, v in sd.items()
                if not k.startswith(_NORMALIZER)}
     family = _reference_family(weights)

@@ -18,7 +18,8 @@ JAX package's, on the CPU.
   JAX builders (the 2D builder's train / test / valid order).
 - The registry's 78 airfoil / pipe / plasticity names and their configs
   against the JAX registry (the 12 ``fcno`` names are held in
-  ``test_torch_cno.py``); a misspelt name raises; ``remat`` raises.
+  ``test_torch_cno.py``); a misspelt name raises; the remat 3D model
+  against the JAX remat model.
 - ``train``, ``test`` and ``predict`` on registry names, shrunk, on files
   written here under ``DATA_ROOT``.
 """
@@ -154,9 +155,12 @@ def test_geo_fno_mesh_3d_matches_jax(padding):
 
 
 def test_remat_raises():
-    with pytest.raises(NotImplementedError, match="remat.*ROADMAP A, item 8"):
-        models.FNOFactorizedMesh3D(modes_x=2, modes_y=2, modes_z=2, width=8, input_dim=4,
-                                   output_dim=4, n_layers=1, remat=True)
+    """The remat 3D model against the JAX remat model (forward and
+    gradients, as the eager models above)."""
+    kw = dict(modes_x=5, modes_y=4, modes_z=3, width=8, input_dim=4, output_dim=4, n_layers=2,
+              padding=2, remat=True)
+    _hold_model(jax_models.FNOFactorizedMesh3D(**kw), models.FNOFactorizedMesh3D(**kw),
+                _x(2, *GRID_3D, 1), lambda p: mesh_state_dict_from_flax(p, 2))
 
 
 def test_geo_init_follows_the_jax_package():

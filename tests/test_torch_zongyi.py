@@ -127,11 +127,23 @@ def test_fno_zongyi_2d_block_matches_jax(residual):
 
 
 def test_fno_zongyi_2d_block_full_width_and_remat():
-    """The config's widths: 926,357 parameters, as the reference counts."""
+    """The config's widths: 926,357 parameters, as the reference counts; the
+    remat model matches the JAX remat model in forward and gradients."""
     pm = FNOZongyi2DBlock(modes1=12, modes2=12, width=20, n_layers=4)
     assert sum(p.numel() for p in pm.parameters()) == 926_357
-    with pytest.raises(NotImplementedError, match="remat"):
-        FNOZongyi2DBlock(**MODEL, remat=True)
+    x = np.random.RandomState(0).randn(2, 16, 16, 12).astype(np.float32)
+    jm = JaxBlock(**MODEL, remat=True)
+    params = jm.init(jax.random.PRNGKey(0), x)
+    want = np.asarray(jm.apply(params, x)["forecast"])
+    ct = np.random.RandomState(1).randn(*want.shape).astype(np.float32)
+    want_grads = _named(jax.grad(lambda p: jnp.sum(jm.apply(p, x)["forecast"] * ct))(params))
+    pm = FNOZongyi2DBlock(**MODEL, remat=True)
+    pm.load_state_dict(zongyi_state_dict_from_flax(jax.tree.map(np.asarray, params)))
+    got = pm(torch.from_numpy(x))["forecast"]
+    _close_to_max(got.detach().numpy(), want, TOL, "forecast")
+    grads = torch.autograd.grad((got * torch.from_numpy(ct)).sum(), list(pm.parameters()))
+    for (name, _), g in zip(pm.named_parameters(), grads, strict=True):
+        _close_to_max(g.numpy(), want_grads[name], GRAD_TOL, name)
 
 
 # --- the routine -----------------------------------------------------------------------

@@ -64,9 +64,15 @@ phase's wall time:
    set-up, and the ratios to the model) and ``sample`` (the pickle's predictions
    ``[19, 64, 64, 10]``, finite).
 7. ``train``: the port's ``train`` on the flagship config at full width on
-   the same file (the normalizer epoch, then one epoch of 18 steps of
-   batch 19, a validation rollout and the test pass), with the launch
-   counts read around it; exactly 24 launches of each kernel in one train
+   the same file through the Trainer's default device-resident epoch (the
+   normalizer epoch, then one epoch of n // 19 = 18 steps of batch 19, the
+   JAX package's count, a validation rollout and the test pass), with the
+   launch counts read around it (24 of each backward kernel a step); the
+   same fit replayed by hand through the per-batch loop over the epoch's
+   own batches (``epoch_permutation``), its final weights, normalizer and
+   AdamW state equal to the bit; wall and host CPU ms per step of a whole
+   epoch of each loop, in turns, and each traced once (device time, idle
+   share); exactly 24 launches of each kernel in one train
    step; one train step's loss and every parameter gradient on the kernel
    path against the plain path (a float32 CPU copy); the time of a train
    step, and its device time by kernel group from a profiler trace.
@@ -97,16 +103,18 @@ phase's wall time:
    split (19 / 4 / 4 trajectories), and their invariants are held.
    ``train`` on the registry names ``torus_vis/01_baseline`` and
    ``torus_vis_force/01_baseline`` at full width (24 layers, width 64, 5
-   input channels; the normalizer pass, 2 steps, the 10-step validation
-   rollouts fed the force, the test pass), then ``test`` on the checkpoint
-   (the same logs); 2 more steps of each, and of the ablations
-   ``with_velocity``, ``shuffle_xy_grid`` and ``no_factorization`` (FNO++) at
-   24 layers on the torus_li file, each held to a float32 CPU copy of the
-   same step (loss, gradients and parameters after it) and timed with the
-   host CPU time beside it. ``export`` of ``torus_vis/02_no_mu`` at batch 1
-   and 20 steps: an artifact that takes a force, equal to the live serving
-   module to the bit, launching A and B 24 x 20 times a call, timed beside
-   the eager rollout. Every kernel must be launched on this path.
+   input channels; the normalizer pass, one device-resident epoch of every
+   full batch of pairs, the 10-step validation rollouts fed the force, the
+   test pass), then ``test`` on the checkpoint (the same logs); 2 more
+   steps of each held to a float32 CPU copy of the same step (loss,
+   gradients and parameters after it) and timed with the host CPU time
+   beside it; 2 steps of the ablations ``with_velocity``,
+   ``shuffle_xy_grid`` and ``no_factorization`` (FNO++) on the torus_li
+   file held so at 4 layers, and run, counted and timed at 24. ``export``
+   of ``torus_vis/02_no_mu`` at batch 1 and 20 steps: an artifact that
+   takes a force, equal to the live serving module to the bit, launching A
+   and B 24 x 20 times a call, timed beside the eager rollout. Every
+   kernel must be launched on this path.
 11. ``kolmogorov``: the Kolmogorov-flow slice. ``generate kolmogorov`` by
    registry name writes the protocol's initial conditions and trajectories
    of the three splits on the card, cut as printed (a 256^2 simulation at
@@ -117,7 +125,8 @@ phase's wall time:
    CN-RK4 solve is held to the CPU's (20 steps), one step to a float64
    numpy CN-RK4 and the CUDA-graph run to the eager one (to the bit); the
    solver is timed at 256^2 and at the protocol's 2048^2 x 32, and the
-   protocol's train data projected from it. ``train`` and ``test`` on
+   protocol's train data projected from it. ``train`` (one device-resident
+   epoch over the virtual pairs, vorticity only on the card) and ``test`` on
    ``torus_kochkov/ffno/grid_sizes/64`` at full width (24 layers, width 64,
    5 channels, batch 32; the validation with the reduced 32^2 metrics), a
    rollout written by ``save_predictions`` and read back, 24 launches of
@@ -143,7 +152,8 @@ phase's wall time:
 13. ``cno``: the CNO slice. 2 steps each of ``airfoil/fcno/4_layers`` and
    ``plasticity/fcno/4_layers`` on phase mesh's files, held to a float32 CPU
    copy; ``train`` on ``torus_kochkov/fcno/grid_sizes/64`` by registry name
-   at full width (24 layers, batch 32) on phase kolmogorov's files, and 2
+   at full width (24 layers, batch 32; one device-resident epoch) on phase
+   kolmogorov's files, and 2
    of its steps at 4 layers held to a CPU copy; the launches (the
    feed-forward kernels only: the DCT branches are plain torch, as in JAX),
    each step's ms and device time, and the DCT branches' share of it (one
@@ -168,7 +178,9 @@ phase's wall time:
 15. ``learned_interpolation``: the files ``torus_kochkov/learned_interpolation/
    rollout/x64`` reads, made by the pseudo-spectral generator from phase
    projection's initial conditions (128^2 at its own CFL step, 400 records,
-   outputs at 32 and 64); ``train`` (2 steps) and ``test`` by name at full
+   66 in train, outputs at 32 and 64); ``train`` (one device-resident epoch
+   of 2 steps over the velocity dataset, the registry's
+   ``limit_train_batches`` lifted) and ``test`` by name at full
    width (6 layers of 64 features, unroll 32, batch 4; 12 validation
    snapshots); 2 steps held to a float32 CPU copy; the step timed (at a
    learning rate of 1e-6: the registry's 1e-3 makes the loss grow) and
@@ -185,7 +197,8 @@ phase's wall time:
    their launch counts must stay 0.
 17. ``trainer``: the rest of ``train`` and the trainer at the flagship's full
    width on phase generate's file. ``train`` with ``routine.conv.remat=True``
-   (the normalizer epoch and 18 steps), then ``train`` with ``resume``: the
+   (the normalizer epoch and a device-resident epoch of 18 steps), then
+   ``train`` with ``resume``: the
    resumed fit's starting weights, normalizer, AdamW moments, schedule and
    step equal the ``last.ckpt`` it read to the bit, and its ``global_step``
    restarts at 0 (as the reference's); ``checkpoint_path`` restores the same
@@ -270,7 +283,7 @@ from fourierflow_tpu_torch.trainers import (  # noqa: E402
     Callback, StochasticWeightAveraging, Trainer)
 from fourierflow_tpu_torch.trainers.trainer import (  # noqa: E402
     REMAT_BUDGET, SAVED_INPUTS_PER_LAYER, _device_hbm_bytes, _estimate_activation_bytes,
-    batch_count)
+    batch_count, epoch_permutation, make_scan_epoch, step_generator, to_device)
 from fourierflow_tpu_torch.utils.equations import graph_repeated  # noqa: E402
 from fourierflow_tpu_torch.utils.checkpoint import save_state  # noqa: E402
 from fourierflow_tpu_torch.utils.serving import load_exported, make_rollout_fn  # noqa: E402
@@ -468,6 +481,11 @@ LI_CONFIG = "torus_kochkov/learned_interpolation/rollout/x64"
 LI_X256 = "torus_kochkov/learned_interpolation/rollout/x256"
 LI_OUTER, LI_SPLITS = 400, {"train": 4, "valid": 2, "test": 4}
 LI_STEPS = 2  # train steps of the train command, and steps held to a CPU copy
+# The train split's records: the unroll's k L = 64 frames past each item's first, and enough
+# first frames that the 4 trajectories give LI_STEPS full batches of 4, one device-resident
+# epoch (the registry's limit_train_batches=4000 keeps the per-batch loop: train is run
+# with it lifted).
+LI_TRAIN_OUTER = 2 * 32 + LI_STEPS
 # The registry's x64 (AdamW at 1e-3, no clipping) moves every weight by the learning rate in
 # its first step, the zero-initialised out layer included, and its loss grows from there: the
 # timed steps, 7 in a row, run at a learning rate of 1e-6, the same work.
@@ -645,10 +663,15 @@ def bound(flops, nbytes, dtype):
 
 
 # --- phases ------------------------------------------------------------------
-def phase_device():
+def card_line():
+    """The card's name and power limit, as nvidia-smi reports them."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
-    card = smi.stdout.strip().splitlines()[0]
+    return smi.stdout.strip().splitlines()[0]
+
+
+def phase_device():
+    card = card_line()
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}"
         f"; host: torch uses {torch.get_num_threads()} threads on {len(os.sched_getaffinity(0))} "
@@ -1280,9 +1303,80 @@ def phase_serve(dev, seed, data_path):
     return counts
 
 
+def _state_diff(a, b):
+    """The tensors of two ``_snapshot``s that differ, and the largest
+    difference of any over the largest |b| of its tensor."""
+    pairs = [(f"model.{k}", v, b["model"][k]) for k, v in a["model"].items()]
+    pairs += [(f"normalizer.{k}", v, b["normalizer"][k]) for k, v in a["normalizer"].items()]
+    for i, moments in a["optimizer"]["state"].items():
+        pairs += [(f"adamw.{i}.{k}", v, b["optimizer"]["state"][i][k]) for k, v in moments.items()]
+    bad = [name for name, x, y in pairs if not torch.equal(x, y)]
+    worst = max((rel_err(x.float(), y.float())[1] for _, x, y in pairs), default=0.0)
+    return len(pairs), bad, worst
+
+
+def hold_epoch_loops(routine, start, fast_state, builder, trainer, dev):
+    """``train``'s fit replayed by hand from its initial state through the
+    per-batch loop over ``epoch_permutation``'s batches, gathered on the
+    host (the normalizer epoch, then each train epoch with the generators
+    of its global steps): the weights, the normalizer, every AdamW moment
+    and the step held to the device-resident epoch's, to the bit."""
+    data, n_items = builder.train_data, len(builder.train_data["x"])
+    state, step = start, 0
+    for epoch in range(trainer.max_epochs):
+        for idx in epoch_permutation(trainer.seed, epoch, n_items, B).numpy():
+            batch = {k: v[idx] for k, v in data.items()}
+            if epoch == 0:
+                state = routine.accumulate_step(state, batch)
+                continue
+            state, _ = routine.train_step(state, batch, step_generator(trainer.seed, step, dev))
+            step += 1
+    torch.cuda.synchronize()
+    n, bad, worst = _state_diff(_snapshot(fast_state), _snapshot(state))
+    log(f"train: the device-resident fit against the per-batch loop over the same batches "
+        f"({step} steps): {n - len(bad)} of {n} tensors equal to the bit, largest rel "
+        f"difference {worst:.2e}; steps {fast_state.step} / {state.step}")
+    if bad or fast_state.step != state.step:
+        raise AssertionError(f"train: the two loops differ in {bad[:6]}")
+
+
+def time_epoch_loops(routine, state, builder, trainer, dev, seed, rounds=2):
+    """Wall and host CPU ms per step of a whole train epoch of each loop, in
+    turns from ``train``'s final state: the device-resident epoch
+    (``make_scan_epoch`` over the uploaded set, as ``fit`` runs it) and the
+    Trainer's per-batch loop (``_batch_epoch``: host batches, each copied to
+    the card by the step, the first step's loss fetched). Returns the state
+    after them and each loop's (wall, CPU) ms per step, epoch by epoch."""
+    n_batches = len(builder.train_data["x"]) // B
+    data = to_device(builder.train_data, dev)
+    epoch_fn = make_scan_epoch(routine, B, seed=trainer.seed)
+    loop = Trainer(seed=trainer.seed, device=dev, fast_loop=False)
+    rng = np.random.default_rng(seed)
+    runs = {"device-resident epoch": lambda s: epoch_fn(s, data, 1, trainer.global_step)[0],
+            "per-batch loop": lambda s: loop._batch_epoch(routine, builder, s, rng, 1, False)}
+    times = {name: [] for name in runs}
+    for _ in range(rounds):
+        for name, run in runs.items():
+            torch.cuda.synchronize()
+            t0, cpu0 = time.perf_counter(), time.process_time()
+            state = run(state)
+            torch.cuda.synchronize()
+            times[name].append(((time.perf_counter() - t0) / n_batches * 1e3,
+                                (time.process_time() - cpu0) / n_batches * 1e3))
+    card = card_line()
+    for name, runs_ms in times.items():
+        log(f"train: {name}: " + ", ".join(f"{w:.3f} ms wall / {c:.3f} ms host CPU"
+                                           for w, c in runs_ms)
+            + f" per step ({n_batches} steps of batch {B} an epoch, f32, {rounds} epochs in "
+              f"turns); {card}")
+    return state, times
+
+
 def phase_train(dev, seed, data_path):
-    """The port's ``train`` on the flagship at full width, then one train
-    step counted, checked against its plain path, and timed."""
+    """The port's ``train`` on the flagship at full width through the
+    device-resident epoch, held to the per-batch loop over the same batches;
+    both loops timed; then one train step counted, checked against its plain
+    path, and timed."""
     with tempfile.TemporaryDirectory() as tmp:
         overrides = data_overrides(data_path) + ["trainer.max_epochs=2"]
         reset_launch_counts()
@@ -1292,13 +1386,26 @@ def phase_train(dev, seed, data_path):
         written = sorted(os.listdir(run_dir))
         cfg = load_config(CONFIG, overrides)
         builder = instantiate(cfg["builder"])
-        routine = build_routine(cfg["routine"])
+        routine = build_routine(cfg["routine"], builder)
         start = routine.init(7231, builder.sample_batch(), dev)  # train.main's seed, trial 0
     logs = trainer.logs
-    log(f"train: {trainer.global_step} steps in {logs['epoch'] + 1} epochs, wrote {written}, "
-        f"launches over train {counts}")
-    if trainer.global_step != 18 or "last.ckpt" not in written or "metrics.jsonl" not in written:
+    n_items = len(builder.train_data["x"])
+    # The JAX package's default Trainer: the normalizer epoch, then n // batch full batches
+    # an epoch (the device-resident epoch drops a partial batch; the per-batch loop's ceil(n /
+    # batch) is the larger count where the batch does not divide the set).
+    want_steps = (trainer.max_epochs - 1) * (n_items // B)
+    log(f"train: {trainer.global_step} steps in {logs['epoch'] + 1} epochs on the device-resident "
+        f"epoch ({n_items} pairs, batch {B}; want {want_steps}), wrote {written}, launches over "
+        f"train {counts}")
+    if (trainer.global_step != want_steps or "last.ckpt" not in written
+            or "metrics.jsonl" not in written):
         raise AssertionError(f"train: {trainer.global_step} steps, files {written}")
+    # The backward kernels run in train steps only, 24 a step; the forward ones in the
+    # validation and test rollouts too.
+    backward, forward = N_LAYERS * trainer.global_step, N_LAYERS * trainer.global_step
+    if (counts["fused_ff_bwd"] != backward or counts["fused_mix_2d_adjoint"] != backward
+            or min(counts["fused_ff"], counts["fused_mix_2d"]) < forward):
+        raise AssertionError(f"train: launches {counts}, want {backward} of each backward kernel")
     losses = {k: float(v) for k, v in logs.items() if k.endswith("loss") or k.endswith("loss_avg")}
     log(f"train: {json.dumps(losses)}, epoch_time {logs['epoch_time']:.3f} s")
     if not all(math.isfinite(v) for v in losses.values()):
@@ -1311,6 +1418,7 @@ def phase_train(dev, seed, data_path):
     for name, n in counts.items():
         if n < 1:
             raise AssertionError(f"train: {name} was never launched on the main path")
+    hold_epoch_loops(routine, start, state, builder, trainer, dev)
 
     batch = next(builder.train_batches(np.random.default_rng(seed)))
     reset_launch_counts()
@@ -1333,7 +1441,7 @@ def phase_train(dev, seed, data_path):
     if not math.isfinite(float(metrics["train_loss"])):
         raise AssertionError("train: non-finite loss in the timed steps")
     log(f"train: {step_ms:.3f} ms per train step (batch {B}, f32, mean of 10 after 3 warm-ups)")
-    profile_train_step(routine, state, batch, gen, step_ms)
+    device_ms = profile_train_step(routine, state, batch, gen, step_ms)
 
     # One step from one state, on the kernel path and on the plain path (a
     # float32 CPU copy), without noise: loss and every parameter gradient.
@@ -1351,6 +1459,18 @@ def phase_train(dev, seed, data_path):
         f"largest rel {rels[worst]:.2e} ({worst}), tol {TRAIN_TOL:.0e}")
     if not (loss_rel <= TRAIN_TOL and rels[worst] <= TRAIN_TOL):
         raise AssertionError("train: kernel path disagrees with the plain path")
+
+    # Last, as they move the state on by four epochs: the step above is held where it always
+    # was, on train's final state plus 16 steps (max rel 4.7e-4 there); four epochs later the
+    # same float32 comparison read 3e-4 to 1.1e-3 (scripts/probe_plain_check.py).
+    _, loop_ms = time_epoch_loops(routine, state, builder, trainer, dev, seed)
+    # Both loops launch the same kernels a step (whole epochs of each, traced: the same
+    # device time a step within 0.2%), so one step's traced device time gives each loop's
+    # idle share.
+    for name, runs_ms in loop_ms.items():
+        log(f"train: {name}: idle " + ", ".join(f"{max(0.0, 1 - device_ms / w):.1%}"
+                                                for w, _ in runs_ms)
+            + f" of its epochs' wall time per step ({device_ms:.3f} ms of device time a step)")
     return counts
 
 
@@ -1561,18 +1681,25 @@ def phase_context(dev, tmp, li_path):
     reset_launch_counts()
     for name in VIS_CONFIGS:
         path = vis["torus_vis.h5" if name.startswith("torus_vis/") else "torus_vis_force.h5"]
-        overrides = [f"builder.data_path={path}", "builder.ssr=1", "trainer.max_epochs=2",
-                     f"trainer.limit_train_batches={CONTEXT_STEPS}"]
+        overrides = [f"builder.data_path={path}", "builder.ssr=1", "trainer.max_epochs=2"]
+        cfg = load_config(name, overrides)
+        builder = instantiate(cfg["builder"])
+        routine = build_routine(cfg["routine"], builder)
+        # The device-resident epoch: every full batch of the (t, t + k) pairs once.
+        want = len(builder.train_data["x"]) // builder.batch_size
         before = launch_counts()
+        t0 = time.perf_counter()
         with tempfile.TemporaryDirectory() as run:
             trainer, state = train.main(name, overrides, config_dir=run, device="cuda")
+            fit_s = time.perf_counter() - t0
             logs = test_command.main(name, overrides=overrides, config_dir=run, device="cuda")
         launched = {k: v - before[k] for k, v in launch_counts().items()}
         scalars = {k: float(v) for k, v in logs.items() if np.ndim(v) == 0}
-        log(f"context: {name}: train ({trainer.global_step} steps after the normalizer pass, "
+        log(f"context: {name}: train ({trainer.global_step} steps of the device-resident epoch "
+            f"after the normalizer pass, want {want}; {fit_s:.1f} s with validation and test; "
             f"n_params {trainer.logs['n_params']:,}, input channels "
             f"{state.model.in_proj.in_features}), test {json.dumps(scalars)}; launches {launched}")
-        if trainer.global_step != CONTEXT_STEPS or logs["test_correlations"].shape != (N_STEPS,):
+        if trainer.global_step != want or logs["test_correlations"].shape != (N_STEPS,):
             raise AssertionError(f"context: {name}: {trainer.global_step} steps, correlations "
                                  f"{logs['test_correlations'].shape}")
         if not all(np.isfinite(v).all() for v in logs.values()) or not all(
@@ -1580,9 +1707,6 @@ def phase_context(dev, tmp, li_path):
             raise AssertionError(f"context: {name}: test logs not finite or not train's {scalars}")
         if not all(n > 0 for n in launched.values()):
             raise AssertionError(f"context: {name}: a kernel was never launched {launched}")
-        cfg = load_config(name, overrides)
-        builder = instantiate(cfg["builder"])
-        routine = build_routine(cfg["routine"], builder)
         batches = list(zip(range(CONTEXT_STEPS), builder.train_batches(np.random.default_rng(0))))
         state = hold_steps(name, routine, state, [b for _, b in batches])
         time_steps(name, routine, state, batches[0][1], dev)
@@ -1597,8 +1721,10 @@ def phase_context(dev, tmp, li_path):
                                      builder.train_batches(np.random.default_rng(0)))]
         for batch in batches[:CONTEXT_STEPS]:
             state = routine.accumulate_step(state, batch)
+        hold_at_cut_depth(name, cfg, builder, batches[CONTEXT_STEPS:], dev, "context",
+                          accumulate=batches[:CONTEXT_STEPS])
         before = launch_counts()
-        state = hold_steps(name, routine, state, batches[CONTEXT_STEPS:])
+        state = train_steps(routine, state, batches[CONTEXT_STEPS:], dev)
         launched = {k: v - before[k] for k, v in launch_counts().items()}
         log(f"context: {name}: n_params {routine.n_params(state):,}, input channels "
             f"{state.model.in_proj.in_features}; launches in {CONTEXT_STEPS} steps {launched}")
@@ -2009,32 +2135,37 @@ def kolmogorov_solver_checks(dev, root):
 
 def kolmogorov_train_64(dev, run):
     """``train`` of the grid_sizes/64 config at full width (normalizer pass,
-    KOL_STEPS steps, the validation with the reduced metrics, the test pass),
+    one device-resident epoch, the validation with the reduced metrics, the
+    test pass),
     ``test`` on its checkpoint, a rollout saved by ``save_predictions`` and
     read back, 24 launches of each kernel in one step, KOL_STEPS steps held
     to a CPU copy and timed. Returns the checkpoint."""
-    overrides = ["trainer.max_epochs=2", f"trainer.limit_train_batches={KOL_STEPS}"]
+    overrides = ["trainer.max_epochs=2"]
+    cfg = load_config(KOL_CONFIG, overrides)
+    builder = instantiate(cfg["builder"])
+    routine = build_routine(cfg["routine"], builder)
+    # The device-resident epoch over the virtual (trajectory, time) pairs: full batches only.
+    want = len(builder.train_dataset) // builder.batch_size
+    t0 = time.perf_counter()
     trainer, state = train.main(KOL_CONFIG, overrides, config_dir=run, device="cuda")
     logs = trainer.logs
     scalars = lambda d: {k: round(float(v), 6) for k, v in d.items() if np.ndim(v) == 0}
-    log(f"kolmogorov: {KOL_CONFIG}: train ({trainer.global_step} steps after the normalizer "
-        f"pass, n_params {logs['n_params']:,}, input channels "
+    log(f"kolmogorov: {KOL_CONFIG}: train ({trainer.global_step} steps of the device-resident "
+        f"epoch after the normalizer pass, want {want} ({len(builder.train_dataset)} pairs); "
+        f"{time.perf_counter() - t0:.1f} s; n_params {logs['n_params']:,}, input channels "
         f"{state.model.in_proj.in_features}): valid_time_until {logs['valid_time_until']:g}, "
         f"valid_reduced_time_until {logs['valid_reduced_time_until']:g}, valid_corr "
         f"{logs['valid_corr']:.6f}, valid_reduced_corr {logs['valid_reduced_corr']:.6f}, "
         f"valid_loss {logs['valid_loss']:.6f}")
     test_logs = test_command.main(KOL_CONFIG, overrides=overrides, config_dir=run, device="cuda")
     log(f"kolmogorov: {KOL_CONFIG}: test {json.dumps(scalars(test_logs))}")
-    if (trainer.global_step != KOL_STEPS or state.model.in_proj.in_features != 5
+    if (trainer.global_step != want or state.model.in_proj.in_features != 5
             or test_logs["test_reduced_correlations"].shape != (N_STEPS,)
             or not all(np.isfinite(np.asarray(v, np.float64)).all() for v in test_logs.values())):
         raise AssertionError(f"kolmogorov: {KOL_CONFIG}: {trainer.global_step} steps, logs "
                              f"{scalars(test_logs)}")
     ckpt = os.path.join(next(os.scandir(os.path.join(run, "checkpoints"))).path, "last.ckpt")
 
-    cfg = load_config(KOL_CONFIG, overrides)
-    builder = instantiate(cfg["builder"])
-    routine = build_routine(cfg["routine"], builder)
     batch = next(builder.test_batches())
     preds = routine.rollout(state, batch)[0]
     path = routine.save_predictions(preds, times=batch["times"][0, -preds.shape[-1]:],
@@ -2338,23 +2469,25 @@ def phase_cno(dev, tmp):
 
     os.environ["DATA_ROOT"] = os.path.join(tmp, "data")  # phase kolmogorov's files
     t0 = time.perf_counter()
-    overrides = ["trainer.max_epochs=2", f"trainer.limit_train_batches={KOL_STEPS}"]
+    overrides = ["trainer.max_epochs=2"]
+    cfg = load_config(CNO_CONFIG, overrides)
+    builder = instantiate(cfg["builder"])
+    routine = build_routine(cfg["routine"], builder)
+    want = len(builder.train_dataset) // builder.batch_size  # the device-resident epoch's
     before = launch_counts()
     with tempfile.TemporaryDirectory() as run:
         trainer, state = train.main(CNO_CONFIG, overrides, config_dir=run, device="cuda")
     launched = {k: v - before[k] for k, v in launch_counts().items()}
     logs = trainer.logs
-    log(f"cno: {CNO_CONFIG}: train ({trainer.global_step} steps after the normalizer pass, "
+    log(f"cno: {CNO_CONFIG}: train ({trainer.global_step} steps of the device-resident epoch "
+        f"after the normalizer pass, want {want}; "
         f"n_params {logs['n_params']:,}): valid_time_until {logs['valid_time_until']:g}, "
         f"valid_loss {logs['valid_loss']:.6f}, test_loss {logs['test_loss']:.6f}; "
         f"launches {launched}; {time.perf_counter() - t0:.1f} s")
-    if (trainer.global_step != KOL_STEPS or not np.isfinite(logs["test_loss"])
-            or not launched["fused_ff"] or not launched["fused_ff_bwd"]):
+    if (trainer.global_step != want or not np.isfinite(logs["test_loss"])
+            or launched["fused_ff_bwd"] != N_LAYERS * want or not launched["fused_ff"]):
         raise AssertionError(f"cno: {CNO_CONFIG}: {trainer.global_step} steps, launches "
                              f"{launched}, test_loss {logs['test_loss']}")
-    cfg = load_config(CNO_CONFIG, overrides)
-    builder = instantiate(cfg["builder"])
-    routine = build_routine(cfg["routine"], builder)
     batch = next(builder.train_batches(np.random.default_rng(0)))
     conv = cfg["routine"]["conv"]
     _cno_step(CNO_CONFIG, routine, state, batch, dev,
@@ -2698,11 +2831,12 @@ def phase_learned_interpolation(dev, tmp, seed):
     log(f"learned_interpolation: cut: re_1000/trajectories/{{split}} simulated at "
         f"{FV_IC_SIM}^2 instead of 2048^2 at its own CFL step (inner 1 of 16), "
         f"{' / '.join(map(str, LI_SPLITS.values()))} trajectories instead of 32, {LI_OUTER} "
-        f"records of 9,764, outputs at 32 and 64 (k 1)")
+        f"records of 9,764 ({LI_TRAIN_OUTER} in train), outputs at 32 and 64 (k 1)")
     for split, n in LI_SPLITS.items():
         name = f"data/kolmogorov/re_1000/trajectories/{split}"
+        outer = LI_TRAIN_OUTER if split == "train" else LI_OUTER
         over = [f"sim_grid.shape=[{FV_IC_SIM},{FV_IC_SIM}]", f"n_trajectories={n}",
-                f"generation_batch={n}", "inner_steps=1", f"outer_steps={LI_OUTER}",
+                f"generation_batch={n}", "inner_steps=1", f"outer_steps={outer}",
                 "out_sizes=" + json.dumps([{"size": s, "k": 1} for s in (32, 64)]),
                 "init_path=${oc.env:DATA_ROOT}/kolmogorov/re_1000/initial_conditions/"
                 f"{split}_{FV_IC_SIM}.nc"]
@@ -2720,14 +2854,17 @@ def phase_learned_interpolation(dev, tmp, seed):
         f"of {cfg['routine']['inner_steps']} model steps, of the configured "
         f"{cfg['routine']['outer_steps']}: all that {LI_OUTER} records hold")
     t0 = time.perf_counter()
-    overrides = ["trainer.max_epochs=1", f"trainer.limit_train_batches={LI_STEPS}"]
+    overrides = ["trainer.max_epochs=1", "trainer.limit_train_batches=None"]
+    if len(builder.train_dataset) // builder.batch_size != LI_STEPS:
+        raise AssertionError(f"learned_interpolation: {len(builder.train_dataset)} train items")
     with tempfile.TemporaryDirectory() as run:
         trainer, state = train.main(LI_CONFIG, overrides, config_dir=run, device="cuda")
         test_logs = test_command.main(LI_CONFIG, overrides=overrides, config_dir=run,
                                       device="cuda")
     logs = trainer.logs
     scalars = {k: round(float(v), 6) for k, v in test_logs.items() if np.ndim(v) == 0}
-    log(f"learned_interpolation: {LI_CONFIG}: train ({trainer.global_step} steps, n_params "
+    log(f"learned_interpolation: {LI_CONFIG}: train ({trainer.global_step} steps of the "
+        f"device-resident epoch over the velocity dataset's (inputs, outputs), n_params "
         f"{logs['n_params']:,}, train_loss {logs['train_loss']:.6f}): valid_rho "
         f"{logs['valid_rho']:.6f}, valid_reduced_time_until {logs['valid_reduced_time_until']:g}; "
         f"test {json.dumps(scalars)}; {time.perf_counter() - t0:.1f} s")

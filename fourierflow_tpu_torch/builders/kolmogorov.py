@@ -27,7 +27,10 @@ z)]`` initial conditions), ``elapsed`` and the attributes ``dt`` and
 (``utils.hdf5.read_dataset``), so a batch reads what it takes: one-step
 pairs and whole trajectories of the vorticity (the F-FNO routines), and the
 learned-interpolation model's unrolled velocities and initial velocities
-with 32^2 vorticity targets.
+with 32^2 vorticity targets. For the Trainer's device-resident epoch the
+one-step and unrolled datasets read their arrays whole and gather each
+batch of virtual ``(trajectory, time)`` items on the device
+(``device_train_data``).
 """
 
 import os
@@ -302,6 +305,27 @@ class KolmogorovMarkovDataset:
         return {"x": field(self.w, t), "vx": field(self.vx, t), "vy": field(self.vy, t),
                 "y": field(self.w, t + self.k)}
 
+    def device_train_data(self, fields=("w", "vx", "vy")):
+        """The Trainer's device-resident view: ``(data, sample_fn, n_items)``
+        with ``data`` the named ``[S, T, X, Y]`` arrays of ``fields`` read
+        whole (float32), and ``sample_fn(data, idx)`` the batch of the
+        virtual items ``idx`` gathered on the device: ``x`` = ``w[b, t]``,
+        ``y`` = ``w[b, t + k]`` and ``vx``, ``vy`` at t where uploaded, each
+        ``[..., 1]``. The Markov routine recovers the velocity from the
+        vorticity and asks for ``("w",)``."""
+        data = {f: np.array(getattr(self, f), np.float32) for f in fields}
+        k, n_t = self.k, self.T
+
+        def sample_fn(arrays, idx):
+            b, t = idx // n_t, idx % n_t
+            out = {"x": arrays["w"][b, t][..., None], "y": arrays["w"][b, t + k][..., None]}
+            for f in ("vx", "vy"):
+                if f in arrays:
+                    out[f] = arrays[f][b, t][..., None]
+            return out
+
+        return data, sample_fn, len(self)
+
 
 class KolmogorovTrajectoryDataset:
     """Whole trajectories for evaluation: the initial condition prepended,
@@ -408,6 +432,22 @@ class KolmogorovVelocityDataset:
         return ({"vx": first(self.vx), "vy": first(self.vy)},
                 {"vx": unroll(self.vx), "vy": unroll(self.vy)})
 
+    def device_train_data(self):
+        """The Trainer's device-resident view (see
+        ``KolmogorovMarkovDataset.device_train_data``): ``vx`` and ``vy``
+        ``[S, T, X, Y]`` read whole, and ``sample_fn`` gathering the items'
+        ``(inputs, outputs)`` tuples on the device, as ``sample`` does."""
+        data = {f: np.array(getattr(self, f), np.float32) for f in ("vx", "vy")}
+        k, unroll, n_t = self.k, self.L, self.T
+
+        def sample_fn(arrays, idx):
+            b, t = idx // n_t, idx % n_t
+            t_out = t[:, None] + torch.arange(1, unroll + 1, device=idx.device) * k
+            return ({f: arrays[f][b, t] for f in ("vx", "vy")},
+                    {f: arrays[f][b[:, None], t_out].movedim(1, -1) for f in ("vx", "vy")})
+
+        return data, sample_fn, len(self)
+
 
 class KolmogorovVelocityTrajectoryDataset:
     """The learned-interpolation model's evaluation items: the initial
@@ -472,6 +512,13 @@ class KolmogorovBuilder(Builder):
 
     def train_batches(self, rng: Optional[np.random.Generator] = None):
         return self._batches(self.train_dataset, shuffle=True, rng=rng)
+
+    def device_train_data(self, **kwargs):
+        """The train dataset's device-resident view, ``kwargs`` (``fields``)
+        passed on; AttributeError for a dataset without one (the
+        multi-resolution dataset), which the Trainer takes for the per-batch
+        loop."""
+        return self.train_dataset.device_train_data(**kwargs)
 
     def val_batches(self):
         return self._batches(self.valid_dataset)

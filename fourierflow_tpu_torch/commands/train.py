@@ -2,8 +2,8 @@
 ``fourierflow_tpu/commands/train.py``).
 
 Loads an experiment, a YAML file or a registry name (builder / routine /
-trainer / callbacks), seeds with 7231 + trial, trains with the per-batch
-Trainer on the chosen device (CUDA unless the CPU is asked for), writes
+trainer / callbacks), seeds with 7231 + trial, trains with the Trainer on
+the chosen device (CUDA unless the CPU is asked for), writes
 ``last.ckpt`` and ``metrics.jsonl`` under
 ``<config_dir>/checkpoints/trial-<n>-<time>/`` (``config_dir`` defaults to
 ``experiment_dir``), and tests with the best monitored checkpoint (or the
@@ -90,7 +90,14 @@ def build_routine(routine_cfg: dict, builder=None):
 def build_trainer(trainer_cfg: Optional[dict], callbacks=(), device=None) -> Trainer:
     """The Trainer a config's ``trainer`` node describes. ``data_parallel``
     is accepted (one device has nothing to split); ``tensor_parallel`` or
-    ``spatial_parallel`` above 1 raise."""
+    ``spatial_parallel`` above 1 raise.
+
+    The Trainer keeps ``fast_loop`` on, as the JAX package's does, so
+    ``train`` runs the device-resident epoch (the whole train set on the
+    device, ``n // batch_size`` full batches an epoch) for every builder with
+    ``train_data`` or ``device_train_data``; ``limit_train_batches`` (the
+    learned interpolation's configs set 4,000), ``fast_dev_run`` and the
+    multi-resolution Kolmogorov dataset take the per-batch loop."""
     cfg = dict(trainer_cfg or {})
     for key in ("tensor_parallel", "spatial_parallel"):
         if cfg.get(key, 1) > 1:

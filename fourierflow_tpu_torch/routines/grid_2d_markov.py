@@ -75,6 +75,10 @@ class Grid2DMarkovRoutine(Routine):
         self.step_size = step_size
         self.k_max = k_max
         self.domain = domain
+        # Everything the routine reads is built from the vorticity (the
+        # velocity recovered in build_features), so the Trainer's
+        # device-resident epoch uploads only "w".
+        self.device_data_fields = ("w",)
         # The shuffled-grid ablation: one fixed permutation of each axis,
         # applied to the model's input in training and undone on its output.
         self.shuffle_grid = shuffle_grid

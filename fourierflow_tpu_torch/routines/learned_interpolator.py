@@ -120,6 +120,8 @@ class LearnedInterpolatorRoutine(Routine):
         rho = torch.nan_to_num(grid_correlation(preds, targets, dims=(1, 2))).mean(0)  # [n]
         has_diverged = torch.cat([rho < 0.95, torch.ones(1, dtype=torch.bool, device=dev)])
         time_until = torch.argmax(has_diverged.int()) * self.step_size
-        times = torch.from_numpy(np.array(batch["times"][0], np.float32))
+        times = batch["times"][0]
+        times = (times.float() if isinstance(times, torch.Tensor)
+                 else torch.from_numpy(np.array(times, np.float32)))
         return {"loss": -rho.mean(), "rho": rho.mean(), "reduced_time_until": time_until,
                 "correlations": rho, "times": times, "weight": torch.tensor(float(u.shape[0]))}

@@ -1,23 +1,42 @@
-"""The training loop (counterpart of the per-batch loop of
-``fourierflow_tpu/trainers/trainer.py``).
+"""The training loop (counterpart of ``fourierflow_tpu/trainers/trainer.py``
+on one device).
 
-``fit`` runs ``max_epochs`` epochs over the builder's shuffled train
-batches. When the routine normalizes, epoch 0 only gathers normalizer
-statistics; every later batch is one ``train_step``. After each epoch the
-merged train metrics are checked for NaN, validation runs every
-``check_val_every_n_epoch`` epochs, and the callbacks' ``on_epoch_end``
-hooks run. The noise of each step comes from a generator on the state's
-device seeded from the trainer's seed and the global step. Loss values
-stay on the device until the epoch ends, so the loop does not wait for
-the card between steps (the first step's value is fetched for the log).
+``fit`` runs ``max_epochs`` epochs. When the routine normalizes, epoch 0
+only gathers normalizer statistics; every later batch is one
+``train_step``. After each epoch the train metrics are checked for NaN,
+validation runs every ``check_val_every_n_epoch`` epochs, and the
+callbacks' ``on_epoch_end`` hooks run. The noise of each step comes from a
+generator on the state's device seeded from the trainer's seed and the
+global step (``step_generator``).
+
+An epoch takes one of two paths, chosen as the JAX package chooses them:
+
+- the device-resident epoch (the default: ``fast_loop`` set, no
+  ``limit_train_batches``, and a builder with ``train_data`` or
+  ``device_train_data``): the train set goes to the device once a fit,
+  each epoch draws ``epoch_permutation`` on the CPU, copies it to the
+  device once, gathers each batch there with ``sample_fn(data, idx)`` and
+  drops the trailing partial batch (``make_scan_epoch_indexed``); the
+  step metrics stay on the device and their unweighted mean is fetched
+  once an epoch;
+- the per-batch loop (``fast_loop=False``, a limit, ``fast_dev_run``, or a
+  builder without either, such as the multi-resolution Kolmogorov
+  dataset): the builder's shuffled host batches, the last one partial,
+  metrics merged by batch size and the first step's loss logged.
+
+With ``fast_loop`` a dict of numpy arrays as the ``valid_data`` or
+``test_data`` of a builder is uploaded once and sliced on the device
+(``evaluate``).
 
 With ``auto_remat`` (the default) ``fit`` first estimates the train step's
 saved activations from the model's layers and width and the sample batch's
 shape, and turns the model's per-layer remat on when they would take more
 than 60% of the device's memory (``_maybe_enable_remat``). The JAX
-package's meshes and scanned-epoch fast path are not ported.
+package's meshes (data, tensor and spatial parallelism) and its dispatch
+chunking are not ported.
 """
 
+import inspect
 import logging
 import time
 from typing import Optional, Sequence
@@ -30,7 +49,8 @@ from ..routines.base import Routine, State
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["Trainer"]
+__all__ = ["Trainer", "epoch_permutation", "gather", "make_scan_epoch", "make_scan_epoch_indexed",
+           "step_generator", "to_device"]
 
 # Saved activations of an unremat train step, in layer-input-sized tensors a
 # layer (``n_layers * batch * cells * width``, the cells those of the batch's
@@ -74,6 +94,88 @@ def _numpy(metrics) -> dict:
             for k, v in metrics.items()}
 
 
+def step_generator(seed: int, global_step: int, device) -> torch.Generator:
+    """The noise generator of a train step: on ``device``, seeded from the
+    trainer's seed and the step's global index."""
+    s = np.random.SeedSequence([seed, global_step]).generate_state(1)[0]
+    return torch.Generator(device=device).manual_seed(int(s))
+
+
+def epoch_permutation(seed: int, epoch: int, n_items: int, batch_size: int) -> torch.Tensor:
+    """The items of an epoch's batches, ``[n_items // batch_size,
+    batch_size]`` int64 on the CPU: a permutation of ``range(n_items)``
+    drawn from a CPU generator seeded from ``(seed, epoch)``, the trailing
+    partial batch dropped. It is drawn on the CPU because ``torch.randperm``
+    orders differ between CPU and CUDA generators: so the card and a CPU
+    copy see the same batches."""
+    s = np.random.SeedSequence([seed, epoch]).generate_state(1)[0]
+    perm = torch.randperm(n_items, generator=torch.Generator().manual_seed(int(s)))
+    n_batches = n_items // batch_size
+    return perm[:n_batches * batch_size].reshape(n_batches, batch_size)
+
+
+def gather(data, idx):
+    """A batch of a dict of aligned arrays: the rows ``idx`` of each."""
+    return {k: v[idx] for k, v in data.items()}
+
+
+def to_device(tree, device):
+    """A dict, tuple or list of numpy arrays or tensors as tensors on
+    ``device``, each dtype kept (a read-only array is copied first)."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(to_device(v, device) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    a = np.asarray(tree)
+    return torch.as_tensor(a if a.flags.writeable else a.copy(), device=device)
+
+
+def make_scan_epoch(routine: Routine, batch_size: int, accumulate: bool = False, seed: int = 0):
+    """The device-resident epoch over a dict of aligned tensors (the
+    identity gather of ``make_scan_epoch_indexed``)."""
+    return make_scan_epoch_indexed(routine, batch_size, None, gather, accumulate, seed)
+
+
+def make_scan_epoch_indexed(routine: Routine, batch_size: int, n_items: Optional[int],
+                            sample_fn, accumulate: bool = False, seed: int = 0):
+    """A whole epoch over a train set that already lives on the state's
+    device: ``epoch_fn(state, data, epoch, first_step=0) -> (state,
+    metrics)``.
+
+    ``data`` is whatever ``sample_fn(data, idx)`` gathers a batch from on the
+    device (``idx`` a row of ``epoch_permutation(seed, epoch, n_items,
+    batch_size)``); ``n_items`` None is the length of ``data``'s first
+    array. Each batch is one ``routine.train_step`` with the generator of
+    global step ``first_step + i`` (``step_generator``), or with
+    ``accumulate`` one ``accumulate_step``. ``metrics`` is the unweighted
+    mean of the steps' metrics as floats, fetched once (empty with
+    ``accumulate``)."""
+
+    def epoch_fn(state, data, epoch: int, first_step: int = 0):
+        n = n_items if n_items is not None else len(next(iter(data.values())))
+        device = state.device
+        perm = epoch_permutation(seed, epoch, n, batch_size).to(device)
+        steps = []
+        for i, idx in enumerate(perm):
+            batch = sample_fn(data, idx)
+            if accumulate:
+                state = routine.accumulate_step(state, batch)
+                continue
+            state, metrics = routine.train_step(state, batch,
+                                                step_generator(seed, first_step + i, device))
+            steps.append(metrics)
+        if not steps:
+            return state, {}
+        keys = list(steps[0])
+        means = torch.stack([torch.stack([torch.as_tensor(m[k], device=device) for m in steps])
+                             .float().mean() for k in keys])
+        return state, dict(zip(keys, means.tolist()))
+
+    return epoch_fn
+
+
 def _estimate_activation_bytes(model, sample_batch) -> Optional[int]:
     """The saved activations of an unremat train step of a model with
     per-layer remat: ``n_layers * batch * cells * width * itemsize`` (2
@@ -108,7 +210,7 @@ class Trainer:
     def __init__(self, max_epochs: int = 1, limit_train_batches: Optional[int] = None,
                  limit_val_batches: Optional[int] = None, callbacks: Sequence = (), seed: int = 0,
                  log_every_n_steps: int = 100, check_val_every_n_epoch: int = 1, device=None,
-                 auto_remat: bool = True):
+                 auto_remat: bool = True, fast_loop: bool = True):
         self.max_epochs = max_epochs
         self.limit_train_batches = limit_train_batches
         self.limit_val_batches = limit_val_batches
@@ -118,6 +220,8 @@ class Trainer:
         self.check_val_every_n_epoch = check_val_every_n_epoch
         self.device = resolve_device(device)
         self.auto_remat = auto_remat
+        self.fast_loop = fast_loop
+        self._eval_cache = {}  # (builder, split) -> its evaluation set on the device
         self.logs = {}
         self.current_epoch = 0
         self.global_step = 0
@@ -131,8 +235,31 @@ class Trainer:
 
     def step_generator(self, device) -> torch.Generator:
         """The noise generator of the current global step."""
-        seed = np.random.SeedSequence([self.seed, self.global_step]).generate_state(1)[0]
-        return torch.Generator(device=device).manual_seed(int(seed))
+        return step_generator(self.seed, self.global_step, device)
+
+    @staticmethod
+    def _device_protocol(routine: Routine, builder):
+        """``builder.device_train_data()`` -> ``(data, sample_fn, n_items)``,
+        given the routine's ``device_data_fields`` where it takes ``fields``
+        (read from its signature, so that a TypeError raised inside is not
+        taken for a missing argument); None for a builder without it or
+        whose train set raises AttributeError (the multi-resolution
+        dataset)."""
+        proto_fn = getattr(builder, "device_train_data", None)
+        if proto_fn is None:
+            return None
+        fields = getattr(routine, "device_data_fields", None)
+        takes_fields = False
+        if fields:
+            try:
+                takes_fields = any(p.name == "fields" or p.kind is inspect.Parameter.VAR_KEYWORD
+                                   for p in inspect.signature(proto_fn).parameters.values())
+            except (TypeError, ValueError):
+                pass
+        try:
+            return proto_fn(fields=fields) if takes_fields else proto_fn()
+        except AttributeError:
+            return None
 
     def _maybe_enable_remat(self, routine: Routine, builder) -> None:
         """Turn the model's per-layer remat on (the same parameters) when the
@@ -169,32 +296,34 @@ class Trainer:
         self._hook("on_fit_start", routine, state)
         normalizes = getattr(routine, "should_normalize", False)
 
+        fast = self.fast_loop and self.limit_train_batches is None
+        proto = self._device_protocol(routine, builder) if fast else None
+        fast = fast and (proto is not None or hasattr(builder, "train_data"))
+        if fast:
+            data, sample_fn, n_items = proto if proto is not None else (
+                builder.train_data, gather, len(next(iter(builder.train_data.values()))))
+            data = to_device(data, state.device)
+            train_epoch, acc_epoch = (
+                make_scan_epoch_indexed(routine, builder.batch_size, n_items, sample_fn,
+                                        accumulate=acc, seed=self.seed) for acc in (False, True))
+            n_batches = n_items // builder.batch_size
+
         for epoch in range(self.max_epochs):
             self.current_epoch = epoch
             t0 = time.time()
-            train_metrics = []
-            for i, batch in enumerate(builder.train_batches(rng)):
-                if self.limit_train_batches and i >= self.limit_train_batches:
-                    break
+            if fast:
                 if epoch == 0 and normalizes:
-                    state = routine.accumulate_step(state, batch)
-                    continue
-                state, metrics = routine.train_step(state, batch,
-                                                    self.step_generator(state.device))
-                self.global_step += 1
-                train_metrics.append((metrics, batch_count(batch)))
-                if self.global_step == 1 or (i + 1) % self.log_every_n_steps == 0:
-                    logger.info("epoch %d step %d (global %d): loss %.4f", epoch, i + 1,
-                                self.global_step, float(metrics["train_loss"]))
-
-            if train_metrics:
-                merged = _weighted_merge([(_numpy(m), w) for m, w in train_metrics])
-                scalars = {k: float(v) for k, v in merged.items()}
-                for k, v in scalars.items():
-                    if v != v:
-                        raise FloatingPointError(
-                            f"{k} is NaN at epoch {epoch} (step {self.global_step})")
-                self.logs.update(scalars)
+                    state, _ = acc_epoch(state, data, epoch)
+                else:
+                    state, scalars = train_epoch(state, data, epoch, self.global_step)
+                    self.global_step += n_batches
+                    self._check_nan(scalars, epoch)
+                    self.logs.update(scalars)
+                    logger.info("epoch %d: %d steps on the device (global %d): %s", epoch,
+                                n_batches, self.global_step,
+                                ", ".join(f"{k} {v:.4f}" for k, v in scalars.items()))
+            else:
+                state = self._batch_epoch(routine, builder, state, rng, epoch, normalizes)
 
             if (epoch + 1) % self.check_val_every_n_epoch == 0:
                 self.logs.update(self.evaluate(routine, builder, state, split="valid"))
@@ -206,10 +335,53 @@ class Trainer:
 
         return self._hook("on_fit_end", routine, state, allow_replace=True)
 
+    def _batch_epoch(self, routine: Routine, builder, state: State, rng, epoch: int,
+                     normalizes: bool) -> State:
+        """One epoch of the per-batch loop over ``builder.train_batches(rng)``."""
+        train_metrics = []
+        for i, batch in enumerate(builder.train_batches(rng)):
+            if self.limit_train_batches and i >= self.limit_train_batches:
+                break
+            if epoch == 0 and normalizes:
+                state = routine.accumulate_step(state, batch)
+                continue
+            state, metrics = routine.train_step(state, batch, self.step_generator(state.device))
+            self.global_step += 1
+            train_metrics.append((metrics, batch_count(batch)))
+            if self.global_step == 1 or (i + 1) % self.log_every_n_steps == 0:
+                logger.info("epoch %d step %d (global %d): loss %.4f", epoch, i + 1,
+                            self.global_step, float(metrics["train_loss"]))
+        if train_metrics:
+            merged = _weighted_merge([(_numpy(m), w) for m, w in train_metrics])
+            scalars = {k: float(v) for k, v in merged.items()}
+            self._check_nan(scalars, epoch)
+            self.logs.update(scalars)
+        return state
+
+    def _check_nan(self, scalars: dict, epoch: int) -> None:
+        for k, v in scalars.items():
+            if v != v:
+                raise FloatingPointError(f"{k} is NaN at epoch {epoch} (step {self.global_step})")
+
+    def _eval_batches(self, builder, split: str, device):
+        """The split's batches: with ``fast_loop``, a ``{split}_data`` dict of
+        numpy arrays uploaded once (cached by builder and split) and sliced on
+        the device; else ``val_batches()`` / ``test_batches()``."""
+        data = getattr(builder, f"{split}_data", None)
+        if not (self.fast_loop and isinstance(data, dict) and data
+                and all(isinstance(v, np.ndarray) for v in data.values())):
+            return builder.val_batches() if split == "valid" else builder.test_batches()
+        key = (builder, split)
+        if key not in self._eval_cache:
+            self._eval_cache[key] = to_device(data, device)
+        resident = self._eval_cache[key]
+        n, bs = len(next(iter(resident.values()))), builder.batch_size
+        return (gather(resident, slice(s, s + bs)) for s in range(0, n, bs))
+
     def evaluate(self, routine: Routine, builder, state: State, split: str = "valid") -> dict:
-        """``valid_step`` over the split's batches, merged by batch size, as
-        ``{f"{split}_{metric}": value}``."""
-        batches = builder.val_batches() if split == "valid" else builder.test_batches()
+        """``valid_step`` over the split's batches (``_eval_batches``), merged
+        by batch size, as ``{f"{split}_{metric}": value}``."""
+        batches = self._eval_batches(builder, split, state.device)
         metric_list = []
         for i, batch in enumerate(batches):
             if self.limit_val_batches and i >= self.limit_val_batches:

@@ -372,7 +372,7 @@ SHRINK_2D = ["builder.train_size=4", "builder.valid_size=2", "builder.test_size=
              "builder.batch_size=2", "routine.model.n_layers=2", "routine.model.width=8",
              "routine.model.modes_x=5", "routine.model.modes_y=4", "trainer.max_epochs=2"]
 SHRINK_3D = ["builder.train_size=2", "builder.valid_size=1", "builder.test_size=1",
-             "builder.s1=12", "builder.s2=10", "builder.t=8", "routine.model.n_layers=2",
+             "builder.batch_size=2", "builder.s1=12", "builder.s2=10", "builder.t=8", "routine.model.n_layers=2",
              "routine.model.width=8", "routine.model.modes1=4", "routine.model.modes2=3",
              "routine.model.modes3=3", "trainer.max_epochs=1"]
 

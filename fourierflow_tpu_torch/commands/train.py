@@ -18,8 +18,14 @@ schedule. As in the reference, a resumed fit is not the rest of an uncut
 one: it runs ``max_epochs`` epochs from epoch 0 with the trainer's
 ``global_step`` from 0, and a normalizing routine's epoch 0 adds statistics
 to the restored ones. ``profile_dir`` writes a ``torch.profiler`` trace of
-the fit. The JAX package's tensor and spatial parallelism are not ported
-and raise.
+the fit.
+
+Under ``torchrun --nproc-per-node N -m fourierflow_tpu_torch.commands train
+...`` each process joins the process group (``parallel.init_distributed``)
+and drives ``cuda:LOCAL_RANK``; the trainer node's ``data_parallel``,
+``tensor_parallel`` and ``spatial_parallel`` choose the mesh, as in the JAX
+package. The ranks share rank 0's run directory, and the test pass takes
+rank 0's best checkpoint (none under tensor parallelism, as in JAX).
 """
 
 import glob
@@ -33,8 +39,11 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+import torch.distributed as dist
+
 from ..config import instantiate, load_config
 from ..device import resolve_device
+from ..parallel import init_distributed, is_rank0, world_size
 from ..routines.base import make_optimizer
 from ..schedulers import (cosine_with_warmup, exponential_with_warmup, linear_with_warmup,
                           step_lr, swa_lr)
@@ -88,9 +97,11 @@ def build_routine(routine_cfg: dict, builder=None):
 
 
 def build_trainer(trainer_cfg: Optional[dict], callbacks=(), device=None) -> Trainer:
-    """The Trainer a config's ``trainer`` node describes. ``data_parallel``
-    is accepted (one device has nothing to split); ``tensor_parallel`` or
-    ``spatial_parallel`` above 1 raise.
+    """The Trainer a config's ``trainer`` node describes, with its
+    ``data_parallel``, ``tensor_parallel`` and ``spatial_parallel`` (the
+    mesh is built over the process group: a ``tensor_parallel`` or
+    ``spatial_parallel`` above its ranks raises, as JAX's mesh does above
+    the devices).
 
     The Trainer keeps ``fast_loop`` on, as the JAX package's does, so
     ``train`` runs the device-resident epoch (the whole train set on the
@@ -99,10 +110,6 @@ def build_trainer(trainer_cfg: Optional[dict], callbacks=(), device=None) -> Tra
     learned interpolation's configs set 4,000), ``fast_dev_run`` and the
     multi-resolution Kolmogorov dataset take the per-batch loop."""
     cfg = dict(trainer_cfg or {})
-    for key in ("tensor_parallel", "spatial_parallel"):
-        if cfg.get(key, 1) > 1:
-            raise NotImplementedError(f"trainer.{key}={cfg[key]} is not ported yet (ROADMAP A9: "
-                                      "parallel/mesh.py and the Trainer's mesh)")
     limit = cfg.get("limit_train_batches")
     if isinstance(limit, float):
         limit = None if limit >= 1.0 else max(1, int(limit))
@@ -117,6 +124,9 @@ def build_trainer(trainer_cfg: Optional[dict], callbacks=(), device=None) -> Tra
         check_val_every_n_epoch=cfg.get("check_val_every_n_epoch", 1),
         callbacks=list(callbacks),
         device=device,
+        tensor_parallel=cfg.get("tensor_parallel", 1),
+        spatial_parallel=cfg.get("spatial_parallel", 1),
+        data_parallel=cfg.get("data_parallel", True),
     )
 
 
@@ -134,16 +144,28 @@ def restore_state(routine, builder, device, trial: int = 0, checkpoint_path: Opt
     return state
 
 
-def resolve_test_state(callbacks, state):
+def resolve_test_state(callbacks, state, trainer=None):
     """The state for the test pass: the best monitored checkpoint when one
-    was saved, else the final state."""
+    was saved, else the final state. In a parallel fit rank 0's choice
+    holds for every rank (only rank 0 ran the checkpoint callback); under
+    tensor parallelism the final state is tested, as in the JAX package."""
+    mesh = getattr(trainer, "mesh", None)
+    if mesh is not None and "model" in mesh.mesh_dim_names:
+        return state
+    best = None
     for cb in callbacks:
         if (isinstance(cb, ModelCheckpoint) and cb.monitor is not None and cb.best_path
                 and os.path.exists(cb.best_path)):
-            logger.info("testing with best checkpoint %s (%s=%.6g)", cb.best_path, cb.monitor,
-                        cb.best)
-            return load_state(cb.best_path, state)
-    return state
+            best = (cb.best_path, cb.monitor, cb.best)
+            break
+    if world_size() > 1:
+        shared = [best]
+        dist.broadcast_object_list(shared, src=0)
+        best = shared[0]
+    if best is None:
+        return state
+    logger.info("testing with best checkpoint %s (%s=%.6g)", *best)
+    return load_state(best[0], state)
 
 
 def experiment_dir(config_path: str) -> str:
@@ -199,6 +221,8 @@ def main(config_path: str, overrides: Optional[List[str]] = None, trial: int = 0
     ``force``, ``resume`` or ``checkpoint_path`` is given. Returns
     ``(trainer, state)``."""
     dev = resolve_device(device)
+    if int(os.environ.get("WORLD_SIZE", 1)) > 1:  # started by torchrun
+        init_distributed(dev)
     cfg = load_config(config_path, overrides)
     seed = 7231 + trial
 
@@ -223,6 +247,10 @@ def main(config_path: str, overrides: Optional[List[str]] = None, trial: int = 0
             checkpoint_path = found[-1]
             logger.info("resuming from %s", checkpoint_path)
     run_dir = _run_dir(config_dir, trial)
+    if world_size() > 1:  # every rank writes (through rank 0) into rank 0's directory
+        shared = [run_dir]
+        dist.broadcast_object_list(shared, src=0)
+        run_dir = shared[0]
 
     callbacks = instantiate(cfg.get("callbacks", [])) or []
     if not any(isinstance(cb, ModelCheckpoint) for cb in callbacks):
@@ -244,6 +272,7 @@ def main(config_path: str, overrides: Optional[List[str]] = None, trial: int = 0
     with trace(profile_dir, enabled=bool(profile_dir), device=dev):
         state = trainer.fit(routine, builder, state=state)
     if not no_test:
-        logs = trainer.test(routine, builder, resolve_test_state(callbacks, state))
-        logger.info("test logs: %s", {k: v for k, v in logs.items() if np.ndim(v) == 0})
+        logs = trainer.test(routine, builder, resolve_test_state(callbacks, state, trainer))
+        if is_rank0():
+            logger.info("test logs: %s", {k: v for k, v in logs.items() if np.ndim(v) == 0})
     return trainer, state

@@ -1,7 +1,8 @@
 // One branch of the F-FNO spectral mix along one grid axis, forward pass:
 //   out (+)= irdft_axis( W . rdft_axis(x) )
 // with the truncated orthonormal real DFT, M modes and per-mode complex
-// C x C channel mixing W = Wr + i Wi.
+// C_in x C_out channel mixing W = Wr + i Wi (C_out = C_in in the model; a
+// column shard of the weights, C_out = C_in / tp, under tensor parallelism).
 //
 // Replaces the TPU kernel fourierflow_tpu/ops/pallas_spectral.py::
 // _make_mix_kernel (+ _branch), launched by _mix_pallas. The TPU kernel keeps
@@ -23,20 +24,24 @@
 // shared memory depends on MC and not on M; the regions below hold one
 // chunk, and M reads MC there.
 // Shared memory (smem_layout below; every region a multiple of 16 bytes):
-//   ws [WS][IC][C][M][2] weight ring: WS = 2 stages of IC = 4 input channels,
-//                        in the weights' own type (64 KiB in f32)
-//   xr [XS][LB][TC][C]   x ring: XS = 2 stages of TC = 8 samples of every
+//   ws [WS][IC][CO][M][2] weight ring: WS = 2 stages of IC = 4 input
+//                        channels, in the weights' own type (64 KiB in f32)
+//   xr [XS][LB][TC][CI]  x ring: XS = 2 stages of TC = 8 samples of every
 //                        line, in x's type (40 KiB in f32)
 //   et [n][KP]           forward basis, columns interleaved (2m real, 2m + 1
 //                        imaginary), zero-padded to KP (a multiple of 8)
 //   cb [2M][NP]          inverse basis, rows interleaved, zero-padded to NP
 //                        (a multiple of 8) samples
-//   s  [LB][C][KS]       spectra, then the mixed spectra over them; KS =
-//                        2 (M | 1), so a row is an odd number of 8-byte pairs
-//                        and pair accesses of consecutive c fall in distinct banks
-//   lb [LB]              each line's offset in x and out (int64)
-// At the flagship that is 65,536 + 40,960 + 8,192 + 8,192 + 87,040 + 80 =
-// 210,000 bytes in f32 (189,520 for bf16 x, 156,752 for bf16 x and weights).
+//   s  [LB][max(CI, CO)][KS] spectra [LB][CI], then the mixed spectra
+//                        [LB][CO] over them; KS = 2 (M | 1), so a row is an
+//                        odd number of 8-byte pairs and pair accesses of
+//                        consecutive c fall in distinct banks
+//   lb [LB]              each line's offset in x (int64)
+// CI and CO are the input's and the output's channels (C_out of the weights,
+// or C_in for the adjoint, which reads them transposed); each equals C in the
+// model. At the flagship that is 65,536 + 40,960 + 8,192 + 8,192 + 87,040 +
+// 80 = 210,000 bytes in f32 (189,520 for bf16 x, 156,752 for bf16 x and
+// weights).
 //
 // Phases of a block:
 // 1. Forward product s[l, c, k] = sum_t x[l, t, c] et[t, k]. x streams
@@ -47,13 +52,14 @@
 //    registers): at the flagship exactly one item a thread. Wider spectra
 //    take more passes over x.
 // 2. Mix. A thread owns one mode m and P output channels o (o = og + j G,
-//    G = NT / M; P = 2 at the flagship), for all LB lines, in registers. The
+//    G = NT / M; P = 2 at the flagship, 1 at C_out 32), for all LB lines, in
+//    registers. The
 //    weights stream through their ring in chunks of IC input channels by
 //    cp.async (16-byte pieces of each contiguous (i, o) run of 2M values, or
 //    one (re, im) pair a copy), chunk k + 1 in flight while chunk k mixes
 //    (chunk 0 is copied during phase 1);
 //    each chunk crosses L2 once a block and serves all LB lines. The i-sum
-//    runs i = 0..C-1 in order, yr = fma(sr, a, fma(-si, b, yr)). After a
+//    runs i = 0..CI-1 in order, yr = fma(sr, a, fma(-si, b, yr)). After a
 //    barrier the mixed spectra overwrite s.
 // 3. Inverse and store: out[l, t, o] = sum_k y[l, o, k] cb[k, t]; a thread
 //    owns one o, LG lines and SC = 8 samples; warps store 32 consecutive o,
@@ -163,27 +169,27 @@ struct SmemLayout {
   int K, KP, KS, NP;
   size_t ws, xr, et, cb, s, lb, total;
 };
-__host__ __device__ __forceinline__ SmemLayout smem_layout(int n, int chunk, int c, int x_size,
-                                                           int w_size) {
+__host__ __device__ __forceinline__ SmemLayout smem_layout(int n, int chunk, int ci, int co,
+                                                           int x_size, int w_size) {
   SmemLayout L;
   L.K = 2 * chunk;
   L.KP = round_up(L.K, KC);
   L.KS = 2 * (chunk | 1);
   L.NP = round_up(n, SC);
   L.ws = 0;
-  L.xr = L.ws + (size_t)WS * IC * c * L.K * w_size;
-  L.et = L.xr + (size_t)XS * LB * TC * c * x_size;
+  L.xr = L.ws + (size_t)WS * IC * co * L.K * w_size;
+  L.et = L.xr + (size_t)XS * LB * TC * ci * x_size;
   L.cb = L.et + (size_t)n * L.KP * 4;
   L.s = L.cb + (size_t)L.K * L.NP * 4;
-  L.lb = L.s + (size_t)LB * c * L.KS * 4;
+  L.lb = L.s + (size_t)LB * (ci > co ? ci : co) * L.KS * 4;
   L.total = L.lb + (size_t)LB * 8;
   return L;
 }
 
-// Output channels per thread and mode in the mix (0 if C is too wide).
-__host__ __device__ __forceinline__ int mix_pairs(int chunk, int c) {
+// Output channels per thread and mode in the mix (0 if C_out is too wide).
+__host__ __device__ __forceinline__ int mix_pairs(int chunk, int co) {
   const int g = NT / chunk;
-  const int pr = g > 0 ? (c + g - 1) / g : PMAX + 1;
+  const int pr = g > 0 ? (co + g - 1) / g : PMAX + 1;
   return pr <= PMAX ? pr : 0;
 }
 
@@ -191,9 +197,10 @@ __host__ __device__ __forceinline__ int mix_pairs(int chunk, int c) {
 // the mix's thread mapping; else the largest multiple of 4 that fits (or 3,
 // 2, 1), evened out over the chunks it needs (M 64 at n 256: 12 x 5 + 4).
 // 0 if not even one mode fits.
-int mode_chunk(int n, int modes, int c, int x_size, int w_size) {
+int mode_chunk(int n, int modes, int ci, int co, int x_size, int w_size) {
   auto fits = [&](int mc) {
-    return smem_layout(n, mc, c, x_size, w_size).total <= (size_t)kMaxSmem && mix_pairs(mc, c) > 0;
+    return smem_layout(n, mc, ci, co, x_size, w_size).total <= (size_t)kMaxSmem &&
+           mix_pairs(mc, co) > 0;
   };
   if (fits(modes)) return modes;
   int best = 0;
@@ -218,19 +225,20 @@ struct Params {
   bool x_vec, w_vec;  // stage x / the weights in 16-byte pieces
   const float* prev;
   float* acc;  // the output's partial sums between mode chunks (f32, out's layout)
-  TO* out;
+  TO* out;  // prev and acc have out's layout
   int n_lines, lines_per_batch;
-  int64_t batch_stride, line_stride, elem_stride;
-  int n, modes, chunk, c;
+  int64_t batch_stride, line_stride, elem_stride;        // of x
+  int64_t o_batch_stride, o_line_stride, o_elem_stride;  // of out
+  int n, modes, chunk, ci, co;
 };
 
 template <typename TI, typename TW, typename TO, int P>
 __global__ void __launch_bounds__(NT, 1) spectral_axis_kernel(const Params<TI, TW, TO> p) {
   extern __shared__ float4 smem4[];
   char* smem = reinterpret_cast<char*>(smem4);
-  const int n = p.n, M = p.modes, MC = p.chunk, C = p.c;
+  const int n = p.n, M = p.modes, MC = p.chunk, CI = p.ci, CO = p.co;
   const int nch = (M + MC - 1) / MC;  // mode chunks
-  const SmemLayout L = smem_layout(n, MC, C, sizeof(TI), sizeof(TW));
+  const SmemLayout L = smem_layout(n, MC, CI, CO, sizeof(TI), sizeof(TW));
   const int K = L.K, KP = L.KP, KS = L.KS, NP = L.NP;  // of a whole chunk
   TW* ws = reinterpret_cast<TW*>(smem + L.ws);
   TI* xr = reinterpret_cast<TI*>(smem + L.xr);
@@ -240,18 +248,18 @@ __global__ void __launch_bounds__(NT, 1) spectral_axis_kernel(const Params<TI, T
 
   const int tid = threadIdx.x;
   const int line0 = blockIdx.x * LB;
-  const int x_stage = LB * TC * C;  // elements of one x stage
-  const int w_stage = IC * C * K;   // elements of one weight stage
+  const int x_stage = LB * TC * CI;  // elements of one x stage
+  const int w_stage = IC * CO * K;   // elements of one weight stage
   const int nq_t = (n + TC - 1) / TC;
   // The forward product's items (line group, column chunk, c) and passes.
   const int kch = KP / KC;
-  const int items = (LB / LG) * kch * C;
+  const int items = (LB / LG) * kch * CI;
   const int passes = (items + NT - 1) / NT;
   const int nq = nch * passes * nq_t;  // x chunks over all passes and mode chunks
-  const int nk = (C + IC - 1) / IC;    // weight chunks of a mode chunk
+  const int nk = (CI + IC - 1) / IC;   // weight chunks of a mode chunk
 
-  // Offset in x and out of each line of the block (sample 0, channel 0), -1
-  // past n_lines.
+  // Offset in x of each line of the block (sample 0, channel 0), -1 past
+  // n_lines; phase 3 computes the lines' offsets in out from their index.
   int64_t* lbase = reinterpret_cast<int64_t*>(smem + L.lb);
   if (tid < LB) {
     const int g = line0 + tid;
@@ -265,7 +273,7 @@ __global__ void __launch_bounds__(NT, 1) spectral_axis_kernel(const Params<TI, T
   // staging x divides by nothing: the 16-byte column xe of the rows
   // xrow0 + j rsx.
   constexpr int EX = 16 / sizeof(TI), EW = 16 / sizeof(TW);
-  const int px = max(C / EX, 1);  // pieces of a row
+  const int px = max(CI / EX, 1);  // pieces of a row
   const int rsx = NT / px;
   const int xe = tid % px * EX, xrow0 = tid / px;
 
@@ -283,17 +291,17 @@ __global__ void __launch_bounds__(NT, 1) spectral_axis_kernel(const Params<TI, T
           const int64_t base = lbase[r / TC];
           if (tt >= rows) continue;
           const bool on = base >= 0;
-          cp_async16(dst + r * C + xe, on ? p.x + base + (t0 + tt) * p.elem_stride + xe : p.x,
+          cp_async16(dst + r * CI + xe, on ? p.x + base + (t0 + tt) * p.elem_stride + xe : p.x,
                      on ? 16 : 0);
         }
       } else {
-        for (int i = tid; i < LB * rows * C; i += NT) {
-          const int l = i / (rows * C);
-          const int rem = i - l * rows * C;
-          const int tt = rem / C;
-          const int c = rem - tt * C;
+        for (int i = tid; i < LB * rows * CI; i += NT) {
+          const int l = i / (rows * CI);
+          const int rem = i - l * rows * CI;
+          const int tt = rem / CI;
+          const int c = rem - tt * CI;
           const int64_t base = lbase[l];
-          dst[(l * TC + tt) * C + c] =
+          dst[(l * TC + tt) * CI + c] =
               base >= 0 ? p.x[base + (t0 + tt) * p.elem_stride + c] : from_f<TI>(0.f);
         }
       }
@@ -306,16 +314,17 @@ __global__ void __launch_bounds__(NT, 1) spectral_axis_kernel(const Params<TI, T
   // of 2 MC values), the first at (wi0, wo0), each rsw runs on (wdi, wdo).
   const int pw = max(K / EW, 1), rsw = NT / pw;
   const int we = tid % pw * EW, wrun0 = tid / pw;
-  const int wi0 = wrun0 / C, wo0 = wrun0 - wi0 * C;
-  const int wdi = rsw / C, wdo = rsw - wdi * C;
+  const int wi0 = wrun0 / CO, wo0 = wrun0 - wi0 * CO;
+  const int wdi = rsw / CO, wdo = rsw - wdi * CO;
 
   // Start the copy of weight chunk k (input channels IC k onwards) of mode
-  // chunk ch < nch into stage (ch nk + k) % WS, laid out [i][o][MC][2]. One
+  // chunk ch < nch into stage (ch nk + k) % WS, laid out [i][o][MC][2]
+  // (CO runs of each of IC input channels). One
   // commit group, empty for ch >= nch.
   auto stage_w = [=](int ch, int k) {
     if (ch < nch) {
       const int i0 = k * IC;
-      const int ni = min(IC, C - i0);
+      const int ni = min(IC, CI - i0);
       const int m0 = ch * MC, mc = min(MC, M - m0);
       TW* dst = ws + ((ch * nk + k) % WS) * w_stage;
       const TW* src = p.w + i0 * p.w_si + 2 * m0;
@@ -324,19 +333,19 @@ __global__ void __launch_bounds__(NT, 1) spectral_axis_kernel(const Params<TI, T
         if (mc != MC) {  // a last, shorter chunk: its own share
           const int pl = 2 * mc / EW;
           rs = NT / pl, e = tid % pl * EW, r0 = tid / pl;
-          di = rs / C, dd = rs - di * C, ii = r0 / C, o = r0 - ii * C;
+          di = rs / CO, dd = rs - di * CO, ii = r0 / CO, o = r0 - ii * CO;
         }
-        for (int r = r0; r < ni * C && r0 < rs; r += rs) {
+        for (int r = r0; r < ni * CO && r0 < rs; r += rs) {
           cp_async16(dst + r * K + e, src + ii * p.w_si + o * p.w_so + e, 16);
           ii += di, o += dd;
-          if (o >= C) o -= C, ++ii;
+          if (o >= CO) o -= CO, ++ii;
         }
       } else {
-        for (int i = tid; i < ni * C * mc; i += NT) {
+        for (int i = tid; i < ni * CO * mc; i += NT) {
           const int run = i / mc;
           const int m = i - run * mc;
-          const int ii = run / C;
-          const int o = run - ii * C;
+          const int ii = run / CO;
+          const int o = run - ii * CO;
           cp_async_ca<(int)(2 * sizeof(TW))>(dst + run * K + 2 * m,
                                              src + ii * p.w_si + o * p.w_so + 2 * m);
         }
@@ -375,9 +384,9 @@ __global__ void __launch_bounds__(NT, 1) spectral_axis_kernel(const Params<TI, T
     for (int pass = 0; pass < passes; ++pass) {
       const int item = tid + pass * NT;
       const bool active = item < items;
-      const int c = item % C;
-      const int kc = (item / C) % kch;
-      const int grp = item / (C * kch);
+      const int c = item % CI;
+      const int kc = (item / CI) % kch;
+      const int grp = item / (CI * kch);
       float acc[LG][KC];
 #pragma unroll
       for (int l = 0; l < LG; ++l)
@@ -395,7 +404,7 @@ __global__ void __launch_bounds__(NT, 1) spectral_axis_kernel(const Params<TI, T
         stage_x(q + XS - 1);
         if (!active) continue;
         const int rows = min(TC, n - tq * TC);
-        const TI* xb = xr + (q % XS) * x_stage + grp * LG * TC * C + c;
+        const TI* xb = xr + (q % XS) * x_stage + grp * LG * TC * CI + c;
         const float* eb = et + tq * TC * KP + kc * KC;
 #pragma unroll
         for (int tt = 0; tt < TC; ++tt) {
@@ -404,7 +413,7 @@ __global__ void __launch_bounds__(NT, 1) spectral_axis_kernel(const Params<TI, T
             const float4 e1 = *reinterpret_cast<const float4*>(eb + tt * KP + 4);
 #pragma unroll
             for (int l = 0; l < LG; ++l) {
-              const float xv = to_f(xb[(l * TC + tt) * C]);
+              const float xv = to_f(xb[(l * TC + tt) * CI]);
               acc[l][0] = fmaf(xv, e0.x, acc[l][0]);
               acc[l][1] = fmaf(xv, e0.y, acc[l][1]);
               acc[l][2] = fmaf(xv, e0.z, acc[l][2]);
@@ -420,7 +429,7 @@ __global__ void __launch_bounds__(NT, 1) spectral_axis_kernel(const Params<TI, T
       if (active) {
 #pragma unroll
         for (int l = 0; l < LG; ++l) {
-          float* sl = s + ((grp * LG + l) * C + c) * KS + kc * KC;
+          float* sl = s + ((grp * LG + l) * CI + c) * KS + kc * KC;
 #pragma unroll
           for (int j = 0; j < KC; j += 2)
             if (kc * KC + j < K)
@@ -454,7 +463,7 @@ __global__ void __launch_bounds__(NT, 1) spectral_axis_kernel(const Params<TI, T
           stage_w(ch + 1, 0);
         if (!mixer) continue;
         const TW* wst = ws + ((ch * nk + k) % WS) * w_stage;
-        const int ni = min(IC, C - k * IC);
+        const int ni = min(IC, CI - k * IC);
 #pragma unroll
         for (int ii = 0; ii < IC; ++ii) {
           if (ii >= ni) break;
@@ -464,13 +473,13 @@ __global__ void __launch_bounds__(NT, 1) spectral_axis_kernel(const Params<TI, T
           for (int j = 0; j < P; ++j) {
             const int o = og + j * G;
             a[j] = b[j] = 0.f;
-            if (o < C) load_pair<TI>(wst + ((ii * C + o) * MC + m) * 2, a[j], b[j]);
+            if (o < CO) load_pair<TI>(wst + ((ii * CO + o) * MC + m) * 2, a[j], b[j]);
             b[j] *= p.wi_sign;
           }
           const float* sp = s + i * KS + 2 * m;
 #pragma unroll
           for (int l = 0; l < LB; ++l) {
-            const float2 sv = *reinterpret_cast<const float2*>(sp + l * C * KS);
+            const float2 sv = *reinterpret_cast<const float2*>(sp + l * CI * KS);
 #pragma unroll
             for (int j = 0; j < P; ++j) {
               yr[j][l] = fmaf(sv.x, a[j], fmaf(-sv.y, b[j], yr[j][l]));
@@ -484,10 +493,10 @@ __global__ void __launch_bounds__(NT, 1) spectral_axis_kernel(const Params<TI, T
 #pragma unroll
         for (int j = 0; j < P; ++j) {
           const int o = og + j * G;
-          if (o >= C) continue;
+          if (o >= CO) continue;
 #pragma unroll
           for (int l = 0; l < LB; ++l)
-            *reinterpret_cast<float2*>(s + (l * C + o) * KS + 2 * m) =
+            *reinterpret_cast<float2*>(s + (l * CO + o) * KS + 2 * m) =
                 make_float2(round_as<TI>(yr[j][l]), round_as<TI>(yi[j][l]));
         }
       }
@@ -500,22 +509,22 @@ __global__ void __launch_bounds__(NT, 1) spectral_axis_kernel(const Params<TI, T
     const bool first = ch == 0, last = ch == nch - 1;
     const float* base_in = first ? p.prev : p.acc;  // may be null on the first chunk
     const int tch = NP / SC;
-    for (int item = tid; item < (LB / LG) * tch * C; item += NT) {
-      const int o = item % C;
-      const int tc = (item / C) % tch;
-      const int grp = item / (C * tch);
+    for (int item = tid; item < (LB / LG) * tch * CO; item += NT) {
+      const int o = item % CO;
+      const int tc = (item / CO) % tch;
+      const int grp = item / (CO * tch);
       float acc[LG][SC];
 #pragma unroll
       for (int l = 0; l < LG; ++l)
 #pragma unroll
         for (int j = 0; j < SC; ++j) acc[l][j] = 0.f;
-      const float* yb = s + (grp * LG * C + o) * KS;
+      const float* yb = s + (grp * LG * CO + o) * KS;
       const float* cbt = cb + tc * SC;
       for (int m = 0; m < mc; ++m) {
         float2 yv[LG];
 #pragma unroll
         for (int l = 0; l < LG; ++l)
-          yv[l] = *reinterpret_cast<const float2*>(yb + l * C * KS + 2 * m);
+          yv[l] = *reinterpret_cast<const float2*>(yb + l * CO * KS + 2 * m);
 #pragma unroll
         for (int h = 0; h < SC; h += 4) {
           const float4 er = *reinterpret_cast<const float4*>(cbt + 2 * m * NP + h);
@@ -529,11 +538,14 @@ __global__ void __launch_bounds__(NT, 1) spectral_axis_kernel(const Params<TI, T
           }
         }
       }
-      int64_t base[LG];  // of each line's sample 0, channel o; -1 past n_lines
+      int64_t base[LG];  // of each line's sample 0, channel o in out; -1 past n_lines
 #pragma unroll
       for (int l = 0; l < LG; ++l) {
-        const int64_t b = lbase[grp * LG + l];
-        base[l] = b >= 0 ? b + o : -1;
+        const int g = line0 + grp * LG + l;
+        const int b = g / p.lines_per_batch;
+        base[l] = g < p.n_lines
+                      ? b * p.o_batch_stride + (g - b * p.lines_per_batch) * p.o_line_stride + o
+                      : -1;
       }
       // All of prev (or acc) is loaded before any store (out and acc may
       // alias it, for all the compiler knows, which would put each load
@@ -544,7 +556,7 @@ __global__ void __launch_bounds__(NT, 1) spectral_axis_kernel(const Params<TI, T
 #pragma unroll
           for (int j = 0; j < SC; ++j)
             if (base[l] >= 0 && tc * SC + j < n)
-              acc[l][j] += base_in[base[l] + (tc * SC + j) * p.elem_stride];
+              acc[l][j] += base_in[base[l] + (tc * SC + j) * p.o_elem_stride];
       }
       if (last) {
 #pragma unroll
@@ -552,14 +564,14 @@ __global__ void __launch_bounds__(NT, 1) spectral_axis_kernel(const Params<TI, T
 #pragma unroll
           for (int j = 0; j < SC; ++j)
             if (base[l] >= 0 && tc * SC + j < n)
-              p.out[base[l] + (tc * SC + j) * p.elem_stride] = from_f<TO>(acc[l][j]);
+              p.out[base[l] + (tc * SC + j) * p.o_elem_stride] = from_f<TO>(acc[l][j]);
       } else {
 #pragma unroll
         for (int l = 0; l < LG; ++l)
 #pragma unroll
           for (int j = 0; j < SC; ++j)
             if (base[l] >= 0 && tc * SC + j < n)
-              p.acc[base[l] + (tc * SC + j) * p.elem_stride] = acc[l][j];
+              p.acc[base[l] + (tc * SC + j) * p.o_elem_stride] = acc[l][j];
       }
     }
   }
@@ -582,12 +594,13 @@ template <typename TI, typename TW, typename TO>
 cudaError_t launch(const void* x, const void* fwd, const void* inv, const void* w,
                    int64_t w_si, int64_t w_so, int64_t w_sm, int64_t w_sp, bool conj,
                    const void* prev, void* acc, void* out, int n_lines, int lines_per_batch,
-                   int64_t batch_stride, int64_t line_stride, int64_t elem_stride, int n,
-                   int modes, int c, cudaStream_t stream) {
-  const int chunk = mode_chunk(n, modes, c, sizeof(TI), sizeof(TW));
+                   int64_t batch_stride, int64_t line_stride, int64_t elem_stride,
+                   int64_t o_batch_stride, int64_t o_line_stride, int64_t o_elem_stride, int n,
+                   int modes, int ci, int co, cudaStream_t stream) {
+  const int chunk = mode_chunk(n, modes, ci, co, sizeof(TI), sizeof(TW));
   if (chunk == 0) return cudaErrorInvalidValue;
-  const size_t smem = smem_layout(n, chunk, c, sizeof(TI), sizeof(TW)).total;
-  const int pairs = mix_pairs(chunk, c);
+  const size_t smem = smem_layout(n, chunk, ci, co, sizeof(TI), sizeof(TW)).total;
+  const int pairs = mix_pairs(chunk, co);
   // Every (i, o) run of 2M weights must be contiguous and (re, im)-aligned;
   // more than one mode chunk needs the partial-sum array.
   const int wpair = 2 * sizeof(TW);
@@ -603,7 +616,7 @@ cudaError_t launch(const void* x, const void* fwd, const void* inv, const void* 
   p.w_si = w_si, p.w_so = w_so;
   p.wi_sign = conj ? -1.f : 1.f;
   const int64_t ex = 16 / sizeof(TI), ew = 16 / sizeof(TW);
-  p.x_vec = c % ex == 0 && c / ex <= NT && batch_stride % ex == 0 && line_stride % ex == 0 &&
+  p.x_vec = ci % ex == 0 && ci / ex <= NT && batch_stride % ex == 0 && line_stride % ex == 0 &&
             elem_stride % ex == 0 && aligned(x, 16);
   // Chunk offsets 2 m0 are then whole pieces too; a last, shorter chunk
   // whose runs are not is staged a pair a copy.
@@ -614,7 +627,9 @@ cudaError_t launch(const void* x, const void* fwd, const void* inv, const void* 
   p.out = static_cast<TO*>(out);
   p.n_lines = n_lines, p.lines_per_batch = lines_per_batch;
   p.batch_stride = batch_stride, p.line_stride = line_stride, p.elem_stride = elem_stride;
-  p.n = n, p.modes = modes, p.chunk = chunk, p.c = c;
+  p.o_batch_stride = o_batch_stride, p.o_line_stride = o_line_stride;
+  p.o_elem_stride = o_elem_stride;
+  p.n = n, p.modes = modes, p.chunk = chunk, p.ci = ci, p.co = co;
   switch (pairs) {
     case 1: return launch_p<TI, TW, TO, 1>(p, smem, stream);
     case 2: return launch_p<TI, TW, TO, 2>(p, smem, stream);
@@ -633,12 +648,14 @@ extern "C" const char* cuda_error_string(int err) {
 // Modes of one chunk (mode_chunk; 0 if none fits) and the shared memory
 // bytes one block needs at that chunk (dtype codes as below), for the
 // wrapper's checks.
-extern "C" int spectral_axis_mode_chunk(int in_dtype, int w_dtype, int n, int modes, int c) {
-  return mode_chunk(n, modes, c, dtype_size(in_dtype), dtype_size(w_dtype));
+extern "C" int spectral_axis_mode_chunk(int in_dtype, int w_dtype, int n, int modes, int c_in,
+                                        int c_out) {
+  return mode_chunk(n, modes, c_in, c_out, dtype_size(in_dtype), dtype_size(w_dtype));
 }
-extern "C" long long spectral_axis_smem_bytes(int in_dtype, int w_dtype, int n, int modes, int c) {
-  const int chunk = mode_chunk(n, modes, c, dtype_size(in_dtype), dtype_size(w_dtype));
-  return (long long)smem_layout(n, chunk > 0 ? chunk : modes, c, dtype_size(in_dtype),
+extern "C" long long spectral_axis_smem_bytes(int in_dtype, int w_dtype, int n, int modes,
+                                              int c_in, int c_out) {
+  const int chunk = mode_chunk(n, modes, c_in, c_out, dtype_size(in_dtype), dtype_size(w_dtype));
+  return (long long)smem_layout(n, chunk > 0 ? chunk : modes, c_in, c_out, dtype_size(in_dtype),
                                 dtype_size(w_dtype)).total;
 }
 
@@ -647,12 +664,13 @@ extern "C" long long spectral_axis_smem_bytes(int in_dtype, int w_dtype, int n, 
 // is at w[i * w_si + o * w_so + m * w_sm + part * w_sp], part 0 real, 1
 // imaginary; the kernel takes w_sm = 2, w_sp = 1 (each (i, o) run of 2M
 // values contiguous) with w_si, w_so even and w aligned to a (re, im) pair.
-// With conj != 0 the imaginary part is negated. prev may be null. acc is a
-// float32 array of out's layout that holds the partial sums between mode
-// chunks; it may be prev or out (when out is float32) and may be null when
-// all modes fit in one chunk (spectral_axis_mode_chunk == modes). Takes
-// what fits in 232,448 bytes of shared memory with at least one mode a
-// chunk and C <= 3 (512 / chunk).
+// With conj != 0 the imaginary part is negated. x has c_in channels and out
+// c_out, each with its own strides (out's o_*; i runs over c_in and o over
+// c_out in w's indexing). prev may be null. acc is a float32 array of out's
+// layout that holds the partial sums between mode chunks; it may be prev or
+// out (when out is float32) and may be null when all modes fit in one chunk
+// (spectral_axis_mode_chunk == modes). Takes what fits in 232,448 bytes of
+// shared memory with at least one mode a chunk and c_out <= 3 (512 / chunk).
 // Returns a cudaError_t (0 on success; cudaErrorInvalidValue for anything
 // it does not take).
 extern "C" int spectral_axis(int in_dtype, int w_dtype, int out_dtype, const void* x,
@@ -660,14 +678,18 @@ extern "C" int spectral_axis(int in_dtype, int w_dtype, int out_dtype, const voi
                              long long w_so, long long w_sm, long long w_sp, int conj,
                              const void* prev, void* acc, void* out, int n_lines,
                              int lines_per_batch, long long batch_stride, long long line_stride,
-                             long long elem_stride, int n, int modes, int c, void* stream) {
-  if (n_lines <= 0 || n <= 0 || modes <= 0 || c <= 0) return (int)cudaErrorInvalidValue;
+                             long long elem_stride, long long o_batch_stride,
+                             long long o_line_stride, long long o_elem_stride, int n, int modes,
+                             int c_in, int c_out, void* stream) {
+  if (n_lines <= 0 || n <= 0 || modes <= 0 || c_in <= 0 || c_out <= 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using bf16 = __nv_bfloat16;
 #define SPECTRAL_LAUNCH(TI, TW, TO)                                                             \
   return (int)launch<TI, TW, TO>(x, fwd, inv, w, w_si, w_so, w_sm, w_sp, conj != 0, prev, acc, \
                                  out, n_lines, lines_per_batch, batch_stride, line_stride,      \
-                                 elem_stride, n, modes, c, s)
+                                 elem_stride, o_batch_stride, o_line_stride, o_elem_stride, n,  \
+                                 modes, c_in, c_out, s)
   const int code = in_dtype * 4 + w_dtype * 2 + out_dtype;
   switch (code) {
     case 0: SPECTRAL_LAUNCH(float, float, float);  // f32 x, f32 w, f32 out

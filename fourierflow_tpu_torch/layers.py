@@ -18,10 +18,12 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .ops.fused_ff import fused_ff
+from .parallel.collectives import copy_to, on_first_rank, reduce_from, scatter
 
 __all__ = [
     "torch_linear_kernel_init",
     "xavier_normal_init",
+    "row_norms",
     "WNLinear",
     "FeedForward",
     "fourier_encode",
@@ -49,6 +51,14 @@ def xavier_normal_init(weight: torch.Tensor, gain: float = 1.0, generator=None) 
     std = gain * math.sqrt(2.0 / ((weight.shape[0] + weight.shape[1]) * receptive))
     with torch.no_grad():
         weight.normal_(0.0, std, generator=generator)
+
+
+def row_norms(squares: torch.Tensor) -> torch.Tensor:
+    """``||v||`` of each row from its sum of squares ``[out, 1]``, kept from
+    0 (the weight norm's denominator). Every path takes the norm so, the
+    tensor-parallel one with the squares summed over the ranks first, so
+    that on one rank it is the unsplit layer's to the bit."""
+    return torch.clamp(torch.sqrt(squares), min=1e-12)
 
 
 class WNLinear(nn.Module):
@@ -85,8 +95,8 @@ class WNLinear(nn.Module):
         """The effective ``(weight [out, in], bias)`` in the compute type,
         weight norm folded in."""
         if self.wnorm:
-            norm = torch.linalg.vector_norm(self.weight_v, dim=1, keepdim=True)
-            w = self.weight_g * self.weight_v / torch.clamp(norm, min=1e-12)
+            v = self.weight_v
+            w = self.weight_g * v / row_norms(v.square().sum(dim=1, keepdim=True))
         else:
             w = self.weight
         b = self.bias
@@ -106,7 +116,15 @@ class FeedForward(nn.Module):
     """n-layer MLP with expansion ``factor`` and ReLU between layers,
     optional dropout and a LayerNorm on the last layer. Layer ``j`` is
     ``layers[j][0]`` (the reference's Sequential naming). The plain 2-layer
-    shape goes through ``ops.fused_ff`` (the CUDA kernel on a CUDA tensor)."""
+    shape goes through ``ops.fused_ff`` (the CUDA kernel on a CUDA tensor).
+
+    With ``tensor_parallel`` (an ``Axis`` of the ``model`` mesh axis, set by
+    the block's ``set_parallel``) and its weights split by
+    ``parallel.shard_state`` (the expansion's ``weight_v`` by output row,
+    the contraction's by input column), each rank runs ``relu(x W1[:, h] +
+    b1[h]) W2[h, :]`` on its hidden slice ``h`` (``_tp_forward``)."""
+
+    tensor_parallel = None
 
     def __init__(self, dim: int, factor: int, ff_weight_norm: bool = False, n_layers: int = 2,
                  layer_norm: bool = False, dropout: float = 0.0,
@@ -131,7 +149,50 @@ class FeedForward(nn.Module):
         if self.norm is not None:
             self.norm.reset_parameters()
 
+    @property
+    def split(self) -> bool:
+        """Whether ``parallel.shard_state`` split the weights over the hidden dim."""
+        lin = self.layers[0][0]
+        return getattr(lin.weight_v if lin.wnorm else lin.weight, "tp_dim", None) is not None
+
+    def _tp_forward(self, x):
+        """The feed-forward on this rank's hidden slice, summed over the
+        ``model`` axis: the expansion's weight-norm gain and bias (replicated)
+        sliced to the rank's rows, its row norms local; the contraction's
+        squared row norms summed over the axis before ``g * v / ||v||``; its
+        bias added on the axis's rank 0 only; x's gradient summed over the
+        axis. The JAX package's GSPMD makes the same cut of
+        ``fourierflow_tpu/layers.py``'s FeedForward."""
+        tp = self.tensor_parallel
+        l1, l2 = self.layers[0][0], self.layers[1][0]
+        if l1.wnorm:
+            v1 = l1.weight_v  # this rank's rows: their norms are whole
+            norm = row_norms(v1.square().sum(dim=1, keepdim=True))
+            w1 = scatter(l1.weight_g, tp, 0) * v1 / norm
+        else:
+            w1 = l1.weight
+        b1 = scatter(l1.bias, tp, 0)
+        if l2.wnorm:
+            # The norm and the gain are replicated and used by every rank's
+            # block: their gradients are summed over the axis (copy_to).
+            v2 = l2.weight_v
+            norm = row_norms(reduce_from(v2.square().sum(dim=1, keepdim=True), tp))
+            w2 = copy_to(l2.weight_g, tp) * v2 / copy_to(norm, tp)
+        else:
+            w2 = l2.weight
+        b2 = on_first_rank(l2.bias, tp)
+        if self.dtype is not None:
+            w1, b1, w2, b2 = (t.to(self.dtype) for t in (w1, b1, w2, b2))
+            x = x.to(self.dtype)
+        out = fused_ff(copy_to(x, tp).contiguous(), w1.t(), b1, w2.t(), b2)
+        return reduce_from(out, tp)
+
     def forward(self, x):
+        if self.tensor_parallel is not None and self.split:
+            if not self.fusable or self.layers[0][0].bias is None:
+                raise NotImplementedError("a tensor-parallel FeedForward is the fused 2-layer "
+                                          "shape with biases (no dropout or LayerNorm)")
+            return self._tp_forward(x)
         if self.fusable:
             w1, b1 = self.layers[0][0].dense()
             w2, b2 = self.layers[1][0].dense()
@@ -195,10 +256,15 @@ def encode_positions(dim_sizes, low: float = -1.0, high: float = 1.0, fourier: b
 
 
 def lp_loss_rel(x: torch.Tensor, y: torch.Tensor, p: int = 2, reduce_mean: bool = True):
-    """Relative Lp loss (N-MSE), the headline metric."""
+    """Relative Lp loss (N-MSE), the headline metric. For p 2 each norm is
+    the square root of a sum of squares, as the spatially split loss
+    (``routines/grid_2d_markov.py``) takes it across ranks."""
     b = x.shape[0]
-    r = (torch.linalg.vector_norm((x - y).reshape(b, -1), ord=p, dim=1)
-         / torch.linalg.vector_norm(y.reshape(b, -1), ord=p, dim=1))
+    d, t = (x - y).reshape(b, -1), y.reshape(b, -1)
+    if p == 2:
+        r = torch.sqrt(d.square().sum(dim=1)) / torch.sqrt(t.square().sum(dim=1))
+    else:
+        r = torch.linalg.vector_norm(d, ord=p, dim=1) / torch.linalg.vector_norm(t, ord=p, dim=1)
     return r.mean() if reduce_mean else r
 
 
@@ -229,16 +295,24 @@ def normalizer_init(size: int, max_accumulations: float = 1e6, std_epsilon: floa
     return NormalizerState(z(size), z(size), z(), z(), float(max_accumulations), float(std_epsilon))
 
 
-def normalizer_accumulate(state: NormalizerState, x: torch.Tensor) -> NormalizerState:
+def normalizer_accumulate(state: NormalizerState, x: torch.Tensor,
+                          all_reduce=None) -> NormalizerState:
     """Accumulate over all leading dims of ``x [..., size]``; a no-op once
-    ``max_accumulations`` is reached."""
-    flat = x.reshape(-1, x.shape[-1]).float()
-    w = (state.n_accumulations < state.max_accumulations).float()
+    ``max_accumulations`` is reached. ``all_reduce`` (a function of one
+    tensor) sums the batch's sums, squares and count over the ranks that
+    hold the rest of the batch before they are added."""
+    flat = x.reshape(-1, x.shape[-1]).to(torch.promote_types(x.dtype, torch.float32))
+    w = (state.n_accumulations < state.max_accumulations).to(flat.dtype)
+    total, total_sq, count = flat.sum(dim=0), (flat ** 2).sum(dim=0), flat.shape[0]
+    if all_reduce is not None:
+        n = flat.shape[1]
+        packed = all_reduce(torch.cat([total, total_sq, total.new_full((1,), count)]))
+        total, total_sq, count = packed[:n], packed[n:2 * n], packed[2 * n]
     return replace(
         state,
-        sum=state.sum + w * flat.sum(dim=0),
-        sum_squared=state.sum_squared + w * (flat ** 2).sum(dim=0),
-        count=state.count + w * flat.shape[0],
+        sum=state.sum + w * total,
+        sum_squared=state.sum_squared + w * total_sq,
+        count=state.count + w * count,
         n_accumulations=state.n_accumulations + w,
     )
 

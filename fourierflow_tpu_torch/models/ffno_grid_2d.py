@@ -15,6 +15,25 @@ With ``remat`` each layer's mix and backcast feed-forward run under
 and recomputes the rest (on the card, kernels A and B launch twice a layer
 in a train step). The parameters are the same in both modes.
 
+The layer's parallel forms (``set_parallel``; with neither the layer runs
+as above):
+
+- tensor parallelism (``model`` axis): the Fourier weights are column
+  shards ``[C, C/tp, M, 2]`` (``parallel.shard_state``, which marks them
+  with their ``tp_dim``), so the mix gives
+  this rank's C/tp output channels (kernel B with C_out = C/tp), which are
+  all-gathered before the feed-forward's tensor-parallel form
+  (``layers.FeedForward``); x's gradient from the mix is summed over the
+  axis. A Fourier weight that the axis does not divide stays whole.
+- spatial parallelism (``spatial`` axis): x is this rank's X rows ``[B,
+  X/sp, Y, C]``. The Y branch runs on them (``ops.fused_mix_axis``); the X
+  branch runs after an all-to-all to ``[B, X, Y/sp, C]`` and goes back by
+  the inverse one (``spatial_mix_2d``). The branches come back in float32
+  and are summed and rounded once, as ``fused_mix_2d``'s "Y writes, X adds"
+  does, forward and backward; on a spatial axis of one rank the result is
+  ``fused_mix_2d``'s to the bit. Every other part of the layer acts on each
+  cell alone.
+
 Parameter names follow the reference's torch ``state_dict``:
 ``in_proj.*``, ``spectral_layers.{i}.fourier_weight.{0,1}`` (Y then X),
 ``spectral_layers.{i}.backcast_ff.layers.{j}.0.*`` and ``out.{j}.*``; with
@@ -29,8 +48,9 @@ import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
 from ..layers import FeedForward, WNLinear, xavier_normal_init
-from ..ops.fused_spectral import fused_mix_2d
-from ..ops.spectral import spectral_lowpass_axis
+from ..ops.fused_spectral import fused_mix_2d, fused_mix_axis, fused_mix_axis_adjoint
+from ..ops.spectral import mix_axis_wgrad, spectral_lowpass_axis
+from ..parallel.collectives import copy_to, gather, x_split, y_split
 
 __all__ = ["FNOFactorized2DBlock"]
 
@@ -48,11 +68,53 @@ class _SpectralLayer(nn.Module):
             self.forecast_ff = forecast_ff
 
 
+class _SpatialMix2d(torch.autograd.Function):
+    """The two branches of one layer's mix on a grid split over ``spatial``,
+    as one Function, so that each direction sums them in float32 and rounds
+    once (an autograd graph of the two branches would round x's gradient
+    from each before the engine adds them). The weight gradients are each
+    rank's part (its rows for Y, its columns for X), summed over the axis
+    with the other gradients (``Routine.reduce_over_mesh``)."""
+
+    @staticmethod
+    def forward(ctx, x, wy, wx, sp):
+        xt = y_split(x, sp)
+        ctx.save_for_backward(x, xt, wy, wx)
+        ctx.sp = sp
+        out = fused_mix_axis(x, wy, 2) + x_split(fused_mix_axis(xt, wx, 1), sp)
+        return out.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, xt, wy, wx = ctx.saved_tensors
+        sp = ctx.sp
+        g = g.contiguous()
+        gt = y_split(g, sp)
+        need_x, need_wy, need_wx, _ = ctx.needs_input_grad
+        dx = ((fused_mix_axis_adjoint(g, wy, 2) + x_split(fused_mix_axis_adjoint(gt, wx, 1), sp))
+              .to(g.dtype) if need_x else None)
+        wgrad = lambda a, b, w, axis: mix_axis_wgrad(a, b, w.shape[2], axis,
+                                                     round_to=x.dtype).to(w.dtype)
+        return (dx, wgrad(x, g, wy, 2) if need_wy else None,
+                wgrad(xt, gt, wx, 1) if need_wx else None, None)
+
+
+def spatial_mix_2d(x: torch.Tensor, wy: torch.Tensor, wx: torch.Tensor, sp) -> torch.Tensor:
+    """``fused_mix_2d`` of the whole grid, on this rank's X rows ``x [B,
+    X/sp, Y, C]`` of it: the Y branch on the rows (``fused_mix_axis``), the
+    X branch between two all-to-alls over the ``spatial`` axis ``sp``,
+    summed in float32 and rounded once to x's type."""
+    return _SpatialMix2d.apply(x, wy, wx, sp)
+
+
 class FNOFactorized2DBlock(nn.Module):
     # The per-mode weight's trailing dims (real, imaginary) and the separable
     # mix of both axes, ``mix(x, wy, wx)``; the CNO block replaces both.
     _pair = (2,)
     _mix = staticmethod(fused_mix_2d)
+    # The parallel axes (``set_parallel``); None on one device.
+    tensor_parallel = None
+    spatial_parallel = None
 
     """Stack of factorized spectral layers with residuals. ``forward`` takes
     ``[batch, X, Y, input_dim]`` and returns ``{"forecast": [batch, X, Y, 1],
@@ -73,7 +135,7 @@ class FNOFactorized2DBlock(nn.Module):
         self.remat = remat
         self.modes, self.width, self.n_layers = modes, width, n_layers
         self.share_weight, self.share_fork, self.use_fork = share_weight, share_fork, use_fork
-        self.mode, self.gain, self.in_dropout = mode, gain, in_dropout
+        self.mode, self.gain, self.in_dropout, self.dropout = mode, gain, in_dropout, dropout
         self.dtype = _DTYPES[dtype] if dtype is None or isinstance(dtype, str) else dtype
 
         self.in_proj = WNLinear(input_dim, width, wnorm=ff_weight_norm, dtype=self.dtype)
@@ -127,6 +189,21 @@ class FNOFactorized2DBlock(nn.Module):
         for lin in self.out:
             lin.reset_parameters(generator)
 
+    def set_parallel(self, tensor=None, spatial=None) -> None:
+        """The ``Axis`` of the ``model`` and of the ``spatial`` mesh axis that
+        the layers' parallel forms use (None for neither: one device)."""
+        if tensor is not None and spatial is not None:
+            raise ValueError("tensor and spatial parallelism cannot be combined")
+        if spatial is not None and (type(self)._mix is not fused_mix_2d or self.mode != "full"):
+            raise NotImplementedError(f"{type(self).__name__} (mode {self.mode!r}) has no "
+                                      "spatially split form: the F-FNO's full mix has")
+        if (tensor or spatial) and (self.dropout > 0 or self.in_dropout > 0):
+            raise NotImplementedError("dropout has no parallel form: each rank would draw its own")
+        self.tensor_parallel, self.spatial_parallel = tensor, spatial
+        for m in self.modules():
+            if isinstance(m, FeedForward):
+                m.tensor_parallel = tensor
+
     def _layer(self, layer: _SpectralLayer, x: torch.Tensor):
         """One layer's mix and backcast: ``(h, b)``."""
         if self.mode == "no-fourier":
@@ -135,7 +212,13 @@ class FNOFactorized2DBlock(nn.Module):
             h = spectral_lowpass_axis(x, self.modes, 2) + spectral_lowpass_axis(x, self.modes, 1)
         else:
             wy, wx = layer.fourier_weight
-            h = self._mix(x, wy, wx)
+            tp = self.tensor_parallel
+            if self.spatial_parallel is not None:
+                h = spatial_mix_2d(x, wy, wx, self.spatial_parallel)
+            elif tp is not None and getattr(wy, "tp_dim", None) is not None:
+                h = gather(self._mix(copy_to(x, tp), wy, wx), tp, 3)
+            else:
+                h = self._mix(x, wy, wx)
         return h, layer.backcast_ff(h)
 
     def forward(self, x: torch.Tensor):

@@ -5,6 +5,13 @@ Full (not factorized) 2D spectral weights on two corner blocks of modes, a
 linear residual branch in each layer, ReLU activations; the input is the
 10-step window with two position channels (``input_dim`` 12).
 
+Under tensor parallelism (``set_parallel``) each layer's Fourier weights
+are column shards ``[in, out/tp, m, m, 2]`` (``parallel.shard_state``, as
+the JAX package's ``tp_state_shardings`` splits them): the spectral
+convolution gives this rank's output channels, which are all-gathered
+before the residual, and x's gradient from it is summed over the ``model``
+axis. Everything else is replicated.
+
 Parameter names follow the reference's torch ``state_dict`` (the JAX
 package's ``utils/torch_import.py::convert_zongyi_state_dict``):
 ``in_proj.*``, ``spectral_layers.{i}.fourier_weight.{0,1}``
@@ -18,6 +25,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..layers import WNLinear, xavier_normal_init
 from ..ops.spectral import spectral_conv_2d_full
+from ..parallel.collectives import copy_to, gather
 
 __all__ = ["ZongyiSpectralConv2d", "FNOZongyi2DBlock"]
 
@@ -25,6 +33,8 @@ __all__ = ["ZongyiSpectralConv2d", "FNOZongyi2DBlock"]
 class ZongyiSpectralConv2d(nn.Module):
     """One original-FNO layer: the full spectral convolution, plus a linear
     residual (``residual``) or a linear layer after it, then ReLU."""
+
+    tensor_parallel = None  # the model mesh axis of the block's set_parallel
 
     def __init__(self, in_dim: int, out_dim: int, n_modes: int, residual: bool = True):
         super().__init__()
@@ -42,7 +52,12 @@ class ZongyiSpectralConv2d(nn.Module):
         self.linear.reset_parameters(generator)
 
     def forward(self, x):
-        h = spectral_conv_2d_full(x, *self.fourier_weight, norm="ortho")
+        tp = self.tensor_parallel
+        if tp is not None and getattr(self.fourier_weight[0], "tp_dim", None) is not None:
+            h = gather(spectral_conv_2d_full(copy_to(x, tp), *self.fourier_weight, norm="ortho"),
+                       tp, 3)
+        else:
+            h = spectral_conv_2d_full(x, *self.fourier_weight, norm="ortho")
         if self.residual:
             return torch.relu(h + self.linear(x))
         return torch.relu(self.linear(h))
@@ -78,6 +93,14 @@ class FNOZongyi2DBlock(nn.Module):
             layer.reset_parameters(generator)
         self.feedforward[0].reset_parameters(generator)
         self.feedforward[2].reset_parameters(generator)
+
+    def set_parallel(self, tensor=None, spatial=None) -> None:
+        """The ``model`` mesh axis of the layers' tensor-parallel form (None:
+        one device). The block has no spatially split form."""
+        if spatial is not None:
+            raise NotImplementedError("FNOZongyi2DBlock has no spatially split form")
+        for layer in self.spectral_layers:
+            layer.tensor_parallel = tensor
 
     def forward(self, x: torch.Tensor, **kwargs):
         x = self.in_proj(x)

@@ -54,13 +54,20 @@ _FWD_SHAPE = {torch.float32: (8, 16), torch.bfloat16: (8, 32)}
 _BWD_TILE = 64  # rows per tile, hidden chunk and C bound of the backward kernel (BT in the source)
 
 
+def _wide(dtype: torch.dtype) -> torch.dtype:
+    """The type the plain versions compute in: float32, or float64 for a
+    float64 input (a reference copy)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def fused_ff_plain(x, w1, b1, w2, b2):
-    """The plain PyTorch version: products and sums in float32, the hidden
-    layer rounded to x's type before the second product, the result cast
-    to x's type. The weights are copied contiguous first: on some CPUs the
-    BLAS takes another path (and sums in another order) for a transposed
-    view, and the result must not depend on the weights' layout."""
-    f = lambda t: t.float().contiguous()
+    """The plain PyTorch version: products and sums in float32 (float64 for
+    a float64 x), the hidden layer rounded to x's type before the second
+    product, the result cast to x's type. The weights are copied contiguous
+    first: on some CPUs the BLAS takes another path (and sums in another
+    order) for a transposed view, and the result must not depend on the
+    weights' layout."""
+    f = lambda t: t.to(_wide(x.dtype)).contiguous()
     h = torch.relu(f(x) @ f(w1) + f(b1)).to(x.dtype)
     return (f(h) @ f(w2) + f(b2)).to(x.dtype)
 
@@ -72,11 +79,11 @@ def fused_ff_bwd_plain(x, g, w1, b1, w2):
     Products and sums run in float32; ``h`` and ``dh`` are rounded to x's
     type before they enter any of them. The weights are copied contiguous
     first, as in :func:`fused_ff_plain`."""
-    cin, cout = x.shape[-1], g.shape[-1]
-    xf, gf = x.reshape(-1, cin).float(), g.reshape(-1, cout).float()
-    w1f, w2f = w1.float().contiguous(), w2.float().contiguous()
-    rnd = lambda t: t.to(x.dtype).float()
-    pre = xf @ w1f + b1.float()
+    cin, cout, wide = x.shape[-1], g.shape[-1], _wide(x.dtype)
+    xf, gf = x.reshape(-1, cin).to(wide), g.reshape(-1, cout).to(wide)
+    w1f, w2f = w1.to(wide).contiguous(), w2.to(wide).contiguous()
+    rnd = lambda t: t.to(x.dtype).to(wide)
+    pre = xf @ w1f + b1.to(wide)
     h = rnd(torch.relu(pre))
     dh = rnd((gf @ w2f.t()) * (pre > 0))
     dx = (dh @ w1f.t()).to(x.dtype).reshape(x.shape)

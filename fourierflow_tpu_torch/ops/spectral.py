@@ -108,8 +108,8 @@ def _spatial_axis(x: torch.Tensor, axis: int) -> int:
 
 def _rounder(dtype):
     """``t -> t`` rounded to ``dtype`` and back to float32, or None where
-    that is a no-op (no dtype, or float32)."""
-    if dtype is None or dtype == torch.float32:
+    that is a no-op (no dtype, float32 or float64)."""
+    if dtype is None or dtype in (torch.float32, torch.float64):
         return None
     return lambda t: t.to(dtype).float()
 
@@ -126,15 +126,17 @@ def mix_axis_f32(x: torch.Tensor, weight: torch.Tensor, axis: int,
 
     With ``round_to`` (bf16) it rounds where the JAX kernel's ``_branch``
     does: the bases, the spectra after the forward product and the mixed
-    spectra after the mix; the products and sums stay float32."""
+    spectra after the mix; the products and sums stay float32. A float64
+    x is computed in float64 on the same (float32) bases: a reference copy."""
     axis = _spatial_axis(x, axis)
     n, modes = x.shape[axis], weight.shape[2]
-    er, ei, cr, ci = dft_bases(n, modes, x.device)
+    wide = torch.promote_types(x.dtype, torch.float32)
+    er, ei, cr, ci = (b.to(wide) for b in dft_bases(n, modes, x.device))
     rnd = _rounder(round_to)
     if rnd:
         er, ei, cr, ci = map(rnd, (er, ei, cr, ci))
-    xm = x.movedim(axis, -2).float()                      # [..., n, Ci]
-    w = weight.to(x.dtype).float()
+    xm = x.movedim(axis, -2).to(wide)                     # [..., n, Ci]
+    w = weight.to(x.dtype).to(wide)
     wr, wi = w[..., 0], w[..., 1]                         # [Ci, Co, M]
     if adjoint:
         er, ei, cr, ci = cr.t(), ci.t(), er.t(), ei.t()
@@ -164,14 +166,15 @@ def mix_axis_wgrad(x: torch.Tensor, g: torch.Tensor, modes: int, axis: int,
     imaginary sums of two products once more."""
     axis = _spatial_axis(x, axis)
     n = x.shape[axis]
-    fwd, inv = stacked_bases(n, modes, x.device)
+    wide = torch.promote_types(x.dtype, torch.float32)
+    fwd, inv = (b.to(wide) for b in stacked_bases(n, modes, x.device))
     rnd = _rounder(round_to)
     if rnd:
         fwd, inv, g = rnd(fwd), rnd(inv), g.to(round_to)
 
     def spectra(t, basis):  # [M, N, 2C]: (real | imaginary) channels; N is every other axis
         lead, c = math.prod(t.shape[:axis]), t.shape[-1]
-        s = basis @ t.float().reshape(lead, n, -1)          # [lead, 2M, rest * C], no copy of t
+        s = basis @ t.to(wide).reshape(lead, n, -1)         # [lead, 2M, rest * C], no copy of t
         if rnd:
             s = rnd(s)
         s = s.reshape(lead, 2, modes, -1, c).permute(2, 0, 3, 1, 4)

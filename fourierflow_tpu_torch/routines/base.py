@@ -12,6 +12,11 @@ Unlike the JAX package's pure steps, ``apply_grads`` updates the model's
 parameters and the optimizer's moments in place (torch's optimizers work
 so, and it keeps one copy of each); the returned ``State`` carries the
 same objects with the step count advanced.
+
+A state on a device mesh (``state.mesh``, set by ``parallel.shard_state``)
+reduces each step's gradients and loss over the mesh
+(``reduce_over_mesh``): the JAX package's GSPMD does this inside its
+jitted step.
 """
 
 from dataclasses import dataclass, replace
@@ -21,6 +26,7 @@ import torch
 import torch.nn as nn
 
 from ..layers import NormalizerState
+from ..parallel.collectives import all_reduce, mesh_axis
 
 __all__ = ["State", "Routine", "OptimizerSpec", "make_optimizer", "rho_time_until",
            "nan_to_9999"]
@@ -29,14 +35,16 @@ __all__ = ["State", "Routine", "OptimizerSpec", "make_optimizer", "rho_time_unti
 @dataclass
 class State:
     """The model (its parameters live in it, on the run's device), the
-    normalizer statistics, the optimizer with its schedule, and the number
-    of train steps taken."""
+    normalizer statistics, the optimizer with its schedule, the number of
+    train steps taken, and the device mesh of a parallel fit (a
+    ``torch.distributed`` ``DeviceMesh``; None on one device)."""
 
     model: nn.Module
     normalizer: Optional[NormalizerState]
     optimizer: Optional[torch.optim.Optimizer] = None
     scheduler: Optional[torch.optim.lr_scheduler.LambdaLR] = None
     step: int = 0
+    mesh: Optional[object] = None
 
     @property
     def device(self) -> torch.device:
@@ -133,6 +141,37 @@ class Routine:
     # --- helpers --------------------------------------------------------
     def n_params(self, state: State) -> int:
         return sum(p.numel() for p in _params(state.model))
+
+    @staticmethod
+    def reduce_over_mesh(state: State, grads: Sequence[torch.Tensor], loss: torch.Tensor,
+                         spec=()):
+        """The gradients and the loss of the whole step from this rank's, on
+        ``state.mesh`` (as they are without one), for a batch whose leading
+        dims lie on the mesh axes ``spec`` (``parallel.placement``).
+
+        The gradients are summed over ``data`` and ``spatial`` in one flat
+        buffer and divided by the ranks that computed the same samples'
+        gradients: ``data`` (each data row's are the mean over its samples,
+        or all rows computed the same batch), times ``spatial`` where the
+        grid was not split (else each spatial rank's are its rows' part of a
+        loss that the spatial ranks share). ``model`` needs nothing: its
+        ranks' gradients are whole, by the layers' collectives. The loss,
+        the same on the spatial ranks, is averaged over both."""
+        if state.mesh is None:
+            return grads, loss
+        data, spatial = mesh_axis(state.mesh, "data"), mesh_axis(state.mesh, "spatial")
+        grid_split = tuple(spec[1:2]) == ("spatial",)
+        n_sp = spatial.size if spatial is not None else 1
+        grad_div = data.size * (1 if grid_split else n_sp)
+        flat = torch.cat([g.reshape(-1) for g in grads]
+                         + [(loss.detach() * (grad_div / (data.size * n_sp))).reshape(1)
+                            .to(grads[0].dtype)])
+        for axis in (data, spatial):
+            if axis is not None:
+                flat = all_reduce(flat, axis)
+        flat = flat / grad_div
+        parts = flat.split([g.numel() for g in grads] + [1])
+        return [p.view_as(g) for p, g in zip(parts, grads)], parts[-1].reshape(()).to(loss.dtype)
 
     def make_train_state(self, model: nn.Module, normalizer=None) -> State:
         optimizer, scheduler = self.optimizer.build(_params(model))

@@ -15,6 +15,20 @@ correlated with it. ``save_predictions`` writes a rollout's vorticity and
 velocities (downsampled to 64^2 when larger) to an HDF5 file. The rollout
 runs at the grid of the data it is given, so a model trained at one
 resolution is evaluated at another (super-resolution) as it is.
+
+On a device mesh (``state.mesh``) a batch is this rank's slice
+(``parallel.shard_batch``, whose ``specs`` say which dims are split): the
+normalizer's sums, squares and count are summed over the split axes
+(``data``, ``spatial``); the noise is drawn for the whole batch and grid
+from the step's generator and each rank takes its block, so a split fit
+sees the noise of the unsplit one; the features of a grid split over
+``spatial`` are built on the whole grid (its vorticity and force
+all-gathered: the velocity is spectral) and cut back to the rank's rows,
+which gives the positions of those rows; the relative L2 loss sums each
+sample's squares over ``spatial`` before the ratio; the gradients and the
+loss are reduced over the mesh (``Routine.reduce_over_mesh``). A validation
+batch split over ``spatial`` rolls out on the rows and gathers the
+predictions for the metrics.
 """
 
 import logging
@@ -35,6 +49,8 @@ from ..layers import (
     normalizer_inverse,
 )
 from ..ops.fourier import irfft2
+from ..parallel.collectives import all_gather, all_reduce, mesh_axis, reduce_from
+from ..parallel.mesh import shard_tensor
 from ..utils.grids import TORUS, Grid, velocity_from_vorticity
 from ..utils.hdf5 import H5Writer
 from ..utils.spectral import (downsample_vorticity, downsample_vorticity_hat,
@@ -46,7 +62,31 @@ logger = logging.getLogger(__name__)
 __all__ = ["Grid2DMarkovRoutine"]
 
 
+def _spec(batch, key: str):
+    """The mesh axes of ``batch[key]``'s leading dims (``()`` where the
+    batch carries none: a whole batch)."""
+    specs = getattr(batch, "specs", None)
+    return tuple(specs.get(key, ())) if specs else ()
+
+
+def _rel_l2(pred: torch.Tensor, target: torch.Tensor, sp) -> torch.Tensor:
+    """``lp_loss_rel`` of ``[b, ...]`` arrays; with the ``spatial`` axis ``sp``
+    each sample's squares are summed over the axis's ranks first (its
+    gradient flows to each rank's own rows)."""
+    b = pred.shape[0]
+    if sp is None:
+        return lp_loss_rel(pred.reshape(b, -1), target.reshape(b, -1))
+    t = target.reshape(b, -1)
+    d = pred.reshape(b, -1) - t
+    sq = reduce_from(torch.stack([d.square().sum(dim=1), t.square().sum(dim=1)]), sp)
+    return (torch.sqrt(sq[0]) / torch.sqrt(sq[1])).mean()
+
+
 class Grid2DMarkovRoutine(Routine):
+    # Trains on a device mesh (Trainer(data_parallel / tensor_parallel /
+    # spatial_parallel)).
+    supports_mesh = True
+
     def __init__(self, model=None, n_steps=None, num_freq_bands: int = 8, freq_base: float = 2.0,
                  low: float = 0.0, high: float = 1.0, use_position: bool = True,
                  append_force: bool = False, append_mu: bool = False,
@@ -157,13 +197,46 @@ class Grid2DMarkovRoutine(Routine):
                       if self.should_normalize else None)
         return self.make_train_state(self.model, normalizer)
 
+    def _mesh_features(self, state: State, batch, sp) -> torch.Tensor:
+        """The features of a batch on a mesh: where ``sp`` (the ``spatial``
+        axis) splits its grid, built on the whole grid and cut back to this
+        rank's rows."""
+        dev = state.device
+        if sp is None:
+            return self._batch_features(batch, dev)
+        whole = lambda k: (None if batch.get(k) is None else
+                           all_gather(torch.as_tensor(batch[k], device=dev), sp, 1)
+                           if _spec(batch, k)[1:2] == ("spatial",) else batch[k])
+        return shard_tensor(self.build_features(whole("x"), whole("f"), batch.get("mu")), 1, sp)
+
+    def _accumulate(self, state: State, norm, x, spec):
+        """``normalizer_accumulate`` with the batch's statistics summed over
+        the mesh axes that split it."""
+        axes = [a for a in self._split_axes(state, spec) if a is not None]
+        if not axes:
+            return normalizer_accumulate(norm, x)
+
+        def reduce(t):
+            for axis in axes:
+                t = all_reduce(t, axis)
+            return t
+        return normalizer_accumulate(norm, x, all_reduce=reduce)
+
+    def _split_axes(self, state: State, spec):
+        """The ``data`` and ``spatial`` axes that split a batch of ``spec``
+        (None where the axis does not split it)."""
+        data = mesh_axis(state.mesh, "data") if spec[:1] == ("data",) else None
+        sp = mesh_axis(state.mesh, "spatial") if spec[1:2] == ("spatial",) else None
+        return data, sp
+
     @torch.no_grad()
     def accumulate_step(self, state: State, batch) -> State:
         """Epoch-0 pass: gather normalizer statistics only."""
         if not self.should_normalize:
             return state
-        x = self._batch_features(batch, state.device)
-        return replace(state, normalizer=normalizer_accumulate(state.normalizer, x))
+        spec = _spec(batch, "x")
+        x = self._mesh_features(state, batch, self._split_axes(state, spec)[1])
+        return replace(state, normalizer=self._accumulate(state, state.normalizer, x, spec))
 
     def _permutations(self, device):
         """``(x_idx, y_idx, x_inv, y_inv)`` on ``device``."""
@@ -182,15 +255,26 @@ class Grid2DMarkovRoutine(Routine):
         ``shuffle_grid`` the model sees the grid permuted (after the noise)
         and its output is permuted back before the normalizer's inverse."""
         dev = state.device
-        x = self._batch_features(batch, dev)
+        spec = _spec(batch, "x")
+        data, sp = self._split_axes(state, spec)
+        x = self._mesh_features(state, batch, sp)
         norm = state.normalizer
         if self.should_normalize:
-            norm = normalizer_accumulate(norm, x)
+            norm = self._accumulate(state, norm, x, spec)
             x = normalizer_apply(norm, x)
         if self.noise_std > 0.0:
             if rng is None:
                 raise ValueError("noise_std > 0 needs a generator (rng) on the state's device")
-            x = x + self.noise_std * torch.randn(x.shape, generator=rng, device=dev, dtype=x.dtype)
+            # Drawn for the whole batch and grid; this rank's block of it.
+            shape = list(x.shape)
+            for dim, axis in ((0, data), (1, sp)):
+                if axis is not None:
+                    shape[dim] *= axis.size
+            noise = torch.randn(shape, generator=rng, device=dev, dtype=x.dtype)
+            x = x + self.noise_std * shard_tensor(shard_tensor(noise, 0, data), 1, sp)
+        if self.shuffle_grid and sp is not None:
+            raise NotImplementedError("shuffle_grid permutes the whole grid; it has no spatially "
+                                      "split form")
         if self.shuffle_grid:
             x_idx, y_idx, x_inv, y_inv = self._permutations(dev)
             x = x[:, x_idx][:, :, y_idx]
@@ -200,15 +284,15 @@ class Grid2DMarkovRoutine(Routine):
                              "pair), which this builder does not give (it gives "
                              f"{sorted(batch)})")
         targets = torch.as_tensor(batch["dy" if self.learn_difference else "y"], device=dev)
-        b = x.shape[0]
         im = state.model(x)["forecast"]
         if self.shuffle_grid:
             im = im[:, :, y_inv][:, x_inv]
         if self.should_normalize:
             im = normalizer_inverse(norm, im, channel=0)
-        loss = lp_loss_rel(im.reshape(b, -1), targets.reshape(b, -1))
+        loss = _rel_l2(im, targets, sp)
         grads = torch.autograd.grad(loss, list(state.model.parameters()))
-        return loss.detach(), grads, norm
+        grads, loss = self.reduce_over_mesh(state, grads, loss.detach(), spec)
+        return loss, grads, norm
 
     def train_step(self, state: State, batch, rng: Optional[torch.Generator] = None):
         """One optimizer step on one batch; returns ``(state, {"train_loss"})``."""
@@ -233,13 +317,19 @@ class Grid2DMarkovRoutine(Routine):
             state.model.train(training)
 
     def rollout_step(self, model, norm, im: torch.Tensor, force: Optional[torch.Tensor] = None,
-                     mu: Optional[torch.Tensor] = None):
+                     mu: Optional[torch.Tensor] = None, sp=None):
         """One step of the rollout from ``im [b, X, Y, 1]`` with this step's
         force and viscosity: its features, normalized by ``norm`` (anything
         with the normalizer's ``mean`` and ``std``) where the routine
         normalizes, the model, denormalized. Returns ``(out, next im)``;
-        with ``learn_difference`` the model's output is added to ``im``."""
-        x = self.build_features(im, force, mu)
+        with ``learn_difference`` the model's output is added to ``im``.
+        With the ``spatial`` axis ``sp``, ``im`` and ``force`` are this rank's
+        rows of the grid, whose features are built from it all."""
+        if sp is None:
+            x = self.build_features(im, force, mu)
+        else:
+            whole = lambda t: None if t is None else all_gather(t, sp, 1)
+            x = shard_tensor(self.build_features(whole(im), whole(force), mu), 1, sp)
         if self.should_normalize:
             x = normalizer_apply(norm, x)
         out = model(x)["forecast"]
@@ -250,6 +340,7 @@ class Grid2DMarkovRoutine(Routine):
     @torch.no_grad()
     def _rollout(self, state: State, batch):
         dev = state.device
+        sp = self._split_axes(state, _spec(batch, "data"))[1]
         data = torch.as_tensor(batch["data"], device=dev)
         b, t_total = data.shape[0], data.shape[-1]
         # Clamp to the available horizon.
@@ -266,14 +357,14 @@ class Grid2DMarkovRoutine(Routine):
             f_t = force
             if force is not None and force.dim() == 4:
                 f_t = force[..., force.shape[-1] - n_steps + t]
-            out, im = self.rollout_step(state.model, state.normalizer, im, f_t, mu)
+            out, im = self.rollout_step(state.model, state.normalizer, im, f_t, mu, sp)
             if self.learn_difference:
                 # The true previous state at t=0, the previous target after.
                 prev = w0[..., 0] if t == 0 else yy[..., t - 1]
                 target = yy[..., t] - prev
             else:
                 target = yy[..., t]
-            step_losses.append(lp_loss_rel(out.reshape(b, -1), target.reshape(b, -1)))
+            step_losses.append(_rel_l2(out, target, sp))
             preds.append(im[..., 0])
         return torch.stack(preds, dim=-1), torch.stack(step_losses), yy
 
@@ -311,6 +402,11 @@ class Grid2DMarkovRoutine(Routine):
         corr_yy = None
         if "corr_data" in batch:  # the same trailing horizon as the rollout's targets
             corr_yy = batch["corr_data"][..., -preds.shape[-1]:]
+        sp = self._split_axes(state, _spec(batch, "data"))[1]
+        if sp is not None:  # the metrics of the whole grid
+            preds, yy = all_gather(preds, sp, 1), all_gather(yy, sp, 1)
+            if corr_yy is not None and _spec(batch, "corr_data")[1:2] == ("spatial",):
+                corr_yy = all_gather(torch.as_tensor(corr_yy, device=preds.device), sp, 1)
         return self.compute_losses(preds, step_losses, yy, corr_yy)
 
     @torch.no_grad()

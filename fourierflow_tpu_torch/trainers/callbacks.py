@@ -1,7 +1,10 @@
 """Trainer callbacks: checkpointing, metric logging and weight averaging
 (counterpart of ``fourierflow_tpu/trainers/callbacks.py``). Checkpoints hold
 the whole train state (``utils/checkpoint.py``); metrics go to a JSONL file,
-and to Weights & Biases where ``wandb`` is installed."""
+and to Weights & Biases where ``wandb`` is installed. In a parallel fit the
+Trainer runs the callbacks that write files (``writes_files``) on rank 0
+only, with the state gathered whole, so a checkpoint is the file of an
+unsplit fit."""
 
 import json
 import logging
@@ -22,7 +25,10 @@ __all__ = ["Callback", "ModelCheckpoint", "JSONLogger", "StochasticWeightAveragi
 
 class Callback:
     """Hooks the Trainer calls; ``on_epoch_end`` and ``on_fit_end`` may
-    return a replacement state."""
+    return a replacement state. A callback whose ``writes_files`` is set
+    runs on rank 0 alone in a parallel fit (and replaces no state)."""
+
+    writes_files = False
 
     def on_fit_start(self, trainer, routine, state):
         pass
@@ -44,6 +50,8 @@ class ModelCheckpoint(Callback):
     ``every_n_epochs`` spaces the scheduled epochs; the final epoch always
     saves. Unknown keyword arguments of the reference's Lightning configs
     are accepted and ignored."""
+
+    writes_files = True
 
     def __init__(self, dirpath: Optional[str] = None, monitor: Optional[str] = None,
                  mode: str = "min", filename: str = "best.ckpt", save_last: bool = True,
@@ -84,6 +92,8 @@ class ModelCheckpoint(Callback):
 class JSONLogger(Callback):
     """Append the Trainer's scalar logs (and arrays of at most 64 values)
     as one JSON line per epoch and after the test pass."""
+
+    writes_files = True
 
     def __init__(self, path: str):
         self.path = path
@@ -159,6 +169,8 @@ class WandbLogger(Callback):
     after the test pass. Where ``wandb`` cannot be imported or its run not
     started, it warns once and logs nothing; ``JSONLogger`` stays the run's
     log."""
+
+    writes_files = True
 
     def __init__(self, project=None, group=None, name=None, config=None):
         try:

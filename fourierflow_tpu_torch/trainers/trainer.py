@@ -31,9 +31,29 @@ With ``fast_loop`` a dict of numpy arrays as the ``valid_data`` or
 With ``auto_remat`` (the default) ``fit`` first estimates the train step's
 saved activations from the model's layers and width and the sample batch's
 shape, and turns the model's per-layer remat on when they would take more
-than 60% of the device's memory (``_maybe_enable_remat``). The JAX
-package's meshes (data, tensor and spatial parallelism) and its dispatch
-chunking are not ported.
+than 60% of the device's memory (``_maybe_enable_remat``; on a mesh the
+estimate is divided by the ``data`` and ``spatial`` axes).
+
+Parallel fits, as the JAX package's Trainer builds them: one process a
+device (``parallel.init_distributed``), and a mesh (``parallel/mesh.py``):
+``tensor_parallel`` > 1 makes ``data x model``, ``spatial_parallel`` > 1
+``data x spatial`` (not both), and otherwise a world of more than one rank
+a ``data`` mesh (``data_parallel``); a ``mesh`` may also be passed, whose
+axes then say which forms run. The state goes through
+``parallel.shard_state`` (the model's parallel forms, the tensor-parallel
+split of its weights and AdamW moments) and each batch through
+``parallel.shard_batch``. On a ``data`` mesh whose axis divides the batch
+the device-resident epoch stays: every rank holds the train set, draws the
+same ``epoch_permutation`` and gathers its block of each batch (unless the
+train set would take more than 60% of the device's memory: then the
+per-batch loop, with a warning); on a ``model`` or ``spatial`` mesh the
+per-batch loop runs. Evaluation batches are whole on every data row (the
+evaluation set cached per rank), split over ``spatial`` where the mesh has
+it. Only rank 0 logs and runs the callbacks that write files
+(``Callback.writes_files``), with the state gathered whole
+(``parallel.gather_state``); every rank of the mesh then waits for it. A
+rank that the mesh dropped takes no part: ``fit`` returns its state as it
+is. The JAX package's dispatch chunking is not ported.
 """
 
 import inspect
@@ -45,6 +65,10 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..parallel import (ShardedBatch, gather_state, in_mesh, is_rank0, make_mesh, make_sp_mesh,
+                        make_tp_mesh, mesh_axis, mesh_shape, shard_batch, shard_state,
+                        shard_tensor, world_size)
+from ..parallel.collectives import all_reduce
 from ..routines.base import Routine, State
 
 logger = logging.getLogger(__name__)
@@ -132,14 +156,15 @@ def to_device(tree, device):
     return torch.as_tensor(a if a.flags.writeable else a.copy(), device=device)
 
 
-def make_scan_epoch(routine: Routine, batch_size: int, accumulate: bool = False, seed: int = 0):
+def make_scan_epoch(routine: Routine, batch_size: int, accumulate: bool = False, seed: int = 0,
+                    mesh=None):
     """The device-resident epoch over a dict of aligned tensors (the
     identity gather of ``make_scan_epoch_indexed``)."""
-    return make_scan_epoch_indexed(routine, batch_size, None, gather, accumulate, seed)
+    return make_scan_epoch_indexed(routine, batch_size, None, gather, accumulate, seed, mesh)
 
 
 def make_scan_epoch_indexed(routine: Routine, batch_size: int, n_items: Optional[int],
-                            sample_fn, accumulate: bool = False, seed: int = 0):
+                            sample_fn, accumulate: bool = False, seed: int = 0, mesh=None):
     """A whole epoch over a train set that already lives on the state's
     device: ``epoch_fn(state, data, epoch, first_step=0) -> (state,
     metrics)``.
@@ -151,7 +176,12 @@ def make_scan_epoch_indexed(routine: Routine, batch_size: int, n_items: Optional
     global step ``first_step + i`` (``step_generator``), or with
     ``accumulate`` one ``accumulate_step``. ``metrics`` is the unweighted
     mean of the steps' metrics as floats, fetched once (empty with
-    ``accumulate``)."""
+    ``accumulate``).
+
+    With ``mesh`` (a ``data`` mesh whose axis divides ``batch_size``) every
+    rank holds all of ``data`` and gathers its block of each batch's items:
+    a ``ShardedBatch`` split on ``data``."""
+    data_axis = mesh_axis(mesh, "data")
 
     def epoch_fn(state, data, epoch: int, first_step: int = 0):
         n = n_items if n_items is not None else len(next(iter(data.values())))
@@ -159,7 +189,11 @@ def make_scan_epoch_indexed(routine: Routine, batch_size: int, n_items: Optional
         perm = epoch_permutation(seed, epoch, n, batch_size).to(device)
         steps = []
         for i, idx in enumerate(perm):
-            batch = sample_fn(data, idx)
+            if data_axis is None:
+                batch = sample_fn(data, idx)
+            else:
+                local = sample_fn(data, shard_tensor(idx, 0, data_axis))
+                batch = ShardedBatch(local, dict.fromkeys(local, ("data",)))
             if accumulate:
                 state = routine.accumulate_step(state, batch)
                 continue
@@ -206,11 +240,23 @@ def _device_hbm_bytes(device) -> float:
     return float("inf")
 
 
+def _tree_nbytes(tree) -> int:
+    """Bytes of the arrays and tensors of a dict, tuple or list."""
+    if isinstance(tree, dict):
+        return sum(_tree_nbytes(v) for v in tree.values())
+    if isinstance(tree, (tuple, list)):
+        return sum(_tree_nbytes(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    return int(getattr(tree, "nbytes", 0))
+
+
 class Trainer:
     def __init__(self, max_epochs: int = 1, limit_train_batches: Optional[int] = None,
                  limit_val_batches: Optional[int] = None, callbacks: Sequence = (), seed: int = 0,
                  log_every_n_steps: int = 100, check_val_every_n_epoch: int = 1, device=None,
-                 auto_remat: bool = True, fast_loop: bool = True):
+                 auto_remat: bool = True, fast_loop: bool = True, data_parallel: bool = True,
+                 tensor_parallel: int = 1, spatial_parallel: int = 1, mesh=None):
         self.max_epochs = max_epochs
         self.limit_train_batches = limit_train_batches
         self.limit_val_batches = limit_val_batches
@@ -221,17 +267,58 @@ class Trainer:
         self.device = resolve_device(device)
         self.auto_remat = auto_remat
         self.fast_loop = fast_loop
+        if tensor_parallel > 1 and spatial_parallel > 1:
+            raise ValueError("tensor_parallel and spatial_parallel cannot be combined; pick one "
+                             "(each already composes with the data axis)")
+        if mesh is None and tensor_parallel > 1:
+            mesh = make_tp_mesh(tensor_parallel)
+        elif mesh is None and spatial_parallel > 1:
+            mesh = make_sp_mesh(spatial_parallel)
+        elif mesh is None and data_parallel and world_size() > 1:
+            mesh = make_mesh()
+        self.mesh = mesh
         self._eval_cache = {}  # (builder, split) -> its evaluation set on the device
         self.logs = {}
         self.current_epoch = 0
         self.global_step = 0
 
+    @property
+    def active(self) -> bool:
+        """Whether this rank takes part in the fit (one device, or a rank of the mesh)."""
+        return self.mesh is None or in_mesh(self.mesh)
+
+    def _info(self, *args) -> None:
+        if is_rank0():
+            logger.info(*args)
+
     def _hook(self, name, routine, state, allow_replace=False):
+        """Each callback's ``name`` hook. On a mesh the callbacks that write
+        files run on rank 0 only, with the state gathered whole, and every
+        rank of the mesh waits for them."""
+        whole, wrote = None, False
         for cb in self.callbacks:
+            if self.mesh is not None and getattr(cb, "writes_files", False):
+                if whole is None:
+                    whole = gather_state(state)
+                if is_rank0():
+                    getattr(cb, name)(self, routine, whole)
+                wrote = True
+                continue
             ret = getattr(cb, name)(self, routine, state)
             if allow_replace and ret is not None:
                 state = ret
+        if wrote:
+            self._barrier(state.device)
         return state
+
+    def _barrier(self, device) -> None:
+        """Every rank of the mesh waits for the others (an all-reduce over
+        each axis in turn reaches them all)."""
+        token = torch.zeros(1, device=device)
+        for name in self.mesh.mesh_dim_names:
+            all_reduce(token, mesh_axis(self.mesh, name))
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
 
     def step_generator(self, device) -> torch.Generator:
         """The noise generator of the current global step."""
@@ -272,6 +359,9 @@ class Trainer:
         est = _estimate_activation_bytes(model, builder.sample_batch())
         if est is None:
             return
+        if self.mesh is not None:  # activations split with the batch and the grid
+            sizes = mesh_shape(self.mesh)
+            est //= sizes.get("data", 1) * sizes.get("spatial", 1)
         budget = REMAT_BUDGET * _device_hbm_bytes(self.device)
         if est > budget:
             logger.warning(
@@ -281,31 +371,65 @@ class Trainer:
                 est / 2**30, budget / 2**30)
             model.remat = True
 
+    def _n_params(self, routine: Routine, state: State) -> int:
+        """The parameters of the whole model (a tensor-parallel state holds a
+        block of some)."""
+        tp = mesh_axis(state.mesh, "model")
+        if tp is None:
+            return routine.n_params(state)
+        return sum(p.numel() * (tp.size if getattr(p, "tp_dim", None) is not None else 1)
+                   for p in state.model.parameters())
+
     def fit(self, routine: Routine, builder, state: Optional[State] = None) -> State:
         """``max_epochs`` epochs from epoch 0 and global step 0, from
         ``state`` where given (a resumed run too, as in the reference: a
         normalizing routine's epoch 0 then adds statistics to the restored
-        ones)."""
+        ones). A rank that the mesh dropped returns ``state`` at once."""
+        if not self.active:
+            logger.warning("this rank is not in the mesh %s: it takes no part in the fit",
+                           mesh_shape(self.mesh))
+            return state
+        if self.mesh is not None and not getattr(routine, "supports_mesh", False):
+            raise NotImplementedError(f"{type(routine).__name__} has no parallel form on a "
+                                      "device mesh (Grid2DMarkovRoutine has)")
         rng = np.random.default_rng(self.seed)
         if self.auto_remat:
             self._maybe_enable_remat(routine, builder)
         if state is None:
             state = routine.init(self.seed, builder.sample_batch(), self.device)
-        self.logs["n_params"] = routine.n_params(state)
-        logger.info("n_params = %d", self.logs["n_params"])
+        if self.mesh is not None and state.mesh is None:
+            state = shard_state(state, self.mesh)
+        self.logs["n_params"] = self._n_params(routine, state)
+        self._info("n_params = %d", self.logs["n_params"])
         self._hook("on_fit_start", routine, state)
         normalizes = getattr(routine, "should_normalize", False)
 
+        # On a mesh the device-resident epoch needs a pure data mesh whose axis
+        # divides the batch (as in the JAX package); model and spatial meshes
+        # take the per-batch loop.
         fast = self.fast_loop and self.limit_train_batches is None
+        if self.mesh is not None:
+            fast = fast and (tuple(self.mesh.mesh_dim_names) == ("data",) and
+                             builder.batch_size % mesh_shape(self.mesh)["data"] == 0)
         proto = self._device_protocol(routine, builder) if fast else None
         fast = fast and (proto is not None or hasattr(builder, "train_data"))
         if fast:
             data, sample_fn, n_items = proto if proto is not None else (
                 builder.train_data, gather, len(next(iter(builder.train_data.values()))))
+            est, budget = _tree_nbytes(data), REMAT_BUDGET * _device_hbm_bytes(self.device)
+            if self.mesh is not None and est > budget:
+                # Every rank would hold the whole train set.
+                logger.warning("the train set (~%.1f GB) exceeds the per-device replication "
+                               "budget (~%.1f GB): streaming batches through the per-batch loop "
+                               "instead (set fast_loop=False to silence this)", est / 2**30,
+                               budget / 2**30)
+                fast = False
+        if fast:
             data = to_device(data, state.device)
             train_epoch, acc_epoch = (
                 make_scan_epoch_indexed(routine, builder.batch_size, n_items, sample_fn,
-                                        accumulate=acc, seed=self.seed) for acc in (False, True))
+                                        accumulate=acc, seed=self.seed, mesh=self.mesh)
+                for acc in (False, True))
             n_batches = n_items // builder.batch_size
 
         for epoch in range(self.max_epochs):
@@ -319,9 +443,9 @@ class Trainer:
                     self.global_step += n_batches
                     self._check_nan(scalars, epoch)
                     self.logs.update(scalars)
-                    logger.info("epoch %d: %d steps on the device (global %d): %s", epoch,
-                                n_batches, self.global_step,
-                                ", ".join(f"{k} {v:.4f}" for k, v in scalars.items()))
+                    self._info("epoch %d: %d steps on the device (global %d): %s", epoch,
+                               n_batches, self.global_step,
+                               ", ".join(f"{k} {v:.4f}" for k, v in scalars.items()))
             else:
                 state = self._batch_epoch(routine, builder, state, rng, epoch, normalizes)
 
@@ -335,6 +459,23 @@ class Trainer:
 
         return self._hook("on_fit_end", routine, state, allow_replace=True)
 
+    def _shard(self, batch, split_batch: bool = True):
+        """A batch as this rank holds it on the mesh (``shard_batch``): its
+        batch dim split on ``data`` where ``split_batch``, a grid's X on
+        ``spatial`` where the mesh has that axis."""
+        if self.mesh is None:
+            return batch
+        spatial = "spatial" if "spatial" in self.mesh.mesh_dim_names else None
+        return shard_batch(batch, self.mesh, "data" if split_batch else None, spatial)
+
+    def _global_count(self, batch) -> int:
+        """The samples of the whole batch of which ``batch`` is a rank's slice."""
+        n = batch_count(batch)
+        specs = getattr(batch, "specs", None)
+        if specs and tuple(specs[next(iter(batch))][:1]) == ("data",):
+            n *= mesh_shape(self.mesh)["data"]
+        return n
+
     def _batch_epoch(self, routine: Routine, builder, state: State, rng, epoch: int,
                      normalizes: bool) -> State:
         """One epoch of the per-batch loop over ``builder.train_batches(rng)``."""
@@ -342,15 +483,16 @@ class Trainer:
         for i, batch in enumerate(builder.train_batches(rng)):
             if self.limit_train_batches and i >= self.limit_train_batches:
                 break
+            batch = self._shard(batch)
             if epoch == 0 and normalizes:
                 state = routine.accumulate_step(state, batch)
                 continue
             state, metrics = routine.train_step(state, batch, self.step_generator(state.device))
             self.global_step += 1
-            train_metrics.append((metrics, batch_count(batch)))
+            train_metrics.append((metrics, self._global_count(batch)))
             if self.global_step == 1 or (i + 1) % self.log_every_n_steps == 0:
-                logger.info("epoch %d step %d (global %d): loss %.4f", epoch, i + 1,
-                            self.global_step, float(metrics["train_loss"]))
+                self._info("epoch %d step %d (global %d): loss %.4f", epoch, i + 1,
+                           self.global_step, float(metrics["train_loss"]))
         if train_metrics:
             merged = _weighted_merge([(_numpy(m), w) for m, w in train_metrics])
             scalars = {k: float(v) for k, v in merged.items()}
@@ -366,21 +508,27 @@ class Trainer:
     def _eval_batches(self, builder, split: str, device):
         """The split's batches: with ``fast_loop``, a ``{split}_data`` dict of
         numpy arrays uploaded once (cached by builder and split) and sliced on
-        the device; else ``val_batches()`` / ``test_batches()``."""
+        the device; else ``val_batches()`` / ``test_batches()``. On a mesh
+        each is whole on every data row and split over ``spatial``."""
         data = getattr(builder, f"{split}_data", None)
         if not (self.fast_loop and isinstance(data, dict) and data
                 and all(isinstance(v, np.ndarray) for v in data.values())):
-            return builder.val_batches() if split == "valid" else builder.test_batches()
-        key = (builder, split)
-        if key not in self._eval_cache:
-            self._eval_cache[key] = to_device(data, device)
-        resident = self._eval_cache[key]
-        n, bs = len(next(iter(resident.values()))), builder.batch_size
-        return (gather(resident, slice(s, s + bs)) for s in range(0, n, bs))
+            batches = builder.val_batches() if split == "valid" else builder.test_batches()
+        else:
+            key = (builder, split)
+            if key not in self._eval_cache:
+                self._eval_cache[key] = to_device(data, device)
+            resident = self._eval_cache[key]
+            n, bs = len(next(iter(resident.values()))), builder.batch_size
+            batches = (gather(resident, slice(s, s + bs)) for s in range(0, n, bs))
+        return batches if self.mesh is None else (self._shard(b, False) for b in batches)
 
     def evaluate(self, routine: Routine, builder, state: State, split: str = "valid") -> dict:
         """``valid_step`` over the split's batches (``_eval_batches``), merged
-        by batch size, as ``{f"{split}_{metric}": value}``."""
+        by batch size, as ``{f"{split}_{metric}": value}`` (empty on a rank
+        that the mesh dropped)."""
+        if not self.active:
+            return {}
         batches = self._eval_batches(builder, split, state.device)
         metric_list = []
         for i, batch in enumerate(batches):
@@ -391,6 +539,8 @@ class Trainer:
                 for k, v in _weighted_merge(metric_list).items()}
 
     def test(self, routine: Routine, builder, state: State) -> dict:
+        if not self.active:
+            return {}
         logs = self.evaluate(routine, builder, state, split="test")
         self.logs.update(logs)
         self._hook("on_test_end", routine, state)

@@ -7,6 +7,11 @@ count, with ``torch.save``.
 The port's checkpoints and the reference's Lightning ``.ckpt`` files are
 both ``torch.save`` zip archives, so ``checkpoint_kind`` tells them apart by
 what they hold: the port's a ``model`` entry, Lightning's a ``state_dict``.
+
+A checkpoint always holds the whole state (a tensor-parallel fit saves it
+gathered, ``parallel.gather_state``); restoring into a state whose weights
+are split over a ``model`` mesh axis takes this rank's block of each split
+weight and of its AdamW moments.
 """
 
 import logging
@@ -16,6 +21,8 @@ from dataclasses import replace
 
 import torch
 
+from ..parallel.collectives import mesh_axis
+from ..parallel.mesh import shard_tensor, split_dims
 from ..routines.base import State
 
 logger = logging.getLogger(__name__)
@@ -93,10 +100,21 @@ def _port_blob(path: str, blob):
     return blob
 
 
+def _split_dims(state: State):
+    """``(model axis, {name: split dim})`` of a tensor-parallel state, else
+    ``(None, {})``."""
+    specs = split_dims(state.model)
+    tp = mesh_axis(state.mesh, "model")
+    return (tp, specs) if tp is not None and specs else (None, {})
+
+
 def _restore_weights(blob, state: State) -> State:
-    """The weights into ``state.model``; the returned state carries the
-    normalizer and step count of the checkpoint."""
-    state.model.load_state_dict(blob["model"])
+    """The weights into ``state.model`` (this rank's blocks of a split
+    state's); the returned state carries the normalizer and step count of
+    the checkpoint."""
+    tp, specs = _split_dims(state)
+    state.model.load_state_dict({k: shard_tensor(v, specs.get(k), tp)
+                                 for k, v in blob["model"].items()})
     norm = state.normalizer
     if norm is not None and "normalizer" in blob:
         dev = state.device
@@ -110,6 +128,13 @@ def load_state(path: str, state: State) -> State:
     have them, the optimizer, the scheduler and the step count."""
     blob = _port_blob(path, None)
     if state.optimizer is not None and "optimizer" in blob:
+        tp, specs = _split_dims(state)
+        if tp is not None:  # this rank's block of each split weight's moments
+            dims = [specs.get(name) for name, _ in state.model.named_parameters()]
+            for i, moments in blob["optimizer"]["state"].items():
+                for k, v in moments.items():
+                    if isinstance(v, torch.Tensor) and v.dim() > 0:
+                        moments[k] = shard_tensor(v, dims[i], tp)
         state.optimizer.load_state_dict(blob["optimizer"])
     if state.scheduler is not None and "scheduler" in blob:
         state.scheduler.load_state_dict(blob["scheduler"])

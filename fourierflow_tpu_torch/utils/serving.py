@@ -34,7 +34,7 @@ from typing import Optional, Union
 import torch
 import torch.nn as nn
 
-from ..layers import WNLinear
+from ..layers import WNLinear, row_norms
 
 logger = logging.getLogger(__name__)
 
@@ -55,8 +55,8 @@ def _fold_weight_norm(model: nn.Module) -> nn.Module:
     for m in model.modules():
         if isinstance(m, WNLinear) and m.wnorm:
             with torch.no_grad():
-                norm = torch.linalg.vector_norm(m.weight_v, dim=1, keepdim=True)
-                w = m.weight_g * m.weight_v / torch.clamp(norm, min=1e-12)
+                v = m.weight_v
+                w = m.weight_g * v / row_norms(v.square().sum(dim=1, keepdim=True))
             del m.weight_g, m.weight_v
             m.weight = nn.Parameter(w)
             m.wnorm = False

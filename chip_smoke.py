@@ -79,8 +79,7 @@ phase's wall time:
    epoch of each loop, in turns, and each traced once (device time, idle
    share); exactly 24 launches of each kernel in one train
    step; one train step's loss and every parameter gradient on the kernel
-   path against the plain path (a float32 CPU copy), and the errors of both
-   against a float64 CPU copy of the same step; the time of a train
+   path against the plain path (a float32 CPU copy); the time of a train
    step, and its device time by kernel group from a profiler trace.
 8. ``baseline``: the port's ``train`` on the FNO-4 config (width 20, 12
    modes, 4 layers, batch 20, 10-step unroll) on the same file for one
@@ -207,7 +206,8 @@ phase's wall time:
    ``train`` with ``resume``: the
    resumed fit's starting weights, normalizer, AdamW moments, schedule and
    step equal the ``last.ckpt`` it read to the bit, and its ``global_step``
-   restarts at 0 (as the reference's); ``checkpoint_path`` restores the same
+   restarts at 0 (as the reference's); the port's ``plot table`` over the
+   two runs' directory, printed; ``checkpoint_path`` restores the same
    whole state; ``pretrained_path`` from that file and from a Lightning
    ``.ckpt`` (``save_lightning``) gives the file's weights, no optimizer
    moments and step 0. One step from one state without noise, remat against
@@ -239,7 +239,19 @@ phase's wall time:
    (two a call). Runs with several ranks need two or more cards: there,
    2-way data, tensor and spatial parallelism of the flagship against the
    one-rank fit (train loss within rtol 1e-4, valid loss within 1e-3) with
-   ms per step.
+   ms per step. Then the five other routines on a ``data`` mesh, each
+   config at its full width (the 24-layer ones at 4 layers), one epoch of 2
+   steps and the validation on small sets the phase writes:
+   ``torus_li/zongyi/4_layers`` on the generated file, ``airfoil/ffno`` and
+   ``elasticity/ffno`` (A, A', B and B' launched on the mesh), ``rollout/x64``
+   on synthetic velocity files (the device-resident epoch over ``(inputs,
+   outputs)`` tuples) and ``cylinder_flow/baseline`` through ``convert
+   cylinder-flow``: on one rank each fit equal to the fit with no mesh to the
+   bit (the learned interpolation with cuDNN's deterministic algorithms),
+   MeshGraphNet within 1e-5 in the losses and 2e-2 in a tensor (its
+   ``index_add_`` atomics sum in another order on every run; two fits with
+   no mesh are compared too and printed);
+   with several ranks 2-way fits within the bounds above.
 19. ``time`` (in a child process of this script, which starts with no CUDA
    graph and no profiler session behind it): each kernel, its plain version
    and a PyTorch yardstick the port
@@ -288,6 +300,7 @@ from fourierflow_tpu_torch.builders.synthetic import (  # noqa: E402
 from fourierflow_tpu_torch.builders.synthetic.ns_2d import li_force  # noqa: E402
 from fourierflow_tpu_torch.commands import (  # noqa: E402
     export, infer, predict, sample, train)
+from fourierflow_tpu_torch.commands import plot  # noqa: E402
 from fourierflow_tpu_torch.commands import test as test_command  # noqa: E402
 from fourierflow_tpu_torch.commands.generate import navier_stokes  # noqa: E402
 from fourierflow_tpu_torch.commands.train import build_routine  # noqa: E402
@@ -1638,20 +1651,6 @@ def phase_train(dev, seed, data_path):
     log(f"train: step on the kernel path vs plain path: loss {float(loss):.6f} vs "
         f"{float(want_loss):.6f} (rel {loss_rel:.2e}); gradients of {len(rels)} parameters, "
         f"largest rel {rels[worst]:.2e} ({worst}), tol {TRAIN_TOL:.0e}")
-    # The same step on a float64 CPU copy (the same float32 DFT bases), beside the check:
-    # the card's and the float32 copy's own errors against it.
-    ref = cpu_copy(routine, state, torch.float64)
-    t0 = time.perf_counter()
-    ref_loss, ref_grads, _ = quiet.loss_and_grads(
-        ref, {k: np.asarray(v, np.float64) for k, v in batch.items()})
-    ref_s = time.perf_counter() - t0
-    for label, got_loss, got in (("the card", loss, grads), ("the float32 CPU copy", want_loss,
-                                                             want_grads)):
-        errs = {n: rel_err(a, b)[1] for n, a, b in zip(names, got, ref_grads, strict=True)}
-        w = max(errs, key=errs.get)
-        log(f"train: step of {label} against a float64 CPU copy: loss rel "
-            f"{abs(float(got_loss) - float(ref_loss)) / abs(float(ref_loss)):.2e}, gradients "
-            f"largest rel {errs[w]:.2e} ({w}); the float64 step {ref_s:.1f} s")
     if not (loss_rel <= TRAIN_TOL and rels[worst] <= TRAIN_TOL):
         raise AssertionError("train: kernel path disagrees with the plain path")
 
@@ -1992,9 +1991,9 @@ def serve_context(dev, path):
 
 
 # --- phase mesh ----------------------------------------------------------------------------
-def write_mesh_data(root, seed):
-    """The three Geo-FNO datasets at their shapes under ``root`` (the
-    registry's ``${DATA_ROOT}`` layout), made from ``seed``: smooth,
+def write_mesh_data(root, seed, families=("airfoil", "pipe", "plasticity")):
+    """The Geo-FNO datasets of ``families`` at their shapes under ``root``
+    (the registry's ``${DATA_ROOT}`` layout), made from ``seed``: smooth,
     per-sample deformed coordinate fields X, Y and smooth target fields of
     them; the plasticity input a smooth boundary profile and the output
     smooth in space and time. Float64, as the published files."""
@@ -2016,6 +2015,8 @@ def write_mesh_data(root, seed):
     for family, folder, prefix, (sx, sy), channels in (
             ("airfoil", "geo-fno/airfoil/naca", "NACA_Cylinder_", (221, 51), 5),
             ("pipe", "geo-fno/pipe", "Pipe_", (129, 129), 1)):
+        if family not in families:
+            continue
         n = sum(MESH_SPLITS[family])
         x, y = coords(n, sx, sy)
         os.makedirs(os.path.join(root, folder), exist_ok=True)
@@ -2023,6 +2024,8 @@ def write_mesh_data(root, seed):
             path = os.path.join(root, folder, f"{prefix}{name}.npy")
             np.save(path, a)
             files[path] = a.shape
+    if "plasticity" not in families:
+        return files
     import scipy.io
 
     n = sum(MESH_SPLITS["plasticity"])
@@ -3327,13 +3330,17 @@ PARALLEL_TIMED_STEPS = 5
 
 
 def _parallel_fit(cfg, dev, seed, mesh=None, fast_loop=True, data_parallel=False):
-    """The flagship's fit (the normalizer epoch and one train epoch) through
-    the Trainer on ``mesh`` (none: one device); its trainer, routine, state,
-    builder and the launches it made."""
+    """A config's fit (the flagship's: the normalizer epoch and one train
+    epoch) through the Trainer on ``mesh`` (none: one device), with the
+    config's epochs and batch limits; its trainer, routine, state, builder
+    and the launches it made."""
     builder = instantiate(cfg["builder"])
     routine = build_routine(cfg["routine"], builder)
-    trainer = Trainer(max_epochs=2, seed=seed, device=dev, mesh=mesh, fast_loop=fast_loop,
-                      data_parallel=data_parallel)
+    tcfg = cfg["trainer"]
+    trainer = Trainer(max_epochs=tcfg["max_epochs"],
+                      limit_train_batches=tcfg.get("limit_train_batches"),
+                      limit_val_batches=tcfg.get("limit_val_batches"), seed=seed, device=dev,
+                      mesh=mesh, fast_loop=fast_loop, data_parallel=data_parallel)
     before = launch_counts()
     state = trainer.fit(routine, builder)
     torch.cuda.synchronize(dev)
@@ -3477,19 +3484,178 @@ def _several_ranks(cfg, dev, seed, world):
     return out
 
 
-def _parallel_rank(rank, world, store, data_path, seed, out_path):
+# The five other routines' fits on a data mesh: each config at its full width, the 24-layer
+# ones cut to PARALLEL_FAMILY_LAYERS layers, one epoch of 2 train steps and the validation on
+# the small sets that phase parallel writes (the flagship's generated file for the FNO-4).
+PARALLEL_FAMILY_LAYERS = 4
+# MeshGraphNet on a mesh against no mesh: index_add_'s float atomics sum in another order on
+# every run (models/meshgraphnet.py), so two fits without a mesh differ too; both are printed.
+# Held: the losses' relative difference (MGN_LOSS_RTOL) and each tensor's max |diff| / max |no
+# mesh's| (weights and AdamW moments, MGN_PARALLEL_RTOL). Measured first (PERF.md §6):
+# two fits without a mesh, losses equal and 5.19e-03 at most in a tensor (556 of them differ);
+# the mesh's fit 0 and 7.02e-03.
+MGN_LOSS_RTOL, MGN_PARALLEL_RTOL = 1e-5, 2e-2
+# Families whose fits without a mesh are also compared with each other. The learned
+# interpolation's are run with cuDNN's deterministic algorithms: with its default ones two fits
+# without a mesh differ (its convolutions' backward), and the mesh's fit is held to the bit.
+PARALLEL_SELF_CHECKED = ("learned_interpolation", "meshgraphnet")
+LI_PARALLEL = dict(size=64, train=4, frames=66, eval=2, records=64)
+
+
+def write_li_velocity(root, seed):
+    """Small files of ``rollout/x64``'s layout under ``root``, made from
+    ``seed``: LI_PARALLEL["train"] trajectories of smooth periodic staggered
+    velocities at 64^2, drifting in time, ``frames`` frames (2 items each at
+    k 2 and an unroll of 32); initial conditions and 32^2 vorticity records
+    to validate and test on (``records`` frames: 2 snapshots of 16 model
+    steps)."""
+    from fourierflow_tpu_torch.utils.hdf5 import H5Writer
+
+    rng = np.random.default_rng(seed)
+
+    def fields(lead, n):
+        g = 2 * np.pi * np.arange(n) / n
+        xx, yy = np.meshgrid(g, g, indexing="ij")
+        out = np.zeros(lead + (n, n))
+        for kx, ky in ((1, 0), (0, 1), (1, 1), (2, 1), (1, 3)):
+            a = rng.standard_normal(lead + (1, 1))
+            ph = rng.uniform(0, 2 * np.pi, lead + (1, 1))
+            out += 2 * a * np.sin(kx * xx + ky * yy + ph) / np.hypot(kx, ky)
+        return out.astype(np.float32)
+
+    base, n, p = os.path.join(root, "kolmogorov", "re_1000"), LI_PARALLEL["size"], LI_PARALLEL
+    drift = 0.01 * np.arange(p["frames"], dtype=np.float32)[None, :, None, None]
+    arrays = {"trajectories/train_64_1.h5": {
+        c: fields((p["train"],), n)[:, None] + drift * fields((p["train"],), n)[:, None]
+        for c in ("vx", "vy")}}
+    for split in ("valid", "test"):
+        arrays[f"initial_conditions/{split}_64.h5"] = {c: fields((p["eval"],), n)
+                                                       for c in ("vx", "vy")}
+        arrays[f"trajectories/{split}_32_1.h5"] = {
+            "vorticity": fields((p["eval"], p["records"]), 32),
+            "time": np.arange(1, p["records"] + 1, dtype=np.float32)}
+    files = {}
+    for rel, data in arrays.items():
+        path = os.path.join(base, rel)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with H5Writer(path, {k: (v.shape, v.dtype) for k, v in data.items()}) as w:
+            for k, v in data.items():
+                w.write(k, 0, v)
+        files[path] = {k: v.shape for k, v in data.items()}
+    return files
+
+
+def write_parallel_data(root, seed):
+    """The sets of the five routines' fits under ``root``: the airfoil files
+    (phase mesh's writer), the elasticity files (phase pointcloud's),
+    ``rollout/x64``'s (``write_li_velocity``) and cylinder_flow's TFRecords
+    through ``convert cylinder-flow`` (phase meshgraphnet's)."""
+    from fourierflow_tpu_torch.commands.convert import cylinder_flow as convert
+
+    files = {**write_mesh_data(root, seed, families=("airfoil",)),
+             **write_elasticity_data(root, seed), **write_li_velocity(root, seed)}
+    records = os.path.join(root, "meshgraphnets", "cylinder_flow")
+    write_cylinder_flow(records, seed)
+    path = convert(records, os.path.join(records, "cylinder_flow.h5"))
+    files[path] = load_array(path, "train/velocity").shape
+    return files
+
+
+def parallel_families(data_path):
+    """``[(routine's family, config, overrides)]`` of the five fits."""
+    cut, one = f"routine.model.n_layers={PARALLEL_FAMILY_LAYERS}", "trainer.max_epochs=1"
+    return [("rollout", ZONGYI_CONFIG, [f"builder.data_path={data_path}", "builder.key=train/u",
+                                        "builder.train_size=40", "builder.test_size=20", one]),
+            ("mesh", MESH_CONFIG, ["builder.train_size=20", "builder.valid_size=10",
+                                   "builder.test_size=10", cut, one]),
+            ("pointcloud", POINT_CONFIG, _point_overrides(POINT_CONFIG) + [cut, one]),
+            ("learned_interpolation", LI_CONFIG, ["trainer.limit_train_batches=None", one]),
+            ("meshgraphnet", MGN_CONFIG, ["trainer.limit_train_batches=2", one])]
+
+
+def _fit_difference(a, b):
+    """``(largest relative difference of train_loss and valid_loss, the
+    tensors that differ, the largest max |diff| / max |b| of a tensor, and
+    of a weight alone)`` of two ``_parallel_fit``s."""
+    losses = max(abs(a[0].logs[k] - b[0].logs[k]) / abs(b[0].logs[k])
+                 for k in ("train_loss", "valid_loss"))
+    snap_a, snap_b = _snapshot(a[2]), _snapshot(b[2])
+    _, bad, worst = _state_diff(snap_a, snap_b)
+    weights = max(rel_err(v.float(), snap_b["model"][k].float())[1]
+                  for k, v in snap_a["model"].items())
+    return losses, bad, worst, weights
+
+
+def _family_fits(families, dev, seed, world):
+    """Each family's fit on a data mesh over the world's ranks against the
+    same fit with no mesh. One rank: to the bit (weights, AdamW moments,
+    losses and steps), MeshGraphNet within MGN_LOSS_RTOL and
+    MGN_PARALLEL_RTOL; several ranks: within PARALLEL_FIT_RTOL. The
+    families of PARALLEL_SELF_CHECKED also
+    print the difference of two fits without a mesh. Returns the launches
+    of the data-mesh fits."""
+    launched = dict.fromkeys(KERNELS, 0)
+    for family, name, over in families:
+        cfg = load_config(name, over)
+        torch.backends.cudnn.deterministic = family == "learned_interpolation"
+        try:
+            t0 = time.perf_counter()
+            ref = _parallel_fit(cfg, dev, seed)
+            t1 = time.perf_counter()
+            got = _parallel_fit(cfg, dev, seed, make_mesh())
+            seconds = (t1 - t0, time.perf_counter() - t1)
+            again = _parallel_fit(cfg, dev, seed) if family in PARALLEL_SELF_CHECKED else None
+        finally:
+            torch.backends.cudnn.deterministic = False
+        launched = {k: launched[k] + got[4][k] for k in launched}
+        losses, bad, worst, weights = _fit_difference(got, ref)
+        if again is not None:
+            self_losses, self_bad, self_worst, self_weights = _fit_difference(again, ref)
+            log(f"parallel: {family}: two fits without a mesh"
+                + (" (cuDNN deterministic)" if family == "learned_interpolation" else "")
+                + f" differ by {self_losses:.2e} in the losses and {self_worst:.2e} at most in a "
+                f"tensor ({self_weights:.2e} in a weight; {len(self_bad)} tensors differ)")
+        log(f"parallel: {family} ({name}, n_params {ref[0].logs['n_params']:,}): a fit on "
+            f"{mesh_shape(got[0].mesh)} ({got[0].global_step} steps, {seconds[1]:.1f} s with "
+            f"validation) against no mesh ({ref[0].global_step}, {seconds[0]:.1f} s): train_loss "
+            f"{got[0].logs['train_loss']!r} / {ref[0].logs['train_loss']!r}, valid_loss "
+            f"{got[0].logs['valid_loss']!r} / {ref[0].logs['valid_loss']!r}; {len(bad)} tensors "
+            f"differ, largest rel difference {worst:.2e}; launches {got[4]}")
+        if got[0].global_step != ref[0].global_step or got[0].global_step < 1:
+            raise AssertionError(f"parallel: {family}: {got[0].global_step} steps on the mesh, "
+                                 f"{ref[0].global_step} without")
+        if world > 1:
+            for k, rtol in PARALLEL_FIT_RTOL.items():
+                if not abs(got[0].logs[k] - ref[0].logs[k]) <= rtol * abs(ref[0].logs[k]):
+                    raise AssertionError(f"parallel: {family}: {k} off by more than {rtol:.0e}")
+        elif family == "meshgraphnet":
+            log(f"parallel: {family}: the mesh's fit differs by {losses:.2e} in the losses "
+                f"(tol {MGN_LOSS_RTOL:.0e}) and {worst:.2e} at most in a tensor ({weights:.2e} "
+                f"in a weight; tol {MGN_PARALLEL_RTOL:.0e})")
+            if not (losses <= MGN_LOSS_RTOL and worst <= MGN_PARALLEL_RTOL):
+                raise AssertionError(f"parallel: {family}: the mesh's fit differs by more than "
+                                     f"{MGN_PARALLEL_RTOL:.0e}")
+        elif bad or losses != 0:
+            raise AssertionError(f"parallel: {family}: the data mesh's fit differs from the fit "
+                                 f"with no mesh in {bad[:6]}")
+    return launched
+
+
+def _parallel_rank(rank, world, store, data_path, data_root, seed, out_path):
     """One rank of phase parallel: joins the NCCL world on card ``rank`` and
     runs its cases; rank 0 writes the results."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if rank:  # rank 0 reports for all
         sys.stdout = open(os.devnull, "w")
+    os.environ["DATA_ROOT"] = data_root  # the registry's data paths
     dev = init_distributed(torch.device("cuda", rank), f"file://{store}", rank, world)
     try:
         cfg = load_config(CONFIG, data_overrides(data_path) + ["trainer.max_epochs=2"])
         reset_launch_counts()
         out = (_world_of_one if world == 1 else lambda *a: _several_ranks(*a, world))(
             cfg, dev, 7231)
+        out["launches_families"] = _family_fits(parallel_families(data_path), dev, 7231, world)
         out["launches"] = {**launch_counts(), **launch_counts(AXIS_KERNELS)}
         if rank == 0:
             with open(out_path, "w") as f:
@@ -3502,26 +3668,42 @@ def phase_parallel(seed, data_path):
     """The parallel trainer on the card(s): one process a card, started by
     ``torch.multiprocessing``, over NCCL. With one card a world of one rank
     (``_world_of_one``); with two or more, 2-way data, tensor and spatial
-    parallelism (``_several_ranks``). Returns the launches of the phase's
-    main path."""
+    parallelism (``_several_ranks``); then the five other routines' fits on
+    a data mesh (``_family_fits``) on the sets ``write_parallel_data``
+    writes. Returns the launches of the phase's main path."""
     cards = torch.cuda.device_count()
     world = 2 if cards >= 2 else 1
     log(f"parallel: {cards} card(s): a world of {world} rank(s) over NCCL"
         + ("; runs with several ranks need two or more cards" if world == 1 else ""))
     with tempfile.TemporaryDirectory() as tmp:
+        data_root = os.path.join(tmp, "data")
+        t0 = time.perf_counter()
+        files = write_parallel_data(data_root, seed)
+        log(f"parallel: wrote the five routines' sets in {time.perf_counter() - t0:.1f} s: "
+            f"{ {os.path.relpath(k, data_root): v for k, v in files.items()} }; cut: airfoil "
+            f"20 / 10 / 10 and elasticity {' / '.join(map(str, POINT_SPLITS))} samples, "
+            f"F-FNOs at {PARALLEL_FAMILY_LAYERS} of 24 layers, rollout/x64 "
+            f"{LI_PARALLEL['train']} trajectories of {LI_PARALLEL['frames']} frames, "
+            f"cylinder_flow 2 train batches; one epoch each")
         out_path = os.path.join(tmp, "parallel.json")
         sys.stdout.flush()
         torch.multiprocessing.start_processes(
-            _parallel_rank, args=(world, os.path.join(tmp, "store"), data_path, seed, out_path),
+            _parallel_rank, args=(world, os.path.join(tmp, "store"), data_path, data_root, seed,
+                                  out_path),
             nprocs=world, start_method="spawn")
         with open(out_path) as f:
             out = json.load(f)
-    counts = out["launches"]
+    counts, families = out["launches"], out["launches_families"]
     log(f"parallel: launches over the phase {counts} (a fused_mix_2d call is two launches of the "
-        f"spectral kernel, a fused_mix_axis call one)")
+        f"spectral kernel, a fused_mix_axis call one); in the five routines' data-mesh fits "
+        f"{families}")
     for name, n in counts.items():
         if n < 1:
             raise AssertionError(f"parallel: {name} was never launched on the parallel path")
+    for name, n in families.items():
+        if n < 1:
+            raise AssertionError(f"parallel: {name} was never launched in the routines' "
+                                 "data-mesh fits")
     return counts
 
 
@@ -3530,8 +3712,9 @@ def _snapshot(state):
     """A copy of a train state's tensors and counters, on the CPU."""
     norm = state.normalizer
     return {"model": {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()},
-            "normalizer": {f: getattr(norm, f).detach().cpu().clone()
-                           for f in ("sum", "sum_squared", "count", "n_accumulations")},
+            "normalizer": {} if norm is None else {
+                f: getattr(norm, f).detach().cpu().clone()
+                for f in ("sum", "sum_squared", "count", "n_accumulations")},
             "optimizer": copy.deepcopy(state.optimizer.state_dict()),
             "scheduler": None if state.scheduler is None else state.scheduler.state_dict(),
             "step": state.step}
@@ -3745,6 +3928,11 @@ def phase_trainer(dev, seed, data_path):
             f"from 0, as the reference), state step {blob['step']} -> {resumed.step}; "
             f"launches over both {counts}")
         _hold_start("resume", starts[-1], blob["model"], blob)
+        # The port's plot command over the run directory (train and resume, two trials).
+        log("trainer: the port's plot table over the run directory (train, then resume):")
+        table = plot.table(tmp, keys=["train_loss", "valid_loss", "n_params", "epoch"])
+        if table.count("| checkpoints/trial-0-") != 2 or "—" in table:
+            raise AssertionError("trainer: plot table lacks the two runs' final metrics")
         steps = trainer.global_step
         if not (state.model.remat is True and resumed_trainer.global_step == steps > 0
                 and resumed.step == 2 * steps):

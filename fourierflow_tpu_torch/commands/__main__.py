@@ -1,15 +1,17 @@
 """CLI entry point: ``python -m fourierflow_tpu_torch.commands <cmd> ...``.
 
-Commands ported so far: ``train``, ``test``, ``predict``, ``infer``,
-``export``, ``sample``, ``generate navier-stokes``, ``generate kolmogorov``,
+Commands: ``train``, ``test``, ``predict``, ``infer``, ``export``,
+``sample``, ``plot``, ``generate navier-stokes``, ``generate kolmogorov``,
 ``convert cylinder-flow`` and ``configs list|export``, with the JAX package's flags (``export``
 without ``--platforms``). An experiment is a YAML file or a name of the registry
 (``configs list``). Each runs on CUDA unless ``--device cpu`` is given, and
-raises when no GPU is present and the CPU was not asked for.
+raises when no GPU is present and the CPU was not asked for; ``plot``, the
+configs and the converter run on the host only.
 """
 
 import argparse
 import logging
+import os
 import sys
 
 
@@ -94,6 +96,38 @@ def main(argv=None):
     p_sample.add_argument("--out-path", default=None)
     _add_device(p_sample)
 
+    p_plot = sub.add_parser("plot", help="figures and tables from local run logs")
+    p_plot.add_argument("kind", choices=["layers", "correlation", "step-losses", "parameters",
+                                         "table", "heatmap", "energy", "flows", "superresolution",
+                                         "ablation", "tradeoff", "stepsize"])
+    p_plot.add_argument("dataset", nargs="?", default=None,
+                        help="for 'table': one of torus_li/airfoil/elasticity/plasticity/pipe "
+                             "-> the paper's Table A.3-A.6 layout; for 'superresolution': the "
+                             "results JSON; for 'tradeoff': the data directory; for "
+                             "'stepsize': the DNS JSON")
+    p_plot.add_argument("--root", default="configs")
+    p_plot.add_argument("--sample-path", default=None)
+    p_plot.add_argument("--out-path", default=None)
+    p_plot.add_argument("--latex", action="store_true",
+                        help="emit the reference's LaTeX rows for tables")
+    p_plot.add_argument("--inputs", nargs="+", default=None,
+                        help="for 'energy'/'flows': name=path.h5 prediction/trajectory files; "
+                             "for 'ablation'/'stepsize': value=campaign_log.jsonl; for "
+                             "'tradeoff': label=runtime DNS baseline points")
+    p_plot.add_argument("--times", type=int, nargs="+", default=None,
+                        help="for 'flows': time indices (columns)")
+    p_plot.add_argument("--tail", type=int, default=80,
+                        help="for 'energy': trailing time window to average")
+    p_plot.add_argument("--sample", type=int, default=0, help="for 'flows': sample index")
+    p_plot.add_argument("--train-size", type=int, default=64,
+                        help="for 'superresolution': the checkpoint's training grid size "
+                             "(marks the figure)")
+    p_plot.add_argument("--xlabel", default="parameter",
+                        help="for 'ablation': swept-parameter axis label")
+    p_plot.add_argument("--metrics", nargs="+", default=None,
+                        help="for 'ablation': campaign_log.jsonl keys to plot (default "
+                             "valid_time_until, train_loss)")
+
     p_gen = sub.add_parser("generate", help="generate datasets")
     gen_sub = p_gen.add_subparsers(dest="generator", required=True)
     p_ns = gen_sub.add_parser("navier-stokes", help="torus Navier-Stokes trajectories (h5)")
@@ -165,6 +199,8 @@ def main(argv=None):
 
         sample_main(args.config_path, args.checkpoint_path, overrides=args.overrides,
                     trial=args.trial, out_path=args.out_path, device=args.device)
+    elif args.command == "plot":
+        plot(args)
     elif args.command == "generate" and args.generator == "navier-stokes":
         from .generate import navier_stokes
 
@@ -192,6 +228,43 @@ def main(argv=None):
             if args.name is None:
                 raise SystemExit("export needs an experiment name")
             print(materialize(args.name, args.out_dir))
+
+
+def plot(args) -> None:
+    """The ``plot`` subcommand: ``args.kind`` with its options."""
+    from . import plot as plot_mod
+
+    out = args.out_path
+    if args.kind == "heatmap":
+        plot_mod.heatmap(args.sample_path)
+    elif args.kind == "table":
+        plot_mod.table(args.root, out_path=out, dataset=args.dataset, latex=args.latex)
+    elif args.kind == "layers":
+        plot_mod.layers(args.root, out_path=out or "layers.png")
+    elif args.kind == "step-losses":
+        plot_mod.step_losses(args.root, out_path=out or "step_losses.png")
+    elif args.kind == "parameters":
+        plot_mod.parameters(args.root, out_path=out or "parameters.png")
+    elif args.kind == "energy":
+        plot_mod.energy(args.inputs or [], out_path=out or "energy.png", tail=args.tail)
+    elif args.kind == "flows":
+        plot_mod.flows(args.inputs or [], out_path=out or "samples.png", sample=args.sample,
+                       times=args.times)
+    elif args.kind == "superresolution":
+        plot_mod.superresolution(args.dataset or "superres_results.json",
+                                 out_path=out or "superresolution.png",
+                                 train_size=args.train_size)
+    elif args.kind == "ablation":
+        plot_mod.ablation(args.inputs or [], out_path=out or "ablation.png", xlabel=args.xlabel,
+                          metrics=args.metrics)
+    elif args.kind == "tradeoff":
+        plot_mod.tradeoff(args.dataset or os.path.join("data", "kochkov512"),
+                          out_path=out or "tradeoff.png", dns=args.inputs)
+    elif args.kind == "stepsize":
+        plot_mod.stepsize(args.inputs or [], dns_path=args.dataset,
+                          out_path=out or "stepsize.png")
+    else:
+        plot_mod.correlation(args.root, out_path=out or "correlation.png")
 
 
 if __name__ == "__main__":

@@ -181,7 +181,12 @@ def shard_batch(batch, mesh, axis: Optional[str] = "data",
     when it divides, also where the batch dim does not (the point of spatial
     parallelism: batch 1-2 on a large grid); anything else replicated, with
     a warning above 8 MB. ``axis`` None keeps every batch dim whole (the
-    evaluation's batches, computed alike by every data row)."""
+    evaluation's batches of a routine that reduces nothing over ``data``).
+    A tuple or list of dicts (the learned interpolation's ``(inputs,
+    outputs)``) gives one ``ShardedBatch`` for each, as JAX maps the rules
+    over the tree's leaves."""
+    if isinstance(batch, (tuple, list)):
+        return type(batch)(shard_batch(b, mesh, axis, spatial_axis) for b in batch)
     sizes = mesh_shape(mesh)
     arrays, specs = {}, {}
     for key, x in batch.items():

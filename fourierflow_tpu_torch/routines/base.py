@@ -14,13 +14,17 @@ so, and it keeps one copy of each); the returned ``State`` carries the
 same objects with the step count advanced.
 
 A state on a device mesh (``state.mesh``, set by ``parallel.shard_state``)
-reduces each step's gradients and loss over the mesh
-(``reduce_over_mesh``): the JAX package's GSPMD does this inside its
-jitted step.
+reduces each step's gradients and loss over the mesh: the JAX package's
+GSPMD does this inside its jitted step. ``reduce_over_mesh`` serves the
+Markov routine on any of its meshes; ``mean_over_data`` serves the routines
+that train on a ``data`` mesh only (``mesh_axes``), whose losses and metrics
+are global ratios (a sum over the samples or the valid nodes of the whole
+batch, divided by their count).
 """
 
 from dataclasses import dataclass, replace
-from typing import Callable, Optional, Sequence
+from functools import reduce
+from typing import Callable, List, Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -28,8 +32,8 @@ import torch.nn as nn
 from ..layers import NormalizerState
 from ..parallel.collectives import all_reduce, mesh_axis
 
-__all__ = ["State", "Routine", "OptimizerSpec", "make_optimizer", "rho_time_until",
-           "nan_to_9999"]
+__all__ = ["State", "Routine", "OptimizerSpec", "make_optimizer", "correlations", "time_until",
+           "rho_time_until", "nan_to_9999"]
 
 
 @dataclass
@@ -85,17 +89,29 @@ def make_optimizer(lr: float = 1e-3, weight_decay: float = 1e-4,
     return OptimizerSpec(lr, weight_decay, schedule, clip_val, int(accumulate_grad_batches))
 
 
-def rho_time_until(preds: torch.Tensor, yy: torch.Tensor, step_size: float):
-    """Vorticity correlation rho(t) of ``preds`` and ``yy [b, X, Y, T]``,
-    averaged over the batch, and the time (``step_size`` per step) until
-    rho first drops below 0.95 (all of T when it never does)."""
+def correlations(preds: torch.Tensor, yy: torch.Tensor) -> torch.Tensor:
+    """Each sample's vorticity correlation of ``preds`` and ``yy [b, X, Y,
+    T]`` at each time: ``[b, T]``."""
     pn = torch.linalg.vector_norm(preds, dim=(1, 2), keepdim=True)
     yn = torch.linalg.vector_norm(yy, dim=(1, 2), keepdim=True)
-    p = ((preds / pn) * (yy / yn)).sum(dim=(1, 2)).mean(dim=0)
+    return ((preds / pn) * (yy / yn)).sum(dim=(1, 2))
+
+
+def time_until(p: torch.Tensor, step_size: float) -> torch.Tensor:
+    """The time (``step_size`` per step) until the correlation ``p [T]``
+    first drops below 0.95 (all of T when it never does)."""
     diverged = p < 0.95
     t = torch.where(diverged.any(), torch.argmax(diverged.int()),
                     torch.tensor(p.shape[0], device=p.device))
-    return p, t * step_size
+    return t * step_size
+
+
+def rho_time_until(preds: torch.Tensor, yy: torch.Tensor, step_size: float):
+    """Vorticity correlation rho(t) of ``preds`` and ``yy [b, X, Y, T]``,
+    averaged over the batch, and the time until it first drops below 0.95
+    (``time_until``)."""
+    p = correlations(preds, yy).mean(dim=0)
+    return p, time_until(p, step_size)
 
 
 def nan_to_9999(v: torch.Tensor) -> torch.Tensor:
@@ -108,6 +124,13 @@ def _params(model: nn.Module):
 
 
 class Routine:
+    # The mesh axes whose layouts the steps know; ``Trainer.fit`` raises for a
+    # mesh with any other.
+    mesh_axes: Sequence[str] = ()
+    # ``valid_step`` reduces its metrics over ``data``, so the Trainer hands
+    # each data row its block of an evaluation batch (else the whole batch).
+    splits_eval_batches = False
+
     def __init__(self, optimizer: Optional[OptimizerSpec] = None, track_grad_norm: bool = False):
         self.optimizer = optimizer if optimizer is not None else make_optimizer()
         # When on, train steps add the global gradient L2 norm to their metrics.
@@ -172,6 +195,62 @@ class Routine:
         flat = flat / grad_div
         parts = flat.split([g.numel() for g in grads] + [1])
         return [p.view_as(g) for p, g in zip(parts, grads)], parts[-1].reshape(()).to(loss.dtype)
+
+    def check_mesh(self, mesh) -> None:
+        """NotImplementedError, naming the routine and the axis, for a mesh
+        with an axis that the steps do not know (``mesh_axes``)."""
+        for name in mesh.mesh_dim_names:
+            if name not in self.mesh_axes:
+                raise NotImplementedError(
+                    f"{type(self).__name__} has no form on the '{name}' axis of a device mesh "
+                    f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}: it trains on the axes "
+                    f"{tuple(self.mesh_axes)} only (Grid2DMarkovRoutine on 'data', 'model' and "
+                    "'spatial')")
+
+    def _data_axis(self, state: State):
+        """The ``data`` axis of ``state.mesh`` (``check_mesh`` first)."""
+        self.check_mesh(state.mesh)
+        return mesh_axis(state.mesh, "data")
+
+    def data_block(self, state: State, batch, key: str):
+        """The ``data`` axis where ``batch[key]`` is this rank's block of a
+        batch split over it (``parallel.shard_batch``); None where the batch
+        is whole (no mesh, or a batch dim the axis does not divide, which
+        every rank holds whole)."""
+        specs = getattr(batch, "specs", None)
+        if state.mesh is None or not specs or tuple(specs.get(key, ()))[:1] != ("data",):
+            return None
+        return self._data_axis(state)
+
+    def global_count(self, state: State, batch, key: str) -> int:
+        """The samples of the whole batch of which ``batch[key]`` holds this
+        rank's."""
+        data = self.data_block(state, batch, key)
+        return batch[key].shape[0] * (data.size if data is not None else 1)
+
+    def mean_over_data(self, state: State, tensors: Sequence[torch.Tensor],
+                       weight) -> List[torch.Tensor]:
+        """Each tensor's mean over the ranks of ``data``, the ranks weighted
+        by ``weight``: ``sum_r w_r t_r / sum_r w_r``, in one all-reduce after
+        that of the weights. Where ``t_r`` is a rank's ratio (a loss, a
+        metric or their gradients: a sum over its samples or valid nodes
+        divided by ``w_r``, their count), this is the ratio of the whole
+        batch, the sums and the counts taken over all ranks. A rank that
+        holds a whole batch (replicated: the axis does not divide it) counts
+        it whole, as every rank does, so the ranks are averaged, never
+        summed. Without a mesh, and on a mesh of one rank (``w / w`` is 1),
+        the tensors come back as they are."""
+        if state.mesh is None:
+            return [t.detach() for t in tensors]
+        data = self._data_axis(state)
+        dtype = reduce(torch.promote_types, (t.dtype for t in tensors))
+        w = torch.as_tensor(weight, device=tensors[0].device).to(dtype).reshape(1)
+        total = all_reduce(w, data)
+        w = w / torch.where(total > 0, total, torch.ones_like(total))
+        flat = all_reduce(torch.cat([t.detach().reshape(-1).to(dtype) for t in tensors]) * w,
+                          data)
+        parts = flat.split([t.numel() for t in tensors])
+        return [p.view_as(t).to(t.dtype) for p, t in zip(parts, tensors)]
 
     def make_train_state(self, model: nn.Module, normalizer=None) -> State:
         optimizer, scheduler = self.optimizer.build(_params(model))

@@ -85,7 +85,7 @@ def _rel_l2(pred: torch.Tensor, target: torch.Tensor, sp) -> torch.Tensor:
 class Grid2DMarkovRoutine(Routine):
     # Trains on a device mesh (Trainer(data_parallel / tensor_parallel /
     # spatial_parallel)).
-    supports_mesh = True
+    mesh_axes = ("data", "model", "spatial")
 
     def __init__(self, model=None, n_steps=None, num_freq_bands: int = 8, freq_base: float = 2.0,
                  low: float = 0.0, high: float = 1.0, use_position: bool = True,

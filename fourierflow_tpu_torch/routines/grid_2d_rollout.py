@@ -10,6 +10,12 @@ last. With ``use_fourier_position`` the raw window goes through a learned
 linear layer into the Fourier position features, to which the fixed
 encodings are added; the state's model is then ``conv`` and ``in_proj``
 together (``FourierPositionNet``).
+
+On a ``data`` mesh (``Trainer(data_parallel)``) each rank unrolls its block
+of the batch; the losses, the gradients and the validation's per-step
+losses and correlations are means over the whole batch
+(``Routine.mean_over_data``), and the time until rho < 0.95 is read off the
+whole batch's mean correlation.
 """
 
 from typing import Optional
@@ -18,7 +24,7 @@ import torch
 import torch.nn as nn
 
 from ..layers import WNLinear, encode_positions, lp_loss_rel
-from .base import Routine, State, nan_to_9999, rho_time_until
+from .base import Routine, State, correlations, nan_to_9999, time_until
 
 __all__ = ["Grid2DRolloutRoutine", "FourierPositionNet"]
 
@@ -40,6 +46,8 @@ class FourierPositionNet(nn.Module):
 class Grid2DRolloutRoutine(Routine):
     # No normalizer: every epoch trains.
     should_normalize = False
+    mesh_axes = ("data",)
+    splits_eval_batches = True
 
     def __init__(self, model=None, n_steps: int = 10, k_max: int = 32, num_freq_bands: int = 8,
                  freq_base: float = 2.0, use_fourier_position: bool = False,
@@ -71,8 +79,9 @@ class Grid2DRolloutRoutine(Routine):
         return self.make_train_state(net)
 
     def _unroll(self, net: nn.Module, xx: torch.Tensor, yy: torch.Tensor, training: bool):
-        """``xx [b, X, Y, window (+2)]``, ``yy [b, X, Y, T]``. Returns (loss,
-        loss_full, preds, step_losses, rho, time_until)."""
+        """``xx [b, X, Y, window (+2)]``, ``yy [b, X, Y, T]``. Returns the
+        batch means (loss, loss_full, step_losses [T], rho [T]) and the
+        predictions."""
         b, sx, sy, _ = xx.shape
         p_chan = 2 if self.append_pos else 0
         if self.use_fourier_position:
@@ -104,8 +113,7 @@ class Grid2DRolloutRoutine(Routine):
 
         loss = step_losses.mean()
         loss_full = lp_loss_rel(preds.reshape(b, -1), yy.reshape(b, -1))
-        p, time_until = rho_time_until(preds, yy, self.step_size)
-        return loss, loss_full, preds, step_losses, p, time_until
+        return loss, loss_full, step_losses, correlations(preds, yy).mean(dim=0), preds
 
     def _batch(self, state: State, batch):
         dev = state.device
@@ -114,11 +122,13 @@ class Grid2DRolloutRoutine(Routine):
     def loss_and_grads(self, state: State, batch, rng: Optional[torch.Generator] = None):
         """The mean step loss of one batch's unroll, its gradients in
         ``model.parameters()`` order, and the full-field loss: ``(loss,
-        grads, loss_full)``."""
+        grads, loss_full)``, of the whole batch on a mesh."""
         xx, yy = self._batch(state, batch)
         loss, loss_full, *_ = self._unroll(state.model, xx, yy, training=True)
         grads = torch.autograd.grad(loss, list(state.model.parameters()))
-        return loss.detach(), grads, loss_full.detach()
+        loss, loss_full, *grads = self.mean_over_data(state, [loss, loss_full, *grads],
+                                                      xx.shape[0])
+        return loss, grads, loss_full
 
     def train_step(self, state: State, batch, rng: Optional[torch.Generator] = None):
         """One optimizer step; returns ``(state, {"train_loss", "train_loss_full"})``."""
@@ -129,12 +139,13 @@ class Grid2DRolloutRoutine(Routine):
     @torch.no_grad()
     def valid_step(self, state: State, batch):
         xx, yy = self._batch(state, batch)
-        loss, loss_full, _, step_losses, p, time_until = self._unroll(state.model, xx, yy,
-                                                                      training=False)
+        loss, loss_full, step_losses, p, _ = self._unroll(state.model, xx, yy, training=False)
+        loss, loss_full, step_losses, p = self.mean_over_data(
+            state, [loss, loss_full, step_losses, p], xx.shape[0])
         return {
             "loss_avg": nan_to_9999(loss),
             "loss": nan_to_9999(loss_full),
-            "time_until": time_until,
+            "time_until": time_until(p, self.step_size),
             "corr": p.mean(),
             "correlations": p,
             "step_losses": step_losses,

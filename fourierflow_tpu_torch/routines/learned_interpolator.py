@@ -13,6 +13,11 @@ Batches: training ``(inputs, outputs)`` with ``inputs = {"vx", "vy"}``
 (``builders.KolmogorovVelocityDataset``); validation ``{"vx", "vy",
 "targets" [b, 32, 32, n], "times"}``
 (``builders.KolmogorovVelocityTrajectoryDataset``).
+
+On a ``data`` mesh the loss and its gradients, and the validation's
+correlations, are means over the whole batch (``Routine.mean_over_data``);
+the time until rho < 0.95 is read off the whole batch's mean, ``times`` is
+the whole batch's first row and ``weight`` its size.
 """
 
 from typing import Optional
@@ -24,7 +29,8 @@ from ..models.learned_interpolation import LearnedInterpolationStep
 from ..utils.grids import Grid
 from ..utils.spectral import (downsample_staggered_velocity, grid_correlation,
                               velocity_to_vorticity_fd)
-from .base import Routine, State
+from ..parallel.collectives import all_reduce
+from .base import Routine, State, time_until
 
 __all__ = ["LearnedInterpolatorRoutine"]
 
@@ -33,6 +39,8 @@ TWO_PI = 2 * np.pi
 
 class LearnedInterpolatorRoutine(Routine):
     should_normalize = False
+    mesh_axes = ("data",)
+    splits_eval_batches = True
 
     def __init__(self, size: int, dt: float = 0.007012483601762931, inner_steps: int = 16,
                  outer_steps: int = 100, unroll_length: int = 32, density: float = 1.0,
@@ -81,10 +89,12 @@ class LearnedInterpolatorRoutine(Routine):
 
     def loss_and_grads(self, state: State, batch, rng: Optional[torch.Generator] = None):
         """One batch's loss and its gradients, in ``model.parameters()``
-        order: ``(loss, grads)``."""
+        order: ``(loss, grads)``, of the whole batch on a mesh."""
         inputs, outputs = self._split(batch)
         loss = self._loss(state.model, inputs, outputs, state.device)
-        return loss.detach(), torch.autograd.grad(loss, list(state.model.parameters()))
+        grads = torch.autograd.grad(loss, list(state.model.parameters()))
+        loss, *grads = self.mean_over_data(state, [loss, *grads], len(inputs["vx"]))
+        return loss, grads
 
     def train_step(self, state: State, batch, rng: Optional[torch.Generator] = None):
         """One optimizer step; returns ``(state, {"train_loss"[, "grad_norm"]})``."""
@@ -118,10 +128,14 @@ class LearnedInterpolatorRoutine(Routine):
             preds.append(self._vorticity_32(u, v))
         preds = torch.stack(preds, -1)  # [b, 32, 32, n]
         rho = torch.nan_to_num(grid_correlation(preds, targets, dims=(1, 2))).mean(0)  # [n]
-        has_diverged = torch.cat([rho < 0.95, torch.ones(1, dtype=torch.bool, device=dev)])
-        time_until = torch.argmax(has_diverged.int()) * self.step_size
+        rho, = self.mean_over_data(state, [rho], u.shape[0])
         times = batch["times"][0]
         times = (times.float() if isinstance(times, torch.Tensor)
                  else torch.from_numpy(np.array(times, np.float32)))
-        return {"loss": -rho.mean(), "rho": rho.mean(), "reduced_time_until": time_until,
-                "correlations": rho, "times": times, "weight": torch.tensor(float(u.shape[0]))}
+        data = self.data_block(state, batch, "times")
+        if data is not None:  # the whole batch's first row: data rank 0's
+            times = all_reduce(times.to(dev) * (data.rank == 0), data).cpu()
+        return {"loss": -rho.mean(), "rho": rho.mean(),
+                "reduced_time_until": time_until(rho, self.step_size), "correlations": rho,
+                "times": times,
+                "weight": torch.tensor(float(self.global_count(state, batch, "vx")))}

@@ -13,6 +13,13 @@ nodes. The gradients are clipped by their global norm to ``clip_val``
 before the optimizer. The rollout feeds each step's velocity plus the
 predicted change back in (the JAX package integrates the change; the
 reference feeds the bare change back) and scores each step as the loss.
+
+On a ``data`` mesh the loss is the whole batch's ratio: each rank's summed
+error over its valid nodes and its count of them are summed over the ranks
+(``Routine.mean_over_data`` weighted by the counts), which ranks holding
+different counts of valid nodes need; the gradients are reduced so too and
+clipped by the norm of the reduced gradient, once. The validation's loss is
+the whole batch's ratio in the same way.
 """
 
 from typing import Optional
@@ -37,6 +44,8 @@ def _masked_loss(preds, velocity, target_velocity):
 
 class MeshGraphNetRoutine(Routine):
     should_normalize = False
+    mesh_axes = ("data",)
+    splits_eval_batches = True
 
     def __init__(self, n_layers: int = 15, latent_size: int = 128, output_dim: int = 2,
                  clip_val: float = 0.1, rollout_steps: int = 50, optimizer=None,
@@ -59,18 +68,22 @@ class MeshGraphNetRoutine(Routine):
         return {k: torch.as_tensor(batch[k], device=device)
                 for k in ("cells", "mesh_pos", "node_type", "velocity", "target_velocity")}
 
-    def _loss(self, model, batch, device) -> torch.Tensor:
+    def _loss(self, model, batch, device):
+        """``(loss, valid)``: the loss of this rank's samples and their
+        number of valid nodes."""
         b = self._tensors(batch, device)
         edges, senders, receivers = cylinder_edges(b["mesh_pos"], b["cells"])
         preds = model(cylinder_nodes(b["velocity"], b["node_type"]), edges, senders, receivers)
         sq, valid, _ = _masked_loss(preds, b["velocity"], b["target_velocity"])
-        return sq / valid.clamp(min=1)
+        return sq / valid.clamp(min=1), valid
 
     def loss_and_grads(self, state: State, batch, rng: Optional[torch.Generator] = None):
         """One batch's loss and its gradients clipped by their global norm,
-        in ``model.parameters()`` order: ``(loss, grads)``."""
-        loss = self._loss(state.model, batch, state.device)
+        in ``model.parameters()`` order: ``(loss, grads)``, of the whole
+        batch on a mesh."""
+        loss, valid = self._loss(state.model, batch, state.device)
         grads = torch.autograd.grad(loss, list(state.model.parameters()))
+        loss, *grads = self.mean_over_data(state, [loss, *grads], valid)
         norm = self.grad_norm(grads)
         scale = torch.where(norm < self.clip_val, 1.0, self.clip_val / (norm + 1e-9))
         return loss.detach(), [g * scale for g in grads]
@@ -96,5 +109,8 @@ class MeshGraphNetRoutine(Routine):
             sq, valid, mask = _masked_loss(preds, velocity, b["target_velocity"][:, t])
             velocity = torch.where(mask, velocity + preds, velocity)
             total_sq, total_valid = total_sq + sq, total_valid + valid
-        loss = total_sq / torch.clamp(torch.as_tensor(total_valid), min=1)
-        return {"loss": loss, "weight": torch.tensor(float(velocity.shape[0]))}
+        total_valid = torch.as_tensor(total_valid)
+        loss = total_sq / torch.clamp(total_valid, min=1)
+        loss, = self.mean_over_data(state, [loss], total_valid)
+        return {"loss": loss,
+                "weight": torch.tensor(float(self.global_count(state, batch, "velocity")))}

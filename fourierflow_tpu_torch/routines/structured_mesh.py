@@ -2,7 +2,9 @@
 ``fourierflow_tpu/routines/structured_mesh.py``): the relative L2 error of
 ``model(x)`` against ``y``, each sample flattened. ``loss_scale`` multiplies
 the loss whose gradients train the model; the logged ``train_loss`` is
-unscaled. No normalizer: every epoch trains.
+unscaled. No normalizer: every epoch trains. On a ``data`` mesh the loss,
+its gradients and the validation loss are means over the whole batch
+(``Routine.mean_over_data``).
 """
 
 from typing import Optional
@@ -17,6 +19,8 @@ __all__ = ["StructuredMeshRoutine"]
 
 class StructuredMeshRoutine(Routine):
     should_normalize = False
+    mesh_axes = ("data",)
+    splits_eval_batches = True
 
     def __init__(self, model=None, loss_scale: float = 1.0, optimizer=None, conv=None,
                  track_grad_norm: bool = False, **kwargs):
@@ -40,10 +44,12 @@ class StructuredMeshRoutine(Routine):
 
     def loss_and_grads(self, state: State, batch, rng: Optional[torch.Generator] = None):
         """The unscaled loss of one batch and the gradients of ``loss_scale``
-        times it, in ``model.parameters()`` order: ``(loss, grads)``."""
+        times it, in ``model.parameters()`` order: ``(loss, grads)``, of the
+        whole batch on a mesh."""
         loss = self._loss(state.model, batch, state.device)
         grads = torch.autograd.grad(loss * self.loss_scale, list(state.model.parameters()))
-        return loss.detach(), grads
+        loss, *grads = self.mean_over_data(state, [loss, *grads], len(batch["x"]))
+        return loss, grads
 
     def train_step(self, state: State, batch, rng: Optional[torch.Generator] = None):
         """One optimizer step; returns ``(state, {"train_loss"})``."""
@@ -64,4 +70,5 @@ class StructuredMeshRoutine(Routine):
 
     @torch.no_grad()
     def valid_step(self, state: State, batch):
-        return {"loss": self._loss(state.model, batch, state.device)}
+        loss = self._loss(state.model, batch, state.device)
+        return {"loss": self.mean_over_data(state, [loss], len(batch["x"]))[0]}

@@ -47,9 +47,13 @@ the device-resident epoch stays: every rank holds the train set, draws the
 same ``epoch_permutation`` and gathers its block of each batch (unless the
 train set would take more than 60% of the device's memory: then the
 per-batch loop, with a warning); on a ``model`` or ``spatial`` mesh the
-per-batch loop runs. Evaluation batches are whole on every data row (the
-evaluation set cached per rank), split over ``spatial`` where the mesh has
-it. Only rank 0 logs and runs the callbacks that write files
+per-batch loop runs. Every routine trains on a ``data`` mesh; only
+``Grid2DMarkovRoutine`` on ``model`` and ``spatial`` ones (the others raise
+there). Evaluation batches (the evaluation set cached per rank) are split
+over ``data`` for a routine whose ``valid_step`` reduces its metrics over
+it (``Routine.splits_eval_batches``) and whole on every data row for the
+Markov routine, split over ``spatial`` where the mesh has it, and merged by
+the size of the whole batch. Only rank 0 logs and runs the callbacks that write files
 (``Callback.writes_files``), with the state gathered whole
 (``parallel.gather_state``); every rank of the mesh then waits for it. A
 rank that the mesh dropped takes no part: ``fit`` returns its state as it
@@ -156,6 +160,14 @@ def to_device(tree, device):
     return torch.as_tensor(a if a.flags.writeable else a.copy(), device=device)
 
 
+def _on_data(local):
+    """A rank's block of a batch (a dict, or a tuple of dicts) as a
+    ``ShardedBatch`` split on ``data``."""
+    if isinstance(local, (tuple, list)):
+        return type(local)(_on_data(b) for b in local)
+    return ShardedBatch(local, dict.fromkeys(local, ("data",)))
+
+
 def make_scan_epoch(routine: Routine, batch_size: int, accumulate: bool = False, seed: int = 0,
                     mesh=None):
     """The device-resident epoch over a dict of aligned tensors (the
@@ -180,7 +192,8 @@ def make_scan_epoch_indexed(routine: Routine, batch_size: int, n_items: Optional
 
     With ``mesh`` (a ``data`` mesh whose axis divides ``batch_size``) every
     rank holds all of ``data`` and gathers its block of each batch's items:
-    a ``ShardedBatch`` split on ``data``."""
+    a ``ShardedBatch`` split on ``data`` (a tuple of them where ``sample_fn``
+    gives a tuple of dicts)."""
     data_axis = mesh_axis(mesh, "data")
 
     def epoch_fn(state, data, epoch: int, first_step: int = 0):
@@ -192,8 +205,7 @@ def make_scan_epoch_indexed(routine: Routine, batch_size: int, n_items: Optional
             if data_axis is None:
                 batch = sample_fn(data, idx)
             else:
-                local = sample_fn(data, shard_tensor(idx, 0, data_axis))
-                batch = ShardedBatch(local, dict.fromkeys(local, ("data",)))
+                batch = _on_data(sample_fn(data, shard_tensor(idx, 0, data_axis)))
             if accumulate:
                 state = routine.accumulate_step(state, batch)
                 continue
@@ -389,9 +401,8 @@ class Trainer:
             logger.warning("this rank is not in the mesh %s: it takes no part in the fit",
                            mesh_shape(self.mesh))
             return state
-        if self.mesh is not None and not getattr(routine, "supports_mesh", False):
-            raise NotImplementedError(f"{type(routine).__name__} has no parallel form on a "
-                                      "device mesh (Grid2DMarkovRoutine has)")
+        if self.mesh is not None:
+            routine.check_mesh(self.mesh)
         rng = np.random.default_rng(self.seed)
         if self.auto_remat:
             self._maybe_enable_remat(routine, builder)
@@ -469,10 +480,12 @@ class Trainer:
         return shard_batch(batch, self.mesh, "data" if split_batch else None, spatial)
 
     def _global_count(self, batch) -> int:
-        """The samples of the whole batch of which ``batch`` is a rank's slice."""
+        """The samples of the whole batch of which ``batch`` (a dict, or a
+        tuple of dicts) is a rank's slice."""
         n = batch_count(batch)
-        specs = getattr(batch, "specs", None)
-        if specs and tuple(specs[next(iter(batch))][:1]) == ("data",):
+        first = batch[0] if isinstance(batch, (tuple, list)) else batch
+        specs = getattr(first, "specs", None)
+        if specs and tuple(specs[next(iter(first))][:1]) == ("data",):
             n *= mesh_shape(self.mesh)["data"]
         return n
 
@@ -505,11 +518,13 @@ class Trainer:
             if v != v:
                 raise FloatingPointError(f"{k} is NaN at epoch {epoch} (step {self.global_step})")
 
-    def _eval_batches(self, builder, split: str, device):
+    def _eval_batches(self, routine: Routine, builder, split: str, device):
         """The split's batches: with ``fast_loop``, a ``{split}_data`` dict of
         numpy arrays uploaded once (cached by builder and split) and sliced on
         the device; else ``val_batches()`` / ``test_batches()``. On a mesh
-        each is whole on every data row and split over ``spatial``."""
+        each is split over ``data`` where the routine's ``valid_step``
+        reduces over it (``splits_eval_batches``), else whole on every data
+        row, and split over ``spatial`` where the mesh has that axis."""
         data = getattr(builder, f"{split}_data", None)
         if not (self.fast_loop and isinstance(data, dict) and data
                 and all(isinstance(v, np.ndarray) for v in data.values())):
@@ -521,20 +536,22 @@ class Trainer:
             resident = self._eval_cache[key]
             n, bs = len(next(iter(resident.values()))), builder.batch_size
             batches = (gather(resident, slice(s, s + bs)) for s in range(0, n, bs))
-        return batches if self.mesh is None else (self._shard(b, False) for b in batches)
+        split_batch = routine.splits_eval_batches
+        return batches if self.mesh is None else (self._shard(b, split_batch) for b in batches)
 
     def evaluate(self, routine: Routine, builder, state: State, split: str = "valid") -> dict:
         """``valid_step`` over the split's batches (``_eval_batches``), merged
-        by batch size, as ``{f"{split}_{metric}": value}`` (empty on a rank
-        that the mesh dropped)."""
+        by the size of the whole batch, as ``{f"{split}_{metric}": value}``
+        (empty on a rank that the mesh dropped)."""
         if not self.active:
             return {}
-        batches = self._eval_batches(builder, split, state.device)
+        batches = self._eval_batches(routine, builder, split, state.device)
         metric_list = []
         for i, batch in enumerate(batches):
             if self.limit_val_batches and i >= self.limit_val_batches:
                 break
-            metric_list.append((_numpy(routine.valid_step(state, batch)), batch_count(batch)))
+            metric_list.append((_numpy(routine.valid_step(state, batch)),
+                                self._global_count(batch)))
         return {f"{split}_{k}": float(v) if np.ndim(v) == 0 else v
                 for k, v in _weighted_merge(metric_list).items()}
 

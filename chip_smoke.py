@@ -26,12 +26,15 @@ phase's wall time:
    and the point-cloud shapes (the feed-forward at 81,920 rows with hidden
    128 and at 32,000 rows at width 32, hidden 64; the mix and its adjoint
    at x [20, 64, 64, 64] M 16 and [20, 40, 40, 32] M 12); the parallel layers'
-   shard shapes (``check_shards``): the feed-forward at 77,824 rows with H 128
-   and 64 (the hidden slice at tp 2 and 4), the mix and its adjoint on a
+   shard shapes (``check_shards``): the feed-forward at 77,824 rows with H 128,
+   64 and 32 (the hidden slice at tp 2, 4 and 8), the mix and its adjoint on a
    column shard of the weights (C_out 32) at the flagship, and one axis
    (``fused_mix_axis``, one launch) at [19, 32, 64, 64] along Y and [19, 64,
    32, 64] along X (the spatially split layer at sp 2);
-   two runs of each kernel at the flagship
+   the feed-forward at H 96 (a whole 64-wide hidden chunk and a 32-wide
+   one); the segment sum (MeshGraphNet's scatter) at ``cylinder_flow/
+   baseline``'s edges and nodes and at two ragged shapes, equal to its plain
+   version on a CPU copy to the bit; two runs of each kernel at the flagship
    bit-identical; and the whole
    backward of each autograd Function (dx, dW, db) against
    ``torch.autograd.grad`` through its plain forward.
@@ -196,10 +199,12 @@ phase's wall time:
    of 1,800-1,920 nodes and 3,432-3,666 triangles, 52 of 600 steps, 4 / 2 /
    2 trajectories), ``convert cylinder-flow``, then ``cylinder_flow/baseline``
    through ``train`` (2 steps) and ``test`` (the 50-step rollout) by name at
-   full width (15 layers, latent 128, batch 4); 2 steps held to a float32
-   CPU copy, timed and traced; the rollout's ms per step. Phases 14-16 run
-   no hand-written kernel (their torch work is what JAX computes in XLA):
-   their launch counts must stay 0.
+   full width (15 layers, latent 128, batch 4), ``test``'s loss equal to
+   the train pass's to the bit; 2 steps held to a float32 CPU copy, timed
+   and traced; the rollout's ms per step; the segment sum's launches, 45 a
+   train step (the scatter and two gathers' gradients a layer). Phases 14-16
+   run none of the F-FNO's kernels (their torch work is what JAX computes
+   in XLA): those launch counts must stay 0.
 17. ``trainer``: the rest of ``train`` and the trainer at the flagship's full
    width on phase generate's file. ``train`` with ``routine.conv.remat=True``
    (the normalizer epoch and a device-resident epoch of 18 steps), then
@@ -247,11 +252,9 @@ phase's wall time:
    on synthetic velocity files (the device-resident epoch over ``(inputs,
    outputs)`` tuples) and ``cylinder_flow/baseline`` through ``convert
    cylinder-flow``: on one rank each fit equal to the fit with no mesh to the
-   bit (the learned interpolation with cuDNN's deterministic algorithms),
-   MeshGraphNet within 1e-5 in the losses and 2e-2 in a tensor (its
-   ``index_add_`` atomics sum in another order on every run; two fits with
-   no mesh are compared too and printed);
-   with several ranks 2-way fits within the bounds above.
+   bit, MeshGraphNet and the learned interpolation too, with no cuDNN flag
+   set by the phase (two separate fits that agree to the bit show that the
+   steps repeat); with several ranks 2-way fits within the bounds above.
 19. ``time`` (in a child process of this script, which starts with no CUDA
    graph and no profiler session behind it): each kernel, its plain version
    and a PyTorch yardstick the port
@@ -262,8 +265,9 @@ phase's wall time:
    in float32 every kernel at the airfoil's shapes (135,110 rows; x [10,
    229, 59, 64] M 32 / 16) and at the elasticity F-FNO's (81,920 rows, hidden
    128; x [20, 64, 64, 64] M 16), and in float32 at the parallel layers' shard
-   shapes (``time_shards``; the one-axis kernels ``fused_mix_axis`` and
-   ``fused_mix_axis_adjoint`` in rows of their own). It
+   shapes (``time_shards``, H 32 at tp 8 among them; the one-axis kernels
+   ``fused_mix_axis`` and ``fused_mix_axis_adjoint`` in rows of their
+   own); the segment sum at ``cylinder_flow/baseline``'s shapes. It
    runs last, so that no profiler session precedes the timed rollout and
    train steps.
 
@@ -306,7 +310,8 @@ from fourierflow_tpu_torch.commands.generate import navier_stokes  # noqa: E402
 from fourierflow_tpu_torch.commands.train import build_routine  # noqa: E402
 from fourierflow_tpu_torch.config import instantiate, load_config  # noqa: E402
 from fourierflow_tpu_torch.ops import (  # noqa: E402
-    AXIS_KERNELS, _cuda, fused_ff, fused_ff_bwd, fused_mix_2d, launch_counts, reset_launch_counts)
+    AXIS_KERNELS, GRAPH_KERNELS, _cuda, fused_ff, fused_ff_bwd, fused_mix_2d, launch_counts,
+    reset_launch_counts, segment_csr, segment_sum)
 from fourierflow_tpu_torch.ops.fused_ff import (  # noqa: E402
     _DTYPE_CODE, _bwd_smem_bytes, _fwd_smem_bytes, _lib, fused_ff_bwd_cuda, fused_ff_bwd_plain,
     fused_ff_cuda, fused_ff_plain)
@@ -315,6 +320,7 @@ from fourierflow_tpu_torch.ops.fused_spectral import (  # noqa: E402
     fused_mix_2d_adjoint_cuda, fused_mix_2d_adjoint_plain, fused_mix_2d_cuda, fused_mix_2d_plain,
     fused_mix_axis_adjoint_cuda, fused_mix_axis_adjoint_plain, fused_mix_axis_cuda,
     fused_mix_axis_plain)
+from fourierflow_tpu_torch.ops.segment import segment_sum_cuda, segment_sum_plain  # noqa: E402
 from fourierflow_tpu_torch.ops.spectral import dct_mix_axis  # noqa: E402
 from fourierflow_tpu_torch.parallel import (  # noqa: E402
     gather_state, init_distributed, make_mesh, make_sp_mesh, make_tp_mesh, mesh_axis, mesh_shape,
@@ -341,6 +347,7 @@ ROWS = B * N * N
 # products (3xTF32) per f32 product, so 495/3 TFLOP/s.
 MEM_RATE = 3.35e12
 PEAK = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
+SIMT_F32_PEAK = 67e12  # float32 on CUDA cores, outside the tensor cores (the segment sum's adds)
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # max |err| / max |ref|
 DTYPES = (torch.float32, torch.bfloat16)
 # Kernel, source, the TPU kernel it replaces, and the main path whose launch
@@ -369,6 +376,17 @@ AXIS_KERNEL_LINES = {
                                             "_branch of _fused_mix_bwd :191)", path="parallel",
                                    at=f"one axis (Y) on x [{B}, {N // 2}, {N}, {C}] M {M} (sp 2)"),
 }
+# The segment sum (MeshGraphNet's scatter and its gathers' gradients): it replaces no TPU kernel
+# (the JAX package's scatter is XLA's, meshgraphnet.py:108); on the kernels line apart from
+# KERNELS, since only the meshgraphnet and parallel paths run it.
+GRAPH_KERNEL_LINES = {
+    "segment_sum": dict(source="fourierflow_tpu_torch/csrc/segment_sum.cu",
+                        replaces="none: no TPU kernel (fourierflow_tpu/models/meshgraphnet.py:108 "
+                                 "scatters with .at[].add in XLA); it replaces index_add_'s "
+                                 "atomics", path="meshgraphnet",
+                        at="cylinder_flow/baseline's receivers at batch 4 (7,680 nodes, 87,984 "
+                           "edge slots), F 128"),
+}
 TRAIN_TOL = 1e-3  # train step, kernel path vs plain path: max |err| / max |ref|, per tensor
 # The generate phase: the flagship's dataset call (scripts/torus_li_study.py: s 64, t 20,
 # 20 records, li force, mu 1e-5, delta 1e-4, seed 23893, all trajectories in train) at
@@ -391,6 +409,8 @@ TIMED_STEPS = (1000, 3000)  # time per step: the difference of these two runs
 # and a narrower shape than the flagship's that both FF kernels take.
 FF_TILE_ROWS = 256
 FF_NARROW = dict(cin=32, hidden=128, cout=40)
+# H 96: a whole 64-wide hidden chunk and one of 32, staged with zeros past H (both FF kernels).
+FF_PART_CHUNK = dict(hidden=96)
 # Spectral-mix grids (batch, X, Y, modes) and weight options checked on the
 # card: the flagship (1,216 lines an axis launch: 122 blocks of 10 lines, one
 # round on 132 SMs); odd, non-square and Nyquist-mode grids; strided weights
@@ -427,10 +447,10 @@ POINT_FF_CASES = ((ELASTICITY_ROWS, dict(hidden=128)),
                   (ELASTICITY_SMALL_ROWS, dict(cin=32, hidden=64, cout=32)))
 POINT_MIX_CASES = (((20, 64, 64, 16), {}), ((20, 40, 40, 12), dict(c=32)))
 # The parallel layers' shard shapes at the flagship: the feed-forward's hidden slice under
-# tensor parallelism (H 128 at tp 2, 64 at tp 4), kernel B on a column shard of the Fourier
-# weights (C_out 32 at tp 2), and the spatially split layer's one-axis launches at sp 2 (Y on
-# this rank's rows [19, 32, 64, 64], X after the all-to-all on [19, 64, 32, 64]).
-SHARD_HIDDEN = (H // 2, H // 4)
+# tensor parallelism (H 128 at tp 2, 64 at tp 4, 32 at tp 8), kernel B on a column shard of the
+# Fourier weights (C_out 32 at tp 2), and the spatially split layer's one-axis launches at sp 2
+# (Y on this rank's rows [19, 32, 64, 64], X after the all-to-all on [19, 64, 32, 64]).
+SHARD_HIDDEN = (H // 2, H // 4, H // 8)
 SHARD_C_OUT = C // 2
 SHARD_AXIS_CASES = (((B, N // 2, N), 2), ((B, N, N // 2), 1))  # (x's [B, X, Y], axis)
 # The serve phase: the exported rollout's steps and batches, and its tolerance against
@@ -559,10 +579,12 @@ MGN_CONFIG = "cylinder_flow/baseline"
 MGN_SPLITS, MGN_REGISTRY_SPLITS = {"train": 4, "valid": 2, "test": 2}, (1000, 100, 100)
 MGN_NX, MGN_NY, MGN_T, MGN_REGISTRY_T = (48, 47, 46, 45), 40, 52, 600
 MGN_STEPS = 2  # train steps of the train command, and steps held to a CPU copy
-# ``test`` on the trained checkpoint against ``train``'s own test pass: relative difference of
-# the test losses. ``index_add_`` on the card sums in an order that varies from run to run, and
-# the test pass rolls the model out 50 steps, so the two differ in their last bits.
-MGN_TEST_RTOL = 1e-5
+# The segment sum (MeshGraphNet's scatter and its gathers' gradients) checked against its plain
+# version on a CPU copy, to the bit: the edges of the phase's four meshes at batch 4 (7,680 nodes,
+# 87,984 edge slots) at latent width 128; 1,001 nodes (the last block of 256 threads part
+# filled) and 20 features (a warp spans several nodes) on random indices.
+MGN_LATENT = 128
+SEGMENT_CASES = ((1001, 6000, MGN_LATENT), (37, 300, 20))  # (nodes, edges, features)
 # The trainer phase: the remat step's gradients against the eager step's (max |err| / max
 # |eager| per tensor); the train steps of the profiled CLI fit.
 REMAT_GRAD_TOL = 1e-6
@@ -718,8 +740,8 @@ def device_ms(fn, iters=20, warmup=3, attempts=5):
     raise AssertionError("time: the profiler saw no whole trace of the device's work")
 
 
-def bound(flops, nbytes, dtype):
-    t_ops, t_mem = flops / PEAK[dtype], nbytes / MEM_RATE
+def bound(flops, nbytes, dtype, peak=None):
+    t_ops, t_mem = flops / (peak or PEAK[dtype]), nbytes / MEM_RATE
     return max(t_ops, t_mem) * 1e3, ("operations" if t_ops >= t_mem else "bytes")
 
 
@@ -798,6 +820,7 @@ def phase_sass():
         raise AssertionError(f"sass: an FF kernel lacks tensor-core instructions {counts}")
     for dtype, code in _DTYPE_CODE.items():
         for hidden, cout in ((H, C), (FF_NARROW["hidden"], FF_NARROW["cout"]),
+                             (FF_PART_CHUNK["hidden"], C), *((h, C) for h in SHARD_HIDDEN),
                              *((w.get("hidden", H), w.get("cout", C)) for _, w in POINT_FF_CASES)):
             sizes = ((_fwd_smem_bytes(hidden, cout, dtype),
                       _lib().ff_fwd_smem_bytes(code, hidden, cout)),
@@ -857,7 +880,8 @@ def phase_check(dev, seed):
         for rows, model_layout, widths in ((ROWS, True, {}), (N * N, True, {}),
                                            (1000 + 37, False, {}),
                                            (FF_TILE_ROWS * 50 - 1, True, {}), (1, True, {}),
-                                           (0, True, {}), (999, True, FF_NARROW)):
+                                           (0, True, {}), (999, True, FF_NARROW),
+                                           (999, True, FF_PART_CHUNK)):
             before = fused_ff.launches
             e = check(f"fused_ff[{tag}, rows {rows}, {'model' if model_layout else 'contiguous'} "
                       f"weights{', ' + str(widths) if widths else ''}]", fused_ff_cuda,
@@ -870,7 +894,8 @@ def phase_check(dev, seed):
                                      f"{rows} rows")
         for rows, model_layout, widths in ((ROWS, True, {}), (1000 + 37, False, {}),
                                            (FF_TILE_ROWS * 50 - 1, True, {}), (1, True, {}),
-                                           (0, True, {}), (999, True, FF_NARROW)):
+                                           (0, True, {}), (999, True, FF_NARROW),
+                                           (999, True, FF_PART_CHUNK)):
             args = ff_bwd_inputs(rows, dtype, dev, seed, model_layout, **widths)
             before = fused_ff_bwd.launches
             e = check(f"fused_ff_bwd[{tag}, rows {rows}, "
@@ -914,7 +939,67 @@ def phase_check(dev, seed):
         check_function(f"fused_mix_2d[{tag}, 2x63x65x{C}, M {M}]", fused_mix_2d,
                        fused_mix_2d_plain, mix_inputs(2, 63, 65, M, dtype, dev, seed), dtype, seed)
         errs.update(check_shards(dev, seed, dtype, tag))
+    errs[("segment_sum", torch.float32)] = check_segment_sum(dev, seed)
     return errs
+
+
+def mgn_segments(dev, seed, features=MGN_LATENT):
+    """The segment sum's inputs at ``cylinder_flow/baseline``'s shapes: the
+    receivers of the meshgraphnet phase's four meshes as one batch (padded
+    to the largest, 1,920 nodes and 3,666 triangles; unused edge slots -1)
+    through the model's own ``incidence``, and edge values ``[E,
+    features]`` from the seed, zero on the unused slots as the model's
+    masked messages are."""
+    from fourierflow_tpu_torch.models.meshgraphnet import incidence, triangles_to_edges
+
+    meshes = [_mgn_mesh(nx, MGN_NY) for nx in MGN_NX]
+    n_max, c_max = max(len(m[0]) for m in meshes), max(len(m[1]) for m in meshes)
+    cells = np.full((len(meshes), c_max, 3), -1, np.int32)
+    for i, (_, c, _) in enumerate(meshes):
+        cells[i, :len(c)] = c
+    receivers = torch.stack([triangles_to_edges(torch.from_numpy(c).to(dev))[1] for c in cells])
+    inc = incidence(receivers, n_max)
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    values = torch.randn(inc.index.shape[0], features, generator=g).to(dev)
+    return values * (inc.index >= 0)[:, None], inc.index, inc.order, inc.offsets
+
+
+def random_segments(n, rows, features, dev, seed):
+    """Values ``[rows, features]`` and an index over ``n`` segments drawn
+    from the seed, a share of the rows in no segment (-1, value 0)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    index = torch.randint(-1, n, (rows,), generator=g).to(dev)
+    values = torch.randn(rows, features, generator=g).to(dev) * (index >= 0)[:, None]
+    return (values, index, *segment_csr(index, n))
+
+
+def check_segment_sum(dev, seed):
+    """The segment-sum kernel against its plain version (``index_add_``) on
+    a CPU copy of its inputs, to the bit: at ``cylinder_flow/baseline``'s
+    edges and nodes (twice there: the runs equal to the bit) and at
+    SEGMENT_CASES; one launch a call. Returns the largest max |err| (0)."""
+    cases = [(f"cylinder_flow/baseline's receivers at batch 4, F {MGN_LATENT}",
+              mgn_segments(dev, seed))]
+    cases += [(f"{n} nodes, {rows} edges, F {f}", random_segments(n, rows, f, dev, seed))
+              for n, rows, f in SEGMENT_CASES]
+    for i, (what, args) in enumerate(cases):
+        before = segment_sum.launches
+        got = segment_sum_cuda(*args)
+        torch.cuda.synchronize()
+        want = segment_sum_plain(*(a.cpu() for a in args))
+        same = torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+        n, used = args[3].shape[0] - 1, int(args[3][-1] - args[3][0])
+        log(f"check segment_sum[float32, {what}: {n} segments, {used} of {args[1].shape[0]} "
+            f"rows in one]: max_abs_err {(got.cpu() - want).abs().max().item():.3e}, "
+            f"{'equal' if same else 'NOT equal'} to the plain version to the bit")
+        if not same or segment_sum.launches - before != 1:
+            raise AssertionError(f"segment_sum: {what}: differs from its plain version or "
+                                 f"launched {segment_sum.launches - before} times")
+        if i == 0:
+            if not torch.equal(segment_sum_cuda(*args).view(torch.int32), got.view(torch.int32)):
+                raise AssertionError("segment_sum: two runs on one input differ")
+            log("check segment_sum[float32]: bit-identical in two runs")
+    return 0.0
 
 
 def shard_inputs(dev, seed, dtype):
@@ -1085,11 +1170,28 @@ def time_shards(dev, seed):
     return rows
 
 
-def timed(kernel, plain, library, flops, nbytes, dtype):
+def timed(kernel, plain, library, flops, nbytes, dtype, peak=None):
     """Device times of a kernel, its plain version and its library
-    yardstick; the kernel's wall time back to back; the bound."""
+    yardstick; the kernel's wall time back to back; the bound (operations
+    at ``peak``, by default the dtype's tensor-core rate)."""
     return dict(ms=device_ms(kernel), wall_ms=cuda_ms(kernel), plain_ms=device_ms(plain),
-                library_ms=device_ms(library), bound=bound(flops, nbytes, dtype))
+                library_ms=device_ms(library), bound=bound(flops, nbytes, dtype, peak))
+
+
+def time_segment_sum(dev, seed):
+    """The segment sum at ``cylinder_flow/baseline``'s shapes (f32): the
+    kernel, its plain version on the card (``index_add_``, atomics) and one
+    ``torch.index_add`` call on the same rows; bound by the rows this index
+    puts in a segment (each read once), the output written once, the order
+    and offsets read once, and one add a value on CUDA cores."""
+    args = mgn_segments(dev, seed)
+    values, index, _, offsets = args
+    n, f = offsets.shape[0] - 1, values.shape[1]
+    used = int(offsets[-1] - offsets[0])
+    zeros, rows = torch.zeros(n + 1, f, device=dev), torch.where(index < 0, n, index)
+    return timed(lambda: segment_sum_cuda(*args), lambda: segment_sum_plain(*args),
+                 lambda: torch.index_add(zeros, 0, rows, values), used * f,
+                 (used * f + n * f) * 4 + used * 8 + (n + 1) * 8, torch.float32, SIMT_F32_PEAK)
 
 
 def phase_time(dev, seed):
@@ -1143,8 +1245,10 @@ def phase_time(dev, seed):
                 lambda: fused_mix_2d_adjoint_plain(x, wy, wx), _library_mix_adjoint(x, wy, wx),
                 flops, nbytes, dtype)
     rows.update(time_shards(dev, seed))
+    rows[("segment_sum", torch.float32)] = time_segment_sum(dev, seed)
+    lines = {**AXIS_KERNEL_LINES, **GRAPH_KERNEL_LINES}
     for (name, dtype, *tail), r in rows.items():
-        at = tail[0] if tail else AXIS_KERNEL_LINES.get(name, {}).get("at")
+        at = tail[0] if tail else lines.get(name, {}).get("at")
         at = f" at {at}" if at else ""
         log(f"time {name}[{str(dtype).replace('torch.', '')}]{at}: kernel {r['ms']:.4f} ms "
             f"(back to back {r['wall_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
@@ -2926,8 +3030,8 @@ def phase_projection(dev, tmp, seed):
 
 
 def _no_launches(phase, phase_start):
-    """The launch counts of a phase whose path runs no hand-written kernel:
-    all must be 0."""
+    """The launch counts of a phase whose path runs none of the F-FNO's
+    kernels (``KERNELS``): all must be 0."""
     counts = launch_counts()
     log(f"{phase}: launches over the {phase} path {counts}; phase took "
         f"{time.perf_counter() - phase_start:.1f} s")
@@ -3110,8 +3214,8 @@ def phase_learned_interpolation(dev, tmp, seed):
 # --- phase meshgraphnet --------------------------------------------------------------------
 # Device-time groups of a MeshGraphNet train step.
 MGN_GROUPS = (("cuBLAS GEMM (the MLPs)", ("gemm", "gemv", "xmma", "cutlass")),
-              ("gather / scatter (index_select, index_add_)",
-               ("index", "gather", "scatter")),
+              ("segment sum kernel (the scatter, the gathers' gradients)", ("segment_sum",)),
+              ("gather (index_select)", ("index", "gather", "scatter")),
               ("LayerNorm", ("layer_norm", "LayerNorm")),
               ("sort / unique (triangles_to_edges)", ("sort", "unique", "radix", "Radix", "cub")))
 
@@ -3222,14 +3326,13 @@ def phase_meshgraphnet(dev, tmp, seed):
         test_logs = test_command.main(MGN_CONFIG, overrides=overrides, config_dir=run,
                                       device="cuda")
     logs = trainer.logs
-    test_rel = abs(test_logs["test_loss"] - logs["test_loss"]) / abs(logs["test_loss"])
     log(f"meshgraphnet: {MGN_CONFIG}: train ({trainer.global_step} steps, n_params "
         f"{logs['n_params']:,}, train_loss {logs['train_loss']:.6f}): valid_loss "
-        f"{logs['valid_loss']:.6f} (50-step rollout); test_loss {test_logs['test_loss']:.7f}, "
-        f"train's test pass {logs['test_loss']:.7f} (rel {test_rel:.2e}, tol "
-        f"{MGN_TEST_RTOL:.0e}); {time.perf_counter() - t0:.1f} s")
+        f"{logs['valid_loss']:.6f} (50-step rollout); test_loss {test_logs['test_loss']!r}, "
+        f"train's test pass {logs['test_loss']!r} (held equal to the bit); "
+        f"{time.perf_counter() - t0:.1f} s")
     if (trainer.global_step != MGN_STEPS or not math.isfinite(test_logs["test_loss"])
-            or not test_rel <= MGN_TEST_RTOL):
+            or test_logs["test_loss"] != logs["test_loss"]):
         raise AssertionError(f"meshgraphnet: {MGN_CONFIG}: {trainer.global_step} steps, test "
                              f"{test_logs}, train's test {logs['test_loss']}")
 
@@ -3256,7 +3359,15 @@ def phase_meshgraphnet(dev, tmp, seed):
     log(f"meshgraphnet: {MGN_CONFIG}: rollout of {routine.rollout_steps} steps at batch "
         f"{batch_count(vbatch)}: {(time.perf_counter() - t0) / routine.rollout_steps * 1e3:.3f} "
         f"ms per step")
-    return _no_launches("meshgraphnet", phase_start)
+    before = segment_sum.launches
+    routine.train_step(state, batches[0])
+    torch.cuda.synchronize()
+    per_step, n_layers = segment_sum.launches - before, len(routine.model.graph_layers)
+    log(f"meshgraphnet: {MGN_CONFIG}: {per_step} segment sum launches in one train step (the "
+        f"scatter and the two gathers' gradients of each of {n_layers} layers)")
+    if per_step != 3 * n_layers:
+        raise AssertionError(f"meshgraphnet: {per_step} segment sum launches in a train step")
+    return {**_no_launches("meshgraphnet", phase_start), **launch_counts(GRAPH_KERNELS)}
 
 
 # Device-time groups of a train step, by kernel name.
@@ -3341,10 +3452,11 @@ def _parallel_fit(cfg, dev, seed, mesh=None, fast_loop=True, data_parallel=False
                       limit_train_batches=tcfg.get("limit_train_batches"),
                       limit_val_batches=tcfg.get("limit_val_batches"), seed=seed, device=dev,
                       mesh=mesh, fast_loop=fast_loop, data_parallel=data_parallel)
-    before = launch_counts()
+    counts = lambda: {**launch_counts(), **launch_counts(GRAPH_KERNELS)}
+    before = counts()
     state = trainer.fit(routine, builder)
     torch.cuda.synchronize(dev)
-    launched = {k: v - before[k] for k, v in launch_counts().items()}
+    launched = {k: v - before[k] for k, v in counts().items()}
     return trainer, routine, state, builder, launched
 
 
@@ -3488,17 +3600,6 @@ def _several_ranks(cfg, dev, seed, world):
 # ones cut to PARALLEL_FAMILY_LAYERS layers, one epoch of 2 train steps and the validation on
 # the small sets that phase parallel writes (the flagship's generated file for the FNO-4).
 PARALLEL_FAMILY_LAYERS = 4
-# MeshGraphNet on a mesh against no mesh: index_add_'s float atomics sum in another order on
-# every run (models/meshgraphnet.py), so two fits without a mesh differ too; both are printed.
-# Held: the losses' relative difference (MGN_LOSS_RTOL) and each tensor's max |diff| / max |no
-# mesh's| (weights and AdamW moments, MGN_PARALLEL_RTOL). Measured first (PERF.md §6):
-# two fits without a mesh, losses equal and 5.19e-03 at most in a tensor (556 of them differ);
-# the mesh's fit 0 and 7.02e-03.
-MGN_LOSS_RTOL, MGN_PARALLEL_RTOL = 1e-5, 2e-2
-# Families whose fits without a mesh are also compared with each other. The learned
-# interpolation's are run with cuDNN's deterministic algorithms: with its default ones two fits
-# without a mesh differ (its convolutions' backward), and the mesh's fit is held to the bit.
-PARALLEL_SELF_CHECKED = ("learned_interpolation", "meshgraphnet")
 LI_PARALLEL = dict(size=64, train=4, frames=66, eval=2, records=64)
 
 
@@ -3589,38 +3690,27 @@ def _fit_difference(a, b):
 def _family_fits(families, dev, seed, world):
     """Each family's fit on a data mesh over the world's ranks against the
     same fit with no mesh. One rank: to the bit (weights, AdamW moments,
-    losses and steps), MeshGraphNet within MGN_LOSS_RTOL and
-    MGN_PARALLEL_RTOL; several ranks: within PARALLEL_FIT_RTOL. The
-    families of PARALLEL_SELF_CHECKED also
-    print the difference of two fits without a mesh. Returns the launches
-    of the data-mesh fits."""
-    launched = dict.fromkeys(KERNELS, 0)
+    losses and steps; the phase sets no cuDNN flag: the learned
+    interpolation's convolutions pick deterministic algorithms themselves,
+    and MeshGraphNet sums with the segment-sum kernel); several ranks:
+    within PARALLEL_FIT_RTOL. Returns the launches of the data-mesh fits."""
+    launched = {**dict.fromkeys(KERNELS, 0), **dict.fromkeys(GRAPH_KERNELS, 0)}
     for family, name, over in families:
         cfg = load_config(name, over)
-        torch.backends.cudnn.deterministic = family == "learned_interpolation"
-        try:
-            t0 = time.perf_counter()
-            ref = _parallel_fit(cfg, dev, seed)
-            t1 = time.perf_counter()
-            got = _parallel_fit(cfg, dev, seed, make_mesh())
-            seconds = (t1 - t0, time.perf_counter() - t1)
-            again = _parallel_fit(cfg, dev, seed) if family in PARALLEL_SELF_CHECKED else None
-        finally:
-            torch.backends.cudnn.deterministic = False
+        t0 = time.perf_counter()
+        ref = _parallel_fit(cfg, dev, seed)
+        t1 = time.perf_counter()
+        got = _parallel_fit(cfg, dev, seed, make_mesh())
+        seconds = (t1 - t0, time.perf_counter() - t1)
         launched = {k: launched[k] + got[4][k] for k in launched}
         losses, bad, worst, weights = _fit_difference(got, ref)
-        if again is not None:
-            self_losses, self_bad, self_worst, self_weights = _fit_difference(again, ref)
-            log(f"parallel: {family}: two fits without a mesh"
-                + (" (cuDNN deterministic)" if family == "learned_interpolation" else "")
-                + f" differ by {self_losses:.2e} in the losses and {self_worst:.2e} at most in a "
-                f"tensor ({self_weights:.2e} in a weight; {len(self_bad)} tensors differ)")
         log(f"parallel: {family} ({name}, n_params {ref[0].logs['n_params']:,}): a fit on "
             f"{mesh_shape(got[0].mesh)} ({got[0].global_step} steps, {seconds[1]:.1f} s with "
             f"validation) against no mesh ({ref[0].global_step}, {seconds[0]:.1f} s): train_loss "
             f"{got[0].logs['train_loss']!r} / {ref[0].logs['train_loss']!r}, valid_loss "
             f"{got[0].logs['valid_loss']!r} / {ref[0].logs['valid_loss']!r}; {len(bad)} tensors "
-            f"differ, largest rel difference {worst:.2e}; launches {got[4]}")
+            f"differ, largest rel difference {worst:.2e} ({weights:.2e} in a weight); launches "
+            f"{got[4]}")
         if got[0].global_step != ref[0].global_step or got[0].global_step < 1:
             raise AssertionError(f"parallel: {family}: {got[0].global_step} steps on the mesh, "
                                  f"{ref[0].global_step} without")
@@ -3628,13 +3718,6 @@ def _family_fits(families, dev, seed, world):
             for k, rtol in PARALLEL_FIT_RTOL.items():
                 if not abs(got[0].logs[k] - ref[0].logs[k]) <= rtol * abs(ref[0].logs[k]):
                     raise AssertionError(f"parallel: {family}: {k} off by more than {rtol:.0e}")
-        elif family == "meshgraphnet":
-            log(f"parallel: {family}: the mesh's fit differs by {losses:.2e} in the losses "
-                f"(tol {MGN_LOSS_RTOL:.0e}) and {worst:.2e} at most in a tensor ({weights:.2e} "
-                f"in a weight; tol {MGN_PARALLEL_RTOL:.0e})")
-            if not (losses <= MGN_LOSS_RTOL and worst <= MGN_PARALLEL_RTOL):
-                raise AssertionError(f"parallel: {family}: the mesh's fit differs by more than "
-                                     f"{MGN_PARALLEL_RTOL:.0e}")
         elif bad or losses != 0:
             raise AssertionError(f"parallel: {family}: the data mesh's fit differs from the fit "
                                  f"with no mesh in {bad[:6]}")
@@ -3656,7 +3739,8 @@ def _parallel_rank(rank, world, store, data_path, data_root, seed, out_path):
         out = (_world_of_one if world == 1 else lambda *a: _several_ranks(*a, world))(
             cfg, dev, 7231)
         out["launches_families"] = _family_fits(parallel_families(data_path), dev, 7231, world)
-        out["launches"] = {**launch_counts(), **launch_counts(AXIS_KERNELS)}
+        out["launches"] = {**launch_counts(), **launch_counts(AXIS_KERNELS),
+                           **launch_counts(GRAPH_KERNELS)}
         if rank == 0:
             with open(out_path, "w") as f:
                 json.dump(out, f)
@@ -4110,12 +4194,14 @@ def main():
         for name, path, call in paths:
             if name in run:
                 out = phase(name, call)
-                if path is not None:  # the one-axis kernels' counts where the phase had none
-                    counts[path] = {**launch_counts(AXIS_KERNELS), **out}
+                if path is not None:  # the one-axis and graph kernels' counts where the
+                    # phase had none
+                    counts[path] = {**launch_counts(AXIS_KERNELS),
+                                    **launch_counts(GRAPH_KERNELS), **out}
     times = phase("time", phase_time_apart, args.seed) if "time" in run else {}
 
     kernels = []
-    for name, meta in {**KERNELS, **AXIS_KERNEL_LINES}.items():
+    for name, meta in {**KERNELS, **AXIS_KERNEL_LINES, **GRAPH_KERNEL_LINES}.items():
         t = times.get((name, torch.float32), {})
         entry = {"name": name, "route": "cuda", "source": meta["source"],
                  "replaces": meta["replaces"], "launches": counts.get(meta["path"], {}).get(name),

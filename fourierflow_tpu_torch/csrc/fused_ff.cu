@@ -42,10 +42,15 @@
 //   float2.
 // - The epilogue adds b2, rounds to x's type and stores two columns per
 //   thread; rows past `rows` are not stored.
-// Shapes: C_in a multiple of 16 and <= 64, H a multiple of 64, C_out a
-// multiple of 8 and <= 64, and the shared memory of fwd_smem_bytes. x (16-
-// byte aligned), biases and out are contiguous; W1 [C_in, H] and W2
-// [H, C_out] are read through element strides.
+// - H a multiple of 32 but not of 64 (the hidden slice of a tensor-parallel
+//   rank: 256 / 8 = 32) is staged rounded up to whole 64-wide chunks, the
+//   W1 rows, W2 columns and b1 past H as zeros: those columns give h =
+//   relu(0) = 0 and add nothing, so the last chunk needs no bound of its own.
+// Shapes: C_in a multiple of 16 and <= 64, H a multiple of 32 (H_STEP), C_out
+// a multiple of 8 and <= 64, and the shared memory of fwd_smem_bytes (H
+// counted rounded up to a multiple of 64). x (16-byte aligned), biases and
+// out are contiguous; W1 [C_in, H] and W2 [H, C_out] are read through
+// element strides.
 //
 // Plain C interface, loaded with ctypes.
 
@@ -69,7 +74,8 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 }
 
 // --- forward -----------------------------------------------------------------
-constexpr int HC = 64;           // hidden columns per chunk
+constexpr int HC = 64;           // hidden columns per chunk; H is staged rounded up to it
+constexpr int H_STEP = 32;       // both kernels take H in multiples of this
 constexpr int MAX_C = 64;        // C_in and C_out bound: fragments live in registers
 constexpr int PAD = 8;           // elements of padding per staged row
 
@@ -84,12 +90,17 @@ template <> struct FwdShape<__nv_bfloat16> {
   static constexpr int warps = 8, m_tiles = 2;
 };
 
+// H rounded up to whole chunks: the hidden columns a forward block stages.
+__host__ __device__ __forceinline__ int fwd_staged_hidden(int hidden) {
+  return (hidden + HC - 1) / HC * HC;
+}
+
 template <typename T>
 __host__ __device__ __forceinline__ size_t fwd_smem_bytes(int hidden, int cout) {
-  const size_t elems =
-      (size_t)FwdShape<T>::warps * 16 * FwdShape<T>::m_tiles * (MAX_C + PAD) +
-      (size_t)hidden * (MAX_C + PAD) + (size_t)MAX_C * (hidden + PAD);
-  return elems * sizeof(T) + sizeof(float) * (size_t)(hidden + cout);
+  const size_t hp = fwd_staged_hidden(hidden);
+  const size_t elems = (size_t)FwdShape<T>::warps * 16 * FwdShape<T>::m_tiles * (MAX_C + PAD) +
+                       hp * (MAX_C + PAD) + (size_t)MAX_C * (hp + PAD);
+  return elems * sizeof(T) + sizeof(float) * (hp + (size_t)cout);
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
@@ -362,12 +373,13 @@ __global__ void __launch_bounds__(32 * FwdShape<T>::warps, 1) ff_fwd_kernel(
   constexpr int WR = 16 * MT;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int ldx = MAX_C + PAD, ldw1 = MAX_C + PAD;
-  const int ldw2 = hidden + PAD;
+  const int hp = fwd_staged_hidden(hidden);              // hidden columns staged
+  const int ldw2 = hp + PAD;
   T* xs_all = reinterpret_cast<T*>(smem_raw);           // [NW][WR][ldx]
-  T* w1s = xs_all + (size_t)NW * WR * ldx;               // [hidden][ldw1]: W1[c, h] at h*ldw1 + c
-  T* w2s = w1s + (size_t)hidden * ldw1;                  // [MAX_C][ldw2]: W2[h, o] at o*ldw2 + h
+  T* w1s = xs_all + (size_t)NW * WR * ldx;               // [hp][ldw1]: W1[c, h] at h*ldw1 + c
+  T* w2s = w1s + (size_t)hp * ldw1;                      // [MAX_C][ldw2]: W2[h, o] at o*ldw2 + h
   float* b1s = reinterpret_cast<float*>(w2s + (size_t)MAX_C * ldw2);
-  float* b2s = b1s + hidden;
+  float* b2s = b1s + hp;
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
@@ -386,9 +398,15 @@ __global__ void __launch_bounds__(32 * FwdShape<T>::warps, 1) ff_fwd_kernel(
   }
   for (int i = threadIdx.x; i < (MAX_C - cout) * hidden; i += NTF)
     w2s[(cout + i / hidden) * ldw2 + i % hidden] = t_zero;
+  // The hidden columns past H, up to hp: zero W1 rows and W2 columns.
+  for (int i = threadIdx.x; i < (hp - hidden) * MAX_C; i += NTF) {
+    const int h = hidden + i / MAX_C, c = i % MAX_C;
+    w1s[h * ldw1 + c] = t_zero;
+    w2s[c * ldw2 + h] = t_zero;
+  }
   stage_matrix(w1s, ldw1, w1, hidden, cin, w1_sh, w1_sc);
   stage_matrix(w2s, ldw2, w2, cout, hidden, w2_so, w2_sh);
-  for (int i = threadIdx.x; i < hidden; i += NTF) b1s[i] = to_f(b1[i]);
+  for (int i = threadIdx.x; i < hp; i += NTF) b1s[i] = i < hidden ? to_f(b1[i]) : 0.f;
   for (int i = threadIdx.x; i < cout; i += NTF) b2s[i] = to_f(b2[i]);
   if (tile < n_tiles) load_x_tile<T, WR>(xs, ldx, x, tile, rows, cin, lane);
   cp_async_commit();
@@ -414,7 +432,7 @@ __global__ void __launch_bounds__(32 * FwdShape<T>::warps, 1) ff_fwd_kernel(
       __syncwarp();
       if (tile + step < n_tiles) load_x_tile<T, WR>(xs, ldx, x, tile + step, rows, cin, lane);
       cp_async_commit();
-      ff_fwd_products<MT>(w1s, w2s, b1s, hidden, ldw2, lane, xh, xl, acc);
+      ff_fwd_products<MT>(w1s, w2s, b1s, hp, ldw2, lane, xh, xl, acc);
     } else {
       uint32_t xa[MT][MAX_C / 16][4];
 #pragma unroll
@@ -430,7 +448,7 @@ __global__ void __launch_bounds__(32 * FwdShape<T>::warps, 1) ff_fwd_kernel(
       __syncwarp();
       if (tile + step < n_tiles) load_x_tile<T, WR>(xs, ldx, x, tile + step, rows, cin, lane);
       cp_async_commit();
-      ff_fwd_products<MT>(w1s, w2s, b1s, hidden, ldw2, lane, xa, acc);
+      ff_fwd_products<MT>(w1s, w2s, b1s, hp, ldw2, lane, xa, acc);
     }
     store_tile<MT>(acc, b2s, out, (int64_t)tile * WR, rows, cout, lane);
     cp_async_wait_all();
@@ -504,9 +522,13 @@ __global__ void __launch_bounds__(32 * FwdShape<T>::warps, 1) ff_fwd_kernel(
 //   the row (BwdTile<float>), because the TF32 reads go both along and
 //   across rows and no single row pad serves both, and because f32 has no
 //   room for a pad beside the sums.
-// Shapes: C_in <= 64, C_out <= 64, and the shared memory of bwd_smem_bytes
-// (six staged tiles and the sums of every 64-wide chunk of H: H <= 256 in
-// f32 and <= 320 in bf16).
+// Shapes: C_in <= 64, C_out <= 64, H a multiple of 32 (H_STEP, the forward
+// kernel's rule; where H is not a multiple of 64 the last chunk is part
+// filled: its W1 and W2 tiles are staged with zeros past H, every tile of
+// every chunk is staged whole, so no row keeps an earlier tile's data, and
+// the h, dh and sums of the columns past H are 0 and never written out),
+// and the shared memory of bwd_smem_bytes (six staged tiles and the sums of
+// every 64-wide chunk of H: H <= 256 in f32 and <= 320 in bf16).
 constexpr int BT = 64;  // tile edge: rows per tile, hidden chunk, C_in and C_out bound
 
 // Element (r, c) of a staged 64x64 tile is at off(r, c). bf16: rows padded to
@@ -980,7 +1002,7 @@ extern "C" int ff_fwd(int dtype, const void* x, const void* w1, const void* b1, 
                       const void* b2, void* out, int rows, int cin, int hidden, int cout,
                       int w1_sc, int w1_sh, int w2_sh, int w2_so,
                       void* stream) {
-  if (rows <= 0 || cin <= 0 || cin > MAX_C || cin % 16 || hidden <= 0 || hidden % HC ||
+  if (rows <= 0 || cin <= 0 || cin > MAX_C || cin % 16 || hidden <= 0 || hidden % H_STEP ||
       cout <= 0 || cout > MAX_C || cout % 8 || (reinterpret_cast<uintptr_t>(x) & 15))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1008,8 +1030,8 @@ extern "C" int ff_bwd(int dtype, const void* x, const void* g, const void* w1, c
                       const void* w2, void* dx, void* partial, void* out, int rows, int cin,
                       int hidden, int cout, int w1_sc, int w1_sh, int w2_sh, int w2_so,
                       int blocks, void* stream) {
-  if (rows <= 0 || cin <= 0 || cin > BT || hidden <= 0 || cout <= 0 || cout > BT ||
-      blocks <= 0 || blocks > (rows + BT - 1) / BT)
+  if (rows <= 0 || cin <= 0 || cin > BT || hidden <= 0 || hidden % H_STEP || cout <= 0 ||
+      cout > BT || blocks <= 0 || blocks > (rows + BT - 1) / BT)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* p = static_cast<float*>(partial);

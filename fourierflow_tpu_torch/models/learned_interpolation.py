@@ -20,7 +20,10 @@ Fields are ``[batch, X, Y]`` (the JAX package's model takes one field and
 is vmapped). The CNN's convolutions run in full float32 on every device,
 forward and backward: cuDNN's TF32 is off inside them, whatever
 ``torch.backends.cudnn.allow_tf32`` says, since a 32-step unroll compounds
-the difference.
+the difference. They also run cuDNN's deterministic algorithms, chosen
+without benchmarking (``cudnn.deterministic`` on, ``cudnn.benchmark`` off
+inside them), so a step repeats to the bit on the card: cuDNN's default
+choices sum the gradients in an order that varies from run to run.
 """
 
 import contextlib
@@ -82,31 +85,39 @@ def advect_linear(phi: torch.Tensor, dim: int) -> torch.Tensor:
     return 0.5 * (phi + torch.roll(phi, -1, dim))
 
 
+# cuDNN's settings inside the CNN's convolutions: full float32, deterministic
+# algorithms, no benchmarking.
+_CONV_FLAGS = {"allow_tf32": False, "deterministic": True, "benchmark": False}
+
+
 @contextlib.contextmanager
-def _no_tf32():
-    previous = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
+def _conv_flags():
+    cudnn = torch.backends.cudnn
+    previous = {k: getattr(cudnn, k) for k in _CONV_FLAGS}
+    for k, v in _CONV_FLAGS.items():
+        setattr(cudnn, k, v)
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32 = previous
+        for k, v in previous.items():
+            setattr(cudnn, k, v)
 
 
 class _Conv2dFloat32(torch.autograd.Function):
     """A 3x3 convolution of an already padded input, stride 1, with TF32
-    off in the forward and in the backward (which autograd runs outside the
-    forward's context)."""
+    off and cuDNN's deterministic algorithms in the forward and in the
+    backward (which autograd runs outside the forward's context)."""
 
     @staticmethod
     def forward(ctx, x, weight, bias):
         ctx.save_for_backward(x, weight)
-        with _no_tf32():
+        with _conv_flags():
             return F.conv2d(x, weight, bias)
 
     @staticmethod
     def backward(ctx, grad):
         x, weight = ctx.saved_tensors
-        with _no_tf32():
+        with _conv_flags():
             gx, gw, gb = torch.ops.aten.convolution_backward(
                 grad, x, weight, [weight.shape[0]], [1, 1], [0, 0], [1, 1], False, [0, 0], 1,
                 list(ctx.needs_input_grad))

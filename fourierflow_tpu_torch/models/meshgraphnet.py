@@ -8,8 +8,17 @@ node arrays with NaN, as ``commands/convert.py`` writes them).
 unused ones, as the JAX package's ``jnp.unique(..., size=...)`` does; a
 padded edge gathers from node 0 and is masked to zero, so it adds nothing to
 the scatter. NaN padding of the inputs is zeroed in ``build_cylinder_graph``.
-The scatter is ``index_add_``, which sums in an order that varies from run
-to run on the card (atomics).
+
+The scatter of the edge messages onto their receivers, and the gradients
+of the two gathers of node features onto the edges, are segment sums
+(``ops/segment.py``: the kernel of ``csrc/segment_sum.cu`` on the card),
+each node's edges summed in ascending edge order, as the CPU's
+``index_add_`` into zeros sums them. So a step has no atomics in either
+direction: it repeats to the bit on the card, and equals the ``index_add_``
+/ ``index_select`` step to the bit on the CPU. An unused edge belongs to no
+node in those sums: its message is masked to zero, and so is its gradient,
+so leaving it out changes no bit (adding a zero to a sum that starts at +0
+changes nothing).
 
 Graphs are batched: nodes ``[B, N, F]``, edges ``[B, E, F]`` and
 ``senders``/``receivers`` ``[B, E]``.
@@ -17,13 +26,15 @@ Graphs are batched: nodes ``[B, N, F]``, edges ``[B, E, F]`` and
 
 import enum
 import math
-from typing import Sequence, Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 
-__all__ = ["NodeType", "triangles_to_edges", "MLPBlock", "GraphNetBlock", "GraphProcessor",
-           "build_cylinder_graph"]
+from ..ops.segment import segment_csr, segment_sum
+
+__all__ = ["NodeType", "triangles_to_edges", "MLPBlock", "Incidence", "incidence",
+           "GraphNetBlock", "GraphProcessor", "build_cylinder_graph"]
 
 # flax's lecun_normal: variance 1/fan_in from a normal truncated at +-2, whose
 # standard deviation this constant is (jax.nn.initializers.variance_scaling).
@@ -94,17 +105,59 @@ class MLPBlock(nn.Module):
         return self.norm(x) if self.norm is not None else x
 
 
-def _flat_index(index: torch.Tensor, n_nodes: int) -> torch.Tensor:
-    """``[B, E]`` node indices (-1 clamped to 0) as rows of the ``[B * N]``
-    flattened nodes."""
-    offsets = torch.arange(index.shape[0], device=index.device)[:, None] * n_nodes
-    return (index.clamp(min=0) + offsets).reshape(-1)
+class Incidence(NamedTuple):
+    """One end of every edge as rows of the ``[B * N]`` flattened nodes:
+    ``rows`` to gather from (an unused edge reads row 0), and ``index`` (-1
+    on an unused edge) with its ``order`` and ``offsets`` (``segment_csr``)
+    to sum over."""
+
+    rows: torch.Tensor
+    index: torch.Tensor
+    order: torch.Tensor
+    offsets: torch.Tensor
+
+
+def incidence(index: torch.Tensor, n_nodes: int) -> Incidence:
+    """The :class:`Incidence` of ``[B, E]`` node indices (-1 unused) of a
+    batch of ``n_nodes``-node graphs, sorted once for every layer."""
+    b = index.shape[0]
+    offsets = torch.arange(b, device=index.device)[:, None] * n_nodes
+    flat = torch.where(index >= 0, index + offsets, -1).reshape(-1)
+    return Incidence(flat.clamp(min=0), flat, *segment_csr(flat, b * n_nodes))
+
+
+class _Gather(torch.autograd.Function):
+    """``x[inc.rows]``; its gradient is the segment sum over ``inc``."""
+
+    @staticmethod
+    def forward(ctx, x, inc):
+        ctx.inc = inc
+        return x.index_select(0, inc.rows)
+
+    @staticmethod
+    def backward(ctx, g):
+        return segment_sum(g.contiguous(), *ctx.inc[1:]), None
+
+
+class _Scatter(torch.autograd.Function):
+    """The sum of the edges' ``values`` onto their nodes of ``inc`` (the
+    segment sum); its gradient is the gather."""
+
+    @staticmethod
+    def forward(ctx, values, inc):
+        ctx.inc = inc
+        return segment_sum(values, *inc[1:])
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.index_select(0, ctx.inc.rows), None
 
 
 class GraphNetBlock(nn.Module):
     """One message-passing step with residuals: each edge updated from its
     two end nodes and itself (masked to zero where unused), each node from
-    itself and the sum of its incoming edges."""
+    itself and the sum of its incoming edges. ``senders`` and ``receivers``
+    are :func:`incidence`s."""
 
     def __init__(self, latent_size: int = 128):
         super().__init__()
@@ -115,15 +168,14 @@ class GraphNetBlock(nn.Module):
         self.edge_updater.reset_parameters(generator)
         self.node_updater.reset_parameters(generator)
 
-    def forward(self, nodes, edges, senders, receivers, edge_mask):
+    def forward(self, nodes, edges, senders: Incidence, receivers: Incidence, edge_mask):
         b, n, f = nodes.shape
         flat = nodes.reshape(b * n, f)
-        r_idx = _flat_index(receivers, n)
-        sender_feats = flat.index_select(0, _flat_index(senders, n)).reshape(edges.shape[0], -1, f)
-        receiver_feats = flat.index_select(0, r_idx).reshape(edges.shape[0], -1, f)
+        sender_feats = _Gather.apply(flat, senders).reshape(b, -1, f)
+        receiver_feats = _Gather.apply(flat, receivers).reshape(b, -1, f)
         new_edges = self.edge_updater(torch.cat([sender_feats, receiver_feats, edges], -1))
         new_edges = new_edges * edge_mask[..., None]
-        agg = torch.zeros_like(flat).index_add_(0, r_idx, new_edges.reshape(-1, f))
+        agg = _Scatter.apply(new_edges.reshape(-1, f), receivers)
         new_nodes = self.node_updater(torch.cat([flat, agg], -1)).reshape(b, n, f)
         return nodes + new_nodes, edges + new_edges
 
@@ -150,10 +202,11 @@ class GraphProcessor(nn.Module):
 
     def forward(self, nodes, edges, senders, receivers):
         edge_mask = (senders >= 0).to(nodes.dtype)
+        send, recv = (incidence(i, nodes.shape[1]) for i in (senders, receivers))
         h_nodes = self.node_encoder(nodes)
         h_edges = self.edge_encoder(edges) * edge_mask[..., None]
         for layer in self.graph_layers:
-            h_nodes, h_edges = layer(h_nodes, h_edges, senders, receivers, edge_mask)
+            h_nodes, h_edges = layer(h_nodes, h_edges, send, recv, edge_mask)
         return self.decoder(h_nodes)
 
 

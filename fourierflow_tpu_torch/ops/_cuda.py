@@ -30,7 +30,7 @@ _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
 
-KERNEL_SOURCES = ("fused_ff", "fused_spectral")
+KERNEL_SOURCES = ("fused_ff", "fused_spectral", "segment_sum")
 
 MAX_SMEM = 232448  # bytes of shared memory one Hopper block may use
 

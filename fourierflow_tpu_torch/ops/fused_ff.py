@@ -24,7 +24,10 @@ time for the work at f32 accuracy (3xTF32 on tensor cores, 495/3 TFLOP/s)
 or in bf16 (989 TFLOP/s), against 3.35 TB/s: forward 5.10 GFLOP and 39.8
 MB f32 (19.9 MB bf16), about 31 us in f32 (operations) and 6 us in bf16
 (memory); backward 12.75 GFLOP and 59.8 MB f32, about 77 us in f32 and 13
-us in bf16 (operations). The kernel sources describe the tiling.
+us in bf16 (operations). The kernel sources describe the tiling. Both
+kernels take H in multiples of 32, down to the flagship's hidden slice at
+tensor parallelism 8; the forward stages H rounded up to its 64-wide
+chunks, the columns past H as zeros.
 
 Both kernels run their products on tensor cores (``mma.sync``: bf16 with
 float32 sums, and in float32 three TF32 products per product, which keeps
@@ -49,6 +52,7 @@ __all__ = ["fused_ff", "fused_ff_plain", "fused_ff_cuda", "fused_ff_bwd", "fused
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_C = 64  # C_in and C_out bound of both kernels (register fragments, 64-wide tiles)
 _FWD_PAD, _FWD_HC = 8, 64  # as PAD and HC in csrc/fused_ff.cu
+_H_STEP = 32  # both kernels take H in multiples of this (H_STEP in the source)
 # Warps of a forward block and rows of a warp tile (FwdShape<T> in the source).
 _FWD_SHAPE = {torch.float32: (8, 16), torch.bfloat16: (8, 32)}
 _BWD_TILE = 64  # rows per tile, hidden chunk and C bound of the backward kernel (BT in the source)
@@ -108,11 +112,13 @@ def _lib():
 def _fwd_smem_bytes(hidden, cout, dtype):
     """Shared memory of one forward block (``fwd_smem_bytes`` in the source):
     a tile of x per warp, all of W1 and W2 zero-padded to C_in = C_out = 64
-    with padded rows, both biases."""
+    and H to a multiple of 64 (whole hidden chunks) with padded rows, both
+    biases."""
     warps, warp_rows = _FWD_SHAPE[dtype]
-    elems = (warps * warp_rows * (_MAX_C + _FWD_PAD) + hidden * (_MAX_C + _FWD_PAD)
-             + _MAX_C * (hidden + _FWD_PAD))
-    return elems * (torch.finfo(dtype).bits // 8) + 4 * (hidden + cout)
+    hp = -(-hidden // _FWD_HC) * _FWD_HC
+    elems = (warps * warp_rows * (_MAX_C + _FWD_PAD) + hp * (_MAX_C + _FWD_PAD)
+             + _MAX_C * (hp + _FWD_PAD))
+    return elems * (torch.finfo(dtype).bits // 8) + 4 * (hp + cout)
 
 
 def _bwd_smem_bytes(hidden, dtype):
@@ -148,6 +154,8 @@ def _check_args(x, w1, b1, w2, b2=None, g=None):
             raise ValueError(f"fused_ff kernel needs a contiguous {name}")
     if cout > _MAX_C:
         raise ValueError(f"fused_ff kernel takes C_out <= {_MAX_C}, got {cout}")
+    if hidden % _H_STEP:
+        raise ValueError(f"fused_ff kernel takes H a multiple of {_H_STEP}, got {hidden}")
     if g is not None:
         if cin > _MAX_C:
             raise ValueError(f"fused_ff backward kernel takes C_in <= {_MAX_C}, got {cin}")
@@ -159,8 +167,6 @@ def _check_args(x, w1, b1, w2, b2=None, g=None):
         if cin > _MAX_C or cin % 16:
             raise ValueError(f"fused_ff kernel takes C_in a multiple of 16 and <= {_MAX_C}, "
                              f"got {cin}")
-        if hidden % _FWD_HC:
-            raise ValueError(f"fused_ff kernel takes H a multiple of {_FWD_HC}, got {hidden}")
         if cout % 8:
             raise ValueError(f"fused_ff kernel takes C_out a multiple of 8, got {cout}")
         if x.data_ptr() % 16:

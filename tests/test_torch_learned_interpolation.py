@@ -185,6 +185,31 @@ def test_convolutions_run_without_tf32(monkeypatch):
     assert seen == [False] * 4 and torch.backends.cudnn.allow_tf32
 
 
+def test_convolutions_run_deterministic(monkeypatch):
+    """Whatever ``cudnn.deterministic`` and ``cudnn.benchmark`` say, the
+    CNN's convolutions see cuDNN's deterministic algorithms without
+    benchmarking, forward and backward, and both flags are put back."""
+    seen = []
+    conv2d, conv_bwd = torch.nn.functional.conv2d, torch.ops.aten.convolution_backward
+    cudnn = torch.backends.cudnn
+
+    def spy(fn):
+        def wrapped(*args, **kwargs):
+            seen.append((cudnn.deterministic, cudnn.benchmark))
+            return fn(*args, **kwargs)
+        return wrapped
+
+    monkeypatch.setattr(torch.nn.functional, "conv2d", spy(conv2d))
+    monkeypatch.setattr(torch.ops.aten, "convolution_backward", spy(conv_bwd))
+    monkeypatch.setattr(cudnn, "deterministic", False)
+    monkeypatch.setattr(cudnn, "benchmark", True)
+    net = li.PeriodicCNN(features=4, n_layers=2)
+    x = torch.randn(1, 2, 8, 8, requires_grad=True)
+    net(x).sum().backward()
+    assert seen == [(True, False)] * 4
+    assert not cudnn.deterministic and cudnn.benchmark
+
+
 # --- the routine ------------------------------------------------------------------------
 def _routines(size, lr=1e-3, weight_decay=1e-4, inner=2, outer=3):
     kw = dict(size=size, dt=DT * 32 / size, unroll_length=2, inner_steps=inner,

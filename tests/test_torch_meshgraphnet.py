@@ -217,6 +217,54 @@ def test_padding_contributes_nothing(processors):
     assert_rel(padded[0, :7], alone[0], 1e-6)
 
 
+def _index_add_forward(model, nodes, edges, senders, receivers):
+    """``GraphProcessor.forward`` with the scatter and gathers of before the
+    segment sum: ``index_select`` from, and ``index_add_`` into, the
+    flattened nodes, an unused edge's index clamped to node 0."""
+    def flat_index(index, n):
+        return (index.clamp(min=0) + torch.arange(index.shape[0])[:, None] * n).reshape(-1)
+
+    edge_mask = (senders >= 0).to(nodes.dtype)
+    h_nodes = model.node_encoder(nodes)
+    h_edges = model.edge_encoder(edges) * edge_mask[..., None]
+    for layer in model.graph_layers:
+        b, n, f = h_nodes.shape
+        flat = h_nodes.reshape(b * n, f)
+        r_idx = flat_index(receivers, n)
+        s_feats = flat.index_select(0, flat_index(senders, n)).reshape(b, -1, f)
+        r_feats = flat.index_select(0, r_idx).reshape(b, -1, f)
+        new_edges = layer.edge_updater(torch.cat([s_feats, r_feats, h_edges], -1))
+        new_edges = new_edges * edge_mask[..., None]
+        agg = torch.zeros_like(flat).index_add_(0, r_idx, new_edges.reshape(-1, f))
+        h_nodes = h_nodes + layer.node_updater(torch.cat([flat, agg], -1)).reshape(b, n, f)
+        h_edges = h_edges + new_edges
+    return model.decoder(h_nodes)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_segment_sum_block_equals_index_add_to_the_bit(seed):
+    """The message passing through the segment sum's autograd Functions
+    (the scatter, and the gathers whose gradients are segment sums, unused
+    edges in no segment) against the ``index_add_`` / ``index_select`` path
+    on the padded batch: the output, every parameter's gradient and the
+    inputs' gradients equal to the bit."""
+    b = _padded_batch(seed=seed)
+    graph = mgn.build_cylinder_graph(*(torch.from_numpy(b[k]) for k in (
+        "velocity", "node_type", "mesh_pos", "cells")))
+    model = mgn.GraphProcessor(n_layers=LAYERS, latent_size=LATENT)
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    cot = torch.from_numpy(np.random.RandomState(seed).randn(2, 9, 2).astype(np.float32))
+    results = []
+    for forward in (lambda *g: model(*g), lambda *g: _index_add_forward(model, *g)):
+        nodes, edges = (graph[i].clone().requires_grad_() for i in (0, 1))
+        out = forward(nodes, edges, *graph[2:])
+        grads = torch.autograd.grad((out * cot).sum(), [nodes, edges, *model.parameters()])
+        results.append((out, *grads))
+    assert (graph[2] < 0).any()  # unused edge slots are in play
+    for got, want in zip(*results, strict=True):
+        assert torch.equal(got.detach().view(torch.int32), want.detach().view(torch.int32))
+
+
 # --- the routine ----------------------------------------------------------------------
 def _routines(rollout_steps=50):
     kw = dict(n_layers=LAYERS, latent_size=LATENT, clip_val=0.1, rollout_steps=rollout_steps)

@@ -252,9 +252,10 @@ def test_fused_ff_kernel_argument_checks():
     with pytest.raises(ValueError, match="C_out <= 64"):
         _check_args(x, w1, b1, torch.zeros(w2.shape[0], 65), torch.zeros(65))
 
-    # The forward kernel's shape limits: its fragments tile C_in by 16, H by 64
-    # and C_out by 8, it reads x in 16-byte pieces, and all of W1 and W2 sit
-    # in one block's shared memory.
+    # The forward kernel's shape limits: its fragments tile C_in by 16 and
+    # C_out by 8, it takes H in multiples of 32 (staged rounded up to its
+    # 64-wide chunks, zeros past H), it reads x in 16-byte pieces, and all of
+    # W1 and W2 sit in one block's shared memory.
     def ff(rows=6, cin=16, hidden=64, cout=16, dtype=torch.float32):
         a = [torch.from_numpy(t).to(dtype) for t in _ff_inputs(rows, cin, hidden, cout)]
         _check_args(*a)
@@ -265,8 +266,10 @@ def test_fused_ff_kernel_argument_checks():
     for cin in (8, 24, 80):
         with pytest.raises(ValueError, match="C_in a multiple of 16 and <= 64"):
             ff(cin=cin)
-    for hidden in (48, 96):
-        with pytest.raises(ValueError, match="H a multiple of 64"):
+    ff(hidden=32)
+    ff(hidden=96)
+    for hidden in (48, 80):
+        with pytest.raises(ValueError, match=f"H a multiple of 32, got {hidden}"):
             ff(hidden=hidden)
     with pytest.raises(ValueError, match="C_out a multiple of 8"):
         ff(cout=12)
@@ -279,9 +282,13 @@ def test_fused_ff_kernel_argument_checks():
     unaligned = torch.zeros(6 * 16 + 1)[1:].view(6, 16)
     with pytest.raises(ValueError, match="aligned to 16 bytes"):
         _check_args(unaligned, w1, b1, w2, b2)
-    # The backward kernel has its own limits: it takes C_in 8 and H 48.
-    xb, w1b, b1b, w2b, _ = map(torch.from_numpy, _ff_inputs(6, cin=8, hidden=48, cout=8))
+    # The backward kernel has its own limits: it takes C_in 8, and H 32 as
+    # the forward does, but not H 48.
+    xb, w1b, b1b, w2b, _ = map(torch.from_numpy, _ff_inputs(6, cin=8, hidden=32, cout=8))
     _check_args(xb, w1b, b1b, w2b, g=torch.zeros(6, 8))
+    xb, w1b, b1b, w2b, _ = map(torch.from_numpy, _ff_inputs(6, cin=8, hidden=48, cout=8))
+    with pytest.raises(ValueError, match="H a multiple of 32, got 48"):
+        _check_args(xb, w1b, b1b, w2b, g=torch.zeros(6, 8))
     # Any C_in and C_out up to 64 (zero-padded to 64 in shared memory), and H up
     # to what six staged 64x64 tiles and the float32 sums of every 64-wide chunk
     # of H leave room for: 256 in float32, 320 in bf16.
@@ -293,12 +300,12 @@ def test_fused_ff_kernel_argument_checks():
 
     bwd(cin=64, hidden=256, cout=64)
     bwd(cin=32, hidden=128, cout=40)
-    bwd(cin=24, hidden=100, cout=12, dtype=torch.bfloat16)
+    bwd(cin=24, hidden=96, cout=12, dtype=torch.bfloat16)
     bwd(cin=64, hidden=320, cout=64, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="shared memory"):
-        bwd(cin=8, hidden=257, cout=8)
+        bwd(cin=8, hidden=288, cout=8)
     with pytest.raises(ValueError, match="shared memory"):
-        bwd(cin=8, hidden=321, cout=8, dtype=torch.bfloat16)
+        bwd(cin=8, hidden=352, cout=8, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="C_in <= 64"):
         bwd(cin=80)
     with pytest.raises(ValueError, match="C_out <= 64"):
@@ -408,3 +415,69 @@ def test_fused_mix_kernel_mode_chunks(n, modes, dtype, chunk):
         best = max(mc for mc in range(4, modes, 4)
                    if _layout_bytes(n, mc, 64, size, 4) <= _cuda.MAX_SMEM)
         assert -(-modes // chunk) == -(-modes // best)
+
+
+# --- the segment sum (MeshGraphNet's scatter) --------------------------------------------------
+def _segments(seed, rows, n, f, unused=0.3):
+    """values [rows, f], an index over n segments with a share of -1 rows
+    (their values signed zeros, as MeshGraphNet's masked messages are),
+    and its ``segment_csr``."""
+    from fourierflow_tpu_torch.ops import segment_csr
+
+    rng = np.random.RandomState(seed)
+    index = rng.randint(0, n, rows)
+    index[rng.rand(rows) < unused] = -1
+    values = rng.randn(rows, f).astype(np.float32)
+    values[index < 0] *= 0.0  # -0.0 where the value was negative
+    index = torch.from_numpy(index.astype(np.int64))
+    return torch.from_numpy(values), index, *segment_csr(index, n)
+
+
+@pytest.mark.parametrize("rows,n,f", [(200, 17, 8), (1000, 64, 128), (50, 80, 3), (0, 4, 5)])
+def test_segment_sum_plain_equals_index_add(rows, n, f):
+    """The plain segment sum is ``index_add_`` into zeros to the bit, with
+    the rows of a -1 index summed into row 0 (as MeshGraphNet's clamped
+    index did: their values are signed zeros) or left out; within 1e-6 of
+    JAX's ``.at[].add``. ``segment_csr``: each segment's rows in ascending
+    order, the -1 rows before ``offsets[0]``."""
+    from fourierflow_tpu_torch.ops.segment import segment_sum, segment_sum_plain
+
+    values, index, order, offsets = _segments(rows, rows, n, f)
+    got = segment_sum(values, index, order, offsets)
+    assert torch.equal(got.view(torch.int32), segment_sum_plain(values, index, order, offsets)
+                       .view(torch.int32))
+    clamped = torch.zeros(n, f).index_add_(0, index.clamp(min=0), values)
+    assert torch.equal(got.view(torch.int32), clamped.view(torch.int32))
+    keep = index >= 0
+    kept = torch.zeros(n, f).index_add_(0, index[keep], values[keep])
+    assert torch.equal(got.view(torch.int32), kept.view(torch.int32))
+    want = jnp.zeros((n, f), jnp.float32).at[jnp.asarray(index.numpy())].add(
+        jnp.asarray(values.numpy()), mode="drop")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-6)
+    assert offsets.shape == (n + 1,) and int(offsets[0]) == int((index < 0).sum())
+    assert int(offsets[-1]) == rows
+    for k in range(n):
+        seg = order[offsets[k]:offsets[k + 1]]
+        assert (index[seg] == k).all() and (seg.diff() > 0).all()
+
+
+def test_segment_sum_kernel_argument_checks():
+    """What the CUDA wrapper checks before a launch, exercised on CPU
+    tensors; another device raises."""
+    from fourierflow_tpu_torch.ops.segment import _check_args, segment_sum
+
+    values, index, order, offsets = _segments(0, 40, 6, 4)
+    _check_args(values, index, order, offsets)
+    with pytest.raises(TypeError, match="float32 values"):
+        _check_args(values.double(), index, order, offsets)
+    with pytest.raises(TypeError, match="float32 values"):
+        _check_args(values[:, 0], index, order, offsets)
+    with pytest.raises(ValueError, match="offsets is torch.int32"):
+        _check_args(values, index, order, offsets.int())
+    with pytest.raises(ValueError, match="for 40 rows"):
+        _check_args(values, index[:-1], order[:-1], offsets)
+    with pytest.raises(ValueError, match="contiguous values"):
+        _check_args(values.t().contiguous().t(), index, order, offsets)
+    meta = lambda t: t.to("meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        segment_sum(*map(meta, (values, index, order, offsets)))

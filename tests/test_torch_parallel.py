@@ -18,7 +18,9 @@ JAX side runs in this process on its 8 virtual devices
   JAX's (``jax.grad`` of the step's own loss) within GRAD_RTOL of each
   tensor's largest value, also with shared Fourier weights and per-layer
   remat, and against the port's unsplit step within 1e-5 of it; the
-  spatially split ``valid_step`` loss within rtol 1e-5 of JAX's;
+  spatially split ``valid_step`` loss within rtol 1e-5 of JAX's; the same
+  steps and gradients at width 32 on ``{data 1, model 4}``, whose
+  feed-forward slices are 32 wide (the flagship's at tp 8);
 - (b) the FNO's dense Fourier weights split by output channel: the same
   two steps' losses, parameters and first gradients against JAX's;
 - (c) ``tp_param_specs`` against JAX's ``tp_state_shardings``, name for name
@@ -88,8 +90,16 @@ MARKOV = dict(modes=5, width=16, input_dim=3, n_layers=2, factor=4, ff_weight_no
 # The same model with its Fourier weights shared by the layers and per-layer remat on.
 SHARED_REMAT = dict(MARKOV, share_weight=True, remat=True)
 ZONGYI = dict(modes1=4, modes2=4, width=16, input_dim=3, n_layers=2)
+# Width 32 on ``{data 1, model 4}``: the feed-forward's hidden layer of 128 in slices of 32, the
+# flagship's slice (256 / 8) at tensor parallelism 8.
+MARKOV_W32 = dict(MARKOV, width=32)
 # A split step's gathered gradients against JAX's: max |err| <= GRAD_RTOL * max |JAX's|, per tensor.
 GRAD_RTOL = 1e-5
+# The same at width 32, where the port's own one-process step is 1.6e-5 of out.1.weight_g's
+# gradient from JAX's: a [1, 1] weight-norm scale whose gradient is a dot product of 128 terms
+# that cancel. So the split step is held to the one-process step at GRAD_RTOL (it adds no
+# error of its own) and to JAX's at the one-process step's bound (tests/test_torch_training.py).
+W32_JAX_GRAD_RTOL = 1e-4
 # The fits: 16 trajectories of 24 records on a 32^2 grid, batch 8.
 FIT = dict(train_size=16, test_size=4, ssr=1, batch_size=8)
 SPEC_MODEL = dict(modes=3, input_dim=3, n_layers=1, share_weight=True, factor=4,
@@ -126,6 +136,7 @@ def _jax_markov(model, clip=0.1):
 # JAX's parameters (or gradients, the same linear map) as the port's state dict, by case.
 CONVERT = {"markov": lambda p: state_dict_from_flax(p, MARKOV["n_layers"]),
            "shared": lambda p: state_dict_from_flax(p, SHARED_REMAT["n_layers"]),
+           "w32": lambda p: state_dict_from_flax(p, MARKOV_W32["n_layers"]),
            "zongyi": zongyi_state_dict_from_flax}
 
 
@@ -181,6 +192,8 @@ def _case_steps(root, rank):
                                 ("sp_shared_remat", make_sp_mesh(2), True)):
         routine = _port_markov(FNOFactorized2DBlock(**SHARED_REMAT))
         _, out[name] = _split_step(routine, inputs["shared"], mesh, batch, spatial)
+    _, out["tp4_w32"] = _split_step(_port_markov(FNOFactorized2DBlock(**MARKOV_W32)),
+                                    inputs["w32"], make_tp_mesh(4), batch, False)
     zongyi = _port_markov(FNOZongyi2DBlock(**ZONGYI), clip=None)
     state, out["zongyi"] = _split_step(zongyi, inputs["zongyi"], make_tp_mesh(2), batch, False)
     out["zongyi"]["n_split"] = sum(getattr(p, "tp_dim", None) is not None
@@ -299,7 +312,7 @@ def world(tmp_path_factory):
     batch = _step_batch()
     jax_states = {}
     for name, model in (("markov", JaxBlock(**MARKOV)), ("shared", JaxBlock(**SHARED_REMAT)),
-                        ("zongyi", JaxZongyi(**ZONGYI))):
+                        ("w32", JaxBlock(**MARKOV_W32)), ("zongyi", JaxZongyi(**ZONGYI))):
         routine = _jax_markov(model, clip=None if name == "zongyi" else 0.1)
         jax_states[name] = (routine, routine.accumulate_step(
             routine.init(jax.random.PRNGKey(0), batch), batch))
@@ -388,14 +401,16 @@ def test_split_gradients_match_jax(world, jax_steps, mesh, case):
 
 @pytest.mark.parametrize("mesh,model", [("tp", MARKOV), ("sp", MARKOV),
                                         ("tp_shared_remat", SHARED_REMAT),
-                                        ("sp_shared_remat", SHARED_REMAT)])
+                                        ("sp_shared_remat", SHARED_REMAT),
+                                        ("tp4_w32", MARKOV_W32)])
 def test_split_gradients_match_unsplit(world, mesh, model):
     """The gathered gradients of the split step against the port's step in
     one process from the same weights; also with shared Fourier weights and
     per-layer remat."""
     got = world[0][0]["steps"][mesh]["grads"]
     inputs = torch.load(os.path.join(world[1], "inputs.pt"))[
-        "shared" if model is SHARED_REMAT else "markov"]
+        {"tp_shared_remat": "shared", "sp_shared_remat": "shared", "tp4_w32": "w32"}.get(
+            mesh, "markov")]
     routine = _port_markov(FNOFactorized2DBlock(**model))
     state = routine.init(0, _step_batch(), "cpu")
     state.model.load_state_dict(inputs)
@@ -405,6 +420,23 @@ def test_split_gradients_match_unsplit(world, mesh, model):
         scale = g.abs().max().item()
         np.testing.assert_allclose(got[name].numpy(), g.numpy(), rtol=0, atol=1e-5 * scale,
                                    err_msg=name)
+
+
+def test_hidden_slice_of_32_steps_match_jax(world, jax_steps):
+    """``{data 1, model 4}`` at width 32, each rank's feed-forward slice 32
+    wide (the flagship's at tp 8), on every rank: both steps' losses and the
+    parameters after the second, gathered, against JAX's unsplit steps, and
+    the first step's gradients within W32_JAX_GRAD_RTOL of each tensor's
+    largest value (``test_split_gradients_match_unsplit`` holds them to the
+    port's one-process step at GRAD_RTOL)."""
+    want = _jax_as_port(jax_steps["w32"]["grads"], "w32")
+    for rank, r in enumerate(world[0]):
+        _assert_steps_match_jax(r["steps"]["tp4_w32"], jax_steps["w32"], "w32")
+        for name, g in r["steps"]["tp4_w32"]["grads"].items():
+            w = want[name].numpy()
+            np.testing.assert_allclose(g.numpy(), w, rtol=0,
+                                       atol=W32_JAX_GRAD_RTOL * np.abs(w).max(),
+                                       err_msg=f"rank {rank}: {name}")
 
 
 def test_spatial_valid_step_matches_jax(world, jax_steps):
@@ -537,16 +569,26 @@ def test_checkpoint_loads_into_split_state(world):
 
 # --- one process ----------------------------------------------------------------------------------
 def test_tp8_hidden_slice_raises():
-    """At tensor parallelism 8 the flagship's hidden slice is 256 / 8 = 32,
-    below kernel A's 64-wide hidden chunk: the wrapper raises and names H
-    (ROADMAP A12), on what it would launch on the card."""
-    from fourierflow_tpu_torch.ops.fused_ff import _check_args
+    """At tensor parallelism 8 the flagship's hidden slice is 256 / 8 = 32:
+    kernels A and A' take it (the forward stages it as one 64-wide chunk,
+    zeros past H, so it needs H 64's shared memory), and a slice that is not
+    a multiple of 32 raises and names H, on what they would launch on the
+    card."""
+    from fourierflow_tpu_torch.ops.fused_ff import _check_args, _fwd_smem_bytes
 
-    x = torch.zeros(8, 64)
-    w1, b1, w2, b2 = torch.zeros(64, 32), torch.zeros(32), torch.zeros(32, 64), torch.zeros(64)
-    with pytest.raises(ValueError, match="H a multiple of 64, got 32"):
+    x, b2 = torch.zeros(8, 64), torch.zeros(64)
+    weights = lambda h: (torch.zeros(64, h), torch.zeros(h), torch.zeros(h, 64))
+    for hidden in (32, 64, 128):  # tp 8, 4, 2
+        _check_args(x, *weights(hidden), b2)
+        _check_args(x, *weights(hidden), g=torch.zeros(8, 64))
+    w1, b1, w2 = weights(48)
+    with pytest.raises(ValueError, match="H a multiple of 32, got 48"):
         _check_args(x, w1, b1, w2, b2)
-    _check_args(x, torch.zeros(64, 64), torch.zeros(64), torch.zeros(64, 64), b2)  # tp 4
+    with pytest.raises(ValueError, match="H a multiple of 32, got 48"):
+        _check_args(x, w1, b1, w2, g=torch.zeros(8, 64))
+    for dtype in (torch.float32, torch.bfloat16):
+        assert _fwd_smem_bytes(32, 64, dtype) == _fwd_smem_bytes(64, 64, dtype)
+        assert _fwd_smem_bytes(96, 64, dtype) == _fwd_smem_bytes(128, 64, dtype)
 
 
 def test_rank_device_is_local_rank(monkeypatch):

@@ -30,7 +30,10 @@ phase's wall time:
    64 and 32 (the hidden slice at tp 2, 4 and 8), the mix and its adjoint on a
    column shard of the weights (C_out 32) at the flagship, and one axis
    (``fused_mix_axis``, one launch) at [19, 32, 64, 64] along Y and [19, 64,
-   32, 64] along X (the spatially split layer at sp 2);
+   32, 64] along X (the spatially split layer at sp 2); in float32 the mesh
+   and point-cloud F-FNOs' shards at tp 2: the feed-forward at 135,110 rows
+   with H 128 and at 81,920 rows with H 64, the mix and its adjoint with
+   C_out 32 at x [10, 229, 59, 64] M 32 / 16 and [20, 64, 64, 64] M 16;
    the feed-forward at H 96 (a whole 64-wide hidden chunk and a 32-wide
    one); the segment sum (MeshGraphNet's scatter) at ``cylinder_flow/
    baseline``'s edges and nodes and at two ragged shapes, equal to its plain
@@ -113,15 +116,16 @@ phase's wall time:
    ``torus_vis_force/01_baseline`` at full width (24 layers, width 64, 5
    input channels; the normalizer pass, one device-resident epoch of every
    full batch of pairs, the 10-step validation rollouts fed the force, the
-   test pass), then ``test`` on the checkpoint (the same logs); 2 more
-   steps of each held to a float32 CPU copy of the same step (loss,
-   gradients and parameters after it) and timed with the host CPU time
+   test pass), then ``test`` on the checkpoint (the same logs); 2 steps of
+   each at 4 layers (after a normalizer pass over 2 batches) held to a
+   float32 CPU copy of the same step (loss, gradients and parameters after
+   it), and the trained 24-layer model's step timed with the host CPU time
    beside it; 2 steps of the ablations ``with_velocity``,
    ``shuffle_xy_grid`` and ``no_factorization`` (FNO++) on the torus_li
    file held so at 4 layers, and run, counted and timed at 24. ``export``
-   of ``torus_vis/02_no_mu`` at batch 1 and 20 steps: an artifact that
+   of ``torus_vis/02_no_mu`` at batch 1 and 5 steps: an artifact that
    takes a force, equal to the live serving module to the bit, launching A
-   and B 24 x 20 times a call, timed beside the eager rollout. Every
+   and B 24 x 5 times a call, timed beside the eager rollout. Every
    kernel must be launched on this path.
 11. ``kolmogorov``: the Kolmogorov-flow slice. ``generate kolmogorov`` by
    registry name writes the protocol's initial conditions and trajectories
@@ -244,16 +248,23 @@ phase's wall time:
    (two a call). Runs with several ranks need two or more cards: there,
    2-way data, tensor and spatial parallelism of the flagship against the
    one-rank fit (train loss within rtol 1e-4, valid loss within 1e-3) with
-   ms per step. Then the five other routines on a ``data`` mesh, each
-   config at its full width (the 24-layer ones at 4 layers), one epoch of 2
-   steps and the validation on small sets the phase writes:
-   ``torus_li/zongyi/4_layers`` on the generated file, ``airfoil/ffno`` and
-   ``elasticity/ffno`` (A, A', B and B' launched on the mesh), ``rollout/x64``
-   on synthetic velocity files (the device-resident epoch over ``(inputs,
-   outputs)`` tuples) and ``cylinder_flow/baseline`` through ``convert
-   cylinder-flow``: on one rank each fit equal to the fit with no mesh to the
-   bit, MeshGraphNet and the learned interpolation too, with no cuDNN flag
-   set by the phase (two separate fits that agree to the bit show that the
+   ms per step. Then the five other routines, each config at its full
+   width (the 24-layer ones at 4 layers), one epoch of 2 steps and the
+   validation on small sets the phase writes: ``torus_li/zongyi/4_layers``
+   on the generated file, ``airfoil/ffno`` and ``elasticity/ffno`` (A, A',
+   B and B' launched on both meshes), ``rollout/x64`` on synthetic velocity
+   files and ``cylinder_flow/baseline`` through ``convert cylinder-flow``.
+   Each fits on a ``data`` mesh against the fit with no mesh, both on the
+   Trainer's default loop (the device-resident epoch, over ``(inputs,
+   outputs)`` tuples for ``rollout/x64``, and the evaluation set cached and
+   split over ``data``), and on ``data x model`` (``{data 1, model 1}`` on
+   one rank) against the fit with no mesh, both on the per-batch loop (the
+   JAX package's loop on a ``model`` mesh): the airfoil's and elasticity's
+   F-FNOs by their split forms (the Fourier weights' column shards and the
+   feed-forwards' hidden slices), the other three whole on every ``model``
+   rank. On one rank each fit equals its fit with no mesh to the bit,
+   MeshGraphNet and the learned interpolation too, with no cuDNN flag set
+   by the phase (two separate fits that agree to the bit show that the
    steps repeat); with several ranks 2-way fits within the bounds above.
 19. ``time`` (in a child process of this script, which starts with no CUDA
    graph and no profiler session behind it): each kernel, its plain version
@@ -265,7 +276,8 @@ phase's wall time:
    in float32 every kernel at the airfoil's shapes (135,110 rows; x [10,
    229, 59, 64] M 32 / 16) and at the elasticity F-FNO's (81,920 rows, hidden
    128; x [20, 64, 64, 64] M 16), and in float32 at the parallel layers' shard
-   shapes (``time_shards``, H 32 at tp 8 among them; the one-axis kernels
+   shapes (``time_shards``, H 32 at tp 8 and the airfoil's and elasticity's
+   shards at tp 2 among them; the one-axis kernels
    ``fused_mix_axis`` and ``fused_mix_axis_adjoint`` in rows of their
    own); the segment sum at ``cylinder_flow/baseline``'s shapes. It
    runs last, so that no profiler session precedes the timed rollout and
@@ -324,7 +336,7 @@ from fourierflow_tpu_torch.ops.segment import segment_sum_cuda, segment_sum_plai
 from fourierflow_tpu_torch.ops.spectral import dct_mix_axis  # noqa: E402
 from fourierflow_tpu_torch.parallel import (  # noqa: E402
     gather_state, init_distributed, make_mesh, make_sp_mesh, make_tp_mesh, mesh_axis, mesh_shape,
-    shard_batch, shard_state)
+    shard_batch, shard_state, split_dims)
 from fourierflow_tpu_torch.parallel.collectives import all_gather  # noqa: E402
 from fourierflow_tpu_torch.trainers import (  # noqa: E402
     Callback, StochasticWeightAveraging, Trainer)
@@ -453,6 +465,13 @@ POINT_MIX_CASES = (((20, 64, 64, 16), {}), ((20, 40, 40, 12), dict(c=32)))
 SHARD_HIDDEN = (H // 2, H // 4, H // 8)
 SHARD_C_OUT = C // 2
 SHARD_AXIS_CASES = (((B, N // 2, N), 2), ((B, N, N // 2), 1))  # (x's [B, X, Y], axis)
+# The mesh and point-cloud F-FNOs' shard shapes on a data x model mesh at tp 2: the
+# feed-forward's hidden slice (airfoil: 135,110 rows, H 256 / 2; elasticity: 81,920 rows, H 128
+# / 2) and kernel B on a column shard of the Fourier weights (C_out 64 / 2) at the airfoil's x
+# [10, 229, 59, 64] M 32 / 16 and the elasticity's x [20, 64, 64, 64] M 16. Float32, the type
+# both configurations run.
+TP_FF_CASES = ((AIRFOIL_ROWS, 128, "airfoil"), (ELASTICITY_ROWS, 64, "elasticity"))
+TP_MIX_CASES = (MESH_MIX_CASES[0] + ("airfoil",), POINT_MIX_CASES[0] + ("elasticity",))
 # The serve phase: the exported rollout's steps and batches, and its tolerance against
 # the live serving module and the eager rollout (max |err| / max |reference|, f32).
 SERVE_STEPS = 20
@@ -473,6 +492,9 @@ ABLATIONS = ("torus_li/ablation/with_velocity/24_layers",
              "torus_li/ablation/no_factorization/24_layers")
 SERVE_CONFIG = "torus_vis/02_no_mu"
 CONTEXT_STEPS = 2  # train steps of each configuration, each held to a CPU copy
+# The force-taking artifact's rollout steps: its export traces 24 layers a step (42-51 s at 20
+# steps beside an H100 80GB HBM3), and phase serve already holds a 20-step artifact.
+CONTEXT_SERVE_STEPS = 5
 # The kolmogorov phase: the protocol's data configs
 # (data/kolmogorov/re_1000/{initial_conditions,trajectories}/{split}: a 2048^2 simulation, 32
 # trajectories a split, a warm-up of 2,852 x 64 steps (40 time units), then a record every 16
@@ -1002,12 +1024,14 @@ def check_segment_sum(dev, seed):
     return 0.0
 
 
-def shard_inputs(dev, seed, dtype):
-    """The flagship's x, a [C, C/2, M, 2] column shard of its Y and X weights
-    (contiguous, as ``shard_state`` leaves a parameter) and an output
-    gradient of C/2 channels."""
-    x, wy, wx = mix_inputs(B, N, N, M, dtype, dev, seed)
-    g = torch.randn(B, N, N, SHARD_C_OUT, generator=torch.Generator().manual_seed(seed + 3))
+def shard_inputs(dev, seed, dtype, shape=(B, N, N, M), opts=None):
+    """x of ``shape`` (batch, X, Y, modes; the flagship's by default), a [C,
+    C/2, M, 2] column shard of its Y and X weights (contiguous, as
+    ``shard_state`` leaves a parameter; ``opts`` as ``mix_inputs`` takes
+    them) and an output gradient of C/2 channels."""
+    b, sx, sy, _ = shape
+    x, wy, wx = mix_inputs(*shape, dtype, dev, seed, **(opts or {}))
+    g = torch.randn(b, sx, sy, SHARD_C_OUT, generator=torch.Generator().manual_seed(seed + 3))
     shard = lambda w: w[:, :SHARD_C_OUT].contiguous()
     return x, shard(wy), shard(wx), g.to(dev, dtype)
 
@@ -1035,6 +1059,21 @@ def check_shards(dev, seed, dtype, tag):
     check(f"fused_mix_2d{what}", fused_mix_2d_cuda, fused_mix_2d_plain, (x, wy, wx), dtype)
     check(f"fused_mix_2d_adjoint{what}", fused_mix_2d_adjoint_cuda, fused_mix_2d_adjoint_plain,
           (g, wy, wx), dtype)
+    if dtype == torch.float32:  # the mesh and point-cloud F-FNOs' shards (f32 configurations)
+        for rows, hidden, path in TP_FF_CASES:
+            what = f"[{tag}, rows {rows}, H {hidden} ({path} hidden slice, tp 2)]"
+            check(f"fused_ff{what}", fused_ff_cuda, fused_ff_plain,
+                  ff_inputs(rows, dtype, dev, seed, hidden=hidden), dtype)
+            check(f"fused_ff_bwd{what}", fused_ff_bwd_cuda, fused_ff_bwd_plain,
+                  ff_bwd_inputs(rows, dtype, dev, seed, hidden=hidden), dtype)
+        for shape, opts, path in TP_MIX_CASES:
+            x, wy, wx, g = shard_inputs(dev, seed, dtype, shape, opts)
+            what = (f"[{tag}, {'x'.join(map(str, shape[:3]))}x{C} -> {SHARD_C_OUT} ({path} "
+                    f"column shard), M {shape[3]}{' / ' + str(opts['modes_y']) if opts else ''}]")
+            check(f"fused_mix_2d{what}", fused_mix_2d_cuda, fused_mix_2d_plain, (x, wy, wx),
+                  dtype)
+            check(f"fused_mix_2d_adjoint{what}", fused_mix_2d_adjoint_cuda,
+                  fused_mix_2d_adjoint_plain, (g, wy, wx), dtype)
     errs = {}
     for shape, axis in SHARD_AXIS_CASES:
         x, w = axis_inputs(shape, dtype, dev, seed)
@@ -1125,33 +1164,45 @@ def _library_axis_adjoint(x, w, axis):
 
 def time_shards(dev, seed):
     """Float32 rows of the parallel layers' shard shapes (``check_shards``):
-    A, A', B and B' labelled with their shapes; the one-axis kernels' own
-    rows (Y) and the X case labelled."""
+    A, A', B and B' labelled with their shapes, the flagship's and the mesh
+    and point-cloud F-FNOs' (``TP_FF_CASES``, ``TP_MIX_CASES``); the one-axis
+    kernels' own rows (Y) and the X case labelled."""
     rows, f32, isz = {}, torch.float32, 4
-    for hidden in SHARD_HIDDEN:
-        tail = (f"rows {ROWS}, H {hidden} (tensor-parallel slice, tp {H // hidden})",)
-        args = ff_inputs(ROWS, f32, dev, seed, hidden=hidden)
-        nbytes = (ROWS * 2 * C + 2 * C * hidden + hidden + C) * isz
+    ff_cases = [(ROWS, hidden, f"rows {ROWS}, H {hidden} (tensor-parallel slice, tp {H // hidden})")
+                for hidden in SHARD_HIDDEN]
+    ff_cases += [(n, hidden, f"rows {n}, H {hidden} ({path} hidden slice, tp 2)")
+                 for n, hidden, path in TP_FF_CASES]
+    for n_rows, hidden, label in ff_cases:
+        tail = (label,)
+        args = ff_inputs(n_rows, f32, dev, seed, hidden=hidden)
+        nbytes = (n_rows * 2 * C + 2 * C * hidden + hidden + C) * isz
         rows[("fused_ff", f32) + tail] = timed(
             lambda: fused_ff_cuda(*args), lambda: fused_ff_plain(*args), _library_ff(*args),
-            2 * ROWS * 2 * C * hidden, nbytes, f32)
-        bargs = ff_bwd_inputs(ROWS, f32, dev, seed, hidden=hidden)
+            2 * n_rows * 2 * C * hidden, nbytes, f32)
+        bargs = ff_bwd_inputs(n_rows, f32, dev, seed, hidden=hidden)
         weights = 2 * C * hidden + hidden
         rows[("fused_ff_bwd", f32) + tail] = timed(
             lambda: fused_ff_bwd_cuda(*bargs), lambda: fused_ff_bwd_plain(*bargs),
-            _library_ff_bwd(*bargs), 2 * ROWS * hidden * 5 * C,
-            ROWS * 3 * C * isz + weights * isz + (weights + C) * 4, f32)
-    x, wy, wx, g = shard_inputs(dev, seed, f32)
-    tail = (f"x [{B}, {N}, {N}, {C}] -> {SHARD_C_OUT} (column shard, tp 2) M {M}",)
-    flops = mix_flops(B, N, N, M, C, c_out=SHARD_C_OUT)
-    nbytes = (x.numel() + g.numel() + wy.numel() + wx.numel()) * isz
-    rows[("fused_mix_2d", f32) + tail] = timed(
-        lambda: fused_mix_2d_cuda(x, wy, wx), lambda: fused_mix_2d_plain(x, wy, wx),
-        _library_mix(x, wy, wx), flops, nbytes, f32)
-    rows[("fused_mix_2d_adjoint", f32) + tail] = timed(
-        lambda: fused_mix_2d_adjoint_cuda(g, wy, wx),
-        lambda: fused_mix_2d_adjoint_plain(g, wy, wx), _library_mix_adjoint(x, wy, wx), flops,
-        nbytes, f32)
+            _library_ff_bwd(*bargs), 2 * n_rows * hidden * 5 * C,
+            n_rows * 3 * C * isz + weights * isz + (weights + C) * 4, f32)
+    mix_cases = [((B, N, N, M), {}, f"x [{B}, {N}, {N}, {C}] -> {SHARD_C_OUT} (column shard, tp "
+                                     f"2) M {M}")]
+    mix_cases += [(shape, opts, f"x [{', '.join(map(str, shape[:3]))}, {C}] -> {SHARD_C_OUT} "
+                                f"({path} column shard, tp 2) M {shape[3]}"
+                                + (f" / {opts['modes_y']}" if opts else ""))
+                  for shape, opts, path in TP_MIX_CASES]
+    for shape, opts, label in mix_cases:
+        tail = (label,)
+        x, wy, wx, g = shard_inputs(dev, seed, f32, shape, opts)
+        flops = mix_flops(*shape, C, opts.get("modes_y"), c_out=SHARD_C_OUT)
+        nbytes = (x.numel() + g.numel() + wy.numel() + wx.numel()) * isz
+        rows[("fused_mix_2d", f32) + tail] = timed(
+            lambda: fused_mix_2d_cuda(x, wy, wx), lambda: fused_mix_2d_plain(x, wy, wx),
+            _library_mix(x, wy, wx), flops, nbytes, f32)
+        rows[("fused_mix_2d_adjoint", f32) + tail] = timed(
+            lambda: fused_mix_2d_adjoint_cuda(g, wy, wx),
+            lambda: fused_mix_2d_adjoint_plain(g, wy, wx), _library_mix_adjoint(x, wy, wx),
+            flops, nbytes, f32)
     for shape, axis in SHARD_AXIS_CASES:
         x, w = axis_inputs(shape, f32, dev, seed)
         tail = (f"one axis ({'Y' if axis == 2 else 'X'}) on x "
@@ -1456,8 +1507,8 @@ def phase_main(dev, seed, data_path):
     return counts
 
 
-def rollout_step_ms(fn, n_calls=SERVE_CALLS):
-    """Wall time per rollout step of ``fn()`` (one rollout of SERVE_STEPS
+def rollout_step_ms(fn, n_calls=SERVE_CALLS, steps=SERVE_STEPS):
+    """Wall time per rollout step of ``fn()`` (one rollout of ``steps``
     steps) in each of ``n_calls`` calls after one warm-up, each call ended
     by ``torch.cuda.synchronize()``: ``(median, min, max)``."""
     fn()
@@ -1467,7 +1518,7 @@ def rollout_step_ms(fn, n_calls=SERVE_CALLS):
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) / SERVE_STEPS * 1e3)
+        times.append((time.perf_counter() - t0) / steps * 1e3)
     return statistics.median(times), min(times), max(times)
 
 
@@ -2008,9 +2059,13 @@ def phase_context(dev, tmp, li_path):
             raise AssertionError(f"context: {name}: test logs not finite or not train's {scalars}")
         if not all(n > 0 for n in launched.values()):
             raise AssertionError(f"context: {name}: a kernel was never launched {launched}")
-        batches = list(zip(range(CONTEXT_STEPS), builder.train_batches(np.random.default_rng(0))))
-        state = hold_steps(name, routine, state, [b for _, b in batches])
-        time_steps(name, routine, state, batches[0][1], dev)
+        # Held at HELD_LAYERS layers from the normalizer pass over the first batches, as the
+        # ablations are: a 24-layer CPU copy's step takes 7-19 s on an H100 machine's CPU.
+        batches = [b for _, b in zip(range(2 * CONTEXT_STEPS),
+                                     builder.train_batches(np.random.default_rng(0)))]
+        hold_at_cut_depth(name, cfg, builder, batches[CONTEXT_STEPS:], dev, "context",
+                          accumulate=batches[:CONTEXT_STEPS])
+        time_steps(name, routine, state, batches[0], dev)
 
     for name in ABLATIONS:
         overrides = data_overrides(li_path)
@@ -2043,7 +2098,8 @@ def phase_context(dev, tmp, li_path):
 
 def serve_context(dev, path):
     """``torus_vis/02_no_mu`` (force, no viscosity) after its normalizer
-    pass, exported at batch 1 and SERVE_STEPS steps: the artifact against
+    pass, exported at batch 1 and CONTEXT_SERVE_STEPS steps (phase serve
+    exports the flagship at SERVE_STEPS): the artifact against
     the live serving module to the bit, its launches, and its ms per step
     beside the eager rollout's, both fed the same static force."""
     overrides = [f"builder.data_path={path}", "builder.ssr=1"]
@@ -2053,7 +2109,7 @@ def serve_context(dev, path):
     state = routine.init(7231, builder.sample_batch(), dev)  # the commands' seed, trial 0
     for _, batch in zip(range(CONTEXT_STEPS), builder.train_batches(np.random.default_rng(0))):
         state = routine.accumulate_step(state, batch)
-    routine.n_steps = SERVE_STEPS
+    routine.n_steps = CONTEXT_SERVE_STEPS
     test = builder.test_data
     w0 = torch.as_tensor(test["data"][:1, ..., :1], device=dev)
     force = torch.as_tensor(test["f"][:1], device=dev)
@@ -2063,7 +2119,7 @@ def serve_context(dev, path):
         art = os.path.join(tmp, "rollout-force.pt2")
         t0 = time.perf_counter()
         export.main(SERVE_CONFIG, art, checkpoint_path=ckpt, overrides=overrides,
-                    n_steps=SERVE_STEPS, batch_size=1, size=N, device="cuda")
+                    n_steps=CONTEXT_SERVE_STEPS, batch_size=1, size=N, device="cuda")
         seconds = time.perf_counter() - t0
         artifact = load_exported(art)
         size = os.path.getsize(art)
@@ -2073,25 +2129,26 @@ def serve_context(dev, path):
     got = artifact(w0, force)
     torch.cuda.synchronize()
     calls = {k: v - before[k] for k, v in launch_counts().items()}
-    want_calls = {k: N_LAYERS * SERVE_STEPS if KERNELS[k]["path"] == "infer" else 0
+    want_calls = {k: N_LAYERS * CONTEXT_SERVE_STEPS if KERNELS[k]["path"] == "infer" else 0
                   for k in calls}
     log(f"context: serve {SERVE_CONFIG}: export {seconds:.2f} s, file {size:,} B; launches in one "
         f"call {calls}")
     if calls != want_calls:
         raise AssertionError(f"context: the artifact launched {calls}, expected {want_calls}")
     with torch.no_grad():
-        live = make_rollout_fn(routine, state, SERVE_STEPS)(w0, force)
-    if tuple(got.shape) != (1, N, N, SERVE_STEPS) or not torch.equal(got, live):
+        live = make_rollout_fn(routine, state, CONTEXT_SERVE_STEPS)(w0, force)
+    if tuple(got.shape) != (1, N, N, CONTEXT_SERVE_STEPS) or not torch.equal(got, live):
         raise AssertionError(f"context: the artifact {tuple(got.shape)} differs from the live "
                              f"module (max |err| {rel_err(got, live)[0]:.3e})")
-    data = torch.cat([w0, torch.zeros(1, N, N, SERVE_STEPS, device=dev)], -1)
+    data = torch.cat([w0, torch.zeros(1, N, N, CONTEXT_SERVE_STEPS, device=dev)], -1)
     eager = lambda: routine.rollout(state, {"data": data, "f": force})[0]
     compare("context: artifact vs routine.rollout with the force", got, eager(), SERVE_TOL)
     fmt = lambda t: f"{t[0]:.3f} ms/step (min {t[1]:.3f}, max {t[2]:.3f})"
+    per_step = lambda fn: fmt(rollout_step_ms(fn, steps=CONTEXT_SERVE_STEPS))
     log(f"context: serve {SERVE_CONFIG}: the artifact equals the live module to the bit; rollout "
-        f"at batch 1: artifact {fmt(rollout_step_ms(lambda: artifact(w0, force)))}, eager "
-        f"routine.rollout {fmt(rollout_step_ms(eager))} ({SERVE_STEPS} steps a call, median of "
-        f"{SERVE_CALLS} calls after a warm-up)")
+        f"at batch 1: artifact {per_step(lambda: artifact(w0, force))}, eager routine.rollout "
+        f"{per_step(eager)} ({CONTEXT_SERVE_STEPS} steps a call, median of {SERVE_CALLS} calls "
+        "after a warm-up)")
 
 
 # --- phase mesh ----------------------------------------------------------------------------
@@ -3689,38 +3746,58 @@ def _fit_difference(a, b):
 
 def _family_fits(families, dev, seed, world):
     """Each family's fit on a data mesh over the world's ranks against the
-    same fit with no mesh. One rank: to the bit (weights, AdamW moments,
+    same fit with no mesh, both on the Trainer's default loop (the
+    device-resident epoch where the routine has one, and the evaluation set
+    cached and split over ``data``), and on ``data x model`` (``{data 1,
+    model 1}`` on one rank, ``{data 1, model world}`` on several) against
+    the fit with no mesh through the per-batch loop (the JAX package's loop
+    on a ``model`` mesh). One rank: to the bit (weights, AdamW moments,
     losses and steps; the phase sets no cuDNN flag: the learned
     interpolation's convolutions pick deterministic algorithms themselves,
     and MeshGraphNet sums with the segment-sum kernel); several ranks:
-    within PARALLEL_FIT_RTOL. Returns the launches of the data-mesh fits."""
+    within PARALLEL_FIT_RTOL. On ``model`` the mesh and point-cloud F-FNOs
+    run their split forms (``split_dims``) and launch A, A', B and B'; the
+    other models run whole. Returns the launches of the mesh fits."""
     launched = {**dict.fromkeys(KERNELS, 0), **dict.fromkeys(GRAPH_KERNELS, 0)}
     for family, name, over in families:
         cfg = load_config(name, over)
-        t0 = time.perf_counter()
-        ref = _parallel_fit(cfg, dev, seed)
-        t1 = time.perf_counter()
-        got = _parallel_fit(cfg, dev, seed, make_mesh())
-        seconds = (t1 - t0, time.perf_counter() - t1)
-        launched = {k: launched[k] + got[4][k] for k in launched}
-        losses, bad, worst, weights = _fit_difference(got, ref)
-        log(f"parallel: {family} ({name}, n_params {ref[0].logs['n_params']:,}): a fit on "
-            f"{mesh_shape(got[0].mesh)} ({got[0].global_step} steps, {seconds[1]:.1f} s with "
-            f"validation) against no mesh ({ref[0].global_step}, {seconds[0]:.1f} s): train_loss "
-            f"{got[0].logs['train_loss']!r} / {ref[0].logs['train_loss']!r}, valid_loss "
-            f"{got[0].logs['valid_loss']!r} / {ref[0].logs['valid_loss']!r}; {len(bad)} tensors "
-            f"differ, largest rel difference {worst:.2e} ({weights:.2e} in a weight); launches "
-            f"{got[4]}")
-        if got[0].global_step != ref[0].global_step or got[0].global_step < 1:
-            raise AssertionError(f"parallel: {family}: {got[0].global_step} steps on the mesh, "
-                                 f"{ref[0].global_step} without")
-        if world > 1:
-            for k, rtol in PARALLEL_FIT_RTOL.items():
-                if not abs(got[0].logs[k] - ref[0].logs[k]) <= rtol * abs(ref[0].logs[k]):
-                    raise AssertionError(f"parallel: {family}: {k} off by more than {rtol:.0e}")
-        elif bad or losses != 0:
-            raise AssertionError(f"parallel: {family}: the data mesh's fit differs from the fit "
-                                 f"with no mesh in {bad[:6]}")
+        for axis, make, fast_loop in (("data", make_mesh, True),
+                                      ("model", lambda: make_tp_mesh(world), False)):
+            t0 = time.perf_counter()
+            ref = _parallel_fit(cfg, dev, seed, fast_loop=fast_loop)
+            t1 = time.perf_counter()
+            mesh = make()
+            got = _parallel_fit(cfg, dev, seed, mesh, fast_loop=fast_loop)
+            seconds = (t1 - t0, time.perf_counter() - t1)
+            launched = {k: launched[k] + got[4][k] for k in launched}
+            split = split_dims(got[2].model)
+            # The state gathered whole (a collective on model: every rank calls it).
+            losses, bad, worst, weights = _fit_difference(
+                (got[0], got[1], gather_state(got[2])), ref)
+            log(f"parallel: {family} ({name}, n_params {ref[0].logs['n_params']:,}): a fit on "
+                f"{mesh_shape(got[0].mesh)} ({'default' if fast_loop else 'per-batch'} loop, "
+                f"{got[0].global_step} steps, {seconds[1]:.1f} s with validation; {len(split)} "
+                f"parameters split) against no mesh ({ref[0].global_step}, {seconds[0]:.1f} s): "
+                f"train_loss {got[0].logs['train_loss']!r} / {ref[0].logs['train_loss']!r}, "
+                f"valid_loss {got[0].logs['valid_loss']!r} / {ref[0].logs['valid_loss']!r}; "
+                f"{len(bad)} tensors differ, largest rel difference {worst:.2e} ({weights:.2e} "
+                f"in a weight); launches {got[4]}")
+            if got[0].global_step != ref[0].global_step or got[0].global_step < 1:
+                raise AssertionError(f"parallel: {family}: {got[0].global_step} steps on "
+                                     f"{mesh_shape(mesh)}, {ref[0].global_step} without")
+            if axis == "model" and family in ("mesh", "pointcloud") and (
+                    not split or min(got[4][k] for k in KERNELS) < 1):
+                raise AssertionError(f"parallel: {family} on {mesh_shape(mesh)}: {len(split)} "
+                                     f"parameters split, launches {got[4]}: the split form did "
+                                     "not run its kernels")
+            if world > 1:
+                for k, rtol in PARALLEL_FIT_RTOL.items():
+                    if not abs(got[0].logs[k] - ref[0].logs[k]) <= rtol * abs(ref[0].logs[k]):
+                        raise AssertionError(f"parallel: {family} on {mesh_shape(mesh)}: {k} off "
+                                             f"by more than {rtol:.0e}")
+            elif bad or losses != 0:
+                raise AssertionError(f"parallel: {family}: the fit on {mesh_shape(mesh)} differs "
+                                     f"from the fit with no mesh in {bad[:6]}")
     return launched
 
 
@@ -3753,8 +3830,9 @@ def phase_parallel(seed, data_path):
     ``torch.multiprocessing``, over NCCL. With one card a world of one rank
     (``_world_of_one``); with two or more, 2-way data, tensor and spatial
     parallelism (``_several_ranks``); then the five other routines' fits on
-    a data mesh (``_family_fits``) on the sets ``write_parallel_data``
-    writes. Returns the launches of the phase's main path."""
+    a data mesh and on ``data x model`` (``_family_fits``) on the sets
+    ``write_parallel_data`` writes. Returns the launches of the phase's main
+    path."""
     cards = torch.cuda.device_count()
     world = 2 if cards >= 2 else 1
     log(f"parallel: {cards} card(s): a world of {world} rank(s) over NCCL"
@@ -3779,15 +3857,15 @@ def phase_parallel(seed, data_path):
             out = json.load(f)
     counts, families = out["launches"], out["launches_families"]
     log(f"parallel: launches over the phase {counts} (a fused_mix_2d call is two launches of the "
-        f"spectral kernel, a fused_mix_axis call one); in the five routines' data-mesh fits "
-        f"{families}")
+        f"spectral kernel, a fused_mix_axis call one); in the five routines' data- and "
+        f"model-mesh fits {families}")
     for name, n in counts.items():
         if n < 1:
             raise AssertionError(f"parallel: {name} was never launched on the parallel path")
     for name, n in families.items():
         if n < 1:
             raise AssertionError(f"parallel: {name} was never launched in the routines' "
-                                 "data-mesh fits")
+                                 "data- and model-mesh fits")
     return counts
 
 

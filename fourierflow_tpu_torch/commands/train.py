@@ -232,7 +232,14 @@ def main(config_path: str, overrides: Optional[List[str]] = None, trial: int = 0
         routine.track_grad_norm = True
 
     config_dir = config_dir or experiment_dir(config_path)
-    existing = _existing_trial_dirs(config_dir, trial)
+    existing, run_dir = _existing_trial_dirs(config_dir, trial), _run_dir(config_dir, trial)
+    if world_size() > 1:
+        # Rank 0's listing and run directory for every rank: a broadcast's root may return
+        # before the others list, and rank 0 then makes its directory, which another rank
+        # would find as an earlier run's.
+        shared = [existing, run_dir]
+        dist.broadcast_object_list(shared, src=0)
+        existing, run_dir = shared
     if existing and not (force or resume or checkpoint_path):
         raise ExistingExperimentFound(
             f"results for trial {trial} already exist under "
@@ -246,11 +253,6 @@ def main(config_path: str, overrides: Optional[List[str]] = None, trial: int = 0
         if found:
             checkpoint_path = found[-1]
             logger.info("resuming from %s", checkpoint_path)
-    run_dir = _run_dir(config_dir, trial)
-    if world_size() > 1:  # every rank writes (through rank 0) into rank 0's directory
-        shared = [run_dir]
-        dist.broadcast_object_list(shared, src=0)
-        run_dir = shared[0]
 
     callbacks = instantiate(cfg.get("callbacks", [])) or []
     if not any(isinstance(cb, ModelCheckpoint) for cb in callbacks):

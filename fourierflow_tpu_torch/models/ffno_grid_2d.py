@@ -52,7 +52,7 @@ from ..ops.fused_spectral import fused_mix_2d, fused_mix_axis, fused_mix_axis_ad
 from ..ops.spectral import mix_axis_wgrad, spectral_lowpass_axis
 from ..parallel.collectives import copy_to, gather, x_split, y_split
 
-__all__ = ["FNOFactorized2DBlock"]
+__all__ = ["FNOFactorized2DBlock", "ColumnParallel", "column_split_mix"]
 
 _DTYPES = {None: None, "float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -97,6 +97,35 @@ class _SpatialMix2d(torch.autograd.Function):
                                                      round_to=x.dtype).to(w.dtype)
         return (dx, wgrad(x, g, wy, 2) if need_wy else None,
                 wgrad(xt, gt, wx, 1) if need_wx else None, None)
+
+
+def column_split_mix(mix, x: torch.Tensor, w0: torch.Tensor, w1: torch.Tensor,
+                     tp) -> torch.Tensor:
+    """``mix(x, w0, w1)``; where ``shard_state`` split the weights into
+    column shards (their ``tp_dim``) over the ``model`` axis ``tp``, this
+    rank's output channels all-gathered, x's gradient summed over the axis
+    (the tensor-parallel form of every F-FNO's mix)."""
+    if tp is not None and getattr(w0, "tp_dim", None) is not None:
+        return gather(mix(copy_to(x, tp), w0, w1), tp, 3)
+    return mix(x, w0, w1)
+
+
+class ColumnParallel:
+    """``set_parallel`` of an F-FNO whose only split form is on ``model``
+    (``column_split_mix`` in ``forward`` with ``tensor_parallel``, and each
+    ``spectral_layers`` feed-forward's hidden slice)."""
+
+    tensor_parallel = None  # the ``model`` axis (``set_parallel``); None on one device
+
+    def set_parallel(self, tensor=None, spatial=None) -> None:
+        """The ``Axis`` of the ``model`` mesh axis that the layers' split
+        form uses (None: one device). ``spatial`` raises: the model has no
+        spatially split form."""
+        if spatial is not None:
+            raise NotImplementedError(f"{type(self).__name__} has no spatially split form")
+        self.tensor_parallel = tensor
+        for layer in self.spectral_layers:
+            layer.backcast_ff.tensor_parallel = tensor
 
 
 def spatial_mix_2d(x: torch.Tensor, wy: torch.Tensor, wx: torch.Tensor, sp) -> torch.Tensor:
@@ -212,13 +241,10 @@ class FNOFactorized2DBlock(nn.Module):
             h = spectral_lowpass_axis(x, self.modes, 2) + spectral_lowpass_axis(x, self.modes, 1)
         else:
             wy, wx = layer.fourier_weight
-            tp = self.tensor_parallel
             if self.spatial_parallel is not None:
                 h = spatial_mix_2d(x, wy, wx, self.spatial_parallel)
-            elif tp is not None and getattr(wy, "tp_dim", None) is not None:
-                h = gather(self._mix(copy_to(x, tp), wy, wx), tp, 3)
             else:
-                h = self._mix(x, wy, wx)
+                h = column_split_mix(self._mix, x, wy, wx, self.tensor_parallel)
         return h, layer.backcast_ff(h)
 
     def forward(self, x: torch.Tensor):

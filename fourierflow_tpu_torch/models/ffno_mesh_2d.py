@@ -12,6 +12,18 @@ is cut from the last backcast, and the head (two weight-normed linear
 layers, no activation between them, as in the JAX package) gives one
 output channel.
 
+On a ``data x model`` mesh (``set_parallel``) the layers take the grid
+model's tensor-parallel form (``models/ffno_grid_2d.py``): the Fourier
+weights are column shards ``[width, width/tp, modes, 2]``
+(``parallel.shard_state``), so the mix gives this rank's output channels
+(kernel B on the shard), all-gathered before the feed-forward's hidden
+slice (``layers.FeedForward``, kernel A); x's gradient from the mix is
+summed over the axis. A weight that the axis does not divide stays whole,
+and so does the CNO subclass's real DCT weight ``[width, width, modes]``
+(JAX's ``_tp_spec`` splits rank-4 and rank-5 Fourier weights only); its
+feed-forwards split. The model has no spatially split form and no
+dropout.
+
 Parameter names follow the grid model's (``models/ffno_grid_2d.py``):
 ``in_proj.*``, ``spectral_layers.{i}.fourier_weight.{0,1}`` (X then Y,
 ``[width, width, modes, 2]``), ``spectral_layers.{i}.backcast_ff.layers.{j}.0.*``
@@ -25,7 +37,7 @@ import torch.nn.functional as F
 
 from ..layers import FeedForward, WNLinear, _linspace, xavier_normal_init
 from ..ops.fused_spectral import fused_mix_2d
-from .ffno_grid_2d import _SpectralLayer
+from .ffno_grid_2d import ColumnParallel, _SpectralLayer, column_split_mix
 
 __all__ = ["FNOFactorizedMesh2D", "get_grid_2d"]
 
@@ -40,7 +52,7 @@ def get_grid_2d(batch: int, size_x: int, size_y: int, dtype=torch.float32,
                       gy.expand(batch, size_x, size_y, 1)], dim=-1)
 
 
-class FNOFactorizedMesh2D(nn.Module):
+class FNOFactorizedMesh2D(ColumnParallel, nn.Module):
     """``forward`` takes ``[batch, sx, sy, input_dim - 2]`` and returns
     ``[batch, sx, sy, 1]``."""
 
@@ -94,7 +106,8 @@ class FNOFactorizedMesh2D(nn.Module):
             x = F.pad(x, (0, 0, 0, p, 0, p))
         h = x
         for layer in self.spectral_layers:
-            h = layer.backcast_ff(self._mix(x, *layer.fourier_weight))
+            h = layer.backcast_ff(column_split_mix(self._mix, x, *layer.fourier_weight,
+                                                   self.tensor_parallel))
             x = x + h
         if p:
             h = h[:, :-p, :-p]

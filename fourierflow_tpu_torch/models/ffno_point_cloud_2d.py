@@ -17,6 +17,14 @@ plus ``bs_points`` of the undeformed ones; the head is ``fc1`` (128), GELU
 (tanh approximation, as flax's ``nn.gelu``) and ``fc2``. Every linear
 layer but the feed-forward's has no weight norm.
 
+On a ``data x model`` mesh (``set_parallel``) the middle layers take the
+grid model's tensor-parallel form (``models/ffno_grid_2d.py``): the mix on
+column shards of the Fourier weights (kernel B), this rank's output
+channels gathered over ``model``, then the feed-forward's hidden slice
+(2 x width / tp wide; kernel A). The NUDFT layers, ``last_weight``,
+``fc*``, ``bs_*`` and IPhi stay whole on every rank, as JAX's ``_tp_spec``
+leaves them. The model has no spatially split form and no dropout.
+
 Parameter names: ``fc0``, ``bs_grid``, ``bs_points``, ``fc1``, ``fc2``
 (``weight [out, in]``, ``bias``); ``spectral_layers.{j}.fourier_weight.{0,1}``
 (Y then X, ``[width, width, modes1, 2]``) and
@@ -36,7 +44,7 @@ from ..layers import FeedForward, WNLinear, xavier_normal_init
 from ..ops.fourier import irfftn
 from ..ops.fused_spectral import fused_mix_2d
 from ..ops.nudft import inudft2d, nudft2d
-from .ffno_grid_2d import _SpectralLayer
+from .ffno_grid_2d import ColumnParallel, _SpectralLayer, column_split_mix
 from .ffno_mesh_2d import get_grid_2d
 from .zongyi_mesh_2d import geo_complex_init
 
@@ -67,7 +75,7 @@ def corner_mix(uf: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor) -> torch.Te
                       torch.einsum("bxyi,ioxy->bxyo", uf[:, -m1:, :m2], cw(w2))], dim=1)
 
 
-class FNOFactorizedPointCloud2D(nn.Module):
+class FNOFactorizedPointCloud2D(ColumnParallel, nn.Module):
     """``forward(u [batch, n_points, in_channels], code=None, x_in=None,
     x_out=None)`` returns ``[batch, n_points_out, out_channels]``; on a mesh
     (``is_mesh``) the points are ``u`` itself unless given."""
@@ -130,8 +138,9 @@ class FNOFactorizedPointCloud2D(nn.Module):
 
         uc = halves_to_grid(*nudft2d(self.fc0(u), xi_in, m1, m2), self.s1, self.s2) + grid_bias
         for layer in self.spectral_layers:
-            wy, wx = layer.fourier_weight
-            uc = uc + layer.backcast_ff(fused_mix_2d(uc.contiguous(), wy, wx)) + grid_bias
+            h = column_split_mix(fused_mix_2d, uc.contiguous(), *layer.fourier_weight,
+                                 self.tensor_parallel)
+            uc = uc + layer.backcast_ff(h) + grid_bias
 
         mixed = corner_mix(torch.fft.rfft2(uc, dim=(1, 2)), *self.last_weight)
         pts = inudft2d(mixed.real, mixed.imag, xi_out, m1, m2) + self.bs_points(x_out)

@@ -57,7 +57,11 @@ class ZongyiSpectralConv2d(nn.Module):
             h = gather(spectral_conv_2d_full(copy_to(x, tp), *self.fourier_weight, norm="ortho"),
                        tp, 3)
         else:
-            h = spectral_conv_2d_full(x, *self.fourier_weight, norm="ortho")
+            # Contiguous, as the split form's gathered channels are: the inverse FFT hands
+            # back channel-strided memory, and the linear bias's gradient sums the ReLU's
+            # gradient in the order of this layout, so a split step of one rank would
+            # differ from this one in the last bit.
+            h = spectral_conv_2d_full(x, *self.fourier_weight, norm="ortho").contiguous()
         if self.residual:
             return torch.relu(h + self.linear(x))
         return torch.relu(self.linear(h))

@@ -270,17 +270,25 @@ def shard_state(state, mesh):
     ``tp_param_specs`` splits cut to this rank's block on ``model`` with its
     AdamW moments (in place: the optimizer keeps its parameters) and marked
     with its ``tp_dim`` (also on a ``model`` axis of one rank, so that the
-    split forms run there), and ``state.mesh`` set. Raises for a model
-    without the parallel form the mesh asks for."""
+    split forms run there), and ``state.mesh`` set.
+
+    A model that ``tp_param_specs`` splits nowhere runs whole on every rank
+    of ``model`` on a mesh without ``spatial``, with or without a parallel
+    form (JAX's ``_tp_spec`` replicates every leaf of such a model: the
+    learned interpolation, MeshGraphNet, the Geo-FNOs). A model with a leaf
+    to split, or on ``spatial``, and without ``set_parallel`` raises the
+    ``NotImplementedError`` that names it."""
     tp, sp = mesh_axis(mesh, "model"), mesh_axis(mesh, "spatial")
     model = state.model
-    if (tp or sp) and not hasattr(model, "set_parallel"):
-        raise NotImplementedError(f"{type(model).__name__} has no tensor- or spatial-parallel "
-                                  "form (FNOFactorized2DBlock and FNOZongyi2DBlock have)")
-    if tp or sp:
+    specs = tp_param_specs(model, mesh) if tp is not None else {}
+    splits = any(d is not None for d in specs.values())
+    if (splits or sp is not None) and not hasattr(model, "set_parallel"):
+        raise NotImplementedError(
+            f"{type(model).__name__} has no {'spatial' if sp is not None else 'tensor'}-parallel "
+            "form")
+    if (tp is not None or sp is not None) and hasattr(model, "set_parallel"):
         model.set_parallel(tensor=tp, spatial=sp)
-    if tp is not None:
-        specs = tp_param_specs(model, mesh)
+    if splits:
         moments = state.optimizer.state if state.optimizer is not None else {}
         with torch.no_grad():
             for name, p in model.named_parameters():

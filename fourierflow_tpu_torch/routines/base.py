@@ -16,10 +16,10 @@ same objects with the step count advanced.
 A state on a device mesh (``state.mesh``, set by ``parallel.shard_state``)
 reduces each step's gradients and loss over the mesh: the JAX package's
 GSPMD does this inside its jitted step. ``reduce_over_mesh`` serves the
-Markov routine on any of its meshes; ``mean_over_data`` serves the routines
-that train on a ``data`` mesh only (``mesh_axes``), whose losses and metrics
-are global ratios (a sum over the samples or the valid nodes of the whole
-batch, divided by their count).
+Markov routine on any of its meshes; ``mean_over_data`` serves the other
+five routines, on ``data`` and ``data x model`` meshes (``mesh_axes``),
+whose losses and metrics are global ratios (a sum over the samples or the
+valid nodes of the whole batch, divided by their count).
 """
 
 from dataclasses import dataclass, replace
@@ -204,8 +204,7 @@ class Routine:
                 raise NotImplementedError(
                     f"{type(self).__name__} has no form on the '{name}' axis of a device mesh "
                     f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}: it trains on the axes "
-                    f"{tuple(self.mesh_axes)} only (Grid2DMarkovRoutine on 'data', 'model' and "
-                    "'spatial')")
+                    f"{tuple(self.mesh_axes)} only")
 
     def _data_axis(self, state: State):
         """The ``data`` axis of ``state.mesh`` (``check_mesh`` first)."""
@@ -239,7 +238,13 @@ class Routine:
         holds a whole batch (replicated: the axis does not divide it) counts
         it whole, as every rank does, so the ranks are averaged, never
         summed. Without a mesh, and on a mesh of one rank (``w / w`` is 1),
-        the tensors come back as they are."""
+        the tensors come back as they are.
+
+        On a ``data x model`` mesh every ``model`` rank of a data row holds
+        the same samples and computes the same loss and the same whole
+        gradients (of a split parameter, its block of them: the split
+        layers' collectives make them whole), so the reduction runs over
+        ``data`` alone and never divides by the size of ``model``."""
         if state.mesh is None:
             return [t.detach() for t in tensors]
         data = self._data_axis(state)

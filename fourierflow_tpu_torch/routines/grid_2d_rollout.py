@@ -15,7 +15,10 @@ On a ``data`` mesh (``Trainer(data_parallel)``) each rank unrolls its block
 of the batch; the losses, the gradients and the validation's per-step
 losses and correlations are means over the whole batch
 (``Routine.mean_over_data``), and the time until rho < 0.95 is read off the
-whole batch's mean correlation.
+whole batch's mean correlation. On ``data x model`` (``Trainer(tensor_parallel)``)
+the ``model`` ranks of a data row unroll the same block with the model's
+split form (``set_parallel``; ``FourierPositionNet`` passes it on to
+``conv``), whose collectives make the loss and the gradients whole.
 """
 
 from typing import Optional
@@ -42,11 +45,20 @@ class FourierPositionNet(nn.Module):
         self.in_proj.reset_parameters(generator)
         self.conv.reset_parameters(generator)
 
+    def set_parallel(self, tensor=None, spatial=None) -> None:
+        """``conv``'s parallel axes (``in_proj`` stays whole on every rank);
+        a ``conv`` without a parallel form raises the ``NotImplementedError``
+        that names it."""
+        if not hasattr(self.conv, "set_parallel"):
+            raise NotImplementedError(f"{type(self.conv).__name__} has no tensor- or "
+                                      "spatial-parallel form")
+        self.conv.set_parallel(tensor=tensor, spatial=spatial)
+
 
 class Grid2DRolloutRoutine(Routine):
     # No normalizer: every epoch trains.
     should_normalize = False
-    mesh_axes = ("data",)
+    mesh_axes = ("data", "model")
     splits_eval_batches = True
 
     def __init__(self, model=None, n_steps: int = 10, k_max: int = 32, num_freq_bands: int = 8,

@@ -17,7 +17,9 @@ Batches: training ``(inputs, outputs)`` with ``inputs = {"vx", "vy"}``
 On a ``data`` mesh the loss and its gradients, and the validation's
 correlations, are means over the whole batch (``Routine.mean_over_data``);
 the time until rho < 0.95 is read off the whole batch's mean, ``times`` is
-the whole batch's first row and ``weight`` its size.
+the whole batch's first row and ``weight`` its size. On ``data x model``
+the model runs whole on every ``model`` rank (JAX splits none of its
+leaves), each rank of a data row computing the same step.
 """
 
 from typing import Optional
@@ -39,7 +41,7 @@ TWO_PI = 2 * np.pi
 
 class LearnedInterpolatorRoutine(Routine):
     should_normalize = False
-    mesh_axes = ("data",)
+    mesh_axes = ("data", "model")
     splits_eval_batches = True
 
     def __init__(self, size: int, dt: float = 0.007012483601762931, inner_steps: int = 16,

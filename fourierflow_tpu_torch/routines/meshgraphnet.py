@@ -19,7 +19,9 @@ error over its valid nodes and its count of them are summed over the ranks
 (``Routine.mean_over_data`` weighted by the counts), which ranks holding
 different counts of valid nodes need; the gradients are reduced so too and
 clipped by the norm of the reduced gradient, once. The validation's loss is
-the whole batch's ratio in the same way.
+the whole batch's ratio in the same way. On ``data x model`` the model runs
+whole on every ``model`` rank (JAX splits none of its leaves), each rank of
+a data row computing the same step.
 """
 
 from typing import Optional
@@ -44,7 +46,7 @@ def _masked_loss(preds, velocity, target_velocity):
 
 class MeshGraphNetRoutine(Routine):
     should_normalize = False
-    mesh_axes = ("data",)
+    mesh_axes = ("data", "model")
     splits_eval_batches = True
 
     def __init__(self, n_layers: int = 15, latent_size: int = 128, output_dim: int = 2,

@@ -10,7 +10,10 @@ every epoch trains.
 On a ``data`` mesh each rank draws the IPhi points of the whole batch from
 the step's generator and keeps its block's, so that the step is the one of
 one process for any ``reg_weight``; the losses and the gradients are means
-over the whole batch (``Routine.mean_over_data``).
+over the whole batch (``Routine.mean_over_data``). On ``data x model`` the
+``model`` ranks of a data row draw the same points (the generator is the
+step's, seeded from the trainer's seed and the step, not the rank) and the
+F-FNO runs its split form, the Geo-FNOs whole.
 """
 
 from typing import Optional
@@ -25,7 +28,7 @@ __all__ = ["PointCloudRoutine"]
 
 class PointCloudRoutine(Routine):
     should_normalize = False
-    mesh_axes = ("data",)
+    mesh_axes = ("data", "model")
     splits_eval_batches = True
 
     def __init__(self, model=None, iphi=None, N: int = 1000, reg_weight: float = 0.0,

@@ -4,7 +4,9 @@
 the loss whose gradients train the model; the logged ``train_loss`` is
 unscaled. No normalizer: every epoch trains. On a ``data`` mesh the loss,
 its gradients and the validation loss are means over the whole batch
-(``Routine.mean_over_data``).
+(``Routine.mean_over_data``); on ``data x model`` the F-FNO runs its split
+form and the Geo-FNOs run whole on every ``model`` rank
+(``parallel.shard_state``).
 """
 
 from typing import Optional
@@ -19,7 +21,7 @@ __all__ = ["StructuredMeshRoutine"]
 
 class StructuredMeshRoutine(Routine):
     should_normalize = False
-    mesh_axes = ("data",)
+    mesh_axes = ("data", "model")
     splits_eval_batches = True
 
     def __init__(self, model=None, loss_scale: float = 1.0, optimizer=None, conv=None,

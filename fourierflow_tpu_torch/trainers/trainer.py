@@ -47,9 +47,10 @@ the device-resident epoch stays: every rank holds the train set, draws the
 same ``epoch_permutation`` and gathers its block of each batch (unless the
 train set would take more than 60% of the device's memory: then the
 per-batch loop, with a warning); on a ``model`` or ``spatial`` mesh the
-per-batch loop runs. Every routine trains on a ``data`` mesh; only
-``Grid2DMarkovRoutine`` on ``model`` and ``spatial`` ones (the others raise
-there). Evaluation batches (the evaluation set cached per rank) are split
+per-batch loop runs. Every routine trains on ``data`` and ``data x model``
+meshes (a model that has no leaf to split runs whole on every ``model``
+rank, ``parallel.shard_state``); only ``Grid2DMarkovRoutine`` on
+``spatial`` ones (the others raise there). Evaluation batches (the evaluation set cached per rank) are split
 over ``data`` for a routine whose ``valid_step`` reduces its metrics over
 it (``Routine.splits_eval_batches``) and whole on every data row for the
 Markov routine, split over ``spatial`` where the mesh has it, and merged by

@@ -42,8 +42,41 @@ layers, padded meshes, gradients clipped by global norm 0.1). What is held:
 - (f) ``train`` of ``airfoil/ffno/24_layers`` (shrunk, on tiny files) on
   the world's ranks: rank 0's run directory with ``last.ckpt`` and
   ``metrics.jsonl``, every rank's test loss the same;
-- (g) a ``model`` or a ``spatial`` mesh with each of the five routines
-  raises the ``NotImplementedError`` that names the routine and the axis.
+- (g) a ``spatial`` mesh with each of the five routines raises the
+  ``NotImplementedError`` that names the routine and the axis, and so does
+  a ``model`` mesh with a model that has leaves to split and no split form
+  (the 3D mesh F-FNO), naming the model.
+
+The same routines on ``data x model`` (``make_tp_mesh``), where the mesh and
+point-cloud F-FNOs and the FNO-4 split their Fourier weights by output
+channel and their feed-forwards Megatron-style, and the learned
+interpolation, MeshGraphNet and Geo-FNO-4 run whole on every ``model``
+rank (JAX's ``_tp_spec`` splits none of their leaves):
+
+- (a') two train steps on ``{data 2, model 2}`` against JAX's unsharded
+  ``train_step`` at (a)'s bounds, the split gradients and parameters
+  gathered whole; every ``model`` rank of a data row holds the same
+  parameters to the bit after them, the point cloud's with ``reg_weight``
+  0.5 and the step's IPhi draws too (held to the one-process steps);
+  the mesh F-FNO on ``{data 1, model 4}`` (width 16: 4 output channels a
+  rank) and Geo-FNO-4 (``FNOMesh2D`` under ``StructuredMeshRoutine``) on
+  ``model`` 2 and the mesh CNO (its feed-forwards split, its DCT weights
+  whole) against JAX at the same bounds; the rollout with Fourier
+  positions (``FourierPositionNet``) against the one-process steps; each
+  family's split form on
+  ``{data 1, model 1}`` (rank 0 alone) equal to the one-process step to
+  the bit, as phase ``parallel`` holds it on the card;
+- the parameters that ``tp_param_specs`` splits at ``model`` 2, family by
+  family, are the leaves that JAX's ``tp_state_shardings`` splits, mapped
+  through ``CONVERT``;
+- (d') ``valid_step`` and (e') a fit through
+  ``build_trainer(tensor_parallel=2)`` (the per-batch loop, as in JAX)
+  against one process, at (d)'s and (e)'s bounds;
+- (f') ``train`` of the shrunk airfoil on ``trainer.tensor_parallel=2``:
+  rank 0's ``last.ckpt`` holds the whole state (its test loss in one
+  process is the split run's), and ``--resume`` takes it back onto the
+  same mesh, split, for a fit equal to one process's from that
+  checkpoint.
 """
 
 import copy
@@ -51,6 +84,7 @@ import glob
 import json
 import os
 import pickle
+import traceback
 
 import h5py
 import jax
@@ -74,8 +108,14 @@ from fourierflow_tpu_torch.builders import (CylinderFlowBuilder, ElasticityBuild
 from fourierflow_tpu_torch.builders import kolmogorov as kol
 from fourierflow_tpu_torch.commands import train
 from fourierflow_tpu_torch.commands.train import build_trainer
-from fourierflow_tpu_torch.parallel import (init_distributed, make_mesh, make_sp_mesh,
-                                            make_tp_mesh, shard_batch, shard_state)
+from fourierflow_tpu.parallel.mesh import make_tp_mesh as jax_make_tp_mesh
+from fourierflow_tpu.parallel.mesh import tp_state_shardings
+from fourierflow_tpu_torch.commands.train import build_routine
+from fourierflow_tpu_torch.config import instantiate, load_config
+from fourierflow_tpu_torch.parallel import (gather_state, init_distributed, make_mesh,
+                                            make_sp_mesh, make_tp_mesh, mesh_axis, mesh_shape,
+                                            shard_batch, shard_state, split_dims, tp_param_specs)
+from fourierflow_tpu_torch.parallel.collectives import all_gather
 from fourierflow_tpu_torch.routines import (Grid2DRolloutRoutine, LearnedInterpolatorRoutine,
                                             MeshGraphNetRoutine, PointCloudRoutine,
                                             StructuredMeshRoutine)
@@ -83,8 +123,10 @@ from fourierflow_tpu_torch.routines.base import make_optimizer
 from fourierflow_tpu_torch.schedulers import cosine_with_warmup
 from fourierflow_tpu_torch.trainers import Trainer
 from fourierflow_tpu_torch.trainers.trainer import step_generator
+from fourierflow_tpu_torch.utils.checkpoint import load_state
 from fourierflow_tpu_torch.utils.hdf5 import H5Writer
-from fourierflow_tpu_torch.utils.weights import (learned_interpolation_state_dict_from_flax,
+from fourierflow_tpu_torch.utils.weights import (cno_state_dict_from_flax, geo_state_dict_from_flax,
+                                                 learned_interpolation_state_dict_from_flax,
                                                  mesh_state_dict_from_flax,
                                                  meshgraphnet_state_dict_from_flax,
                                                  point_cloud_state_dict_from_flax,
@@ -103,6 +145,14 @@ LI = dict(size=32, dt=0.014024967203525862, unroll_length=2, inner_steps=1, oute
 MGN = dict(n_layers=2, latent_size=16, clip_val=0.1, rollout_steps=3)
 MGN_NODES = (5, 9, 7, 6)  # valid nodes of each sample of the batch of 4 (of 9)
 IPHI_N = 16
+# Geo-FNO-4 (FNOMesh2D) under StructuredMeshRoutine: no leaf JAX splits, whole on every model rank.
+GEO = dict(modes1=4, modes2=4, width=8, n_layers=2)
+# The families held on data x model: the five, the Geo-FNO-4 step and the mesh CNO (its real DCT
+# weights [C, C, M] stay whole under JAX's rule; its feed-forwards split).
+JAX_FAMILIES = FAMILIES + ("geo", "cno")
+# The rollout with Fourier positions: FourierPositionNet passes the axes on to its conv, whose
+# input is the 2 (2 x 8 + 1) position features.
+FOURIER_POSITION = dict(ROLLOUT, input_dim=34)
 
 
 def _opt(jax_side=False, clip=None):
@@ -119,6 +169,15 @@ def _port_routine(family, reg_weight=0.0):
     if family == "mesh":
         return StructuredMeshRoutine(conv=models.FNOFactorizedMesh2D(**MESH), loss_scale=20,
                                      optimizer=_opt())
+    if family == "geo":
+        return StructuredMeshRoutine(conv=models.FNOMesh2D(**GEO), loss_scale=20,
+                                     optimizer=_opt())
+    if family == "cno":
+        return StructuredMeshRoutine(conv=models.CNOFactorizedMesh2D(**MESH), loss_scale=20,
+                                     optimizer=_opt())
+    if family == "fourier_position":
+        return Grid2DRolloutRoutine(model=models.FNOZongyi2DBlock(**FOURIER_POSITION),
+                                    use_fourier_position=True, optimizer=_opt())
     if family == "cloud":
         return PointCloudRoutine(model=models.FNOFactorizedPointCloud2D(
             **CLOUD, iphi=models.IPhi(8)), N=IPHI_N, reg_weight=reg_weight, optimizer=_opt())
@@ -134,6 +193,11 @@ def _jax_routine(family):
     if family == "mesh":
         return JaxMesh(model=jax_models.FNOFactorizedMesh2D(**MESH), loss_scale=20,
                        optimizer=_opt(True))
+    if family == "geo":
+        return JaxMesh(model=jax_models.FNOMesh2D(**GEO), loss_scale=20, optimizer=_opt(True))
+    if family == "cno":
+        return JaxMesh(model=jax_models.CNOFactorizedMesh2D(**MESH), loss_scale=20,
+                       optimizer=_opt(True))
     if family == "cloud":
         return JaxCloud(model=jax_models.FNOFactorizedPointCloud2D(
             **CLOUD, iphi=jax_models.IPhi(width=8)), N=IPHI_N, optimizer=_opt(True))
@@ -146,7 +210,9 @@ CONVERT = {"rollout": zongyi_state_dict_from_flax,
            "mesh": lambda p: mesh_state_dict_from_flax(p, MESH["n_layers"]),
            "cloud": lambda p: point_cloud_state_dict_from_flax(p, CLOUD["n_layers"]),
            "li": learned_interpolation_state_dict_from_flax,
-           "mgn": meshgraphnet_state_dict_from_flax}
+           "mgn": meshgraphnet_state_dict_from_flax,
+           "geo": geo_state_dict_from_flax,
+           "cno": lambda p: cno_state_dict_from_flax(p, MESH["n_layers"])}
 
 
 # --- the batches -------------------------------------------------------------------------
@@ -195,10 +261,10 @@ def _mgn_batch(nodes, seed, t_len=None):
 def _batch(family, b, seed=0):
     """A train batch of ``b`` samples of the family."""
     rng = np.random.RandomState(seed)
-    if family == "rollout":
+    if family in ("rollout", "fourier_position"):
         return {"x": rng.randn(b, 16, 16, 5).astype(np.float32),
                 "y": rng.randn(b, 16, 16, 3).astype(np.float32)}
-    if family == "mesh":
+    if family in ("mesh", "geo", "cno"):
         return {"x": rng.randn(b, *GRID_2D, 2).astype(np.float32),
                 "y": rng.randn(b, *GRID_2D).astype(np.float32)}
     if family == "cloud":
@@ -296,16 +362,20 @@ def _loaded(family, weights, reg_weight=0.0):
 
 def _steps(routine, state, batch, gens=(None, None)):
     """The first step's gradients, the two steps' losses and the parameters
-    after them."""
+    after them; on a ``model`` axis the split ones gathered whole."""
     _, grads = _loss_and_grads(routine, state, batch, gens[0])
+    tp = mesh_axis(state.mesh, "model")
+    grads = [all_gather(g, tp, p.tp_dim) if getattr(p, "tp_dim", None) is not None else g
+             for p, g in zip(state.model.parameters(), grads, strict=True)]
     losses = []
     for gen in gens:
         state, metrics = routine.train_step(state, batch, gen)
         losses.append(float(metrics["train_loss"]))
     names = [n for n, _ in state.model.named_parameters()]
+    whole = gather_state(state).model
     return {"losses": losses,
             "grads": {n: g.detach().clone() for n, g in zip(names, grads, strict=True)},
-            "params": {k: v.detach().clone() for k, v in state.model.state_dict().items()}}
+            "params": {k: v.detach().clone() for k, v in whole.state_dict().items()}}
 
 
 def _loss_and_grads(routine, state, batch, gen=None):
@@ -337,14 +407,96 @@ def _case_steps(root, rank):
 
 def _case_raises(root, rank):
     out = {}
-    for axis, make in (("model", lambda: make_tp_mesh(2)), ("spatial", lambda: make_sp_mesh(2))):
-        mesh = make()
+    mesh = make_sp_mesh(2)
+    for family in FAMILIES:
+        try:
+            Trainer(mesh=mesh, device="cpu").fit(_port_routine(family), None)
+            out[(family, "spatial")] = None
+        except NotImplementedError as err:
+            out[(family, "spatial")] = str(err)
+    # A model with leaves that JAX splits and no split form yet (the 3D mesh F-FNO).
+    routine = StructuredMeshRoutine(conv=models.FNOFactorizedMesh3D(
+        modes_x=3, modes_y=3, modes_z=2, width=8, input_dim=4, output_dim=1, n_layers=1),
+        optimizer=_opt())
+    try:
+        shard_state(routine.init(0, None, "cpu"), make_tp_mesh(2))
+        out["unsplit_model"] = None
+    except NotImplementedError as err:
+        out["unsplit_model"] = str(err)
+    return out
+
+
+def _case_tensor(root, rank):
+    """(a'), (d'), (e') and the split parameters on ``{data 2, model 2}``;
+    the mesh F-FNO on ``{data 1, model 4}``; Geo-FNO-4 on ``model`` 2."""
+    weights = torch.load(os.path.join(root, "weights.pt"))
+    mesh = make_tp_mesh(2)
+    out = {"specs": {}, "split": {}}
+    for family in FAMILIES:
+        routine, state = _loaded(family, weights)
+        out["specs"][family] = tp_param_specs(state.model, mesh)
+        state = shard_state(state, mesh)
+        out["split"][family] = {k: tuple(p.shape) for k, p in state.model.named_parameters()
+                                if k in split_dims(state.model)}
+        out[(family, "split")] = _steps(routine, state, shard_batch(_batch(family, 4), mesh))
+        routine, state = _loaded(family, weights)
+        metrics = routine.valid_step(shard_state(state, mesh),
+                                     shard_batch(_valid_batch(family), mesh))
+        out[(family, "valid")] = {k: np.asarray(v) for k, v in metrics.items()}
+    routine, state = _loaded("cloud", weights, reg_weight=0.5)
+    gens = [step_generator(0, s, "cpu") for s in (1, 2)]
+    out[("cloud", "iphi")] = _steps(routine, shard_state(state, mesh),
+                                    shard_batch(_batch("cloud", 4), mesh), gens)
+    for family in ("geo", "cno"):
+        routine, state = _loaded(family, weights)
+        out["specs"][family] = tp_param_specs(state.model, mesh)
+        state = shard_state(state, mesh)
+        out["split"][family] = split_dims(state.model)
+        out[(family, "split")] = _steps(routine, state, shard_batch(_batch(family, 4), mesh))
+    routine = _port_routine("fourier_position")  # the port's own initial weights, from seed 0
+    state = shard_state(routine.init(0, _batch("fourier_position", 4), "cpu"), mesh)
+    out["split"]["fourier_position"] = split_dims(state.model)
+    out[("fourier_position", "split")] = _steps(routine, state,
+                                                shard_batch(_batch("fourier_position", 4), mesh))
+    mesh4 = make_tp_mesh(4)
+    routine, state = _loaded("mesh", weights)
+    state = shard_state(state, mesh4)
+    out["split"]["model4"] = {k: tuple(p.shape) for k, p in state.model.named_parameters()
+                              if k in split_dims(state.model)}
+    out[("mesh", "model4")] = _steps(routine, state, shard_batch(_batch("mesh", 4), mesh4))
+    mesh1 = make_tp_mesh(1, n_devices=1)  # {data 1, model 1} of rank 0; the others drop out
+    if rank == 0:  # and the same steps with no mesh in this process (its threads' sums)
         for family in FAMILIES:
-            try:
-                Trainer(mesh=mesh, device="cpu").fit(_port_routine(family), None)
-                out[(family, axis)] = None
-            except NotImplementedError as err:
-                out[(family, axis)] = str(err)
+            routine, state = _loaded(family, weights)
+            out[(family, "one")] = _steps(routine, shard_state(state, mesh1),
+                                          shard_batch(_batch(family, 4), mesh1))
+            routine, state = _loaded(family, weights)
+            out[(family, "none")] = _steps(routine, state, _batch(family, 4))
+    for family in FAMILIES:
+        trainer = build_trainer({"max_epochs": 2, "tensor_parallel": 2}, device="cpu")
+        trainer.fit(_port_routine(family), _builder(family, root))
+        out[(family, "fit")] = {"mesh": mesh_shape(trainer.mesh),
+                                "train_loss": trainer.logs["train_loss"],
+                                "valid_loss": trainer.logs["valid_loss"],
+                                "global_step": trainer.global_step}
+    return out
+
+
+def _case_train_tensor(root, rank):
+    """``train`` of the shrunk airfoil on ``{data 2, model 2}``, then
+    ``--resume`` from rank 0's ``last.ckpt``."""
+    os.environ["DATA_ROOT"] = os.path.join(root, "data")
+    run = os.path.join(root, "run_tp")
+    over = AIRFOIL + ["trainer.tensor_parallel=2"]
+    out = {}
+    for name, resume in (("first", False), ("resumed", True)):
+        trainer, state = train.main("airfoil/ffno/24_layers", over, config_dir=run, device="cpu",
+                                    resume=resume)
+        w = state.model.spectral_layers[0].fourier_weight[0]
+        out[name] = {"mesh": mesh_shape(trainer.mesh), "test_loss": trainer.logs["test_loss"],
+                     "train_loss": trainer.logs["train_loss"],
+                     "global_step": trainer.global_step, "local_weight": tuple(w.shape),
+                     "tp_dim": getattr(w, "tp_dim", None)}
     return out
 
 
@@ -368,13 +520,19 @@ def _case_train_command(root, rank):
 
 
 CASES = {"steps": _case_steps, "raises": _case_raises, "fits": _case_fits,
-         "train": _case_train_command}
+         "train": _case_train_command, "tensor": _case_tensor, "train_tp": _case_train_tensor}
 
 
 def _worker(rank, root):
     torch.set_num_threads(1)
-    init_distributed("cpu", f"file://{os.path.join(root, 'store')}", rank, WORLD)
-    out = {name: case(root, rank) for name, case in CASES.items()}
+    try:
+        init_distributed("cpu", f"file://{os.path.join(root, 'store')}", rank, WORLD)
+        out = {name: case(root, rank) for name, case in CASES.items()}
+    except BaseException:
+        # Every rank's own traceback: the world reports only the first rank that exited.
+        with open(os.path.join(root, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
     with open(os.path.join(root, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(out, f)
 
@@ -404,6 +562,31 @@ def _jax_grads(jr, state, batch):
     return jax.jit(grads_of.train_step)(state, batch, None)[0].params
 
 
+def _jax_split_dims(family, params):
+    """``{port name: dim}`` of the leaves that JAX's ``tp_state_shardings``
+    splits on ``model`` 2: each leaf marked along its split dim, mapped
+    through ``CONVERT``, and the dim along which a port tensor varies."""
+    params = jax.tree.map(np.asarray, params)
+    shardings = tp_state_shardings(params, jax_make_tp_mesh(2))
+    leaves, tree = jax.tree_util.tree_flatten(params)
+    marked = []
+    for leaf, sharding in zip(leaves, jax.tree.leaves(shardings), strict=True):
+        shape, spec = np.shape(leaf), tuple(sharding.spec)
+        mark = np.zeros(shape, np.float32)
+        if "model" in spec:
+            d = spec.index("model")
+            mark = mark + np.arange(shape[d], dtype=np.float32).reshape(
+                [-1 if i == d else 1 for i in range(len(shape))])
+        marked.append(mark)
+    dims = {}
+    for name, t in CONVERT[family](jax.tree_util.tree_unflatten(tree, marked)).items():
+        varying = [d for d in range(t.dim()) if t.shape[d] > 1 and
+                   not torch.equal(t, t.narrow(d, 0, 1).expand_as(t))]
+        if varying:
+            dims[name] = varying[0]
+    return dims
+
+
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
     """Every rank's results (a list by rank), the directory, and JAX's
@@ -412,15 +595,16 @@ def world(tmp_path_factory):
     root = str(tmp_path_factory.mktemp("world"))
     _write_files(root)
     jax_states = {}
-    for family in FAMILIES:
+    for family in JAX_FAMILIES:
         jr = _jax_routine(family)
         jax_states[family] = (jr, _jax_init(family, jr))
     torch.save({f: CONVERT[f](jax.tree.map(np.asarray, s.params))
                 for f, (_, s) in jax_states.items()}, os.path.join(root, "weights.pt"))
     procs = mp.start_processes(_worker, args=(root,), nprocs=WORLD, start_method="spawn",
                                join=False)
-    steps = {}
+    steps, specs = {}, {}
     for family, (jr, s0) in jax_states.items():
+        specs[family] = _jax_split_dims(family, s0.params)
         batch = jax.tree.map(jnp.asarray, _batch(family, 4))
         step = jax.jit(jr.train_step)
         s1, m1 = step(s0, batch, None)
@@ -428,13 +612,20 @@ def world(tmp_path_factory):
         to_port = lambda tree: CONVERT[family](jax.tree.map(np.asarray, tree))
         steps[family] = {"losses": [float(m1["train_loss"]), float(m2["train_loss"])],
                          "grads": to_port(_jax_grads(jr, s0, batch)), "params": to_port(s2.params)}
-    while not procs.join():
-        pass
+    try:
+        while not procs.join():
+            pass
+    except mp.ProcessRaisedException as err:
+        tracebacks = []
+        for path in sorted(glob.glob(os.path.join(root, "rank*.err"))):
+            with open(path) as f:
+                tracebacks.append(f"{os.path.basename(path)}:\n{f.read()}")
+        raise RuntimeError("the world's ranks failed:\n" + "\n".join(tracebacks)) from err
     ranks = []
     for r in range(WORLD):
         with open(os.path.join(root, f"rank{r}.pkl"), "rb") as f:  # written by the world above
             ranks.append(pickle.load(f))
-    return ranks, root, steps
+    return ranks, root, steps, specs
 
 
 def _one_process(root, family, b=4, reg_weight=0.0, gens=(None, None)):
@@ -542,15 +733,154 @@ def test_train_command_on_the_ranks_writes_rank0s_run(world):
     assert rows[-1]["test_loss"] == pytest.approx(got[0]["test_loss"], rel=1e-6)
 
 
-# --- (g) model and spatial meshes ---------------------------------------------------------
+# --- (a') data x model against JAX --------------------------------------------------------
+SPLIT_FAMILIES = ("rollout", "mesh", "cloud")  # the families whose models JAX splits
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_model_mesh_steps_match_jax(world, family):
+    for rank, r in enumerate(world[0]):
+        _assert_steps(r["tensor"][(family, "split")], world[2][family], f"rank {rank}")
+    split = world[0][0]["tensor"]["split"][family]
+    assert bool(split) == (family in SPLIT_FAMILIES), split
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_model_mesh_of_one_rank_equals_one_process_to_the_bit(world, family):
+    got, want = (world[0][0]["tensor"][(family, layout)] for layout in ("one", "none"))
+    assert got["losses"] == want["losses"]
+    for key in ("grads", "params"):
+        assert set(got[key]) == set(want[key])
+        unequal = [k for k, v in want[key].items() if not torch.equal(got[key][k], v)]
+        assert not unequal, (key, unequal)
+
+
+@pytest.mark.parametrize("case", [(f, "split") for f in FAMILIES] + [("cloud", "iphi")],
+                         ids=lambda c: "-".join(c))
+def test_model_ranks_of_a_data_row_hold_the_same_parameters(world, case):
+    for row in (world[0][:2], world[0][2:]):  # make_tp_mesh(2): data rows (0, 1) and (2, 3)
+        a, b = (r["tensor"][case]["params"] for r in row)
+        assert set(a) == set(b)
+        unequal = [k for k in a if not torch.equal(a[k], b[k])]
+        assert not unequal, unequal
+
+
+def test_model_mesh_iphi_draws_match_one_process(world):
+    gens = [step_generator(0, s, "cpu") for s in (1, 2)]
+    want = _one_process(world[1], "cloud", reg_weight=0.5, gens=gens)
+    for rank, r in enumerate(world[0]):
+        _assert_steps(r["tensor"][("cloud", "iphi")], want, f"rank {rank}")
+
+
+def test_mesh_ffno_on_model_4_matches_jax(world):
+    split = world[0][0]["tensor"]["split"]["model4"]
+    assert split["spectral_layers.0.fourier_weight.0"] == (16, 4, MESH["modes_x"], 2)
+    assert split["spectral_layers.0.backcast_ff.layers.0.0.weight_v"] == (16, 16)
+    for rank, r in enumerate(world[0]):
+        _assert_steps(r["tensor"][("mesh", "model4")], world[2]["mesh"], f"rank {rank}")
+
+
+def test_geo_fno_runs_whole_on_the_model_ranks_and_matches_jax(world):
+    assert world[0][0]["tensor"]["split"]["geo"] == {} and world[3]["geo"] == {}
+    for rank, r in enumerate(world[0]):
+        _assert_steps(r["tensor"][("geo", "split")], world[2]["geo"], f"rank {rank}")
+
+
+def test_mesh_cno_splits_its_feed_forwards_only_and_matches_jax(world):
+    specs = world[0][0]["tensor"]["specs"]["cno"]
+    got = {k: d for k, d in specs.items() if d is not None}
+    assert got == world[3]["cno"] and got
+    assert all("backcast_ff" in k for k in got)  # the DCT weights [C, C, M] stay whole
+    assert specs["spectral_layers.0.fourier_weight.0"] is None
+    for rank, r in enumerate(world[0]):
+        _assert_steps(r["tensor"][("cno", "split")], world[2]["cno"], f"rank {rank}")
+
+
+def test_fourier_position_rollout_on_a_model_mesh_matches_one_process(world):
+    split = world[0][0]["tensor"]["split"]["fourier_position"]
+    assert split and all(k.startswith("conv.") for k in split)  # in_proj stays whole
+    routine = _port_routine("fourier_position")
+    want = _steps(routine, routine.init(0, _batch("fourier_position", 4), "cpu"),
+                  _batch("fourier_position", 4))
+    for rank, r in enumerate(world[0]):
+        _assert_steps(r["tensor"][("fourier_position", "split")], want, f"rank {rank}")
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_tp_param_specs_split_the_leaves_jax_splits(world, family):
+    got = {k: d for k, d in world[0][0]["tensor"]["specs"][family].items() if d is not None}
+    assert got == world[3][family]
+    assert bool(got) == (family in SPLIT_FAMILIES)
+
+
+# --- (d'), (e') validation and fits on data x model ---------------------------------------
+@pytest.mark.parametrize("family", FAMILIES)
+def test_model_mesh_valid_step_matches_one_process(world, family):
+    weights = torch.load(os.path.join(world[1], "weights.pt"))
+    routine, state = _loaded(family, weights)
+    want = {k: np.asarray(v) for k, v in routine.valid_step(state, _valid_batch(family)).items()}
+    for rank, r in enumerate(world[0]):
+        got = r["tensor"][(family, "valid")]
+        assert sorted(got) == sorted(want)
+        for k, v in want.items():
+            np.testing.assert_allclose(got[k], v, rtol=1e-5, err_msg=f"rank {rank}: {k}")
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_model_mesh_fit_matches_one_process(world, family):
+    got = world[0][0]["tensor"][(family, "fit")]
+    trainer = Trainer(max_epochs=2, device="cpu", fast_loop=False)  # JAX's loop on a tp mesh
+    trainer.fit(_port_routine(family), _builder(family, world[1]))
+    assert got["mesh"] == {"data": 2, "model": 2}
+    assert got["global_step"] == trainer.global_step > 0
+    np.testing.assert_allclose(got["train_loss"], trainer.logs["train_loss"], rtol=1e-4)
+    np.testing.assert_allclose(got["valid_loss"], trainer.logs["valid_loss"], rtol=1e-3)
+    for r in world[0][1:]:  # every rank logged the same
+        assert r["tensor"][(family, "fit")]["train_loss"] == got["train_loss"]
+
+
+# --- (f') the train command on data x model, and --resume -------------------------------------
+def test_train_command_on_a_model_mesh_checkpoints_whole_and_resumes_split(world, monkeypatch):
+    got = [r["train_tp"] for r in world[0]]
+    assert all(g == got[0] for g in got)
+    first, resumed = got[0]["first"], got[0]["resumed"]
+    assert first["mesh"] == resumed["mesh"] == {"data": 2, "model": 2}
+    # Width 8 on model 2: each rank's Fourier weight is a column shard.
+    assert resumed["local_weight"] == (8, 4, 5, 2) and resumed["tp_dim"] == 1
+    assert first["global_step"] == resumed["global_step"] == 4
+    runs = sorted(glob.glob(os.path.join(world[1], "run_tp", "checkpoints", "trial-0-*")))
+    assert len(runs) == 2
+    monkeypatch.setenv("DATA_ROOT", os.path.join(world[1], "data"))
+    cfg = load_config("airfoil/ffno/24_layers", AIRFOIL)
+    builder = instantiate(cfg["builder"])
+    routine = build_routine(cfg["routine"], builder)
+    state = load_state(os.path.join(runs[0], "last.ckpt"),
+                       routine.init(7231, builder.sample_batch(), "cpu"))
+    assert split_dims(state.model) == {}  # rank 0 wrote the whole state
+    np.testing.assert_allclose(Trainer(device="cpu").test(routine, builder, state)["test_loss"],
+                               first["test_loss"], rtol=1e-5)
+    trainer = Trainer(max_epochs=2, seed=7231, device="cpu", fast_loop=False)
+    state = trainer.fit(routine, builder, state)
+    np.testing.assert_allclose(resumed["train_loss"], trainer.logs["train_loss"], rtol=1e-4)
+    np.testing.assert_allclose(resumed["test_loss"],
+                               trainer.test(routine, builder, state)["test_loss"], rtol=1e-3)
+
+
+# --- (g) spatial meshes -------------------------------------------------------------------
 ROUTINE_NAMES = {"rollout": "Grid2DRolloutRoutine", "mesh": "StructuredMeshRoutine",
                  "cloud": "PointCloudRoutine", "li": "LearnedInterpolatorRoutine",
                  "mgn": "MeshGraphNetRoutine"}
 
 
-@pytest.mark.parametrize("axis", ["model", "spatial"])
+@pytest.mark.parametrize("axis", ["spatial"])
 @pytest.mark.parametrize("family", FAMILIES)
 def test_model_and_spatial_meshes_raise(world, family, axis):
     for r in world[0]:
         msg = r["raises"][(family, axis)]
         assert msg is not None and ROUTINE_NAMES[family] in msg and f"'{axis}' axis" in msg
+
+
+def test_a_model_with_leaves_to_split_and_no_split_form_raises(world):
+    for r in world[0]:
+        msg = r["raises"]["unsplit_model"]
+        assert msg is not None and "FNOFactorizedMesh3D" in msg and "tensor-parallel" in msg

@@ -32,7 +32,8 @@ phase's wall time:
    (``fused_mix_axis``, one launch) at [19, 32, 64, 64] along Y and [19, 64,
    32, 64] along X (the spatially split layer at sp 2); in float32 the mesh
    and point-cloud F-FNOs' shards at tp 2: the feed-forward at 135,110 rows
-   with H 128 and at 81,920 rows with H 64, the mix and its adjoint with
+   with H 128, at 81,920 rows with H 64 and at 238,056 rows with H 128 (the
+   3D mesh F-FNO's and FCNO's slice), the mix and its adjoint with
    C_out 32 at x [10, 229, 59, 64] M 32 / 16 and [20, 64, 64, 64] M 16;
    the feed-forward at H 96 (a whole 64-wide hidden chunk and a 32-wide
    one); the segment sum (MeshGraphNet's scatter) at ``cylinder_flow/
@@ -62,11 +63,11 @@ phase's wall time:
    kernel path against its plain path on a small input.
 6. ``serve``: on the same file, the flagship after its normalizer pass and
    3 train steps, saved as a port checkpoint under ``trial-0-*`` and as a
-   reference-style Lightning ``.ckpt``. ``export`` writes the 20-step
+   reference-style Lightning ``.ckpt``. ``export`` writes the 5-step
    rollout at batch 1 and at batch 19 (the export's seconds and file size
-   printed); each artifact's graph holds 24 x 20 nodes of each forward
+   printed); each artifact's graph holds 24 x 5 nodes of each forward
    operator and none of the backward ones; its call on a test trajectory's
-   frame launches each forward kernel 24 x 20 times and agrees with the
+   frame launches each forward kernel 24 x 5 times and agrees with the
    live serving module and with ``routine.rollout`` (1e-5); ms per rollout
    step of the artifact and of the eager rollout (median, min and max of 15
    calls). Then ``test`` through ``find_checkpoint`` and through the
@@ -102,9 +103,10 @@ phase's wall time:
    ``plasticity/ffno/24_layers`` (batch 2), ``airfoil/geo-fno/4_layers`` and
    ``plasticity/geo-fno/4_layers`` held to a float32 CPU copy (Geo-FNO's
    parameters to a copy updated from the card's gradients: see
-   ``hold_steps``; the pipe and plasticity F-FNO held at 4 layers, their
-   24-layer steps run unheld); the launches of every configuration's 2 steps (24 of
-   each kernel a step in the 2D F-FNO, of the feed-forward ones in the 3D
+   ``hold_steps``; the pipe, airfoil-small and plasticity F-FNO held at 4
+   layers, their 24-layer steps run unheld); the launches of every
+   configuration's 2 steps (24 of each kernel a step in the 2D F-FNO, of the
+   feed-forward ones in the 3D
    F-FNO, none in Geo-FNO), its ms per train step and its device time by
    kernel group from a profiler trace.
 10. ``context``: the torus_vis slice. ``navier_stokes`` writes
@@ -142,7 +144,8 @@ phase's wall time:
    ``torus_kochkov/ffno/grid_sizes/64`` at full width (24 layers, width 64,
    5 channels, batch 32; the validation with the reduced 32^2 metrics), a
    rollout written by ``save_predictions`` and read back, 24 launches of
-   each kernel in one step, 2 steps held to a float32 CPU copy and timed;
+   each kernel in one step, 2 steps held at 4 layers to a float32 CPU copy,
+   and the trained model's step timed;
    ``grid_sizes/128`` (M 32, batch 8) and ``/256`` (M 64, batch 2): 2 steps
    each held at 4 layers, and 2 at 24 layers counted and timed; ``test`` of
    the 64^2 checkpoint at 256^2
@@ -266,6 +269,14 @@ phase's wall time:
    MeshGraphNet and the learned interpolation too, with no cuDNN flag set
    by the phase (two separate fits that agree to the bit show that the
    steps repeat); with several ranks 2-way fits within the bounds above.
+   Then on ``data x model`` only, the same way, the four models whose split
+   forms came last: ``plasticity/ffno`` (at 4 layers) and
+   ``plasticity/fcno/4_layers`` on plasticity files of 4 / 2 / 2 samples
+   (A and A' on their hidden slices; the 3D branches and DCT weights
+   whole), the fully-factorized point-cloud model on the elasticity files
+   (A, A', B and B') and FNO++ (``torus_li/ablation/no_factorization``, 4
+   layers, 4 train batches after its normalizer epoch) on the flagship's
+   file (A and A').
 19. ``time`` (in a child process of this script, which starts with no CUDA
    graph and no profiler session behind it): each kernel, its plain version
    and a PyTorch yardstick the port
@@ -274,10 +285,11 @@ phase's wall time:
    could take and the kernel's time over it; the spectral mix and its
    adjoint also at x [8, 128, 128, 64] M 32 and [2, 256, 256, 64] M 64, and
    in float32 every kernel at the airfoil's shapes (135,110 rows; x [10,
-   229, 59, 64] M 32 / 16) and at the elasticity F-FNO's (81,920 rows, hidden
-   128; x [20, 64, 64, 64] M 16), and in float32 at the parallel layers' shard
-   shapes (``time_shards``, H 32 at tp 8 and the airfoil's and elasticity's
-   shards at tp 2 among them; the one-axis kernels
+   229, 59, 64] M 32 / 16), at the elasticity F-FNO's (81,920 rows, hidden
+   128; x [20, 64, 64, 64] M 16) and the feed-forward at plasticity's
+   (238,056 rows), and in float32 at the parallel layers' shard
+   shapes (``time_shards``, H 32 at tp 8 and the airfoil's, elasticity's and
+   plasticity's shards at tp 2 among them; the one-axis kernels
    ``fused_mix_axis`` and ``fused_mix_axis_adjoint`` in rows of their
    own); the segment sum at ``cylinder_flow/baseline``'s shapes. It
    runs last, so that no profiler session precedes the timed rollout and
@@ -467,14 +479,18 @@ SHARD_C_OUT = C // 2
 SHARD_AXIS_CASES = (((B, N // 2, N), 2), ((B, N, N // 2), 1))  # (x's [B, X, Y], axis)
 # The mesh and point-cloud F-FNOs' shard shapes on a data x model mesh at tp 2: the
 # feed-forward's hidden slice (airfoil: 135,110 rows, H 256 / 2; elasticity: 81,920 rows, H 128
-# / 2) and kernel B on a column shard of the Fourier weights (C_out 64 / 2) at the airfoil's x
-# [10, 229, 59, 64] M 32 / 16 and the elasticity's x [20, 64, 64, 64] M 16. Float32, the type
-# both configurations run.
-TP_FF_CASES = ((AIRFOIL_ROWS, 128, "airfoil"), (ELASTICITY_ROWS, 64, "elasticity"))
+# / 2; plasticity's 3D F-FNO and FCNO: 238,056 rows, H 256 / 2) and kernel B on a column shard
+# of the Fourier weights (C_out 64 / 2) at the airfoil's x [10, 229, 59, 64] M 32 / 16 and the
+# elasticity's x [20, 64, 64, 64] M 16 (the F-FNO's and the fully-factorized model's middle
+# layers). Float32, the type these configurations run.
+TP_FF_CASES = ((AIRFOIL_ROWS, 128, "airfoil"), (ELASTICITY_ROWS, 64, "elasticity"),
+               (PLAS_ROWS, 128, "plasticity"))
 TP_MIX_CASES = (MESH_MIX_CASES[0] + ("airfoil",), POINT_MIX_CASES[0] + ("elasticity",))
 # The serve phase: the exported rollout's steps and batches, and its tolerance against
-# the live serving module and the eager rollout (max |err| / max |reference|, f32).
-SERVE_STEPS = 20
+# the live serving module and the eager rollout (max |err| / max |reference|, f32). The export
+# traces 24 layers a step: at 20 steps it took 37-43 s a batch and its load 7-8 s beside an H100
+# 80GB HBM3; at 5 the graph holds every operator node 120 times.
+SERVE_STEPS = 5
 SERVE_BATCHES = (1, B)
 SERVE_TOL = 1e-5
 SERVE_TRAIN_STEPS = 3
@@ -493,8 +509,8 @@ ABLATIONS = ("torus_li/ablation/with_velocity/24_layers",
 SERVE_CONFIG = "torus_vis/02_no_mu"
 CONTEXT_STEPS = 2  # train steps of each configuration, each held to a CPU copy
 # The force-taking artifact's rollout steps: its export traces 24 layers a step (42-51 s at 20
-# steps beside an H100 80GB HBM3), and phase serve already holds a 20-step artifact.
-CONTEXT_SERVE_STEPS = 5
+# steps beside an H100 80GB HBM3), as phase serve's does.
+CONTEXT_SERVE_STEPS = SERVE_STEPS
 # The kolmogorov phase: the protocol's data configs
 # (data/kolmogorov/re_1000/{initial_conditions,trajectories}/{split}: a 2048^2 simulation, 32
 # trajectories a split, a warm-up of 2,852 x 64 steps (40 time units), then a record every 16
@@ -530,12 +546,14 @@ MESH_CONFIG = "airfoil/ffno/24_layers"
 MESH_HELD = ("pipe/ffno/24_layers", "airfoil/ffno-small/24_layers", "plasticity/ffno/24_layers",
              "airfoil/geo-fno/4_layers", "plasticity/geo-fno/4_layers")
 MESH_STEPS = 2  # train steps of each configuration held to a CPU copy
-# Held at HELD_LAYERS layers: the configurations whose 24-layer float32 CPU copy takes 20-47 s a
+# Held at HELD_LAYERS layers: the configurations whose 24-layer float32 CPU copy takes 9-47 s a
 # step on the card's host ("the CPU's step" in the log), which would take the run past its time
 # limit; their 24-layer steps still run on the card, their launches counted and timed. The
-# Kolmogorov grids 128^2 and 256^2 are held so too.
+# Kolmogorov grids 64^2 (its 24-layer CPU copy: 21-26 s a step), 128^2 and 256^2 are held so
+# too.
 HELD_LAYERS = 4
-MESH_HELD_CUT = ("pipe/ffno/24_layers", "plasticity/ffno/24_layers")
+MESH_HELD_CUT = ("pipe/ffno/24_layers", "airfoil/ffno-small/24_layers",
+                 "plasticity/ffno/24_layers")
 # The pointcloud phase: the elasticity files (Random_UnitCell_rr_10.npy [42, N],
 # _sigma_10.npy [972, N], _XY_10.npy [972, 2, N]) made from the seed, the splits cut from the
 # registry's 1,000 / 200 / 200; the configuration trained, tested and predicted by name at
@@ -1248,7 +1266,8 @@ def time_segment_sum(dev, seed):
 def phase_time(dev, seed):
     """Rows keyed ``(name, dtype)`` at the flagship's shapes, and ``(name,
     dtype, label)`` at the other paths' shapes: the torus_kochkov grids (f32
-    and bf16), the airfoil mesh and the elasticity point cloud (f32)."""
+    and bf16), the airfoil mesh, the elasticity point cloud and the
+    plasticity feed-forward (f32)."""
     rows = {}
     hid = 128  # the elasticity F-FNO's feed-forward (factor 2)
     for dtype in DTYPES:
@@ -1257,7 +1276,8 @@ def phase_time(dev, seed):
         for n_rows, widths, tail in ((ROWS, {}, ()),) + ((
                 (AIRFOIL_ROWS, {}, (f"rows {AIRFOIL_ROWS} (airfoil)",)),
                 (ELASTICITY_ROWS, dict(hidden=hid),
-                 (f"rows {ELASTICITY_ROWS}, H {hid} (elasticity)",))) if f32 else ()):
+                 (f"rows {ELASTICITY_ROWS}, H {hid} (elasticity)",)),
+                (PLAS_ROWS, {}, (f"rows {PLAS_ROWS} (plasticity)",))) if f32 else ()):
             cin, hidden, cout = (widths.get(k, d) for k, d in (("cin", C), ("hidden", H),
                                                                 ("cout", C)))
             args = ff_inputs(n_rows, dtype, dev, seed, **widths)
@@ -2152,12 +2172,14 @@ def serve_context(dev, path):
 
 
 # --- phase mesh ----------------------------------------------------------------------------
-def write_mesh_data(root, seed, families=("airfoil", "pipe", "plasticity")):
+def write_mesh_data(root, seed, families=("airfoil", "pipe", "plasticity"), splits=None):
     """The Geo-FNO datasets of ``families`` at their shapes under ``root``
-    (the registry's ``${DATA_ROOT}`` layout), made from ``seed``: smooth,
-    per-sample deformed coordinate fields X, Y and smooth target fields of
-    them; the plasticity input a smooth boundary profile and the output
-    smooth in space and time. Float64, as the published files."""
+    (the registry's ``${DATA_ROOT}`` layout), made from ``seed``, with the
+    samples of ``splits`` (MESH_SPLITS by default): smooth, per-sample
+    deformed coordinate fields X, Y and smooth target fields of them; the
+    plasticity input a smooth boundary profile and the output smooth in
+    space and time. Float64, as the published files."""
+    splits = {**MESH_SPLITS, **(splits or {})}
     rng = np.random.default_rng(seed)
 
     def coords(n, sx, sy):
@@ -2178,7 +2200,7 @@ def write_mesh_data(root, seed, families=("airfoil", "pipe", "plasticity")):
             ("pipe", "geo-fno/pipe", "Pipe_", (129, 129), 1)):
         if family not in families:
             continue
-        n = sum(MESH_SPLITS[family])
+        n = sum(splits[family])
         x, y = coords(n, sx, sy)
         os.makedirs(os.path.join(root, folder), exist_ok=True)
         for name, a in (("X", x), ("Y", y), ("Q", targets(x, y, channels))):
@@ -2189,7 +2211,7 @@ def write_mesh_data(root, seed, families=("airfoil", "pipe", "plasticity")):
         return files
     import scipy.io
 
-    n = sum(MESH_SPLITS["plasticity"])
+    n = sum(splits["plasticity"])
     s1 = np.linspace(0, 1, 101)[None]
     inp = 1 + rng.uniform(0.1, 0.5, (n, 1)) * np.sin(np.pi * rng.uniform(1, 3, (n, 1)) * s1)
     grid = np.meshgrid(np.linspace(0, 1, 101), np.linspace(0, 1, 31), np.linspace(0, 1, 20),
@@ -2501,7 +2523,8 @@ def kolmogorov_train_64(dev, run):
     test pass),
     ``test`` on its checkpoint, a rollout saved by ``save_predictions`` and
     read back, 24 launches of each kernel in one step, KOL_STEPS steps held
-    to a CPU copy and timed. Returns the checkpoint."""
+    to a CPU copy at HELD_LAYERS layers (after a normalizer pass over them),
+    and the trained model's step timed. Returns the checkpoint."""
     overrides = ["trainer.max_epochs=2"]
     cfg = load_config(KOL_CONFIG, overrides)
     builder = instantiate(cfg["builder"])
@@ -2550,7 +2573,8 @@ def kolmogorov_train_64(dev, run):
     log(f"kolmogorov: launches in one train step {step_counts}")
     if any(n != N_LAYERS for n in step_counts.values()):
         raise AssertionError(f"kolmogorov: expected {N_LAYERS} launches of each kernel per step")
-    state = hold_steps(KOL_CONFIG, routine, state, train_batches, phase="kolmogorov")
+    hold_at_cut_depth(KOL_CONFIG, cfg, builder, train_batches, dev, "kolmogorov",
+                      accumulate=train_batches)
     time_steps(KOL_CONFIG, routine, state, train_batches[0], dev, phase="kolmogorov")
     return ckpt
 
@@ -3658,6 +3682,18 @@ def _several_ranks(cfg, dev, seed, world):
 # the small sets that phase parallel writes (the flagship's generated file for the FNO-4).
 PARALLEL_FAMILY_LAYERS = 4
 LI_PARALLEL = dict(size=64, train=4, frames=66, eval=2, records=64)
+# The models whose split forms run on data x model only (no data-mesh fit of their own): the 3D
+# mesh F-FNO and FCNO on plasticity files of 4 / 2 / 2 samples (2 train steps of batch 2), the
+# fully-factorized point-cloud model on the elasticity files and FNO++ on the flagship's file
+# (its normalizer epoch, then PLUS_PARALLEL_BATCHES train batches of 19).
+PLASTICITY_PARALLEL_SPLITS = (4, 2, 2)
+PLUS_PARALLEL_BATCHES = 4
+PLUS_CONFIG = "torus_li/ablation/no_factorization/24_layers"
+# The kernels that each family's split form must launch on data x model.
+FF_KERNELS = ("fused_ff", "fused_ff_bwd")
+SPLIT_KERNELS = {"mesh": tuple(KERNELS), "pointcloud": tuple(KERNELS),
+                 "mesh3d": FF_KERNELS, "fcno3d": FF_KERNELS,
+                 "fully_factorized": tuple(KERNELS), "fno++": FF_KERNELS}
 
 
 def write_li_velocity(root, seed):
@@ -3704,13 +3740,15 @@ def write_li_velocity(root, seed):
 
 
 def write_parallel_data(root, seed):
-    """The sets of the five routines' fits under ``root``: the airfoil files
-    (phase mesh's writer), the elasticity files (phase pointcloud's),
+    """The sets of the routines' fits under ``root``: the airfoil and
+    plasticity files (phase mesh's writer, plasticity cut to
+    PLASTICITY_PARALLEL_SPLITS), the elasticity files (phase pointcloud's),
     ``rollout/x64``'s (``write_li_velocity``) and cylinder_flow's TFRecords
     through ``convert cylinder-flow`` (phase meshgraphnet's)."""
     from fourierflow_tpu_torch.commands.convert import cylinder_flow as convert
 
-    files = {**write_mesh_data(root, seed, families=("airfoil",)),
+    files = {**write_mesh_data(root, seed, families=("airfoil", "plasticity"),
+                               splits={"plasticity": PLASTICITY_PARALLEL_SPLITS}),
              **write_elasticity_data(root, seed), **write_li_velocity(root, seed)}
     records = os.path.join(root, "meshgraphnets", "cylinder_flow")
     write_cylinder_flow(records, seed)
@@ -3720,15 +3758,27 @@ def write_parallel_data(root, seed):
 
 
 def parallel_families(data_path):
-    """``[(routine's family, config, overrides)]`` of the five fits."""
+    """``[(family, config, overrides, mesh axes)]`` of the fits: the five
+    routines' on ``data`` and ``model``, then the four models whose split
+    forms run on ``model`` only."""
     cut, one = f"routine.model.n_layers={PARALLEL_FAMILY_LAYERS}", "trainer.max_epochs=1"
+    both, model = ("data", "model"), ("model",)
+    plasticity = [f"builder.{k}_size={v}" for k, v in zip(("train", "valid", "test"),
+                                                          PLASTICITY_PARALLEL_SPLITS)]
     return [("rollout", ZONGYI_CONFIG, [f"builder.data_path={data_path}", "builder.key=train/u",
-                                        "builder.train_size=40", "builder.test_size=20", one]),
+                                        "builder.train_size=40", "builder.test_size=20", one],
+             both),
             ("mesh", MESH_CONFIG, ["builder.train_size=20", "builder.valid_size=10",
-                                   "builder.test_size=10", cut, one]),
-            ("pointcloud", POINT_CONFIG, _point_overrides(POINT_CONFIG) + [cut, one]),
-            ("learned_interpolation", LI_CONFIG, ["trainer.limit_train_batches=None", one]),
-            ("meshgraphnet", MGN_CONFIG, ["trainer.limit_train_batches=2", one])]
+                                   "builder.test_size=10", cut, one], both),
+            ("pointcloud", POINT_CONFIG, _point_overrides(POINT_CONFIG) + [cut, one], both),
+            ("learned_interpolation", LI_CONFIG, ["trainer.limit_train_batches=None", one], both),
+            ("meshgraphnet", MGN_CONFIG, ["trainer.limit_train_batches=2", one], both),
+            ("mesh3d", "plasticity/ffno/24_layers", plasticity + [cut, one], model),
+            ("fcno3d", "plasticity/fcno/4_layers", plasticity + [one], model),
+            ("fully_factorized", POINT_PLUS_CONFIG, _point_overrides(POINT_PLUS) + [one], model),
+            ("fno++", PLUS_CONFIG, data_overrides(data_path) + [
+                f"routine.conv.n_layers={PARALLEL_FAMILY_LAYERS}", "trainer.max_epochs=2",
+                f"trainer.limit_train_batches={PLUS_PARALLEL_BATCHES}"], model)]
 
 
 def _fit_difference(a, b):
@@ -3755,14 +3805,18 @@ def _family_fits(families, dev, seed, world):
     losses and steps; the phase sets no cuDNN flag: the learned
     interpolation's convolutions pick deterministic algorithms themselves,
     and MeshGraphNet sums with the segment-sum kernel); several ranks:
-    within PARALLEL_FIT_RTOL. On ``model`` the mesh and point-cloud F-FNOs
-    run their split forms (``split_dims``) and launch A, A', B and B'; the
-    other models run whole. Returns the launches of the mesh fits."""
+    within PARALLEL_FIT_RTOL. On ``model`` the models with a split form run
+    it (``split_dims``) and launch the kernels of SPLIT_KERNELS: the mesh and
+    point-cloud F-FNOs and the fully-factorized model A, A', B and B', the
+    3D mesh F-FNO and FCNO and FNO++ A and A'; the other models run whole.
+    Families with the axes ``("model",)`` fit on ``model`` only. Returns the
+    launches of the mesh fits."""
     launched = {**dict.fromkeys(KERNELS, 0), **dict.fromkeys(GRAPH_KERNELS, 0)}
-    for family, name, over in families:
+    meshes = {"data": (make_mesh, True), "model": (lambda: make_tp_mesh(world), False)}
+    for family, name, over, axes in families:
         cfg = load_config(name, over)
-        for axis, make, fast_loop in (("data", make_mesh, True),
-                                      ("model", lambda: make_tp_mesh(world), False)):
+        for axis in axes:
+            make, fast_loop = meshes[axis]
             t0 = time.perf_counter()
             ref = _parallel_fit(cfg, dev, seed, fast_loop=fast_loop)
             t1 = time.perf_counter()
@@ -3785,8 +3839,8 @@ def _family_fits(families, dev, seed, world):
             if got[0].global_step != ref[0].global_step or got[0].global_step < 1:
                 raise AssertionError(f"parallel: {family}: {got[0].global_step} steps on "
                                      f"{mesh_shape(mesh)}, {ref[0].global_step} without")
-            if axis == "model" and family in ("mesh", "pointcloud") and (
-                    not split or min(got[4][k] for k in KERNELS) < 1):
+            if axis == "model" and family in SPLIT_KERNELS and (
+                    not split or min(got[4][k] for k in SPLIT_KERNELS[family]) < 1):
                 raise AssertionError(f"parallel: {family} on {mesh_shape(mesh)}: {len(split)} "
                                      f"parameters split, launches {got[4]}: the split form did "
                                      "not run its kernels")
@@ -3830,9 +3884,10 @@ def phase_parallel(seed, data_path):
     ``torch.multiprocessing``, over NCCL. With one card a world of one rank
     (``_world_of_one``); with two or more, 2-way data, tensor and spatial
     parallelism (``_several_ranks``); then the five other routines' fits on
-    a data mesh and on ``data x model`` (``_family_fits``) on the sets
-    ``write_parallel_data`` writes. Returns the launches of the phase's main
-    path."""
+    a data mesh and on ``data x model``, and the 3D mesh F-FNO and FCNO, the
+    fully-factorized model and FNO++ on ``data x model`` (``_family_fits``),
+    on the sets ``write_parallel_data`` writes. Returns the launches of the
+    phase's main path."""
     cards = torch.cuda.device_count()
     world = 2 if cards >= 2 else 1
     log(f"parallel: {cards} card(s): a world of {world} rank(s) over NCCL"
@@ -3841,12 +3896,14 @@ def phase_parallel(seed, data_path):
         data_root = os.path.join(tmp, "data")
         t0 = time.perf_counter()
         files = write_parallel_data(data_root, seed)
-        log(f"parallel: wrote the five routines' sets in {time.perf_counter() - t0:.1f} s: "
+        log(f"parallel: wrote the routines' sets in {time.perf_counter() - t0:.1f} s: "
             f"{ {os.path.relpath(k, data_root): v for k, v in files.items()} }; cut: airfoil "
-            f"20 / 10 / 10 and elasticity {' / '.join(map(str, POINT_SPLITS))} samples, "
-            f"F-FNOs at {PARALLEL_FAMILY_LAYERS} of 24 layers, rollout/x64 "
-            f"{LI_PARALLEL['train']} trajectories of {LI_PARALLEL['frames']} frames, "
-            f"cylinder_flow 2 train batches; one epoch each")
+            f"20 / 10 / 10, plasticity {' / '.join(map(str, PLASTICITY_PARALLEL_SPLITS))} and "
+            f"elasticity {' / '.join(map(str, POINT_SPLITS))} samples, the F-FNOs and FNO++ at "
+            f"{PARALLEL_FAMILY_LAYERS} of 24 layers, rollout/x64 {LI_PARALLEL['train']} "
+            f"trajectories of {LI_PARALLEL['frames']} frames, cylinder_flow 2 train batches, "
+            f"FNO++ {PLUS_PARALLEL_BATCHES} train batches; one epoch each (FNO++ after its "
+            f"normalizer epoch)")
         out_path = os.path.join(tmp, "parallel.json")
         sys.stdout.flush()
         torch.multiprocessing.start_processes(
@@ -3857,8 +3914,8 @@ def phase_parallel(seed, data_path):
             out = json.load(f)
     counts, families = out["launches"], out["launches_families"]
     log(f"parallel: launches over the phase {counts} (a fused_mix_2d call is two launches of the "
-        f"spectral kernel, a fused_mix_axis call one); in the five routines' data- and "
-        f"model-mesh fits {families}")
+        f"spectral kernel, a fused_mix_axis call one); in the routines' data- and model-mesh "
+        f"fits {families}")
     for name, n in counts.items():
         if n < 1:
             raise AssertionError(f"parallel: {name} was never launched on the parallel path")

@@ -5,7 +5,9 @@ ablation of the plasticity model (counterpart of
 The F-FNO 3D mesh model (``models/ffno_mesh_3d.py``) with its three
 separable branches (x, y, z) the DCT mix (``ops.spectral.dct_mix_axis``;
 real weights ``[width, width, modes]``); the feed-forwards run
-``ops.fused_ff`` (the CUDA kernel on a CUDA tensor).
+``ops.fused_ff`` (the CUDA kernel on a CUDA tensor). On a ``data x model``
+mesh the DCT weights (rank 3, which JAX's ``_tp_spec`` leaves whole) run
+whole on every rank and the feed-forwards take their hidden slices.
 """
 
 from ..ops.spectral import dct_mix_axis

@@ -111,9 +111,9 @@ def column_split_mix(mix, x: torch.Tensor, w0: torch.Tensor, w1: torch.Tensor,
 
 
 class ColumnParallel:
-    """``set_parallel`` of an F-FNO whose only split form is on ``model``
-    (``column_split_mix`` in ``forward`` with ``tensor_parallel``, and each
-    ``spectral_layers`` feed-forward's hidden slice)."""
+    """``set_parallel`` of a model whose only split form is on ``model``
+    (its mixes split by output channel in ``forward`` with
+    ``tensor_parallel``, and every feed-forward's hidden slice)."""
 
     tensor_parallel = None  # the ``model`` axis (``set_parallel``); None on one device
 
@@ -124,8 +124,28 @@ class ColumnParallel:
         if spatial is not None:
             raise NotImplementedError(f"{type(self).__name__} has no spatially split form")
         self.tensor_parallel = tensor
-        for layer in self.spectral_layers:
-            layer.backcast_ff.tensor_parallel = tensor
+        for m in self.modules():
+            if isinstance(m, FeedForward):
+                m.tensor_parallel = tensor
+
+    def column_split(self, w: torch.Tensor) -> bool:
+        """Whether a mix with the Fourier weight ``w`` runs on this rank's
+        output channels: on a ``model`` axis, where ``shard_state`` split
+        ``w`` (its ``tp_dim``)."""
+        return self.tensor_parallel is not None and getattr(w, "tp_dim", None) is not None
+
+    def mix_input(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """``x`` as the branches of a mix with the Fourier weight ``w`` take
+        it: through ``copy_to`` where the mix is split (their gradient summed
+        over the axis), else through a view. Either way the branches'
+        gradients are summed in one node before x's other uses add theirs, so
+        that a split step of one rank is the unsplit step to the bit."""
+        return copy_to(x, self.tensor_parallel) if self.column_split(w) else x.view_as(x)
+
+    def mix_output(self, t: torch.Tensor, w: torch.Tensor, dim: int) -> torch.Tensor:
+        """A mix's output ``t``: this rank's channels all-gathered along
+        ``dim`` where the mix is split, else ``t``; contiguous either way."""
+        return gather(t, self.tensor_parallel, dim) if self.column_split(w) else t.contiguous()
 
 
 def spatial_mix_2d(x: torch.Tensor, wy: torch.Tensor, wx: torch.Tensor, sp) -> torch.Tensor:

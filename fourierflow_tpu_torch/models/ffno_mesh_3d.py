@@ -9,6 +9,19 @@ bases), as the JAX package computes them outside any Pallas kernel; the
 feed-forward runs ``ops.fused_ff`` (the CUDA kernel on a CUDA tensor). The
 head gives ``output_dim`` channels.
 
+On a ``data x model`` mesh (``set_parallel``) the three Fourier weights are
+column shards ``[width, width/tp, modes, 2]`` (``parallel.shard_state``):
+x enters the three branches once (its gradient from them summed over the
+axis), they give this rank's output channels, summed X + Y + Z, and the
+sum is all-gathered once before the feed-forward's hidden slice
+(``layers.FeedForward``, kernel A). One gather of the sum is the three
+gathers summed, element for element, at a third of the traffic. A weight
+that the axis does not divide stays whole, and so does the CNO subclass's
+real DCT weight ``[width, width, modes]`` (JAX's ``_tp_spec`` splits rank-4
+and rank-5 Fourier weights only); its feed-forwards split. Under ``remat``
+the collectives run inside the checkpointed layer. The model has no
+spatially split form and no dropout.
+
 Parameter names as the 2D mesh model's, with
 ``spectral_layers.{i}.fourier_weight.{0,1,2}`` for X, Y and Z. With
 ``remat`` each layer's three branches and feed-forward run under
@@ -23,7 +36,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..layers import FeedForward, WNLinear, _linspace, xavier_normal_init
 from ..ops.spectral import spectral_mix_axis
-from .ffno_grid_2d import _SpectralLayer
+from .ffno_grid_2d import ColumnParallel, _SpectralLayer
 
 __all__ = ["FNOFactorizedMesh3D", "get_grid_3d"]
 
@@ -37,7 +50,7 @@ def get_grid_3d(batch: int, sx: int, sy: int, sz: int, dtype=torch.float32,
     return torch.stack(grids, dim=-1)[None].expand(batch, sx, sy, sz, 3)
 
 
-class FNOFactorizedMesh3D(nn.Module):
+class FNOFactorizedMesh3D(ColumnParallel, nn.Module):
     """``forward`` takes ``[batch, sx, sy, sz, input_dim - 3]`` and returns
     ``[batch, sx, sy, sz, output_dim]``."""
 
@@ -87,8 +100,9 @@ class FNOFactorizedMesh3D(nn.Module):
     def _layer(self, layer, x: torch.Tensor) -> torch.Tensor:
         """One layer's three branches, summed, through its feed-forward."""
         wx, wy, wz = layer.fourier_weight
+        x = self.mix_input(x, wx)
         mixed = self._mix_axis(x, wx, 1) + self._mix_axis(x, wy, 2) + self._mix_axis(x, wz, 3)
-        return layer.backcast_ff(mixed)
+        return layer.backcast_ff(self.mix_output(mixed, wx, 4))
 
     def forward(self, x: torch.Tensor, **kwargs) -> torch.Tensor:
         b, sx, sy, sz, _ = x.shape

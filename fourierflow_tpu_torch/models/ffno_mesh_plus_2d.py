@@ -16,6 +16,19 @@ and evaluates the spectrum at the query coordinates
 (``ops.nudft.inudft_axis``), plus ``bs_points``; the head is ``fc1`` (128),
 GELU (tanh approximation) and ``fc2``.
 
+On a ``data x model`` mesh (``set_parallel``) every layer's Fourier weights
+are column shards ``[width, width/tp, m, 2]`` (``parallel.shard_state``),
+so each mix gives this rank's output channels, and the axis sums the
+gradient of each mix's inputs once (the features and the coordinates of
+the NUDFT layers, the grid of the others): layer 0's two branches are each
+gathered ``[b, s, width]`` before their broadcast sum (two gathers of an
+axis cost less than one of the grid); the middle layers run the grid
+model's split mix (kernel B on the shard, ``column_split_mix``); the last
+layer's two branches are summed on this rank's channels and gathered once.
+Each feed-forward takes its hidden slice (kernel A). ``fc0``, ``bs_grid``,
+``bs_points``, ``fc1``, ``fc2`` and ``iphi`` stay whole on every rank. The
+model has no spatially split form.
+
 As in the JAX package: the y branch reads coordinate 0 with ``modes2`` and
 the x branch coordinate 1 with ``modes1``, and the x branch of the last
 layer transforms the grid with its axes swapped. Initialisation: Fourier
@@ -38,7 +51,7 @@ from ..layers import FeedForward, WNLinear, xavier_normal_init
 from ..ops.dft import irdft_basis, rdft_basis
 from ..ops.fused_spectral import fused_mix_2d
 from ..ops.nudft import inudft_axis, nudft_axis
-from .ffno_grid_2d import _SpectralLayer
+from .ffno_grid_2d import ColumnParallel, _SpectralLayer, column_split_mix
 from .ffno_mesh_2d import get_grid_2d
 from .zongyi_mesh_2d import dense_init
 
@@ -78,7 +91,7 @@ def _grid_axis_to_points(x, coord, w):
     return inudft_axis(*_mix_modes(sr, si, w), coord, m)
 
 
-class FNOFullyFactorizedMesh2D(nn.Module):
+class FNOFullyFactorizedMesh2D(ColumnParallel, nn.Module):
     """``forward(u [batch, n_points, in_channels], code=None, x_in=None,
     x_out=None)`` returns ``[batch, n_points_out, out_channels]``; on a mesh
     (``is_mesh``) the points are ``u`` itself unless given."""
@@ -132,15 +145,19 @@ class FNOFullyFactorizedMesh2D(nn.Module):
 
         feats = self.fc0(u)
         wy, wx = first.fourier_weight
-        xy = _points_to_axis(feats, xi_in[..., 0], wy, self.s2)  # [b, s2, c]
-        xx = _points_to_axis(feats, xi_in[..., 1], wx, self.s1)  # [b, s1, c]
+        # A split NUDFT layer gives part of its coordinates' gradient too (IPhi's).
+        f, c = self.mix_input(feats, wy), self.mix_input(xi_in, wy)
+        xy = self.mix_output(_points_to_axis(f, c[..., 0], wy, self.s2), wy, 2)  # [b, s2, c]
+        xx = self.mix_output(_points_to_axis(f, c[..., 1], wx, self.s1), wx, 2)  # [b, s1, c]
         uc = first.backcast_ff(xy[:, None] + xx[:, :, None]) + grid_bias
         for layer in middle:
-            wy, wx = layer.fourier_weight
-            uc = uc + layer.backcast_ff(fused_mix_2d(uc.contiguous(), wy, wx)) + grid_bias
+            h = column_split_mix(fused_mix_2d, uc.contiguous(), *layer.fourier_weight,
+                                 self.tensor_parallel)
+            uc = uc + layer.backcast_ff(h) + grid_bias
 
         wy, wx = last.fourier_weight
-        pts = (_grid_axis_to_points(uc, xi_out[..., 0], wy)
-               + _grid_axis_to_points(uc.transpose(1, 2), xi_out[..., 1], wx))
+        g, c = self.mix_input(uc, wy), self.mix_input(xi_out, wy)
+        pts = self.mix_output(_grid_axis_to_points(g, c[..., 0], wy)
+                              + _grid_axis_to_points(g.transpose(1, 2), c[..., 1], wx), wy, 2)
         pts = pts + self.bs_points(x_out)
         return self.fc2(F.gelu(self.fc1(pts), approximate="tanh"))

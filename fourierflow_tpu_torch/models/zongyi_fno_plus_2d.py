@@ -9,12 +9,22 @@ residual ``x = x + backcast``, optional weight and feed-forward sharing,
 weight norm and the forecast fork. No spectral kernel runs here; the JAX
 package computes this conv outside Pallas too.
 
+On a ``data x model`` mesh (``set_parallel``) the dense weights are column
+shards ``[in, out/tp, m, m, 2]`` (``parallel.shard_state``): the
+convolution gives this rank's output channels, all-gathered before the
+feed-forwards, and x's gradient from it is summed over the axis; every
+feed-forward (backcast, forecast and the shared ones) takes its hidden
+slice (kernel A). ``mode="no-fourier"`` has no weights and splits its
+feed-forwards only. The block has no spatially split form, and dropout has
+no split form.
+
 Parameter names follow the port's ``FNOFactorized2DBlock``: ``in_proj.*``,
 ``spectral_layers.{i}.fourier_weight.{0,1}`` (the first and the second
 corner block), ``spectral_layers.{i}.backcast_ff.*`` and ``out.{j}.*``;
 shared tensors also appear at block level.
 """
 
+from functools import partial
 from typing import Optional
 
 import torch
@@ -22,12 +32,12 @@ import torch.nn as nn
 
 from ..layers import FeedForward, WNLinear, xavier_normal_init
 from ..ops.spectral import spectral_conv_2d_full
-from .ffno_grid_2d import _SpectralLayer
+from .ffno_grid_2d import ColumnParallel, _SpectralLayer, column_split_mix
 
 __all__ = ["FNOPlus2DBlock"]
 
 
-class FNOPlus2DBlock(nn.Module):
+class FNOPlus2DBlock(ColumnParallel, nn.Module):
     """Stack of full-spectral-weight layers with the factorized block
     structure. ``forward`` takes ``[batch, X, Y, input_dim]`` and returns
     ``{"forecast": [batch, X, Y, 1], "forecast_list": [...]}``."""
@@ -42,7 +52,7 @@ class FNOPlus2DBlock(nn.Module):
             raise ValueError(f"FNOPlus2DBlock mode must be 'full' or 'no-fourier', got {mode!r}")
         self.modes, self.width, self.n_layers = modes, width, n_layers
         self.share_weight, self.share_fork, self.use_fork = share_weight, share_fork, use_fork
-        self.mode, self.gain, self.in_dropout = mode, gain, in_dropout
+        self.mode, self.gain, self.in_dropout, self.dropout = mode, gain, in_dropout, dropout
 
         self.in_proj = WNLinear(input_dim, width, wnorm=ff_weight_norm)
         wshape = (width, width, modes, modes, 2)
@@ -91,6 +101,16 @@ class FNOPlus2DBlock(nn.Module):
         for lin in self.out:
             lin.reset_parameters(generator)
 
+    def set_parallel(self, tensor=None, spatial=None) -> None:
+        """The ``Axis`` of the ``model`` mesh axis that the layers' split form
+        uses (None: one device). ``spatial`` raises, with ``tensor`` the
+        ``ValueError`` of both, and dropout on a split block."""
+        if tensor is not None and spatial is not None:
+            raise ValueError("tensor and spatial parallelism cannot be combined")
+        if tensor is not None and (self.dropout > 0 or self.in_dropout > 0):
+            raise NotImplementedError("dropout has no parallel form: each rank would draw its own")
+        super().set_parallel(tensor, spatial)
+
     def forward(self, x: torch.Tensor):
         x = self.in_proj(x)
         if self.in_dropout > 0.0:
@@ -102,7 +122,8 @@ class FNOPlus2DBlock(nn.Module):
             if self.mode == "no-fourier":
                 h = x
             else:
-                h = spectral_conv_2d_full(x, *layer.fourier_weight, norm="ortho")
+                h = column_split_mix(partial(spectral_conv_2d_full, norm="ortho"), x,
+                                     *layer.fourier_weight, self.tensor_parallel)
             b = layer.backcast_ff(h)
             if self.use_fork:
                 f_out = self.out(layer.forecast_ff(h))

@@ -22,7 +22,10 @@ JAX side runs in this process on its 8 virtual devices
   steps and gradients at width 32 on ``{data 1, model 4}``, whose
   feed-forward slices are 32 wide (the flagship's at tp 8);
 - (b) the FNO's dense Fourier weights split by output channel: the same
-  two steps' losses, parameters and first gradients against JAX's;
+  two steps' losses, parameters and first gradients against JAX's; and so
+  FNO++'s (``FNOPlus2DBlock``, the ``no_factorization`` ablations), with
+  shared forks, backcast and forecast, on their hidden slices; FNO++ on a
+  ``spatial`` mesh raises, naming the block;
 - (c) ``tp_param_specs`` against JAX's ``tp_state_shardings``, name for name
   (width 16 on ``model`` 2; widths 12 and 10 on ``model`` 4, the latter's
   Fourier weights replicated as the axis does not divide them), and
@@ -56,6 +59,7 @@ import torch
 import torch.multiprocessing as mp
 
 from fourierflow_tpu.models import FNOFactorized2DBlock as JaxBlock
+from fourierflow_tpu.models import FNOPlus2DBlock as JaxPlus
 from fourierflow_tpu.models import FNOZongyi2DBlock as JaxZongyi
 from fourierflow_tpu.ops.spectral import spectral_mix_axis as jax_mix_axis
 from fourierflow_tpu.parallel.mesh import make_sp_mesh as jax_make_sp_mesh
@@ -68,7 +72,7 @@ from fourierflow_tpu.schedulers import cosine_with_warmup as jax_cosine
 from fourierflow_tpu_torch.builders import NSMarkovBuilder
 from fourierflow_tpu_torch.commands.train import build_trainer
 from fourierflow_tpu_torch.device import resolve_device
-from fourierflow_tpu_torch.models import FNOFactorized2DBlock, FNOZongyi2DBlock
+from fourierflow_tpu_torch.models import FNOFactorized2DBlock, FNOPlus2DBlock, FNOZongyi2DBlock
 from fourierflow_tpu_torch.ops.fused_spectral import (fused_mix_2d, fused_mix_2d_adjoint,
                                                       fused_mix_axis, fused_mix_axis_adjoint)
 from fourierflow_tpu_torch.parallel import (gather_state, init_distributed, make_mesh,
@@ -82,7 +86,8 @@ from fourierflow_tpu_torch.schedulers import cosine_with_warmup
 from fourierflow_tpu_torch.trainers import ModelCheckpoint, Trainer
 from fourierflow_tpu_torch.trainers.trainer import step_generator
 from fourierflow_tpu_torch.utils.checkpoint import load_state
-from fourierflow_tpu_torch.utils.weights import state_dict_from_flax, zongyi_state_dict_from_flax
+from fourierflow_tpu_torch.utils.weights import (plus_state_dict_from_flax, state_dict_from_flax,
+                                                 zongyi_state_dict_from_flax)
 
 WORLD = 4
 MARKOV = dict(modes=5, width=16, input_dim=3, n_layers=2, factor=4, ff_weight_norm=True,
@@ -90,6 +95,9 @@ MARKOV = dict(modes=5, width=16, input_dim=3, n_layers=2, factor=4, ff_weight_no
 # The same model with its Fourier weights shared by the layers and per-layer remat on.
 SHARED_REMAT = dict(MARKOV, share_weight=True, remat=True)
 ZONGYI = dict(modes1=4, modes2=4, width=16, input_dim=3, n_layers=2)
+# FNO++ with both forks, shared by the layers: every feed-forward splits (hidden 32 -> 16 a rank).
+PLUS = dict(modes=4, width=16, input_dim=3, n_layers=2, factor=2, ff_weight_norm=True, gain=0.1,
+            share_fork=True, use_fork=True)
 # Width 32 on ``{data 1, model 4}``: the feed-forward's hidden layer of 128 in slices of 32, the
 # flagship's slice (256 / 8) at tensor parallelism 8.
 MARKOV_W32 = dict(MARKOV, width=32)
@@ -137,7 +145,8 @@ def _jax_markov(model, clip=0.1):
 CONVERT = {"markov": lambda p: state_dict_from_flax(p, MARKOV["n_layers"]),
            "shared": lambda p: state_dict_from_flax(p, SHARED_REMAT["n_layers"]),
            "w32": lambda p: state_dict_from_flax(p, MARKOV_W32["n_layers"]),
-           "zongyi": zongyi_state_dict_from_flax}
+           "zongyi": zongyi_state_dict_from_flax,
+           "plus": lambda p: plus_state_dict_from_flax(p, PLUS["n_layers"])}
 
 
 def _fit_builder(root):
@@ -198,12 +207,17 @@ def _case_steps(root, rank):
     state, out["zongyi"] = _split_step(zongyi, inputs["zongyi"], make_tp_mesh(2), batch, False)
     out["zongyi"]["n_split"] = sum(getattr(p, "tp_dim", None) is not None
                                    for p in state.model.parameters())
+    state, out["plus"] = _split_step(_port_markov(FNOPlus2DBlock(**PLUS)), inputs["plus"],
+                                     make_tp_mesh(2), batch, False)
+    out["plus"]["split"] = {n: tuple(p.shape) for n, p in state.model.named_parameters()
+                            if getattr(p, "tp_dim", None) is not None}
     return out
 
 
 def _case_specs(root, rank):
     out = {"w16": tp_param_specs(FNOFactorized2DBlock(**MARKOV), make_tp_mesh(2)),
-           "zongyi": tp_param_specs(FNOZongyi2DBlock(**ZONGYI), make_tp_mesh(2))}
+           "zongyi": tp_param_specs(FNOZongyi2DBlock(**ZONGYI), make_tp_mesh(2)),
+           "plus": tp_param_specs(FNOPlus2DBlock(**PLUS), make_tp_mesh(2))}
     mesh4 = make_tp_mesh(4)
     for width in (12, 10):
         out[f"w{width}"] = tp_param_specs(FNOFactorized2DBlock(width=width, **SPEC_MODEL), mesh4)
@@ -242,6 +256,12 @@ def _case_meshes(root, rank):
         except ValueError as err:
             out[key] = str(err)
     out["build_trainer_tp2"] = mesh_shape(build_trainer({"tensor_parallel": 2}, device="cpu").mesh)
+    plus = _port_markov(FNOPlus2DBlock(**PLUS))
+    try:
+        shard_state(plus.init(0, _step_batch(), "cpu"), make_sp_mesh(2))
+        out["plus_spatial"] = None
+    except NotImplementedError as err:
+        out["plus_spatial"] = str(err)
     # The collectives' round trips, on this rank's own numbers.
     sp = mesh_axis(make_sp_mesh(4), "spatial")
     x = torch.arange(2 * 4 * 8 * 3, dtype=torch.float32).reshape(2, 4, 8, 3) + 1000 * rank
@@ -312,7 +332,8 @@ def world(tmp_path_factory):
     batch = _step_batch()
     jax_states = {}
     for name, model in (("markov", JaxBlock(**MARKOV)), ("shared", JaxBlock(**SHARED_REMAT)),
-                        ("w32", JaxBlock(**MARKOV_W32)), ("zongyi", JaxZongyi(**ZONGYI))):
+                        ("w32", JaxBlock(**MARKOV_W32)), ("zongyi", JaxZongyi(**ZONGYI)),
+                        ("plus", JaxPlus(**PLUS))):
         routine = _jax_markov(model, clip=None if name == "zongyi" else 0.1)
         jax_states[name] = (routine, routine.accumulate_step(
             routine.init(jax.random.PRNGKey(0), batch), batch))
@@ -382,7 +403,8 @@ def test_split_train_step_matches_jax(world, jax_steps, mesh):
 
 @pytest.mark.parametrize("mesh,case", [("tp", "markov"), ("sp", "markov"),
                                        ("tp_shared_remat", "shared"),
-                                       ("sp_shared_remat", "shared"), ("zongyi", "zongyi")])
+                                       ("sp_shared_remat", "shared"), ("zongyi", "zongyi"),
+                                       ("plus", "plus")])
 def test_split_gradients_match_jax(world, jax_steps, mesh, case):
     """The first step's gradients of every split layout, the model axis's
     blocks gathered, against JAX's gradients of the same loss on the same
@@ -452,6 +474,33 @@ def test_tensor_parallel_zongyi_dense_weights(world, jax_steps):
         _assert_steps_match_jax(got, jax_steps["zongyi"], "zongyi")
 
 
+def test_tensor_parallel_fno_plus_dense_weights_and_forks(world, jax_steps):
+    """FNO++ on ``{data 2, model 2}``: its dense weights ``[16, 16, 4, 4, 2]``
+    by output channel and both shared forks' hidden slices (block level,
+    each cut once for every layer), the two steps against JAX's."""
+    for r in world[0]:
+        got = r["steps"]["plus"]
+        ffs = {f"{fork}.layers.{j}.0.weight_v": (16, 16) for fork in ("backcast_ff", "forecast_ff")
+               for j in (0, 1)}
+        weights = {f"spectral_layers.{i}.fourier_weight.{k}": (16, 8, 4, 4, 2)
+                   for i in range(PLUS["n_layers"]) for k in (0, 1)}
+        assert got["split"] == {**ffs, **weights}
+        _assert_steps_match_jax(got, jax_steps["plus"], "plus")
+
+
+def test_fno_plus_on_a_spatial_mesh_raises(world):
+    for r in world[0]:
+        assert "FNOPlus2DBlock has no spatially split form" in r["meshes"]["plus_spatial"]
+
+
+def test_split_fno_plus_refuses_dropout():
+    for kw in (dict(dropout=0.1), dict(in_dropout=0.1)):
+        with pytest.raises(NotImplementedError, match="dropout has no parallel form"):
+            FNOPlus2DBlock(**PLUS, **kw).set_parallel(tensor=object())
+    with pytest.raises(ValueError, match="cannot be combined"):
+        FNOPlus2DBlock(**PLUS).set_parallel(tensor=object(), spatial=object())
+
+
 # --- (c) specs and placements ----------------------------------------------------------------------
 def _jax_split_dims(model, convert, tp):
     """{port name: split dim} of JAX's ``tp_state_shardings`` on a model's
@@ -482,7 +531,8 @@ def _jax_split_dims(model, convert, tp):
     ("w16", lambda: JaxBlock(**MARKOV), lambda p: state_dict_from_flax(p, MARKOV["n_layers"]), 2),
     ("w12", lambda: JaxBlock(width=12, **SPEC_MODEL), lambda p: state_dict_from_flax(p, 1), 4),
     ("w10", lambda: JaxBlock(width=10, **SPEC_MODEL), lambda p: state_dict_from_flax(p, 1), 4),
-    ("zongyi", lambda: JaxZongyi(**ZONGYI), zongyi_state_dict_from_flax, 2)])
+    ("zongyi", lambda: JaxZongyi(**ZONGYI), zongyi_state_dict_from_flax, 2),
+    ("plus", lambda: JaxPlus(**PLUS), CONVERT["plus"], 2)])
 def test_tp_param_specs_match_jax(world, case, model, convert, tp):
     got = world[0][0]["specs"][case]
     assert got == _jax_split_dims(model(), convert, tp)

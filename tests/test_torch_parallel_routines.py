@@ -77,6 +77,18 @@ rank (JAX's ``_tp_spec`` splits none of their leaves):
   process is the split run's), and ``--resume`` takes it back onto the
   same mesh, split, for a fit equal to one process's from that
   checkpoint.
+
+The models that split on ``model`` beside those (``MESH_3D_AND_PLUS``): the
+3D mesh F-FNO and FCNO under ``StructuredMeshRoutine`` (width 8, 2 layers, a 6 x 5
+x 4 grid padded by 2, the plasticity layout) and the fully-factorized
+point-cloud model under ``PointCloudRoutine`` (width 8, 2 layers, its IPhi)
+take (a'), (d'), (e'), the bit-equal ranks and ``{data 1, model 1}``, and
+``tp_param_specs`` against JAX; the 3D F-FNO also on ``{data 1, model 4}``
+against JAX and with ``remat`` on ``model`` 2, equal to the eager split
+step to the bit. The FCNO splits its feed-forwards only (its DCT weights
+are rank 3), the fully-factorized model every layer's Fourier weights and
+feed-forwards. (g) holds its guard with a stand-in model (``_NoSplitForm``):
+a rank-4 Fourier weight and no split form.
 """
 
 import copy
@@ -91,6 +103,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import scipy.io
 import torch
 import torch.multiprocessing as mp
 
@@ -104,7 +117,8 @@ from fourierflow_tpu.routines.base import make_optimizer as jax_make_optimizer
 from fourierflow_tpu.schedulers import cosine_with_warmup as jax_cosine
 from fourierflow_tpu_torch import models
 from fourierflow_tpu_torch.builders import (CylinderFlowBuilder, ElasticityBuilder,
-                                            NSZongyiBuilder, StructuredMesh2DBuilder)
+                                            NSZongyiBuilder, PlasticityBuilder,
+                                            StructuredMesh2DBuilder)
 from fourierflow_tpu_torch.builders import kolmogorov as kol
 from fourierflow_tpu_torch.commands import train
 from fourierflow_tpu_torch.commands.train import build_trainer
@@ -153,6 +167,17 @@ JAX_FAMILIES = FAMILIES + ("geo", "cno")
 # The rollout with Fourier positions: FourierPositionNet passes the axes on to its conv, whose
 # input is the 2 (2 x 8 + 1) position features.
 FOURIER_POSITION = dict(ROLLOUT, input_dim=34)
+# The models whose split forms came after those: the 3D mesh F-FNO and FCNO (plasticity's layout:
+# x [b, *GRID_3D, 1], 4 outputs) and the fully-factorized point-cloud model (its y branch's modes
+# apart from the x branch's).
+MESH_3D = dict(modes_x=3, modes_y=3, modes_z=2, width=8, input_dim=4, output_dim=4, n_layers=2,
+               padding=2)
+GRID_3D = (6, 5, 4)
+PLUS = dict(CLOUD, modes2=4)
+MESH_3D_AND_PLUS = ("mesh3d", "cno3d", "plus")
+JAX_FAMILIES += MESH_3D_AND_PLUS
+# The families held on data x model, step for step.
+TENSOR_FAMILIES = FAMILIES + MESH_3D_AND_PLUS
 
 
 def _opt(jax_side=False, clip=None):
@@ -163,7 +188,7 @@ def _opt(jax_side=False, clip=None):
     return make(schedule=cosine(1e-3, 10, 500), weight_decay=1e-4, clip_val=clip)
 
 
-def _port_routine(family, reg_weight=0.0):
+def _port_routine(family, reg_weight=0.0, remat=False):
     if family == "rollout":
         return Grid2DRolloutRoutine(model=models.FNOZongyi2DBlock(**ROLLOUT), optimizer=_opt())
     if family == "mesh":
@@ -175,6 +200,15 @@ def _port_routine(family, reg_weight=0.0):
     if family == "cno":
         return StructuredMeshRoutine(conv=models.CNOFactorizedMesh2D(**MESH), loss_scale=20,
                                      optimizer=_opt())
+    if family == "mesh3d":
+        return StructuredMeshRoutine(conv=models.FNOFactorizedMesh3D(**MESH_3D, remat=remat),
+                                     loss_scale=20, optimizer=_opt())
+    if family == "cno3d":
+        return StructuredMeshRoutine(conv=models.CNOFactorizedMesh3D(**MESH_3D), loss_scale=20,
+                                     optimizer=_opt())
+    if family == "plus":
+        return PointCloudRoutine(model=models.FNOFullyFactorizedMesh2D(
+            **PLUS, iphi=models.IPhi(8)), N=IPHI_N, reg_weight=reg_weight, optimizer=_opt())
     if family == "fourier_position":
         return Grid2DRolloutRoutine(model=models.FNOZongyi2DBlock(**FOURIER_POSITION),
                                     use_fourier_position=True, optimizer=_opt())
@@ -201,6 +235,13 @@ def _jax_routine(family):
     if family == "cloud":
         return JaxCloud(model=jax_models.FNOFactorizedPointCloud2D(
             **CLOUD, iphi=jax_models.IPhi(width=8)), N=IPHI_N, optimizer=_opt(True))
+    if family in ("mesh3d", "cno3d"):
+        model = (jax_models.FNOFactorizedMesh3D if family == "mesh3d" else
+                 jax_models.CNOFactorizedMesh3D)(**MESH_3D)
+        return JaxMesh(model=model, loss_scale=20, optimizer=_opt(True))
+    if family == "plus":
+        return JaxCloud(model=jax_models.FNOFullyFactorizedMesh2D(
+            **PLUS, iphi=jax_models.IPhi(width=8)), N=IPHI_N, optimizer=_opt(True))
     if family == "li":
         return JaxLI(optimizer=_opt(True), **LI)
     return JaxMGN(optimizer=_opt(True, clip=0.1), **MGN)
@@ -212,7 +253,10 @@ CONVERT = {"rollout": zongyi_state_dict_from_flax,
            "li": learned_interpolation_state_dict_from_flax,
            "mgn": meshgraphnet_state_dict_from_flax,
            "geo": geo_state_dict_from_flax,
-           "cno": lambda p: cno_state_dict_from_flax(p, MESH["n_layers"])}
+           "cno": lambda p: cno_state_dict_from_flax(p, MESH["n_layers"]),
+           "mesh3d": lambda p: mesh_state_dict_from_flax(p, MESH_3D["n_layers"]),
+           "cno3d": lambda p: cno_state_dict_from_flax(p, MESH_3D["n_layers"]),
+           "plus": lambda p: point_cloud_state_dict_from_flax(p, PLUS["n_layers"])}
 
 
 # --- the batches -------------------------------------------------------------------------
@@ -267,7 +311,10 @@ def _batch(family, b, seed=0):
     if family in ("mesh", "geo", "cno"):
         return {"x": rng.randn(b, *GRID_2D, 2).astype(np.float32),
                 "y": rng.randn(b, *GRID_2D).astype(np.float32)}
-    if family == "cloud":
+    if family in ("mesh3d", "cno3d"):
+        return {"x": rng.randn(b, *GRID_3D, 1).astype(np.float32),
+                "y": rng.randn(b, *GRID_3D, 4).astype(np.float32)}
+    if family in ("cloud", "plus"):
         return {"xy": rng.rand(b, 40, 2).astype(np.float32),
                 "rr": rng.randn(b, 42).astype(np.float32),
                 "sigma": rng.randn(b, 40, 1).astype(np.float32)}
@@ -321,6 +368,8 @@ def _write_files(root):
     os.makedirs(naca)
     for name, shape in (("X", (16, *GRID_2D)), ("Y", (16, *GRID_2D)), ("Q", (16, 5, *GRID_2D))):
         np.save(os.path.join(naca, f"NACA_Cylinder_{name}.npy"), rng.randn(*shape))
+    scipy.io.savemat(os.path.join(root, "plas.mat"), {"input": rng.randn(16, GRID_3D[0]),
+                                                      "output": rng.randn(16, *GRID_3D, 4)})
 
 
 def _builder(family, root):
@@ -331,7 +380,10 @@ def _builder(family, root):
         return StructuredMesh2DBuilder(p("mesh_X.npy"), p("mesh_Y.npy"), p("mesh_Q.npy"),
                                        output_dim=4, train_size=8, valid_size=4, test_size=4,
                                        batch_size=4)
-    if family == "cloud":
+    if family in ("mesh3d", "cno3d"):
+        return PlasticityBuilder(p("plas.mat"), train_size=8, valid_size=4, test_size=4,
+                                 s1=GRID_3D[0], s2=GRID_3D[1], t=GRID_3D[2], batch_size=4)
+    if family in ("cloud", "plus"):
         return ElasticityBuilder(p("cloud_sigma.npy"), p("cloud_XY.npy"), p("cloud_rr.npy"),
                                  train_size=8, valid_size=4, test_size=4, batch_size=4)
     if family == "li":
@@ -352,8 +404,8 @@ AIRFOIL = ["builder.train_size=8", "builder.valid_size=4", "builder.test_size=4"
 
 
 # --- the world's cases ---------------------------------------------------------------------
-def _loaded(family, weights, reg_weight=0.0):
-    routine = _port_routine(family, reg_weight)
+def _loaded(family, weights, reg_weight=0.0, remat=False):
+    routine = _port_routine(family, reg_weight, remat)
     batch = _batch(family, 4)
     state = routine.init(0, batch, "cpu")
     state.model.load_state_dict(weights[family])
@@ -405,6 +457,21 @@ def _case_steps(root, rank):
     return out
 
 
+class _NoSplitForm(torch.nn.Module):
+    """A stand-in model with a leaf that JAX's ``_tp_spec`` splits (a rank-4
+    ``fourier_weight``) and no ``set_parallel``."""
+
+    def __init__(self):
+        super().__init__()
+        self.fourier_weight = torch.nn.Parameter(torch.zeros(8, 8, 3, 2))
+
+    def reset_parameters(self, generator=None):
+        pass
+
+    def forward(self, x, **kwargs):
+        return x
+
+
 def _case_raises(root, rank):
     out = {}
     mesh = make_sp_mesh(2)
@@ -414,10 +481,8 @@ def _case_raises(root, rank):
             out[(family, "spatial")] = None
         except NotImplementedError as err:
             out[(family, "spatial")] = str(err)
-    # A model with leaves that JAX splits and no split form yet (the 3D mesh F-FNO).
-    routine = StructuredMeshRoutine(conv=models.FNOFactorizedMesh3D(
-        modes_x=3, modes_y=3, modes_z=2, width=8, input_dim=4, output_dim=1, n_layers=1),
-        optimizer=_opt())
+    # A model with a leaf that JAX splits and no split form.
+    routine = StructuredMeshRoutine(conv=_NoSplitForm(), optimizer=_opt())
     try:
         shard_state(routine.init(0, None, "cpu"), make_tp_mesh(2))
         out["unsplit_model"] = None
@@ -428,11 +493,12 @@ def _case_raises(root, rank):
 
 def _case_tensor(root, rank):
     """(a'), (d'), (e') and the split parameters on ``{data 2, model 2}``;
-    the mesh F-FNO on ``{data 1, model 4}``; Geo-FNO-4 on ``model`` 2."""
+    the mesh F-FNOs on ``{data 1, model 4}``; Geo-FNO-4 on ``model`` 2; the 3D
+    mesh F-FNO under remat on ``model`` 2."""
     weights = torch.load(os.path.join(root, "weights.pt"))
     mesh = make_tp_mesh(2)
     out = {"specs": {}, "split": {}}
-    for family in FAMILIES:
+    for family in TENSOR_FAMILIES:
         routine, state = _loaded(family, weights)
         out["specs"][family] = tp_param_specs(state.model, mesh)
         state = shard_state(state, mesh)
@@ -458,21 +524,26 @@ def _case_tensor(root, rank):
     out["split"]["fourier_position"] = split_dims(state.model)
     out[("fourier_position", "split")] = _steps(routine, state,
                                                 shard_batch(_batch("fourier_position", 4), mesh))
+    routine, state = _loaded("mesh3d", weights, remat=True)
+    out[("mesh3d", "remat")] = _steps(routine, shard_state(state, mesh),
+                                      shard_batch(_batch("mesh3d", 4), mesh))
     mesh4 = make_tp_mesh(4)
-    routine, state = _loaded("mesh", weights)
-    state = shard_state(state, mesh4)
-    out["split"]["model4"] = {k: tuple(p.shape) for k, p in state.model.named_parameters()
-                              if k in split_dims(state.model)}
-    out[("mesh", "model4")] = _steps(routine, state, shard_batch(_batch("mesh", 4), mesh4))
+    for family in ("mesh", "mesh3d"):
+        routine, state = _loaded(family, weights)
+        state = shard_state(state, mesh4)
+        out["split"][f"{family}_model4"] = {k: tuple(p.shape)
+                                            for k, p in state.model.named_parameters()
+                                            if k in split_dims(state.model)}
+        out[(family, "model4")] = _steps(routine, state, shard_batch(_batch(family, 4), mesh4))
     mesh1 = make_tp_mesh(1, n_devices=1)  # {data 1, model 1} of rank 0; the others drop out
     if rank == 0:  # and the same steps with no mesh in this process (its threads' sums)
-        for family in FAMILIES:
+        for family in TENSOR_FAMILIES:
             routine, state = _loaded(family, weights)
             out[(family, "one")] = _steps(routine, shard_state(state, mesh1),
                                           shard_batch(_batch(family, 4), mesh1))
             routine, state = _loaded(family, weights)
             out[(family, "none")] = _steps(routine, state, _batch(family, 4))
-    for family in FAMILIES:
+    for family in TENSOR_FAMILIES:
         trainer = build_trainer({"max_epochs": 2, "tensor_parallel": 2}, device="cpu")
         trainer.fit(_port_routine(family), _builder(family, root))
         out[(family, "fit")] = {"mesh": mesh_shape(trainer.mesh),
@@ -734,10 +805,11 @@ def test_train_command_on_the_ranks_writes_rank0s_run(world):
 
 
 # --- (a') data x model against JAX --------------------------------------------------------
-SPLIT_FAMILIES = ("rollout", "mesh", "cloud")  # the families whose models JAX splits
+# The families whose models JAX splits.
+SPLIT_FAMILIES = ("rollout", "mesh", "cloud") + MESH_3D_AND_PLUS
 
 
-@pytest.mark.parametrize("family", FAMILIES)
+@pytest.mark.parametrize("family", TENSOR_FAMILIES)
 def test_model_mesh_steps_match_jax(world, family):
     for rank, r in enumerate(world[0]):
         _assert_steps(r["tensor"][(family, "split")], world[2][family], f"rank {rank}")
@@ -745,7 +817,7 @@ def test_model_mesh_steps_match_jax(world, family):
     assert bool(split) == (family in SPLIT_FAMILIES), split
 
 
-@pytest.mark.parametrize("family", FAMILIES)
+@pytest.mark.parametrize("family", TENSOR_FAMILIES)
 def test_model_mesh_of_one_rank_equals_one_process_to_the_bit(world, family):
     got, want = (world[0][0]["tensor"][(family, layout)] for layout in ("one", "none"))
     assert got["losses"] == want["losses"]
@@ -755,8 +827,8 @@ def test_model_mesh_of_one_rank_equals_one_process_to_the_bit(world, family):
         assert not unequal, (key, unequal)
 
 
-@pytest.mark.parametrize("case", [(f, "split") for f in FAMILIES] + [("cloud", "iphi")],
-                         ids=lambda c: "-".join(c))
+@pytest.mark.parametrize("case", [(f, "split") for f in TENSOR_FAMILIES] + [
+    ("cloud", "iphi"), ("mesh3d", "remat")], ids=lambda c: "-".join(c))
 def test_model_ranks_of_a_data_row_hold_the_same_parameters(world, case):
     for row in (world[0][:2], world[0][2:]):  # make_tp_mesh(2): data rows (0, 1) and (2, 3)
         a, b = (r["tensor"][case]["params"] for r in row)
@@ -772,12 +844,47 @@ def test_model_mesh_iphi_draws_match_one_process(world):
         _assert_steps(r["tensor"][("cloud", "iphi")], want, f"rank {rank}")
 
 
-def test_mesh_ffno_on_model_4_matches_jax(world):
-    split = world[0][0]["tensor"]["split"]["model4"]
-    assert split["spectral_layers.0.fourier_weight.0"] == (16, 4, MESH["modes_x"], 2)
-    assert split["spectral_layers.0.backcast_ff.layers.0.0.weight_v"] == (16, 16)
+@pytest.mark.parametrize("family,modes,width", [("mesh", MESH["modes_x"], MESH["width"]),
+                                                 ("mesh3d", MESH_3D["modes_x"], MESH_3D["width"])])
+def test_mesh_ffno_on_model_4_matches_jax(world, family, modes, width):
+    split = world[0][0]["tensor"]["split"][f"{family}_model4"]
+    assert split["spectral_layers.0.fourier_weight.0"] == (width, width // 4, modes, 2)
+    assert split["spectral_layers.0.backcast_ff.layers.0.0.weight_v"] == (width, width)
     for rank, r in enumerate(world[0]):
-        _assert_steps(r["tensor"][("mesh", "model4")], world[2]["mesh"], f"rank {rank}")
+        _assert_steps(r["tensor"][(family, "model4")], world[2][family], f"rank {rank}")
+
+
+def test_mesh_3d_ffno_under_remat_equals_the_eager_split_step_to_the_bit(world):
+    """The collectives run inside the checkpointed layer: the remat step on
+    ``model`` 2 gives every loss, gradient and parameter of the eager one."""
+    for rank, r in enumerate(world[0]):
+        got, want = r["tensor"][("mesh3d", "remat")], r["tensor"][("mesh3d", "split")]
+        assert got["losses"] == want["losses"], rank
+        for key in ("grads", "params"):
+            unequal = [k for k, v in want[key].items() if not torch.equal(got[key][k], v)]
+            assert not unequal, (rank, key, unequal)
+
+
+def test_3d_and_fully_factorized_models_split_the_leaves_jax_splits(world):
+    """The 3D FCNO splits its feed-forwards only (its DCT weights ``[C, C,
+    M]`` stay whole); the 3D F-FNO its three Fourier weights too; the
+    fully-factorized model every layer's Fourier weights (the NUDFT ones
+    included) and feed-forwards, and no head, bias layer or IPhi leaf."""
+    split = world[0][0]["tensor"]["split"]
+    n = MESH_3D["n_layers"]
+    # Width 8: the expansion [32, 8] split by row, the contraction [8, 32] by column.
+    ffs = {f"spectral_layers.{i}.backcast_ff.layers.{j}.0.weight_v": (16, 8) if j == 0 else (8, 16)
+           for i in range(n) for j in (0, 1)}
+    assert split["cno3d"] == ffs
+    assert split["mesh3d"] == {**ffs, **{
+        f"spectral_layers.{i}.fourier_weight.{k}": (8, 4, m, 2) for i in range(n)
+        for k, m in enumerate((MESH_3D["modes_x"], MESH_3D["modes_y"], MESH_3D["modes_z"]))}}
+    ffs = {f"spectral_layers.{i}.backcast_ff.layers.{j}.0.weight_v": (8, 8)  # factor 2
+           for i in range(PLUS["n_layers"]) for j in (0, 1)}
+    assert split["plus"] == {**ffs, **{
+        f"spectral_layers.{i}.fourier_weight.{k}": (8, 4, m, 2)
+        for i in range(PLUS["n_layers"] + 1)
+        for k, m in enumerate((PLUS["modes2"], PLUS["modes1"]))}}
 
 
 def test_geo_fno_runs_whole_on_the_model_ranks_and_matches_jax(world):
@@ -806,7 +913,7 @@ def test_fourier_position_rollout_on_a_model_mesh_matches_one_process(world):
         _assert_steps(r["tensor"][("fourier_position", "split")], want, f"rank {rank}")
 
 
-@pytest.mark.parametrize("family", FAMILIES)
+@pytest.mark.parametrize("family", TENSOR_FAMILIES)
 def test_tp_param_specs_split_the_leaves_jax_splits(world, family):
     got = {k: d for k, d in world[0][0]["tensor"]["specs"][family].items() if d is not None}
     assert got == world[3][family]
@@ -814,7 +921,7 @@ def test_tp_param_specs_split_the_leaves_jax_splits(world, family):
 
 
 # --- (d'), (e') validation and fits on data x model ---------------------------------------
-@pytest.mark.parametrize("family", FAMILIES)
+@pytest.mark.parametrize("family", TENSOR_FAMILIES)
 def test_model_mesh_valid_step_matches_one_process(world, family):
     weights = torch.load(os.path.join(world[1], "weights.pt"))
     routine, state = _loaded(family, weights)
@@ -826,7 +933,7 @@ def test_model_mesh_valid_step_matches_one_process(world, family):
             np.testing.assert_allclose(got[k], v, rtol=1e-5, err_msg=f"rank {rank}: {k}")
 
 
-@pytest.mark.parametrize("family", FAMILIES)
+@pytest.mark.parametrize("family", TENSOR_FAMILIES)
 def test_model_mesh_fit_matches_one_process(world, family):
     got = world[0][0]["tensor"][(family, "fit")]
     trainer = Trainer(max_epochs=2, device="cpu", fast_loop=False)  # JAX's loop on a tp mesh
@@ -883,4 +990,18 @@ def test_model_and_spatial_meshes_raise(world, family, axis):
 def test_a_model_with_leaves_to_split_and_no_split_form_raises(world):
     for r in world[0]:
         msg = r["raises"]["unsplit_model"]
-        assert msg is not None and "FNOFactorizedMesh3D" in msg and "tensor-parallel" in msg
+        assert msg is not None and "_NoSplitForm" in msg and "tensor-parallel" in msg
+
+
+SPLIT_MODELS = {"FNOFactorizedMesh3D": lambda: models.FNOFactorizedMesh3D(**MESH_3D),
+                "CNOFactorizedMesh3D": lambda: models.CNOFactorizedMesh3D(**MESH_3D),
+                "FNOFullyFactorizedMesh2D": lambda: models.FNOFullyFactorizedMesh2D(**PLUS),
+                "FNOPlus2DBlock": lambda: models.FNOPlus2DBlock(modes=3, width=8, n_layers=1)}
+
+
+@pytest.mark.parametrize("name", sorted(SPLIT_MODELS))
+def test_split_models_have_no_spatial_form(name):
+    """Each model with a split form on ``model`` refuses ``spatial``,
+    naming itself (the axis is refused before it is read)."""
+    with pytest.raises(NotImplementedError, match=f"{name} has no spatially split form"):
+        SPLIT_MODELS[name]().set_parallel(spatial=object())

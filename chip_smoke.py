@@ -288,8 +288,9 @@ phase's wall time:
    229, 59, 64] M 32 / 16), at the elasticity F-FNO's (81,920 rows, hidden
    128; x [20, 64, 64, 64] M 16) and the feed-forward at plasticity's
    (238,056 rows), and in float32 at the parallel layers' shard
-   shapes (``time_shards``, H 32 at tp 8 and the airfoil's, elasticity's and
-   plasticity's shards at tp 2 among them; the one-axis kernels
+   shapes (``time_shards``, H 32 at tp 8, elasticity's H 16 at tp 8 and the
+   airfoil's, elasticity's and plasticity's shards at tp 2 among them; the
+   one-axis kernels
    ``fused_mix_axis`` and ``fused_mix_axis_adjoint`` in rows of their
    own); the segment sum at ``cylinder_flow/baseline``'s shapes. It
    runs last, so that no profiler session precedes the timed rollout and
@@ -485,6 +486,9 @@ SHARD_AXIS_CASES = (((B, N // 2, N), 2), ((B, N, N // 2), 1))  # (x's [B, X, Y],
 # layers). Float32, the type these configurations run.
 TP_FF_CASES = ((AIRFOIL_ROWS, 128, "airfoil"), (ELASTICITY_ROWS, 64, "elasticity"),
                (PLAS_ROWS, 128, "plasticity"))
+# Elasticity's hidden slice at tp 8 (H 128 / 8 = 16, staged as one zero-padded 64-wide chunk):
+# A and A' checked in float32 and bf16, timed in float32.
+TP8_FF_CASE = (ELASTICITY_ROWS, 16, "elasticity")
 TP_MIX_CASES = (MESH_MIX_CASES[0] + ("airfoil",), POINT_MIX_CASES[0] + ("elasticity",))
 # The serve phase: the exported rollout's steps and batches, and its tolerance against
 # the live serving module and the eager rollout (max |err| / max |reference|, f32). The export
@@ -497,10 +501,14 @@ SERVE_TRAIN_STEPS = 3
 SERVE_CALLS = 15  # calls timed for ms per rollout step
 # The context phase: the torus_vis recipe (scripts/torus_vis_study.py:50-63: s 64, t 20, 200
 # records, delta 1e-4, random force of 2 cycles, mu in [1e-5, 1e-4]) cut to one batch a
-# split, read at builder.ssr=1 as the study does (:123); the file's seed and whether its
-# force varies; the registry names it trains, holds and times at full width.
-VIS_GEN = dict(n_train=B, n_valid=4, n_test=4, s=N, t=20.0, steps=200, mu_min=1e-5,
-               mu_max=1e-4, delta=1e-4, batch_size=50, force="random", cycles=2)
+# split and to 11 time units at the same record spacing (VIS_T of 20: 110 records, whose
+# every 10th frame, as builder.k=10 reads them, gives the 10-step evaluation rollouts their
+# 11 frames; the solve and the epoch take 0.55x the whole horizon's time), read at
+# builder.ssr=1 as the study does (:123); the file's seed and whether its force varies; the
+# registry names it trains, holds and times at full width.
+VIS_T = (11.0, 20.0)  # simulated time units: generated, and the recipe's
+VIS_GEN = dict(n_train=B, n_valid=4, n_test=4, s=N, t=VIS_T[0], steps=round(10 * VIS_T[0]),
+               mu_min=1e-5, mu_max=1e-4, delta=1e-4, batch_size=50, force="random", cycles=2)
 VIS_FILES = {"torus_vis.h5": (48396, False), "torus_vis_force.h5": (48397, True)}
 VIS_CONFIGS = ("torus_vis/01_baseline", "torus_vis_force/01_baseline")
 ABLATIONS = ("torus_li/ablation/with_velocity/24_layers",
@@ -1066,12 +1074,14 @@ def check_shards(dev, seed, dtype, tag):
     on one axis at the spatially split layer's shapes (one launch each, in
     float32 out). Returns the one-axis kernels' largest errors, by (name,
     dtype)."""
-    for hidden in SHARD_HIDDEN:
-        what = f"[{tag}, rows {ROWS}, H {hidden} (tensor-parallel slice)]"
+    ff_cases = [(ROWS, hidden, "tensor-parallel slice") for hidden in SHARD_HIDDEN]
+    rows8, hidden8, path8 = TP8_FF_CASE
+    for rows, hidden, what in ff_cases + [(rows8, hidden8, f"{path8} hidden slice, tp 8")]:
+        what = f"[{tag}, rows {rows}, H {hidden} ({what})]"
         check(f"fused_ff{what}", fused_ff_cuda, fused_ff_plain,
-              ff_inputs(ROWS, dtype, dev, seed, hidden=hidden), dtype)
+              ff_inputs(rows, dtype, dev, seed, hidden=hidden), dtype)
         check(f"fused_ff_bwd{what}", fused_ff_bwd_cuda, fused_ff_bwd_plain,
-              ff_bwd_inputs(ROWS, dtype, dev, seed, hidden=hidden), dtype)
+              ff_bwd_inputs(rows, dtype, dev, seed, hidden=hidden), dtype)
     x, wy, wx, g = shard_inputs(dev, seed, dtype)
     what = f"[{tag}, {B}x{N}x{N}x{C} -> {SHARD_C_OUT} (column shard), M {M}]"
     check(f"fused_mix_2d{what}", fused_mix_2d_cuda, fused_mix_2d_plain, (x, wy, wx), dtype)
@@ -1183,13 +1193,16 @@ def _library_axis_adjoint(x, w, axis):
 def time_shards(dev, seed):
     """Float32 rows of the parallel layers' shard shapes (``check_shards``):
     A, A', B and B' labelled with their shapes, the flagship's and the mesh
-    and point-cloud F-FNOs' (``TP_FF_CASES``, ``TP_MIX_CASES``); the one-axis
+    and point-cloud F-FNOs' (``TP_FF_CASES``, ``TP_MIX_CASES``, and A and A'
+    at elasticity's slice at tp 8, ``TP8_FF_CASE``); the one-axis
     kernels' own rows (Y) and the X case labelled."""
     rows, f32, isz = {}, torch.float32, 4
     ff_cases = [(ROWS, hidden, f"rows {ROWS}, H {hidden} (tensor-parallel slice, tp {H // hidden})")
                 for hidden in SHARD_HIDDEN]
     ff_cases += [(n, hidden, f"rows {n}, H {hidden} ({path} hidden slice, tp 2)")
                  for n, hidden, path in TP_FF_CASES]
+    n8, hidden8, path8 = TP8_FF_CASE
+    ff_cases.append((n8, hidden8, f"rows {n8}, H {hidden8} ({path8} hidden slice, tp 8)"))
     for n_rows, hidden, label in ff_cases:
         tail = (label,)
         args = ff_inputs(n_rows, f32, dev, seed, hidden=hidden)
@@ -2036,7 +2049,7 @@ def generate_vis(dev, tmp):
             f"{VIS_GEN['n_test']}, one batch a split, {math.ceil(VIS_GEN['t'] / VIS_GEN['delta']):,} "
             f"steps a batch, {VIS_GEN['steps']} records) in {wall:.3f} s, "
             f"{os.path.getsize(path):,} B; cut: the reference's 1,000 / 200 / 200 at 256^2 "
-            f"(read at ssr 4)")
+            f"(read at ssr 4), and {VIS_T[0]:g} of its {VIS_T[1]:g} time units")
         paths[fname] = path
     return paths
 
@@ -3533,7 +3546,8 @@ def _parallel_fit(cfg, dev, seed, mesh=None, fast_loop=True, data_parallel=False
                       limit_train_batches=tcfg.get("limit_train_batches"),
                       limit_val_batches=tcfg.get("limit_val_batches"), seed=seed, device=dev,
                       mesh=mesh, fast_loop=fast_loop, data_parallel=data_parallel)
-    counts = lambda: {**launch_counts(), **launch_counts(GRAPH_KERNELS)}
+    counts = lambda: {**launch_counts(), **launch_counts(AXIS_KERNELS),
+                      **launch_counts(GRAPH_KERNELS)}
     before = counts()
     state = trainer.fit(routine, builder)
     torch.cuda.synchronize(dev)
@@ -3685,15 +3699,25 @@ LI_PARALLEL = dict(size=64, train=4, frames=66, eval=2, records=64)
 # The models whose split forms run on data x model only (no data-mesh fit of their own): the 3D
 # mesh F-FNO and FCNO on plasticity files of 4 / 2 / 2 samples (2 train steps of batch 2), the
 # fully-factorized point-cloud model on the elasticity files and FNO++ on the flagship's file
-# (its normalizer epoch, then PLUS_PARALLEL_BATCHES train batches of 19).
+# (its normalizer epoch, then PLUS_PARALLEL_BATCHES train batches of 19). FNO++ fits on data x
+# spatial too, and so do the Markov routine's other models beside the flagship's F-FNO (each at
+# full width on the flagship's file, cut like FNO++): FNO-4 (zongyi_markov, its batch of 190 cut
+# to 19), the grid CNO block at fcno/grid_sizes/64's width and modes (the flagship's) under the
+# flagship's routine, the shuffled grid and the flagship's F-FNO in the low-pass mode.
 PLASTICITY_PARALLEL_SPLITS = (4, 2, 2)
 PLUS_PARALLEL_BATCHES = 4
 PLUS_CONFIG = "torus_li/ablation/no_factorization/24_layers"
-# The kernels that each family's split form must launch on data x model.
+FNO4_MARKOV_CONFIG = "torus_li/ablation/zongyi_markov/24_layers"
+SHUFFLE_CONFIG = "torus_li/ablation/shuffle_xy_grid/24_layers"
+# The kernels that each family's split form must launch on data x model, and on data x spatial
+# (FNO-4 has none to launch: its convolution is torch.fft and its layers plain linear maps, as
+# in the JAX package, outside Pallas).
 FF_KERNELS = ("fused_ff", "fused_ff_bwd")
 SPLIT_KERNELS = {"mesh": tuple(KERNELS), "pointcloud": tuple(KERNELS),
                  "mesh3d": FF_KERNELS, "fcno3d": FF_KERNELS,
                  "fully_factorized": tuple(KERNELS), "fno++": FF_KERNELS}
+SPATIAL_KERNELS = {"fno++": FF_KERNELS, "fno4": (), "fcno": FF_KERNELS,
+                   "shuffle_grid": FF_KERNELS + tuple(AXIS_KERNELS), "low_pass": FF_KERNELS}
 
 
 def write_li_velocity(root, seed):
@@ -3760,9 +3784,14 @@ def write_parallel_data(root, seed):
 def parallel_families(data_path):
     """``[(family, config, overrides, mesh axes)]`` of the fits: the five
     routines' on ``data`` and ``model``, then the four models whose split
-    forms run on ``model`` only."""
+    forms run on ``model`` (FNO++ on ``spatial`` too), then the Markov
+    routine's other models on ``spatial``."""
     cut, one = f"routine.model.n_layers={PARALLEL_FAMILY_LAYERS}", "trainer.max_epochs=1"
-    both, model = ("data", "model"), ("model",)
+    both, model, spatial = ("data", "model"), ("model",), ("spatial",)
+    # The Markov routine's fits on the flagship's file: the normalizer epoch, then a few batches.
+    markov_cut = data_overrides(data_path) + [
+        f"routine.conv.n_layers={PARALLEL_FAMILY_LAYERS}", "trainer.max_epochs=2",
+        f"trainer.limit_train_batches={PLUS_PARALLEL_BATCHES}"]
     plasticity = [f"builder.{k}_size={v}" for k, v in zip(("train", "valid", "test"),
                                                           PLASTICITY_PARALLEL_SPLITS)]
     return [("rollout", ZONGYI_CONFIG, [f"builder.data_path={data_path}", "builder.key=train/u",
@@ -3776,9 +3805,13 @@ def parallel_families(data_path):
             ("mesh3d", "plasticity/ffno/24_layers", plasticity + [cut, one], model),
             ("fcno3d", "plasticity/fcno/4_layers", plasticity + [one], model),
             ("fully_factorized", POINT_PLUS_CONFIG, _point_overrides(POINT_PLUS) + [one], model),
-            ("fno++", PLUS_CONFIG, data_overrides(data_path) + [
-                f"routine.conv.n_layers={PARALLEL_FAMILY_LAYERS}", "trainer.max_epochs=2",
-                f"trainer.limit_train_batches={PLUS_PARALLEL_BATCHES}"], model)]
+            ("fno++", PLUS_CONFIG, markov_cut, ("model", "spatial")),
+            ("fno4", FNO4_MARKOV_CONFIG, markov_cut + [f"builder.batch_size={B}"], spatial),
+            ("fcno", CONFIG, markov_cut + [
+                "routine.conv._target_=fourierflow_tpu_torch.models.CNOFactorized2DBlock"],
+             spatial),
+            ("shuffle_grid", SHUFFLE_CONFIG, markov_cut, spatial),
+            ("low_pass", CONFIG, markov_cut + ["routine.conv.mode=low-pass"], spatial)]
 
 
 def _fit_difference(a, b):
@@ -3809,10 +3842,16 @@ def _family_fits(families, dev, seed, world):
     it (``split_dims``) and launch the kernels of SPLIT_KERNELS: the mesh and
     point-cloud F-FNOs and the fully-factorized model A, A', B and B', the
     3D mesh F-FNO and FCNO and FNO++ A and A'; the other models run whole.
-    Families with the axes ``("model",)`` fit on ``model`` only. Returns the
-    launches of the mesh fits."""
-    launched = {**dict.fromkeys(KERNELS, 0), **dict.fromkeys(GRAPH_KERNELS, 0)}
-    meshes = {"data": (make_mesh, True), "model": (lambda: make_tp_mesh(world), False)}
+    On ``data x spatial`` (``{data 1, spatial 1}`` on one rank) every family
+    runs its spatially split form (the model's ``spatial_parallel`` set) and
+    launches the kernels of SPATIAL_KERNELS, against the fit with no mesh
+    through the per-batch loop. Families fit on their own axes only. Returns
+    the launches of the mesh fits."""
+    launched = {**dict.fromkeys(KERNELS, 0), **dict.fromkeys(AXIS_KERNELS, 0),
+                **dict.fromkeys(GRAPH_KERNELS, 0)}
+    meshes = {"data": (make_mesh, True), "model": (lambda: make_tp_mesh(world), False),
+              "spatial": (lambda: make_sp_mesh(world), False)}
+    need = {"model": SPLIT_KERNELS, "spatial": SPATIAL_KERNELS}
     for family, name, over, axes in families:
         cfg = load_config(name, over)
         for axis in axes:
@@ -3824,14 +3863,17 @@ def _family_fits(families, dev, seed, world):
             got = _parallel_fit(cfg, dev, seed, mesh, fast_loop=fast_loop)
             seconds = (t1 - t0, time.perf_counter() - t1)
             launched = {k: launched[k] + got[4][k] for k in launched}
-            split = split_dims(got[2].model)
+            split = (split_dims(got[2].model) if axis != "spatial" else
+                     [m for m in got[2].model.modules()
+                      if getattr(m, "spatial_parallel", None) is not None])
             # The state gathered whole (a collective on model: every rank calls it).
             losses, bad, worst, weights = _fit_difference(
                 (got[0], got[1], gather_state(got[2])), ref)
             log(f"parallel: {family} ({name}, n_params {ref[0].logs['n_params']:,}): a fit on "
                 f"{mesh_shape(got[0].mesh)} ({'default' if fast_loop else 'per-batch'} loop, "
                 f"{got[0].global_step} steps, {seconds[1]:.1f} s with validation; {len(split)} "
-                f"parameters split) against no mesh ({ref[0].global_step}, {seconds[0]:.1f} s): "
+                f"{'modules on spatial' if axis == 'spatial' else 'parameters split'}) against no "
+                f"mesh ({ref[0].global_step}, {seconds[0]:.1f} s): "
                 f"train_loss {got[0].logs['train_loss']!r} / {ref[0].logs['train_loss']!r}, "
                 f"valid_loss {got[0].logs['valid_loss']!r} / {ref[0].logs['valid_loss']!r}; "
                 f"{len(bad)} tensors differ, largest rel difference {worst:.2e} ({weights:.2e} "
@@ -3839,11 +3881,12 @@ def _family_fits(families, dev, seed, world):
             if got[0].global_step != ref[0].global_step or got[0].global_step < 1:
                 raise AssertionError(f"parallel: {family}: {got[0].global_step} steps on "
                                      f"{mesh_shape(mesh)}, {ref[0].global_step} without")
-            if axis == "model" and family in SPLIT_KERNELS and (
-                    not split or min(got[4][k] for k in SPLIT_KERNELS[family]) < 1):
+            kernels = need.get(axis, {}).get(family)
+            if kernels is not None and (not split or min((got[4][k] for k in kernels),
+                                                         default=1) < 1):
                 raise AssertionError(f"parallel: {family} on {mesh_shape(mesh)}: {len(split)} "
-                                     f"parameters split, launches {got[4]}: the split form did "
-                                     "not run its kernels")
+                                     f"split parameters or modules, launches {got[4]}: the split "
+                                     "form did not run its kernels")
             if world > 1:
                 for k, rtol in PARALLEL_FIT_RTOL.items():
                     if not abs(got[0].logs[k] - ref[0].logs[k]) <= rtol * abs(ref[0].logs[k]):
@@ -3884,10 +3927,12 @@ def phase_parallel(seed, data_path):
     ``torch.multiprocessing``, over NCCL. With one card a world of one rank
     (``_world_of_one``); with two or more, 2-way data, tensor and spatial
     parallelism (``_several_ranks``); then the five other routines' fits on
-    a data mesh and on ``data x model``, and the 3D mesh F-FNO and FCNO, the
-    fully-factorized model and FNO++ on ``data x model`` (``_family_fits``),
-    on the sets ``write_parallel_data`` writes. Returns the launches of the
-    phase's main path."""
+    a data mesh and on ``data x model``, the 3D mesh F-FNO and FCNO, the
+    fully-factorized model and FNO++ on ``data x model``, and FNO++, FNO-4,
+    the grid CNO block, the shuffled grid and the low-pass F-FNO on ``data x
+    spatial`` (``_family_fits``), on the sets ``write_parallel_data`` writes
+    and the flagship's file. Returns the launches of the phase's main
+    path."""
     cards = torch.cuda.device_count()
     world = 2 if cards >= 2 else 1
     log(f"parallel: {cards} card(s): a world of {world} rank(s) over NCCL"
@@ -3903,7 +3948,11 @@ def phase_parallel(seed, data_path):
             f"{PARALLEL_FAMILY_LAYERS} of 24 layers, rollout/x64 {LI_PARALLEL['train']} "
             f"trajectories of {LI_PARALLEL['frames']} frames, cylinder_flow 2 train batches, "
             f"FNO++ {PLUS_PARALLEL_BATCHES} train batches; one epoch each (FNO++ after its "
-            f"normalizer epoch)")
+            f"normalizer epoch); on spatial FNO++ and, at {PARALLEL_FAMILY_LAYERS} of 24 layers, "
+            f"{PLUS_PARALLEL_BATCHES} train batches after the normalizer epoch on the flagship's "
+            f"file, FNO-4 ({FNO4_MARKOV_CONFIG}, batch {B} of 190), the grid CNO block "
+            f"(width 64, 16 modes, the flagship's routine), {SHUFFLE_CONFIG} and the flagship's "
+            f"F-FNO in the low-pass mode")
         out_path = os.path.join(tmp, "parallel.json")
         sys.stdout.flush()
         torch.multiprocessing.start_processes(

@@ -42,11 +42,14 @@
 //   float2.
 // - The epilogue adds b2, rounds to x's type and stores two columns per
 //   thread; rows past `rows` are not stored.
-// - H a multiple of 32 but not of 64 (the hidden slice of a tensor-parallel
-//   rank: 256 / 8 = 32) is staged rounded up to whole 64-wide chunks, the
-//   W1 rows, W2 columns and b1 past H as zeros: those columns give h =
-//   relu(0) = 0 and add nothing, so the last chunk needs no bound of its own.
-// Shapes: C_in a multiple of 16 and <= 64, H a multiple of 32 (H_STEP), C_out
+// - H a multiple of 16 but not of 64 (the hidden slice of a tensor-parallel
+//   rank: 256 / 8 = 32 at the flagship, 128 / 8 = 16 at elasticity) is
+//   staged rounded up to whole 64-wide chunks, the W1 rows, W2 columns and b1
+//   past H as zeros: those columns give h = relu(0) = 0 and add nothing, so
+//   the last chunk needs no bound of its own. Nothing steps through H by less
+//   than a chunk; H a multiple of 16 keeps each staged W2 row (H values) a
+//   whole number of 16-byte copies in f32 and bf16 (stage_matrix).
+// Shapes: C_in a multiple of 16 and <= 64, H a multiple of 16 (H_STEP), C_out
 // a multiple of 8 and <= 64, and the shared memory of fwd_smem_bytes (H
 // counted rounded up to a multiple of 64). x (16-byte aligned), biases and
 // out are contiguous; W1 [C_in, H] and W2 [H, C_out] are read through
@@ -75,7 +78,7 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 
 // --- forward -----------------------------------------------------------------
 constexpr int HC = 64;           // hidden columns per chunk; H is staged rounded up to it
-constexpr int H_STEP = 32;       // both kernels take H in multiples of this
+constexpr int H_STEP = 16;       // both kernels take H in multiples of this
 constexpr int MAX_C = 64;        // C_in and C_out bound: fragments live in registers
 constexpr int PAD = 8;           // elements of padding per staged row
 
@@ -522,11 +525,15 @@ __global__ void __launch_bounds__(32 * FwdShape<T>::warps, 1) ff_fwd_kernel(
 //   the row (BwdTile<float>), because the TF32 reads go both along and
 //   across rows and no single row pad serves both, and because f32 has no
 //   room for a pad beside the sums.
-// Shapes: C_in <= 64, C_out <= 64, H a multiple of 32 (H_STEP, the forward
+// Shapes: C_in <= 64, C_out <= 64, H a multiple of 16 (H_STEP, the forward
 // kernel's rule; where H is not a multiple of 64 the last chunk is part
-// filled: its W1 and W2 tiles are staged with zeros past H, every tile of
-// every chunk is staged whole, so no row keeps an earlier tile's data, and
-// the h, dh and sums of the columns past H are 0 and never written out),
+// filled, 16, 32 or 48 columns: its W1 and W2 tiles are staged with zeros
+// past H (a 16-byte copy lies wholly inside or past H, since H is a multiple
+// of 8 bf16 or 4 f32 values), every tile of every chunk is staged whole, so
+// no row keeps an earlier tile's data, and the h, dh and sums of the columns
+// past H are 0 (pre = 0 there, which the mask reads as off) and never written
+// out: the warps' 16x32 pieces and frag_index map a whole 64-wide chunk
+// whatever H is, and only the partial rows' loops, bounded by H, read them),
 // and the shared memory of bwd_smem_bytes (six staged tiles and the sums of
 // every 64-wide chunk of H: H <= 256 in f32 and <= 320 in bf16).
 constexpr int BT = 64;  // tile edge: rows per tile, hidden chunk, C_in and C_out bound

@@ -31,8 +31,17 @@ as above):
   the inverse one (``spatial_mix_2d``). The branches come back in float32
   and are summed and rounded once, as ``fused_mix_2d``'s "Y writes, X adds"
   does, forward and backward; on a spatial axis of one rank the result is
-  ``fused_mix_2d``'s to the bit. Every other part of the layer acts on each
-  cell alone.
+  ``fused_mix_2d``'s to the bit. The low-pass mode and the CNO block's DCT
+  mix take the same two branches in autograd (``along_x``), summed where
+  the unsplit form sums them; ``no-fourier`` needs no collective. Every
+  other part of the layer acts on each cell alone.
+
+A mix of several branches takes x through one view (``x.view_as(x)``, or
+``copy_to`` on a split ``model`` axis), in the split and the unsplit form
+alike, so that the branches' gradients are summed in one node before the
+residual's is added: otherwise the extra nodes of a split form change the
+order in which autograd adds them, and a split step of one rank is off the
+unsplit step in the last bit.
 
 Parameter names follow the reference's torch ``state_dict``:
 ``in_proj.*``, ``spectral_layers.{i}.fourier_weight.{0,1}`` (Y then X),
@@ -52,7 +61,8 @@ from ..ops.fused_spectral import fused_mix_2d, fused_mix_axis, fused_mix_axis_ad
 from ..ops.spectral import mix_axis_wgrad, spectral_lowpass_axis
 from ..parallel.collectives import copy_to, gather, x_split, y_split
 
-__all__ = ["FNOFactorized2DBlock", "ColumnParallel", "column_split_mix"]
+__all__ = ["FNOFactorized2DBlock", "ColumnParallel", "column_split_mix", "along_x",
+           "spatial_mix_2d"]
 
 _DTYPES = {None: None, "float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -111,9 +121,11 @@ def column_split_mix(mix, x: torch.Tensor, w0: torch.Tensor, w1: torch.Tensor,
 
 
 class ColumnParallel:
-    """``set_parallel`` of a model whose only split form is on ``model``
-    (its mixes split by output channel in ``forward`` with
-    ``tensor_parallel``, and every feed-forward's hidden slice)."""
+    """``set_parallel`` of a model whose split form on ``model`` splits its
+    mixes by output channel in ``forward`` with ``tensor_parallel``, and
+    every feed-forward's hidden slice. Its ``spatial`` raises: a model with
+    a spatially split form (FNO++) takes that axis in its own
+    ``set_parallel``."""
 
     tensor_parallel = None  # the ``model`` axis (``set_parallel``); None on one device
 
@@ -148,6 +160,16 @@ class ColumnParallel:
         return gather(t, self.tensor_parallel, dim) if self.column_split(w) else t.contiguous()
 
 
+def along_x(branch, x: torch.Tensor, sp) -> torch.Tensor:
+    """``branch(x)`` of a branch along X (dim 1) of the whole grid. With the
+    ``spatial`` axis ``sp``, x is this rank's X rows ``[B, X/sp, Y, C]``: the
+    branch runs on ``[B, X, Y/sp, C]`` between the two all-to-alls, each the
+    other's backward, and the result is this rank's rows again."""
+    if sp is None:
+        return branch(x)
+    return x_split(branch(y_split(x, sp)), sp)
+
+
 def spatial_mix_2d(x: torch.Tensor, wy: torch.Tensor, wx: torch.Tensor, sp) -> torch.Tensor:
     """``fused_mix_2d`` of the whole grid, on this rank's X rows ``x [B,
     X/sp, Y, C]`` of it: the Y branch on the rows (``fused_mix_axis``), the
@@ -161,6 +183,9 @@ class FNOFactorized2DBlock(nn.Module):
     # mix of both axes, ``mix(x, wy, wx)``; the CNO block replaces both.
     _pair = (2,)
     _mix = staticmethod(fused_mix_2d)
+    # ``mix(x, wy, wx, sp)`` on this rank's X rows of a grid split over the
+    # ``spatial`` axis ``sp``.
+    _spatial_mix = staticmethod(spatial_mix_2d)
     # The parallel axes (``set_parallel``); None on one device.
     tensor_parallel = None
     spatial_parallel = None
@@ -243,9 +268,6 @@ class FNOFactorized2DBlock(nn.Module):
         the layers' parallel forms use (None for neither: one device)."""
         if tensor is not None and spatial is not None:
             raise ValueError("tensor and spatial parallelism cannot be combined")
-        if spatial is not None and (type(self)._mix is not fused_mix_2d or self.mode != "full"):
-            raise NotImplementedError(f"{type(self).__name__} (mode {self.mode!r}) has no "
-                                      "spatially split form: the F-FNO's full mix has")
         if (tensor or spatial) and (self.dropout > 0 or self.in_dropout > 0):
             raise NotImplementedError("dropout has no parallel form: each rank would draw its own")
         self.tensor_parallel, self.spatial_parallel = tensor, spatial
@@ -255,14 +277,17 @@ class FNOFactorized2DBlock(nn.Module):
 
     def _layer(self, layer: _SpectralLayer, x: torch.Tensor):
         """One layer's mix and backcast: ``(h, b)``."""
+        sp = self.spatial_parallel
         if self.mode == "no-fourier":
             h = x
         elif self.mode == "low-pass":
-            h = spectral_lowpass_axis(x, self.modes, 2) + spectral_lowpass_axis(x, self.modes, 1)
+            xv = x.view_as(x)
+            h = (spectral_lowpass_axis(xv, self.modes, 2)
+                 + along_x(lambda t: spectral_lowpass_axis(t, self.modes, 1), xv, sp))
         else:
             wy, wx = layer.fourier_weight
-            if self.spatial_parallel is not None:
-                h = spatial_mix_2d(x, wy, wx, self.spatial_parallel)
+            if sp is not None:
+                h = self._spatial_mix(x, wy, wx, sp)
             else:
                 h = column_split_mix(self._mix, x, wy, wx, self.tensor_parallel)
         return h, layer.backcast_ff(h)

@@ -10,7 +10,11 @@ are column shards ``[in, out/tp, m, m, 2]`` (``parallel.shard_state``, as
 the JAX package's ``tp_state_shardings`` splits them): the spectral
 convolution gives this rank's output channels, which are all-gathered
 before the residual, and x's gradient from it is summed over the ``model``
-axis. Everything else is replicated.
+axis. Everything else is replicated. Under spatial parallelism each rank
+holds its X rows ``[batch, X/sp, Y, width]`` of the grid: the convolution
+gathers its truncated Y spectrum over the ``spatial`` axis and gives back
+this rank's rows (``spectral_conv_2d_full`` with ``sp``); the linear layers
+and the head act on each cell alone. The two axes are not combined.
 
 Parameter names follow the reference's torch ``state_dict`` (the JAX
 package's ``utils/torch_import.py::convert_zongyi_state_dict``):
@@ -34,7 +38,9 @@ class ZongyiSpectralConv2d(nn.Module):
     """One original-FNO layer: the full spectral convolution, plus a linear
     residual (``residual``) or a linear layer after it, then ReLU."""
 
-    tensor_parallel = None  # the model mesh axis of the block's set_parallel
+    # The model and the spatial mesh axes of the block's set_parallel (None: one device).
+    tensor_parallel = None
+    spatial_parallel = None
 
     def __init__(self, in_dim: int, out_dim: int, n_modes: int, residual: bool = True):
         super().__init__()
@@ -61,7 +67,8 @@ class ZongyiSpectralConv2d(nn.Module):
             # back channel-strided memory, and the linear bias's gradient sums the ReLU's
             # gradient in the order of this layout, so a split step of one rank would
             # differ from this one in the last bit.
-            h = spectral_conv_2d_full(x, *self.fourier_weight, norm="ortho").contiguous()
+            h = spectral_conv_2d_full(x, *self.fourier_weight, norm="ortho",
+                                      sp=self.spatial_parallel).contiguous()
         if self.residual:
             return torch.relu(h + self.linear(x))
         return torch.relu(self.linear(h))
@@ -99,12 +106,12 @@ class FNOZongyi2DBlock(nn.Module):
         self.feedforward[2].reset_parameters(generator)
 
     def set_parallel(self, tensor=None, spatial=None) -> None:
-        """The ``model`` mesh axis of the layers' tensor-parallel form (None:
-        one device). The block has no spatially split form."""
-        if spatial is not None:
-            raise NotImplementedError("FNOZongyi2DBlock has no spatially split form")
+        """The ``model`` or the ``spatial`` mesh axis of the layers' split
+        forms (None for both: one device); not both."""
+        if tensor is not None and spatial is not None:
+            raise ValueError("tensor and spatial parallelism cannot be combined")
         for layer in self.spectral_layers:
-            layer.tensor_parallel = tensor
+            layer.tensor_parallel, layer.spatial_parallel = tensor, spatial
 
     def forward(self, x: torch.Tensor, **kwargs):
         x = self.in_proj(x)

@@ -15,8 +15,13 @@ convolution gives this rank's output channels, all-gathered before the
 feed-forwards, and x's gradient from it is summed over the axis; every
 feed-forward (backcast, forecast and the shared ones) takes its hidden
 slice (kernel A). ``mode="no-fourier"`` has no weights and splits its
-feed-forwards only. The block has no spatially split form, and dropout has
-no split form.
+feed-forwards only. On a ``data x spatial`` mesh each rank holds its X rows
+``[batch, X/sp, Y, width]`` of the grid: the convolution gathers its
+truncated Y spectrum over ``spatial`` and gives back this rank's rows
+(``spectral_conv_2d_full`` with ``sp``, as FNO-4's layer), and the
+feed-forwards (kernel A on this rank's rows), the residual and the head act
+on each cell alone; ``no-fourier`` needs no collective. The two axes are not
+combined, and dropout has no split form.
 
 Parameter names follow the port's ``FNOFactorized2DBlock``: ``in_proj.*``,
 ``spectral_layers.{i}.fourier_weight.{0,1}`` (the first and the second
@@ -41,6 +46,8 @@ class FNOPlus2DBlock(ColumnParallel, nn.Module):
     """Stack of full-spectral-weight layers with the factorized block
     structure. ``forward`` takes ``[batch, X, Y, input_dim]`` and returns
     ``{"forecast": [batch, X, Y, 1], "forecast_list": [...]}``."""
+
+    spatial_parallel = None  # the ``spatial`` axis (``set_parallel``); None on one device
 
     def __init__(self, modes: int, width: int, input_dim: int = 12, dropout: float = 0.0,
                  in_dropout: float = 0.0, n_layers: int = 4, share_weight: bool = False,
@@ -102,14 +109,15 @@ class FNOPlus2DBlock(ColumnParallel, nn.Module):
             lin.reset_parameters(generator)
 
     def set_parallel(self, tensor=None, spatial=None) -> None:
-        """The ``Axis`` of the ``model`` mesh axis that the layers' split form
-        uses (None: one device). ``spatial`` raises, with ``tensor`` the
-        ``ValueError`` of both, and dropout on a split block."""
+        """The ``Axis`` of the ``model`` or of the ``spatial`` mesh axis that
+        the layers' split forms use (None for both: one device). Both raise
+        the ``ValueError`` of both, and dropout on a split block raises."""
         if tensor is not None and spatial is not None:
             raise ValueError("tensor and spatial parallelism cannot be combined")
-        if tensor is not None and (self.dropout > 0 or self.in_dropout > 0):
+        if (tensor or spatial) and (self.dropout > 0 or self.in_dropout > 0):
             raise NotImplementedError("dropout has no parallel form: each rank would draw its own")
-        super().set_parallel(tensor, spatial)
+        super().set_parallel(tensor)
+        self.spatial_parallel = spatial
 
     def forward(self, x: torch.Tensor):
         x = self.in_proj(x)
@@ -122,7 +130,8 @@ class FNOPlus2DBlock(ColumnParallel, nn.Module):
             if self.mode == "no-fourier":
                 h = x
             else:
-                h = column_split_mix(partial(spectral_conv_2d_full, norm="ortho"), x,
+                h = column_split_mix(partial(spectral_conv_2d_full, norm="ortho",
+                                             sp=self.spatial_parallel), x,
                                      *layer.fourier_weight, self.tensor_parallel)
             b = layer.backcast_ff(h)
             if self.use_fork:

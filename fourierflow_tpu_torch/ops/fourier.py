@@ -9,12 +9,13 @@ the JAX package's ``jnp.fft.irfftn``) takes the complex inverse along the
 first axis and then the C2R along the last, which drops the imaginary
 parts of the last axis's bins 0 and n/2. ``irfft2`` and ``irfftn`` here
 do the same steps on every device, so the card computes what the CPU
-computes.
+computes; ``irfft`` is their last step alone, for a caller that runs the
+complex inverses itself.
 """
 
 import torch
 
-__all__ = ["irfft2", "irfftn"]
+__all__ = ["irfft", "irfft2", "irfftn"]
 
 
 def irfft2(z: torch.Tensor, s, dim=(-2, -1)) -> torch.Tensor:
@@ -33,10 +34,16 @@ def irfftn(z: torch.Tensor, s, dim) -> torch.Tensor:
     bins (0, and n/2 when its size n is even) set to zero, the real inverse
     along the last axis."""
     *full, dy = [d % z.ndim for d in dim]
-    ny = s[-1]
-    z = torch.fft.ifftn(z, s=s[:-1], dim=full)
+    return irfft(torch.fft.ifftn(z, s=s[:-1], dim=full), s[-1], dy)
+
+
+def irfft(z: torch.Tensor, n: int, dim: int) -> torch.Tensor:
+    """The real inverse of size ``n`` along ``dim`` of a half-spectrum ``z``
+    (``n // 2 + 1`` bins or fewer, the rest zero), after the imaginary parts
+    of its self-conjugate bins (0, and n/2 when n is even and ``z`` holds
+    it) are set to zero in place."""
+    dim = dim % z.ndim
     zr = torch.view_as_real(z)  # [..., 2]; dims before it keep their index
-    bins = [0] + ([ny // 2] if ny % 2 == 0 and ny // 2 < z.shape[dy] else [])
-    for k in bins:
-        zr.select(dy, k)[..., 1].zero_()
-    return torch.fft.irfft(z, n=ny, dim=dy)
+    for k in [0] + ([n // 2] if n % 2 == 0 and n // 2 < z.shape[dim] else []):
+        zr.select(dim, k)[..., 1].zero_()
+    return torch.fft.irfft(z, n=n, dim=dim)

@@ -25,9 +25,9 @@ or in bf16 (989 TFLOP/s), against 3.35 TB/s: forward 5.10 GFLOP and 39.8
 MB f32 (19.9 MB bf16), about 31 us in f32 (operations) and 6 us in bf16
 (memory); backward 12.75 GFLOP and 59.8 MB f32, about 77 us in f32 and 13
 us in bf16 (operations). The kernel sources describe the tiling. Both
-kernels take H in multiples of 32, down to the flagship's hidden slice at
-tensor parallelism 8; the forward stages H rounded up to its 64-wide
-chunks, the columns past H as zeros.
+kernels take H in multiples of 16, down to the flagship's (32) and
+elasticity's (16) hidden slices at tensor parallelism 8; both stage H
+rounded up to its 64-wide chunks, the columns past H as zeros.
 
 Both kernels run their products on tensor cores (``mma.sync``: bf16 with
 float32 sums, and in float32 three TF32 products per product, which keeps
@@ -52,7 +52,7 @@ __all__ = ["fused_ff", "fused_ff_plain", "fused_ff_cuda", "fused_ff_bwd", "fused
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_C = 64  # C_in and C_out bound of both kernels (register fragments, 64-wide tiles)
 _FWD_PAD, _FWD_HC = 8, 64  # as PAD and HC in csrc/fused_ff.cu
-_H_STEP = 32  # both kernels take H in multiples of this (H_STEP in the source)
+_H_STEP = 16  # both kernels take H in multiples of this (H_STEP in the source)
 # Warps of a forward block and rows of a warp tile (FwdShape<T> in the source).
 _FWD_SHAPE = {torch.float32: (8, 16), torch.bfloat16: (8, 32)}
 _BWD_TILE = 64  # rows per tile, hidden chunk and C bound of the backward kernel (BT in the source)

@@ -22,7 +22,8 @@ import math
 import torch
 
 from .dft import dct2_basis, idct2_basis, irdft_basis, rdft_basis
-from .fourier import irfft2, irfftn
+from ..parallel.collectives import gather_rows
+from .fourier import irfft, irfftn
 
 __all__ = ["dct_mix_axis", "dct_bases", "spectral_mix_axis", "spectral_lowpass_axis",
            "mix_axis_f32", "mix_axis_wgrad",
@@ -193,32 +194,54 @@ def mix_axis_wgrad(x: torch.Tensor, g: torch.Tensor, modes: int, axis: int,
 
 
 def spectral_conv_2d_full(x: torch.Tensor, weight1: torch.Tensor, weight2: torch.Tensor, *,
-                          norm: str = "backward") -> torch.Tensor:
-    """The original FNO's full 2D spectral convolution: ``rfft2`` over the
-    grid, per-mode complex channel mixing on the two corner blocks of modes
-    (the first and the last ``m1`` x frequencies, the first ``m2`` y
+                          norm: str = "backward", sp=None) -> torch.Tensor:
+    """The original FNO's full 2D spectral convolution: the 2D real FFT of
+    the grid, per-mode complex channel mixing on the two corner blocks of
+    modes (the first and the last ``m1`` x frequencies, the first ``m2`` y
     frequencies; where they overlap the second block wins), the other modes
-    zero, and the inverse ``ops.fourier.irfft2``.
+    zero, and the inverse transform.
+
+    It runs one axis at a time, in the order that the grid split over X can
+    follow: ``rfft`` along Y, truncated to the first ``m2`` bins; ``fft``
+    along X; the mix; ``ifft`` along X; ``ops.fourier.irfft`` along Y (the
+    imaginary parts of Y's self-conjugate bins zeroed). With the
+    ``spatial`` axis ``sp`` (``parallel.collectives.Axis``), x is this
+    rank's X rows ``[batch, sx/sp, sy, in]`` of the grid: the
+    truncated spectrum is gathered over the axis (``gather_rows``: only
+    ``m2 / (sy/2 + 1)`` of x's size crosses it), and the rows of the result
+    that are this rank's are transformed back. Each rank's weight gradients
+    are then its rows' part, and x's gradient is summed over the axis. On an
+    axis of one rank the result and the gradients are those without one, to
+    the bit.
 
     Args:
-      x: ``[batch, sx, sy, in_channels]`` real.
+      x: ``[batch, sx, sy, in_channels]`` real (this rank's rows with ``sp``).
       weight1, weight2: ``[in, out, m1, m2, 2]`` real/imaginary pairs.
       norm: accepted as the JAX package accepts it; the forward and inverse
         scales cancel, so every normalisation gives the same result.
+      sp: the ``spatial`` axis that splits X, or None.
     Returns:
-      ``[batch, sx, sy, out_channels]``.
+      ``[batch, sx, sy, out_channels]`` (this rank's rows with ``sp``).
     """
     del norm
-    b, sx, sy, _ = x.shape
+    sy = x.shape[2]
     m1, m2 = weight1.shape[2], weight1.shape[3]
-    xf = torch.fft.rfft2(x, dim=(1, 2))  # [b, sx, sy//2+1, in]
+    xf = torch.fft.rfft(x, dim=2)[:, :, :m2].contiguous()  # [b, rows, m2, in]
+    if sp is not None:
+        xf = gather_rows(xf, sp)
+    b, sx = xf.shape[:2]
+    xf = torch.fft.fft(xf, dim=1)
     cw = lambda w: torch.view_as_complex(w.contiguous())  # [in, out, m1, m2]
-    top = torch.einsum("bxyi,ioxy->bxyo", xf[:, :m1, :m2], cw(weight1))
-    bottom = torch.einsum("bxyi,ioxy->bxyo", xf[:, -m1:, :m2], cw(weight2))
-    out = xf.new_zeros(b, sx, sy // 2 + 1, weight1.shape[1])
-    out[:, :m1, :m2] = top
-    out[:, -m1:, :m2] = bottom
-    return irfft2(out, (sx, sy), dim=(1, 2))
+    top = torch.einsum("bxyi,ioxy->bxyo", xf[:, :m1], cw(weight1))
+    bottom = torch.einsum("bxyi,ioxy->bxyo", xf[:, -m1:], cw(weight2))
+    out = xf.new_zeros(b, sx, m2, weight1.shape[1])
+    out[:, :m1] = top
+    out[:, -m1:] = bottom
+    out = torch.fft.ifft(out, dim=1)
+    if sp is not None:
+        rows = sx // sp.size
+        out = out.narrow(1, sp.rank * rows, rows).contiguous()
+    return irfft(out, sy, 2)
 
 
 def spectral_conv_3d_full(x: torch.Tensor, weights, *, norm: str = "backward") -> torch.Tensor:

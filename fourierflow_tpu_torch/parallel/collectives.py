@@ -13,6 +13,11 @@ adjoint collective as their backward:
 - ``gather`` (all-gather forward, this rank's block backward) and
   ``scatter`` (the reverse), along any dim: the channels of a column-split
   spectral mix, the slices of a replicated bias;
+- ``gather_rows`` (all-gather of the X rows forward, the gradient summed
+  over the axis and this rank's rows taken backward): a grid split over
+  ``spatial`` made whole for work whose ranks each go on to their own rows
+  (the dense spectral convolution's truncated spectrum, the shuffled grid's
+  forecast);
 - ``on_first_rank``: a replicated tensor on the axis's rank 0 and zeros on
   the others, the gradient passed through (the feed-forward's output bias,
   added once to a partial sum).
@@ -21,9 +26,9 @@ adjoint collective as their backward:
 gradient flows through (statistics, metrics, features). ``y_split`` and
 ``x_split`` are the all-to-all over ``spatial`` that turns ``[B, X/sp, Y,
 C]`` into ``[B, X, Y/sp, C]``, and its inverse: each is the other's
-adjoint, and the spatially split mix (``models/ffno_grid_2d.py``) calls
-both in its forward and its backward. A collective that fails raises;
-nothing here falls back.
+adjoint and its backward, so a branch along X of a split grid runs between
+them (``models/ffno_grid_2d.py``). A collective that fails raises; nothing
+here falls back.
 """
 
 from dataclasses import dataclass
@@ -32,7 +37,7 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["Axis", "mesh_axis", "all_reduce", "all_gather", "y_split", "x_split", "copy_to",
-           "reduce_from", "gather", "scatter", "on_first_rank"]
+           "reduce_from", "gather", "scatter", "gather_rows", "on_first_rank"]
 
 
 @dataclass(frozen=True, eq=False)
@@ -122,6 +127,17 @@ class _Scatter(torch.autograd.Function):
         return all_gather(g, ctx.axis, ctx.dim), None, None
 
 
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return all_gather(x, axis, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _block(all_reduce(g, ctx.axis), ctx.axis, 1), None
+
+
 class _OnFirstRank(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, axis):
@@ -138,9 +154,7 @@ def _all_to_all(send: torch.Tensor, axis: Axis) -> torch.Tensor:
     return recv
 
 
-def y_split(x: torch.Tensor, axis: Axis) -> torch.Tensor:
-    """``[B, X/sp, Y, C]`` -> ``[B, X, Y/sp, C]``: rank j gets the j-th Y
-    block of every rank's X rows, stacked in rank order."""
+def _y_split(x: torch.Tensor, axis: Axis) -> torch.Tensor:
     b, xl, y, c = x.shape
     if y % axis.size:
         raise ValueError(f"the grid's Y ({y}) does not divide the '{axis.name}' axis of "
@@ -150,12 +164,46 @@ def y_split(x: torch.Tensor, axis: Axis) -> torch.Tensor:
     return _all_to_all(send, axis).permute(1, 0, 2, 3, 4).reshape(b, axis.size * xl, yl, c)
 
 
-def x_split(x: torch.Tensor, axis: Axis) -> torch.Tensor:
-    """``[B, X, Y/sp, C]`` -> ``[B, X/sp, Y, C]``, the inverse of ``y_split``."""
+def _x_split(x: torch.Tensor, axis: Axis) -> torch.Tensor:
     b, xg, yl, c = x.shape
     xl = xg // axis.size
     send = x.reshape(b, axis.size, xl, yl, c).permute(1, 0, 2, 3, 4).contiguous()
     return _all_to_all(send, axis).permute(1, 2, 0, 3, 4).reshape(b, xl, axis.size * yl, c)
+
+
+class _YSplit(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return _y_split(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _x_split(g.contiguous(), ctx.axis), None
+
+
+class _XSplit(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return _x_split(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _y_split(g.contiguous(), ctx.axis), None
+
+
+def y_split(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """``[B, X/sp, Y, C]`` -> ``[B, X, Y/sp, C]``: rank j gets the j-th Y
+    block of every rank's X rows, stacked in rank order. The gradient goes
+    back by ``x_split``."""
+    return _YSplit.apply(x, axis)
+
+
+def x_split(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """``[B, X, Y/sp, C]`` -> ``[B, X/sp, Y, C]``, the inverse of ``y_split``;
+    the gradient goes back by ``y_split``."""
+    return _XSplit.apply(x, axis)
 
 
 def copy_to(x: torch.Tensor, axis: Axis) -> torch.Tensor:
@@ -180,6 +228,14 @@ def scatter(x: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
     """This rank's block of a replicated ``x`` along ``dim``; the gradient is
     the ranks' blocks' gradients gathered."""
     return _Scatter.apply(x, axis, dim)
+
+
+def gather_rows(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """``[B, X/sp, ...]`` -> ``[B, X, ...]``: the ranks' X rows concatenated
+    in rank order, for work after which each rank goes on to its own rows.
+    Each rank's gradient of the whole is its rows' part, so the gradient is
+    summed over the axis and this rank's rows flow back."""
+    return _GatherRows.apply(x, axis)
 
 
 def on_first_rank(x: torch.Tensor, axis: Axis) -> torch.Tensor:

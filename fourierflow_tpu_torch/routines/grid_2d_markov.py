@@ -25,8 +25,10 @@ sees the noise of the unsplit one; the features of a grid split over
 ``spatial`` are built on the whole grid (its vorticity and force
 all-gathered: the velocity is spectral) and cut back to the rank's rows,
 which gives the positions of those rows; the relative L2 loss sums each
-sample's squares over ``spatial`` before the ratio; the gradients and the
-loss are reduced over the mesh (``Routine.reduce_over_mesh``). A validation
+sample's squares over ``spatial`` before the ratio; the shuffled grid is
+permuted whole (the features gathered, the forecast through
+``gather_rows``) and each rank keeps its rows; the gradients and the loss
+are reduced over the mesh (``Routine.reduce_over_mesh``). A validation
 batch split over ``spatial`` rolls out on the rows and gathers the
 predictions for the metrics.
 """
@@ -49,7 +51,7 @@ from ..layers import (
     normalizer_inverse,
 )
 from ..ops.fourier import irfft2
-from ..parallel.collectives import all_gather, all_reduce, mesh_axis, reduce_from
+from ..parallel.collectives import all_gather, all_reduce, gather_rows, mesh_axis, reduce_from
 from ..parallel.mesh import shard_tensor
 from ..utils.grids import TORUS, Grid, velocity_from_vorticity
 from ..utils.hdf5 import H5Writer
@@ -272,12 +274,14 @@ class Grid2DMarkovRoutine(Routine):
                     shape[dim] *= axis.size
             noise = torch.randn(shape, generator=rng, device=dev, dtype=x.dtype)
             x = x + self.noise_std * shard_tensor(shard_tensor(noise, 0, data), 1, sp)
-        if self.shuffle_grid and sp is not None:
-            raise NotImplementedError("shuffle_grid permutes the whole grid; it has no spatially "
-                                      "split form")
         if self.shuffle_grid:
+            # On a split grid the permutations act on the whole of it: the
+            # features (no gradient) gathered and this rank's rows of them
+            # taken, the forecast gathered by gather_rows (its gradient summed
+            # over the axis) and this rank's rows of it taken.
             x_idx, y_idx, x_inv, y_inv = self._permutations(dev)
-            x = x[:, x_idx][:, :, y_idx]
+            whole = x if sp is None else all_gather(x, sp, 1)
+            x = shard_tensor(whole[:, x_idx][:, :, y_idx], 1, sp)
         if self.learn_difference and "dy" not in batch:
             # The JAX routine reads batch["dy"] too, and raises KeyError: 'dy'.
             raise ValueError("learn_difference trains on the batch's 'dy' (the change over each "
@@ -286,7 +290,8 @@ class Grid2DMarkovRoutine(Routine):
         targets = torch.as_tensor(batch["dy" if self.learn_difference else "y"], device=dev)
         im = state.model(x)["forecast"]
         if self.shuffle_grid:
-            im = im[:, :, y_inv][:, x_inv]
+            whole = im if sp is None else gather_rows(im, sp)
+            im = shard_tensor(whole[:, :, y_inv][:, x_inv], 1, sp)
         if self.should_normalize:
             im = normalizer_inverse(norm, im, channel=0)
         loss = _rel_l2(im, targets, sp)

@@ -253,7 +253,7 @@ def test_fused_ff_kernel_argument_checks():
         _check_args(x, w1, b1, torch.zeros(w2.shape[0], 65), torch.zeros(65))
 
     # The forward kernel's shape limits: its fragments tile C_in by 16 and
-    # C_out by 8, it takes H in multiples of 32 (staged rounded up to its
+    # C_out by 8, it takes H in multiples of 16 (staged rounded up to its
     # 64-wide chunks, zeros past H), it reads x in 16-byte pieces, and all of
     # W1 and W2 sit in one block's shared memory.
     def ff(rows=6, cin=16, hidden=64, cout=16, dtype=torch.float32):
@@ -266,10 +266,10 @@ def test_fused_ff_kernel_argument_checks():
     for cin in (8, 24, 80):
         with pytest.raises(ValueError, match="C_in a multiple of 16 and <= 64"):
             ff(cin=cin)
-    ff(hidden=32)
-    ff(hidden=96)
-    for hidden in (48, 80):
-        with pytest.raises(ValueError, match=f"H a multiple of 32, got {hidden}"):
+    for hidden in (16, 32, 48, 80, 96):
+        ff(hidden=hidden)
+    for hidden in (24, 40):
+        with pytest.raises(ValueError, match=f"H a multiple of 16, got {hidden}"):
             ff(hidden=hidden)
     with pytest.raises(ValueError, match="C_out a multiple of 8"):
         ff(cout=12)
@@ -282,12 +282,13 @@ def test_fused_ff_kernel_argument_checks():
     unaligned = torch.zeros(6 * 16 + 1)[1:].view(6, 16)
     with pytest.raises(ValueError, match="aligned to 16 bytes"):
         _check_args(unaligned, w1, b1, w2, b2)
-    # The backward kernel has its own limits: it takes C_in 8, and H 32 as
-    # the forward does, but not H 48.
-    xb, w1b, b1b, w2b, _ = map(torch.from_numpy, _ff_inputs(6, cin=8, hidden=32, cout=8))
-    _check_args(xb, w1b, b1b, w2b, g=torch.zeros(6, 8))
-    xb, w1b, b1b, w2b, _ = map(torch.from_numpy, _ff_inputs(6, cin=8, hidden=48, cout=8))
-    with pytest.raises(ValueError, match="H a multiple of 32, got 48"):
+    # The backward kernel has its own limits: it takes C_in 8, and H 16, 48
+    # and 80 as the forward does, but not H 24.
+    for hidden in (16, 48, 80):
+        xb, w1b, b1b, w2b, _ = map(torch.from_numpy, _ff_inputs(6, cin=8, hidden=hidden, cout=8))
+        _check_args(xb, w1b, b1b, w2b, g=torch.zeros(6, 8))
+    xb, w1b, b1b, w2b, _ = map(torch.from_numpy, _ff_inputs(6, cin=8, hidden=24, cout=8))
+    with pytest.raises(ValueError, match="H a multiple of 16, got 24"):
         _check_args(xb, w1b, b1b, w2b, g=torch.zeros(6, 8))
     # Any C_in and C_out up to 64 (zero-padded to 64 in shared memory), and H up
     # to what six staged 64x64 tiles and the float32 sums of every 64-wide chunk

@@ -24,8 +24,15 @@ JAX side runs in this process on its 8 virtual devices
 - (b) the FNO's dense Fourier weights split by output channel: the same
   two steps' losses, parameters and first gradients against JAX's; and so
   FNO++'s (``FNOPlus2DBlock``, the ``no_factorization`` ablations), with
-  shared forks, backcast and forecast, on their hidden slices; FNO++ on a
-  ``spatial`` mesh raises, naming the block;
+  shared forks, backcast and forecast, on their hidden slices;
+- (b') every other model the Markov routine trains, on the 2x2 ``data x
+  spatial`` mesh (``SPATIAL_CASES``): FNO-4 and FNO++ (the dense
+  convolution's truncated spectrum gathered over X), the grid CNO block,
+  the F-FNO's low-pass and no-Fourier modes, and the F-FNO with the shuffled
+  grid; the same two steps' losses, parameters and first gradients against
+  JAX's unsharded steps, at (a)'s bounds; and each of them, and the full
+  F-FNO, on rank 0's ``{data 1, spatial 1}`` equal to the same steps with
+  no mesh in the same process, to the bit;
 - (c) ``tp_param_specs`` against JAX's ``tp_state_shardings``, name for name
   (width 16 on ``model`` 2; widths 12 and 10 on ``model`` 4, the latter's
   Fourier weights replicated as the axis does not divide them), and
@@ -58,6 +65,7 @@ import pytest
 import torch
 import torch.multiprocessing as mp
 
+from fourierflow_tpu.models import CNOFactorized2DBlock as JaxCNO
 from fourierflow_tpu.models import FNOFactorized2DBlock as JaxBlock
 from fourierflow_tpu.models import FNOPlus2DBlock as JaxPlus
 from fourierflow_tpu.models import FNOZongyi2DBlock as JaxZongyi
@@ -72,7 +80,8 @@ from fourierflow_tpu.schedulers import cosine_with_warmup as jax_cosine
 from fourierflow_tpu_torch.builders import NSMarkovBuilder
 from fourierflow_tpu_torch.commands.train import build_trainer
 from fourierflow_tpu_torch.device import resolve_device
-from fourierflow_tpu_torch.models import FNOFactorized2DBlock, FNOPlus2DBlock, FNOZongyi2DBlock
+from fourierflow_tpu_torch.models import (CNOFactorized2DBlock, FNOFactorized2DBlock,
+                                          FNOPlus2DBlock, FNOZongyi2DBlock)
 from fourierflow_tpu_torch.ops.fused_spectral import (fused_mix_2d, fused_mix_2d_adjoint,
                                                       fused_mix_axis, fused_mix_axis_adjoint)
 from fourierflow_tpu_torch.parallel import (gather_state, init_distributed, make_mesh,
@@ -86,7 +95,8 @@ from fourierflow_tpu_torch.schedulers import cosine_with_warmup
 from fourierflow_tpu_torch.trainers import ModelCheckpoint, Trainer
 from fourierflow_tpu_torch.trainers.trainer import step_generator
 from fourierflow_tpu_torch.utils.checkpoint import load_state
-from fourierflow_tpu_torch.utils.weights import (plus_state_dict_from_flax, state_dict_from_flax,
+from fourierflow_tpu_torch.utils.weights import (cno_state_dict_from_flax,
+                                                 plus_state_dict_from_flax, state_dict_from_flax,
                                                  zongyi_state_dict_from_flax)
 
 WORLD = 4
@@ -101,6 +111,24 @@ PLUS = dict(modes=4, width=16, input_dim=3, n_layers=2, factor=2, ff_weight_norm
 # Width 32 on ``{data 1, model 4}``: the feed-forward's hidden layer of 128 in slices of 32, the
 # flagship's slice (256 / 8) at tensor parallelism 8.
 MARKOV_W32 = dict(MARKOV, width=32)
+# The grid CNO block (the FCNO) and the F-FNO's ablation modes, tiny.
+CNO = dict(modes=5, width=16, input_dim=3, n_layers=2, factor=4, ff_weight_norm=True)
+LOW_PASS = dict(MARKOV, mode="low-pass")
+NO_FOURIER = dict(MARKOV, mode="no-fourier")
+# The shuffled-grid ablation's grid (the routine's permutations of it).
+SHUFFLE_GRID = 32
+# The models beside the full F-FNO on data x spatial: case -> (port model, JAX model, whether
+# the routine shuffles the grid, its gradient clip: FNO-4's configurations clip nothing).
+SPATIAL_CASES = {
+    "zongyi": (lambda: FNOZongyi2DBlock(**ZONGYI), lambda: JaxZongyi(**ZONGYI), False, None),
+    "plus": (lambda: FNOPlus2DBlock(**PLUS), lambda: JaxPlus(**PLUS), False, 0.1),
+    "cno": (lambda: CNOFactorized2DBlock(**CNO), lambda: JaxCNO(**CNO), False, 0.1),
+    "low_pass": (lambda: FNOFactorized2DBlock(**LOW_PASS), lambda: JaxBlock(**LOW_PASS), False,
+                 0.1),
+    "no_fourier": (lambda: FNOFactorized2DBlock(**NO_FOURIER), lambda: JaxBlock(**NO_FOURIER),
+                   False, 0.1),
+    "shuffle": (lambda: FNOFactorized2DBlock(**MARKOV), lambda: JaxBlock(**MARKOV), True, 0.1),
+}
 # A split step's gathered gradients against JAX's: max |err| <= GRAD_RTOL * max |JAX's|, per tensor.
 GRAD_RTOL = 1e-5
 # The same at width 32, where the port's own one-process step is 1.6e-5 of out.1.weight_g's
@@ -127,18 +155,24 @@ def _valid_data():
     return np.random.RandomState(1).randn(4, 32, 32, 6).astype(np.float32)
 
 
-def _port_markov(model=None, lr=1e-3, noise_std=0.0, clip=0.1):
+def _port_markov(model=None, lr=1e-3, noise_std=0.0, clip=0.1, shuffle=False):
     model = model if model is not None else FNOFactorized2DBlock(**MARKOV)
     opt = make_optimizer(schedule=cosine_with_warmup(lr, 10, 500), weight_decay=1e-4,
                          clip_val=clip)
     return Grid2DMarkovRoutine(model, n_steps=4, max_accumulations=100, noise_std=noise_std,
-                               optimizer=opt)
+                               shuffle_grid=shuffle, grid_size=SHUFFLE_GRID, optimizer=opt)
 
 
-def _jax_markov(model, clip=0.1):
+def _jax_markov(model, clip=0.1, shuffle=False):
     opt = jax_make_optimizer(schedule=jax_cosine(1e-3, 10, 500), weight_decay=1e-4,
                              clip_val=clip)
-    return JaxRoutine(model, n_steps=4, max_accumulations=100, noise_std=0.0, optimizer=opt)
+    return JaxRoutine(model, n_steps=4, max_accumulations=100, noise_std=0.0,
+                      shuffle_grid=shuffle, grid_size=SHUFFLE_GRID, optimizer=opt)
+
+
+def _port_spatial_case(case):
+    make, _, shuffle, clip = SPATIAL_CASES[case]
+    return _port_markov(make(), clip=clip, shuffle=shuffle)
 
 
 # JAX's parameters (or gradients, the same linear map) as the port's state dict, by case.
@@ -146,7 +180,11 @@ CONVERT = {"markov": lambda p: state_dict_from_flax(p, MARKOV["n_layers"]),
            "shared": lambda p: state_dict_from_flax(p, SHARED_REMAT["n_layers"]),
            "w32": lambda p: state_dict_from_flax(p, MARKOV_W32["n_layers"]),
            "zongyi": zongyi_state_dict_from_flax,
-           "plus": lambda p: plus_state_dict_from_flax(p, PLUS["n_layers"])}
+           "plus": lambda p: plus_state_dict_from_flax(p, PLUS["n_layers"]),
+           "cno": lambda p: cno_state_dict_from_flax(p, CNO["n_layers"], grid=True),
+           "low_pass": lambda p: state_dict_from_flax(p, LOW_PASS["n_layers"]),
+           "no_fourier": lambda p: state_dict_from_flax(p, NO_FOURIER["n_layers"]),
+           "shuffle": lambda p: state_dict_from_flax(p, MARKOV["n_layers"])}
 
 
 def _fit_builder(root):
@@ -169,13 +207,15 @@ def _gathered_grads(state, grads):
 
 
 def _split_step(routine, weights, mesh, batch, spatial):
-    """One accumulate and two train steps on ``mesh`` from ``weights``: the
-    steps' losses, the gathered parameters after them and the gathered
-    gradients of the first."""
+    """One accumulate and two train steps on ``mesh`` (None: no mesh) from
+    ``weights``: the steps' losses, the gathered parameters after them and
+    the gathered gradients of the first."""
     state = routine.init(0, batch, "cpu")
     state.model.load_state_dict(weights)
-    state = shard_state(state, mesh)
-    local = shard_batch(batch, mesh, "data", "spatial" if spatial else None)
+    local = batch
+    if mesh is not None:
+        state = shard_state(state, mesh)
+        local = shard_batch(batch, mesh, "data", "spatial" if spatial else None)
     state = routine.accumulate_step(state, local)
     _, grads, _ = routine.loss_and_grads(state, local, step_generator(0, 1, "cpu"))
     grads = _gathered_grads(state, grads)
@@ -211,6 +251,16 @@ def _case_steps(root, rank):
                                      make_tp_mesh(2), batch, False)
     out["plus"]["split"] = {n: tuple(p.shape) for n, p in state.model.named_parameters()
                             if getattr(p, "tp_dim", None) is not None}
+    sp2 = make_sp_mesh(2)
+    for case in SPATIAL_CASES:
+        _, out[f"sp_{case}"] = _split_step(_port_spatial_case(case), inputs[case], sp2, batch, True)
+    # {data 1, spatial 1} of rank 0 (the others drop out) against no mesh, in one process.
+    sp1 = make_sp_mesh(1, n_devices=1)
+    if rank == 0:
+        for case in ("markov",) + tuple(SPATIAL_CASES):
+            routine = lambda: _port_markov() if case == "markov" else _port_spatial_case(case)
+            for layout, mesh in (("one", sp1), ("none", None)):
+                _, out[(case, layout)] = _split_step(routine(), inputs[case], mesh, batch, True)
     return out
 
 
@@ -256,12 +306,6 @@ def _case_meshes(root, rank):
         except ValueError as err:
             out[key] = str(err)
     out["build_trainer_tp2"] = mesh_shape(build_trainer({"tensor_parallel": 2}, device="cpu").mesh)
-    plus = _port_markov(FNOPlus2DBlock(**PLUS))
-    try:
-        shard_state(plus.init(0, _step_batch(), "cpu"), make_sp_mesh(2))
-        out["plus_spatial"] = None
-    except NotImplementedError as err:
-        out["plus_spatial"] = str(err)
     # The collectives' round trips, on this rank's own numbers.
     sp = mesh_axis(make_sp_mesh(4), "spatial")
     x = torch.arange(2 * 4 * 8 * 3, dtype=torch.float32).reshape(2, 4, 8, 3) + 1000 * rank
@@ -331,10 +375,14 @@ def world(tmp_path_factory):
             (rng.randn(20, 32, 32, 1) + 0.05 * t * rng.randn(20, 32, 32, 1)).astype(np.float32))
     batch = _step_batch()
     jax_states = {}
-    for name, model in (("markov", JaxBlock(**MARKOV)), ("shared", JaxBlock(**SHARED_REMAT)),
-                        ("w32", JaxBlock(**MARKOV_W32)), ("zongyi", JaxZongyi(**ZONGYI)),
-                        ("plus", JaxPlus(**PLUS))):
-        routine = _jax_markov(model, clip=None if name == "zongyi" else 0.1)
+    # The zongyi and plus steps serve both the model and the spatial mesh.
+    models = {"markov": (JaxBlock(**MARKOV), False, 0.1),
+              "shared": (JaxBlock(**SHARED_REMAT), False, 0.1),
+              "w32": (JaxBlock(**MARKOV_W32), False, 0.1),
+              **{case: (make(), shuffle, clip)
+                 for case, (_, make, shuffle, clip) in SPATIAL_CASES.items()}}
+    for name, (model, shuffle, clip) in models.items():
+        routine = _jax_markov(model, clip=clip, shuffle=shuffle)
         jax_states[name] = (routine, routine.accumulate_step(
             routine.init(jax.random.PRNGKey(0), batch), batch))
     torch.save({name: CONVERT[name](jax.tree.map(np.asarray, s0.params))
@@ -488,9 +536,46 @@ def test_tensor_parallel_fno_plus_dense_weights_and_forks(world, jax_steps):
         _assert_steps_match_jax(got, jax_steps["plus"], "plus")
 
 
-def test_fno_plus_on_a_spatial_mesh_raises(world):
+def test_fno_plus_on_a_spatial_mesh_matches_jax(world, jax_steps):
+    """FNO++ with both shared forks on ``{data 2, spatial 2}``: every rank's
+    two steps against JAX's unsplit steps (the model mesh's ``plus`` steps),
+    its dense weights whole."""
     for r in world[0]:
-        assert "FNOPlus2DBlock has no spatially split form" in r["meshes"]["plus_spatial"]
+        got = r["steps"]["sp_plus"]
+        assert got["params"]["spectral_layers.0.fourier_weight.0"].shape == (16, 16, 4, 4, 2)
+        _assert_steps_match_jax(got, jax_steps["plus"], "plus")
+
+
+# --- (b') the other models of the Markov routine on data x spatial -------------------------------
+@pytest.mark.parametrize("case", sorted(SPATIAL_CASES))
+def test_spatial_steps_match_jax(world, jax_steps, case):
+    """Each model's two steps on ``{data 2, spatial 2}``, every rank, against
+    JAX's unsplit steps: the losses, the parameters after the second step,
+    and the first step's gradients (each rank's part summed over
+    ``spatial``) within GRAD_RTOL of each tensor's largest value."""
+    want = _jax_as_port(jax_steps[case]["grads"], case)
+    for rank, r in enumerate(world[0]):
+        got = r["steps"][f"sp_{case}"]
+        _assert_steps_match_jax(got, jax_steps[case], case)
+        assert got["grads"] and set(got["grads"]) <= set(want)
+        for name, g in got["grads"].items():
+            w = want[name].numpy()
+            np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=GRAD_RTOL * np.abs(w).max(),
+                                       err_msg=f"rank {rank}: {name}")
+
+
+@pytest.mark.parametrize("case", ("markov",) + tuple(sorted(SPATIAL_CASES)))
+def test_spatial_mesh_of_one_rank_equals_one_process_to_the_bit(world, case):
+    """Rank 0's ``{data 1, spatial 1}`` steps equal the same steps with no
+    mesh in the same process, to the bit: losses, first gradients and
+    parameters (every collective of one rank is the identity, and each split
+    form sums its branches in the unsplit form's order)."""
+    got, want = (world[0][0]["steps"][(case, layout)] for layout in ("one", "none"))
+    assert got["losses"] == want["losses"]
+    for key in ("grads", "params"):
+        assert set(got[key]) == set(want[key])
+        unequal = [k for k, v in want[key].items() if not torch.equal(got[key][k], v)]
+        assert not unequal, (key, unequal)
 
 
 def test_split_fno_plus_refuses_dropout():
@@ -618,27 +703,29 @@ def test_checkpoint_loads_into_split_state(world):
 
 
 # --- one process ----------------------------------------------------------------------------------
-def test_tp8_hidden_slice_raises():
-    """At tensor parallelism 8 the flagship's hidden slice is 256 / 8 = 32:
-    kernels A and A' take it (the forward stages it as one 64-wide chunk,
-    zeros past H, so it needs H 64's shared memory), and a slice that is not
-    a multiple of 32 raises and names H, on what they would launch on the
-    card."""
-    from fourierflow_tpu_torch.ops.fused_ff import _check_args, _fwd_smem_bytes
+def test_tp8_hidden_slices_of_16_and_32_are_taken():
+    """At tensor parallelism 8 the flagship's hidden slice is 256 / 8 = 32
+    and elasticity's 128 / 8 = 16: kernels A and A' take both, and H 48 and
+    80 (each stages H rounded up to its 64-wide chunks, zeros past H, so H 16
+    needs H 64's shared memory), and a slice that is not a multiple of 16
+    raises and names H, on what they would launch on the card."""
+    from fourierflow_tpu_torch.ops.fused_ff import _bwd_smem_bytes, _check_args, _fwd_smem_bytes
 
     x, b2 = torch.zeros(8, 64), torch.zeros(64)
     weights = lambda h: (torch.zeros(64, h), torch.zeros(h), torch.zeros(h, 64))
-    for hidden in (32, 64, 128):  # tp 8, 4, 2
+    for hidden in (16, 32, 48, 64, 80, 128):  # 16 and 32: tp 8 of elasticity and the flagship
         _check_args(x, *weights(hidden), b2)
         _check_args(x, *weights(hidden), g=torch.zeros(8, 64))
-    w1, b1, w2 = weights(48)
-    with pytest.raises(ValueError, match="H a multiple of 32, got 48"):
-        _check_args(x, w1, b1, w2, b2)
-    with pytest.raises(ValueError, match="H a multiple of 32, got 48"):
-        _check_args(x, w1, b1, w2, g=torch.zeros(8, 64))
+    for hidden in (24, 40):
+        w1, b1, w2 = weights(hidden)
+        with pytest.raises(ValueError, match=f"H a multiple of 16, got {hidden}"):
+            _check_args(x, w1, b1, w2, b2)
+        with pytest.raises(ValueError, match=f"H a multiple of 16, got {hidden}"):
+            _check_args(x, w1, b1, w2, g=torch.zeros(8, 64))
     for dtype in (torch.float32, torch.bfloat16):
-        assert _fwd_smem_bytes(32, 64, dtype) == _fwd_smem_bytes(64, 64, dtype)
-        assert _fwd_smem_bytes(96, 64, dtype) == _fwd_smem_bytes(128, 64, dtype)
+        for hidden, staged in ((16, 64), (32, 64), (48, 64), (80, 128), (96, 128)):
+            assert _fwd_smem_bytes(hidden, 64, dtype) == _fwd_smem_bytes(staged, 64, dtype)
+            assert _bwd_smem_bytes(hidden, dtype) == _bwd_smem_bytes(staged, dtype)
 
 
 def test_rank_device_is_local_rank(monkeypatch):

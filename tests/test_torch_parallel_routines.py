@@ -995,13 +995,13 @@ def test_a_model_with_leaves_to_split_and_no_split_form_raises(world):
 
 SPLIT_MODELS = {"FNOFactorizedMesh3D": lambda: models.FNOFactorizedMesh3D(**MESH_3D),
                 "CNOFactorizedMesh3D": lambda: models.CNOFactorizedMesh3D(**MESH_3D),
-                "FNOFullyFactorizedMesh2D": lambda: models.FNOFullyFactorizedMesh2D(**PLUS),
-                "FNOPlus2DBlock": lambda: models.FNOPlus2DBlock(modes=3, width=8, n_layers=1)}
+                "FNOFullyFactorizedMesh2D": lambda: models.FNOFullyFactorizedMesh2D(**PLUS)}
 
 
 @pytest.mark.parametrize("name", sorted(SPLIT_MODELS))
 def test_split_models_have_no_spatial_form(name):
-    """Each model with a split form on ``model`` refuses ``spatial``,
-    naming itself (the axis is refused before it is read)."""
+    """Each mesh or point-cloud model with a split form on ``model`` refuses
+    ``spatial``, naming itself (the axis is refused before it is read).
+    FNO++ has a spatial form (``tests/test_torch_parallel.py``)."""
     with pytest.raises(NotImplementedError, match=f"{name} has no spatially split form"):
         SPLIT_MODELS[name]().set_parallel(spatial=object())
